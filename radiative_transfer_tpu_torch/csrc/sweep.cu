@@ -1,0 +1,565 @@
+// Hand-written Hopper (sm_90a) kernels for the flat S_N transport sweep.
+//
+// Replaces the Pallas TPU kernel factories of
+// radiative_transfer_tpu/ops/pallas_sweep.py:
+//   rt_sweep_bdf2      <- _make_bdf2_kernel      (K whole BDF2 steps a launch)
+//   rt_sweep_multistep <- _make_multistep_kernel (K whole BE or CN steps)
+//   rt_sweep_substep   <- _make_kernel           (one BE, CN or BDF sub-step)
+// All three run on one __device__ sub-step routine, substep_tile (the
+// counterpart of _substep_block), and one block-wide scan of affine maps
+// (the counterpart of _hillis_steele).
+//
+// What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
+// planes and per sub-step: the right-hand sides r0, r1 of every cell, the
+// recurrence carry_j = a*carry_{j-1} + b_j along the N cells in sweep order
+// (a constant per row), then the 2x2 reconstruction of both cell edges.
+//
+// Design.
+// * The Pallas grid (half, block) runs in order on the TPU, so the carries,
+//   the upwind tails and the reflective coupling live in VMEM scratch across
+//   grid steps. CUDA blocks run in no order. Here ONE thread block owns ONE
+//   row and walks N in tiles of blockDim*kCells cells with a loop inside the
+//   block. Per tile it runs all K steps (times 4 phases for BDF2): step k at
+//   tile i needs only step k at tiles < i (its carry and tails, in shared
+//   memory) and step k-1 at tile i (in registers). K is a runtime argument.
+// * Each thread holds kCells consecutive cells in registers. A tile's scan is
+//   a serial scan over the thread's cells, a warp-shuffle scan of the
+//   per-thread affine maps (a^kCells, local total), one cross-warp pass in
+//   shared memory, and a serial fix-up of the thread's cells.
+// * Reflective left boundary: the mu>0 inflow of row i is s_p times the mu<0
+//   outflow of row flip[i] for the same (step, phase). The mu<0 half is
+//   launched first and writes a (Bh, slots) outflow record; the mu>0 half is
+//   launched second and reads it through `flip` (a gather: the TPU kernel's
+//   permutation matmul exists only because Mosaic has no reverse). With a
+//   source boundary the halves are independent and share one launch.
+// * The scan is not truncated. The JAX kernels cut the in-block Hillis-Steele
+//   scan to _scan_npass passes, whose neglected upwind tail is bounded by
+//   scan_tol (1e-10 relative, pallas_sweep.py:97-117), far below f32
+//   roundoff; this kernel runs the exact recurrence over its own tiles.
+// * Cells past N in the last (ragged) tile load as 0 and are never stored.
+//   They lie downstream of every real cell, so they cannot change one; the
+//   row's outflow is taken at cell N-1.
+//
+// What bounds it on this card: the serial carry chain of each row. A row's
+// tiles are visited one after another, each (step, phase) costing three block
+// barriers and ten shuffle rounds, and only 2*Bh blocks exist (Bh at a time
+// for a reflective boundary): 16 busy SMs of 132 at the gray S_32 bench
+// shape. Device-memory traffic is small beside that: 2 planes read and 6
+// written per K-step BDF2 launch (4 for BE/CN), as on the TPU. Splitting a
+// row over several blocks (a chained scan across blocks) is later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBE = 1, kCN = 2, kBDF = 3;
+constexpr int kNCoef = 10;
+constexpr int kCells = 8;          // consecutive cells per thread
+constexpr int kMaxThreads = 512;
+constexpr int kMaxSlots = 256;     // 4*K phase carries, K <= 64
+constexpr int kMaxSteps = kMaxSlots / 4;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Coef {
+  float w, T0, q, idet, a, Sb, c1, c0, kee, kp;
+};
+
+__device__ __forceinline__ Coef load_coef(const float* __restrict__ c) {
+  Coef k;
+  k.w = c[0];
+  k.T0 = c[1];
+  k.q = c[2];
+  k.idet = c[3];
+  k.a = c[4];
+  k.Sb = c[5];
+  k.c1 = c[6];
+  k.c0 = c[7];
+  k.kee = c[8];
+  k.kp = c[9];
+  return k;
+}
+
+struct Shared {
+  float carry[kMaxSlots];      // per-(step, phase) carry entering the tile
+  float etail[kMaxSteps];      // per-step upwind p1 edge of the previous tile
+  float htail[kMaxSteps];      // per-step upwind h1 edge of the previous tile
+  float scanA[2][32];          // cross-warp scan, double-buffered
+  float scanB[2][32];
+  float edge_p[32];            // last cell of each warp, for the p1 shift
+  float edge_h[32];            // last cell of each warp, for the h1 shift
+};
+
+__device__ __forceinline__ void load_cells(float (&x)[kCells],
+                                           const float* __restrict__ g,
+                                           int j0, int N) {
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) x[c] = (j0 + c < N) ? g[j0 + c] : 0.f;
+}
+
+__device__ __forceinline__ void store_cells(float* __restrict__ g, int j0,
+                                            int N, const float (&x)[kCells]) {
+#pragma unroll
+  for (int c = 0; c < kCells; ++c)
+    if (j0 + c < N) g[j0 + c] = x[c];
+}
+
+__device__ __forceinline__ void copy_cells(float (&dst)[kCells],
+                                           const float (&src)[kCells]) {
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) dst[c] = src[c];
+}
+
+// Inclusive scan over a warp of the maps x -> A*x + B in lane order
+// ("f then g" composes to (gA*fA, gA*fB + gB)).
+__device__ __forceinline__ void warp_inclusive_scan(float& A, float& B) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float pA = __shfl_up_sync(kFull, A, d);
+    const float pB = __shfl_up_sync(kFull, B, d);
+    if (lane >= d) {
+      B = A * pB + B;
+      A = A * pA;
+    }
+  }
+}
+
+// Exclusive prefix, over the block's threads in order, of each thread's map
+// (A, B); also reads the carry entering the tile. The carry is read between
+// the two barriers: after the previous tile's write of it (which precedes the
+// writer's first barrier here) and before this tile's write (which follows
+// the second). `buf` alternates between calls, so a warp that runs ahead
+// into the next scan never overwrites totals that another warp still reads.
+__device__ __forceinline__ float block_exclusive_scan(
+    float A, float B, const float* carry, Shared& sm, int& buf, float& exA,
+    float& exB) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  warp_inclusive_scan(A, B);
+  if (lane == 31) {
+    sm.scanA[buf][warp] = A;
+    sm.scanB[buf][warp] = B;
+  }
+  __syncthreads();
+  const float c_in = *carry;
+  if (warp == 0) {
+    float wA = lane < nwarps ? sm.scanA[buf][lane] : 1.f;
+    float wB = lane < nwarps ? sm.scanB[buf][lane] : 0.f;
+    warp_inclusive_scan(wA, wB);
+    float xA = __shfl_up_sync(kFull, wA, 1);
+    float xB = __shfl_up_sync(kFull, wB, 1);
+    if (lane == 0) {
+      xA = 1.f;
+      xB = 0.f;
+    }
+    if (lane < nwarps) {
+      sm.scanA[buf][lane] = xA;
+      sm.scanB[buf][lane] = xB;
+    }
+  }
+  __syncthreads();
+  const float wA = sm.scanA[buf][warp], wB = sm.scanB[buf][warp];
+  float tA = __shfl_up_sync(kFull, A, 1);
+  float tB = __shfl_up_sync(kFull, B, 1);
+  if (lane == 0) {
+    tA = 1.f;
+    tB = 0.f;
+  }
+  exA = tA * wA;
+  exB = tA * wB + tB;
+  buf ^= 1;
+  return c_in;
+}
+
+// The value of x at the cell just upwind of this thread's first cell: the
+// previous thread's last cell, or *tile_tail (the previous tile's last cell)
+// for thread 0. *tile_tail is read after the barrier, so the previous tile's
+// write of it is visible.
+__device__ __forceinline__ float upwind_value(float my_last,
+                                              const float* tile_tail,
+                                              float* edge) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float v = __shfl_up_sync(kFull, my_last, 1);
+  if (lane == 31) edge[warp] = my_last;
+  __syncthreads();
+  if (lane == 0) v = warp ? edge[warp - 1] : *tile_tail;
+  return v;
+}
+
+// One sub-step of kind KIND over this thread's kCells cells of the tile
+// (_substep_block). p1_up/h1_up: the p1/h1 values of the cell upwind of the
+// thread's first cell (the shift1 terms of CN and BDF). *carry: the carry
+// entering the tile, replaced by the carry leaving it; `owner` is the index
+// among this thread's cells of the tile's last real cell, or -1.
+template <int KIND>
+__device__ __forceinline__ void substep_tile(
+    const Coef& k, const float (&e0)[kCells], const float (&e1)[kCells],
+    const float (&p0)[kCells], const float (&p1)[kCells],
+    const float (&h0)[kCells], const float (&h1)[kCells], float p1_up,
+    float h1_up, float* carry, int owner, Shared& sm, int& buf,
+    float (&o0)[kCells], float (&o1)[kCells]) {
+  float r0[kCells], r1[kCells], b[kCells];
+  float A = 1.f, B = 0.f;
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) {
+    const float psi = 0.5f * (e0[c] + e1[c]);
+    const float S = k.Sb + k.c1 * psi + k.c0;
+    if constexpr (KIND == kBE) {
+      r0[c] = S + k.kee * e0[c];
+      r1[c] = S + k.kee * e1[c];
+    } else if constexpr (KIND == kCN) {
+      const float sp = c ? p1[c - 1] : p1_up;
+      r0[c] = S + k.kee * e0[c] - k.q * e1[c] + k.w * sp;
+      r1[c] = S + k.q * e0[c] + k.kee * e1[c];
+    } else {
+      const float sp = c ? p1[c - 1] : p1_up;
+      const float sh = c ? h1[c - 1] : h1_up;
+      r0[c] = S + k.kee * h0[c] - 2.f * k.w * h1[c] - k.kp * p0[c] -
+              k.q * p1[c] + k.w * (4.f * sh + sp);
+      r1[c] = S + 2.f * k.w * h0[c] + k.kee * h1[c] + k.q * p0[c] -
+              k.kp * p1[c];
+    }
+    b[c] = (k.q * r0[c] + k.T0 * r1[c]) * k.idet;
+    B = k.a * B + b[c];
+    A = A * k.a;
+  }
+  float exA, exB;
+  const float c_in = block_exclusive_scan(A, B, carry, sm, buf, exA, exB);
+  float cur = exA * c_in + exB;  // carry entering this thread's first cell
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) {
+    const float u = r0[c] + k.w * cur;
+    o0[c] = (k.T0 * u - k.q * r1[c]) * k.idet;
+    o1[c] = (k.q * u + k.T0 * r1[c]) * k.idet;
+    cur = k.a * cur + b[c];
+    if (c == owner) *carry = cur;
+  }
+}
+
+// Carries entering a row: s of the slot's phase times the boundary value,
+// or for the mu>0 half of a reflective slab the recorded mu<0 outflow of the
+// flipped row.
+__device__ __forceinline__ void init_row(Shared& sm, int slots, int steps,
+                                         const float* s_of, int phases,
+                                         const float* __restrict__ bc,
+                                         const int* __restrict__ flip,
+                                         const float* rec, int h, int row,
+                                         int hr, int reflective) {
+  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
+    const float in =
+        (h == 1 && reflective) ? rec[flip[row] * slots + i] : bc[hr];
+    sm.carry[i] = s_of[i % phases] * in;
+  }
+  for (int i = threadIdx.x; i < steps; i += blockDim.x) {
+    sm.etail[i] = 0.f;
+    sm.htail[i] = 0.f;
+  }
+  __syncthreads();
+}
+
+// The mu<0 half of a reflective slab records its outflow carries.
+__device__ __forceinline__ void record_row(const Shared& sm, int slots,
+                                           float* rec, int h, int row,
+                                           int reflective) {
+  if (h != 0 || !reflective) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < slots; i += blockDim.x)
+    rec[row * slots + i] = sm.carry[i];
+}
+
+// Index among this thread's cells of the tile's last real cell, or -1.
+__device__ __forceinline__ int tile_owner(int t0, int j0, int tile, int N) {
+  const int last = min(t0 + tile, N) - 1;
+  return (last >= j0 && last < j0 + kCells) ? last - j0 : -1;
+}
+
+// B1, replaces _make_bdf2_kernel (pallas_sweep.py:444): K whole BDF2 steps,
+// each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector.
+__global__ void __launch_bounds__(kMaxThreads)
+    bdf2_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
+                const float* __restrict__ cbdf, const float* __restrict__ bc,
+                const int* __restrict__ flip, float* rec,
+                const float* __restrict__ e0g, const float* __restrict__ e1g,
+                float* __restrict__ o0g, float* __restrict__ o1g,
+                float* __restrict__ oh0g, float* __restrict__ oh1g,
+                float* __restrict__ op0g, float* __restrict__ op1g, int Bh,
+                int N, int K, float s_be, float s_cn, float s_bdf,
+                int symmetric, int reflective, int half0) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x % Bh;
+  const int h = half0 + blockIdx.x / Bh;
+  const int hr = h * Bh + row;
+  const Coef kbe = load_coef(cbe + hr * kNCoef);
+  const Coef kcn = load_coef(ccn + hr * kNCoef);
+  const Coef kbdf = load_coef(cbdf + hr * kNCoef);
+  const float s_of[4] = {s_be, s_cn, s_be, s_bdf};
+  const int slots = 4 * K;
+  init_row(sm, slots, K, s_of, 4, bc, flip, rec, h, row, hr, reflective);
+
+  // The half snapshot is the CN output for mu<0 and the phase-0 BE output
+  // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
+  const bool snap_cn = symmetric || h == 0;
+  const bool tail_thread = threadIdx.x == blockDim.x - 1;
+  const size_t base = static_cast<size_t>(hr) * N;
+  const int tile = blockDim.x * kCells;
+  int buf = 0;
+  for (int t0 = 0; t0 < N; t0 += tile) {
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, N);
+    float x0[kCells], x1[kCells], hs0[kCells], hs1[kCells];
+    load_cells(x0, e0g + base, j0, N);
+    load_cells(x1, e1g + base, j0, N);
+    for (int k = 0; k < K; ++k) {
+      float* cs = sm.carry + 4 * k;
+      // prev = the step's input ends; its upwind edge feeds CN and BDF.
+      const float x1_up =
+          upwind_value(x1[kCells - 1], &sm.etail[k], sm.edge_p);
+      float b0[kCells], b1[kCells];
+      substep_tile<kBE>(kbe, x0, x1, x0, x1, x0, x1, 0.f, 0.f, cs + 0, owner,
+                        sm, buf, b0, b1);
+      float c0[kCells], c1[kCells];
+      substep_tile<kCN>(kcn, b0, b1, x0, x1, x0, x1, x1_up, 0.f, cs + 1,
+                        owner, sm, buf, c0, c1);
+#pragma unroll
+      for (int c = 0; c < kCells; ++c) {
+        hs0[c] = snap_cn ? c0[c] : b0[c];
+        hs1[c] = snap_cn ? c1[c] : b1[c];
+      }
+      const float hs1_up =
+          upwind_value(hs1[kCells - 1], &sm.htail[k], sm.edge_h);
+      float d0[kCells], d1[kCells];
+      substep_tile<kBE>(kbe, c0, c1, x0, x1, hs0, hs1, 0.f, 0.f, cs + 2,
+                        owner, sm, buf, d0, d1);
+      float f0[kCells], f1[kCells];
+      substep_tile<kBDF>(kbdf, d0, d1, x0, x1, hs0, hs1, x1_up, hs1_up,
+                         cs + 3, owner, sm, buf, f0, f1);
+      if (tail_thread) {
+        sm.etail[k] = x1[kCells - 1];
+        sm.htail[k] = hs1[kCells - 1];
+      }
+      if (k == K - 1) {
+        // prev of the final state = the LAST step's input.
+        store_cells(op0g + base, j0, N, x0);
+        store_cells(op1g + base, j0, N, x1);
+      }
+      copy_cells(x0, f0);
+      copy_cells(x1, f1);
+    }
+    store_cells(o0g + base, j0, N, x0);
+    store_cells(o1g + base, j0, N, x1);
+    store_cells(oh0g + base, j0, N, hs0);
+    store_cells(oh1g + base, j0, N, hs1);
+  }
+  record_row(sm, slots, rec, h, row, reflective);
+}
+
+// B2, replaces _make_multistep_kernel (pallas_sweep.py:387): K whole BE or
+// CN steps; prev = each step's input.
+template <int KIND>
+__global__ void __launch_bounds__(kMaxThreads)
+    multistep_kernel(const float* __restrict__ coef,
+                     const float* __restrict__ bc,
+                     const int* __restrict__ flip, float* rec,
+                     const float* __restrict__ e0g,
+                     const float* __restrict__ e1g, float* __restrict__ o0g,
+                     float* __restrict__ o1g, float* __restrict__ op0g,
+                     float* __restrict__ op1g, int Bh, int N, int K, float s,
+                     int reflective, int half0) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x % Bh;
+  const int h = half0 + blockIdx.x / Bh;
+  const int hr = h * Bh + row;
+  const Coef kc = load_coef(coef + hr * kNCoef);
+  const float s_of[1] = {s};
+  init_row(sm, K, K, s_of, 1, bc, flip, rec, h, row, hr, reflective);
+
+  const bool tail_thread = threadIdx.x == blockDim.x - 1;
+  const size_t base = static_cast<size_t>(hr) * N;
+  const int tile = blockDim.x * kCells;
+  int buf = 0;
+  for (int t0 = 0; t0 < N; t0 += tile) {
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, N);
+    float x0[kCells], x1[kCells];
+    load_cells(x0, e0g + base, j0, N);
+    load_cells(x1, e1g + base, j0, N);
+    for (int k = 0; k < K; ++k) {
+      float x1_up = 0.f;
+      if constexpr (KIND == kCN)
+        x1_up = upwind_value(x1[kCells - 1], &sm.etail[k], sm.edge_p);
+      float f0[kCells], f1[kCells];
+      substep_tile<KIND>(kc, x0, x1, x0, x1, x0, x1, x1_up, 0.f,
+                         sm.carry + k, owner, sm, buf, f0, f1);
+      if (tail_thread) sm.etail[k] = x1[kCells - 1];
+      if (k == K - 1) {
+        store_cells(op0g + base, j0, N, x0);
+        store_cells(op1g + base, j0, N, x1);
+      }
+      copy_cells(x0, f0);
+      copy_cells(x1, f1);
+    }
+    store_cells(o0g + base, j0, N, x0);
+    store_cells(o1g + base, j0, N, x1);
+  }
+  record_row(sm, K, rec, h, row, reflective);
+}
+
+// B3, replaces _make_kernel (pallas_sweep.py:229): one sub-step. BE reads
+// (e0, e1), CN also p1, BDF all six planes.
+template <int KIND>
+__global__ void __launch_bounds__(kMaxThreads)
+    substep_kernel(const float* __restrict__ coef,
+                   const float* __restrict__ bc, const int* __restrict__ flip,
+                   float* rec, const float* __restrict__ e0g,
+                   const float* __restrict__ e1g,
+                   const float* __restrict__ p0g,
+                   const float* __restrict__ p1g,
+                   const float* __restrict__ h0g,
+                   const float* __restrict__ h1g, float* __restrict__ o0g,
+                   float* __restrict__ o1g, int Bh, int N, float s,
+                   int reflective, int half0) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x % Bh;
+  const int h = half0 + blockIdx.x / Bh;
+  const int hr = h * Bh + row;
+  const Coef kc = load_coef(coef + hr * kNCoef);
+  const float s_of[1] = {s};
+  init_row(sm, 1, 1, s_of, 1, bc, flip, rec, h, row, hr, reflective);
+
+  const bool tail_thread = threadIdx.x == blockDim.x - 1;
+  const size_t base = static_cast<size_t>(hr) * N;
+  const int tile = blockDim.x * kCells;
+  int buf = 0;
+  for (int t0 = 0; t0 < N; t0 += tile) {
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, N);
+    float x0[kCells], x1[kCells], p0[kCells], p1[kCells], q0[kCells],
+        q1[kCells], f0[kCells], f1[kCells];
+    load_cells(x0, e0g + base, j0, N);
+    load_cells(x1, e1g + base, j0, N);
+    if constexpr (KIND == kBE) {
+      substep_tile<kBE>(kc, x0, x1, x0, x1, x0, x1, 0.f, 0.f, sm.carry,
+                        owner, sm, buf, f0, f1);
+    } else if constexpr (KIND == kCN) {
+      load_cells(p1, p1g + base, j0, N);
+      const float p1_up = upwind_value(p1[kCells - 1], sm.etail, sm.edge_p);
+      substep_tile<kCN>(kc, x0, x1, x0, p1, x0, x1, p1_up, 0.f, sm.carry,
+                        owner, sm, buf, f0, f1);
+      if (tail_thread) sm.etail[0] = p1[kCells - 1];
+    } else {
+      load_cells(p0, p0g + base, j0, N);
+      load_cells(p1, p1g + base, j0, N);
+      load_cells(q0, h0g + base, j0, N);
+      load_cells(q1, h1g + base, j0, N);
+      const float p1_up = upwind_value(p1[kCells - 1], sm.etail, sm.edge_p);
+      const float h1_up = upwind_value(q1[kCells - 1], sm.htail, sm.edge_h);
+      substep_tile<kBDF>(kc, x0, x1, p0, p1, q0, q1, p1_up, h1_up, sm.carry,
+                         owner, sm, buf, f0, f1);
+      if (tail_thread) {
+        sm.etail[0] = p1[kCells - 1];
+        sm.htail[0] = q1[kCells - 1];
+      }
+    }
+    store_cells(o0g + base, j0, N, f0);
+    store_cells(o1g + base, j0, N, f1);
+  }
+  record_row(sm, 1, rec, h, row, reflective);
+}
+
+// Threads per row block: enough warps for N cells, at most kMaxThreads.
+int pick_threads(int N) {
+  int t = (N + kCells - 1) / kCells;
+  t = (t + 31) / 32 * 32;
+  return t < 32 ? 32 : (t > kMaxThreads ? kMaxThreads : t);
+}
+
+// Launch `launch(grid, half0)` over the rows: both halves at once for a
+// source boundary, else the mu<0 half and then the mu>0 half, which reads
+// the former's outflow record.
+template <typename Launch>
+int launch_halves(int Bh, int reflective, Launch launch) {
+  if (!reflective) {
+    launch(2 * Bh, 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  launch(Bh, 0);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch(Bh, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry point launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (0 on success). Planes are contiguous (2, Bh, N)
+// float32, coefficients (2, Bh, 10) float32, bc (2, Bh, 1) float32, flip
+// (Bh,) int32, rec a (Bh, slots) float32 scratch record.
+
+int rt_sweep_bdf2(const float* cbe, const float* ccn, const float* cbdf,
+                  const float* bc, const int* flip, float* rec,
+                  const float* e0, const float* e1, float* o0, float* o1,
+                  float* oh0, float* oh1, float* op0, float* op1, int Bh,
+                  int N, int K, float s_be, float s_cn, float s_bdf,
+                  int symmetric, int reflective, void* stream) {
+  if (K < 1 || K > kMaxSteps || Bh < 1 || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = pick_threads(N);
+  return launch_halves(Bh, reflective, [&](int grid, int half0) {
+    bdf2_kernel<<<grid, threads, 0, st>>>(
+        cbe, ccn, cbdf, bc, flip, rec, e0, e1, o0, o1, oh0, oh1, op0, op1, Bh,
+        N, K, s_be, s_cn, s_bdf, symmetric, reflective, half0);
+  });
+}
+
+int rt_sweep_multistep(int kind, const float* coef, const float* bc,
+                       const int* flip, float* rec, const float* e0,
+                       const float* e1, float* o0, float* o1, float* op0,
+                       float* op1, int Bh, int N, int K, float s,
+                       int reflective, void* stream) {
+  if (K < 1 || K > kMaxSteps || Bh < 1 || N < 1 ||
+      (kind != kBE && kind != kCN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = pick_threads(N);
+  return launch_halves(Bh, reflective, [&](int grid, int half0) {
+    if (kind == kBE)
+      multistep_kernel<kBE><<<grid, threads, 0, st>>>(
+          coef, bc, flip, rec, e0, e1, o0, o1, op0, op1, Bh, N, K, s,
+          reflective, half0);
+    else
+      multistep_kernel<kCN><<<grid, threads, 0, st>>>(
+          coef, bc, flip, rec, e0, e1, o0, o1, op0, op1, Bh, N, K, s,
+          reflective, half0);
+  });
+}
+
+int rt_sweep_substep(int kind, const float* coef, const float* bc,
+                     const int* flip, float* rec, const float* e0,
+                     const float* e1, const float* p0, const float* p1,
+                     const float* h0, const float* h1, float* o0, float* o1,
+                     int Bh, int N, float s, int reflective, void* stream) {
+  if (Bh < 1 || N < 1 || kind < kBE || kind > kBDF)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = pick_threads(N);
+  return launch_halves(Bh, reflective, [&](int grid, int half0) {
+    if (kind == kBE)
+      substep_kernel<kBE><<<grid, threads, 0, st>>>(
+          coef, bc, flip, rec, e0, e1, p0, p1, h0, h1, o0, o1, Bh, N, s,
+          reflective, half0);
+    else if (kind == kCN)
+      substep_kernel<kCN><<<grid, threads, 0, st>>>(
+          coef, bc, flip, rec, e0, e1, p0, p1, h0, h1, o0, o1, Bh, N, s,
+          reflective, half0);
+    else
+      substep_kernel<kBDF><<<grid, threads, 0, st>>>(
+          coef, bc, flip, rec, e0, e1, p0, p1, h0, h1, o0, o1, Bh, N, s,
+          reflective, half0);
+  });
+}
+
+}  // extern "C"

@@ -1,0 +1,608 @@
+"""Single-pass sweep engine on hand-written CUDA kernels.
+
+Port of radiative_transfer_tpu/ops/pallas_sweep.py (PallasEngine and its
+kernel factories _make_kernel, _make_multistep_kernel and
+_make_bdf2_kernel). Three kernel wrappers carry the engine:
+
+* ``substep_launch``   — one BE, CN or BDF sub-step (B3, ``_make_kernel``);
+* ``multistep_launch`` — K whole BE or CN steps (B2,
+  ``_make_multistep_kernel``);
+* ``bdf2_launch``      — K whole BDF2 four-phase steps (B1,
+  ``_make_bdf2_kernel``).
+
+Each wrapper launches its kernel in csrc/sweep.cu for a CUDA tensor and
+raises if it cannot; for a CPU tensor it runs its plain PyTorch version
+(``*_launch_ref``), which keeps the JAX kernel's blocked algorithm: the
+same (half, block) visit order, the same truncated Hillis-Steele scan
+(_scan_npass passes) and the same operation order, so on the CPU it
+agrees with the JAX kernel in interpret mode to f32 roundoff. Each
+wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+State layout: flat sweep-order planes (2, Bh, N) float32 (ops/fast_sweep
+module doc). Coefficients: (2, Bh, 10) float32 per sub-step kind, in the
+column order _W.._KP.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config.config import Config
+from . import fast_sweep as fs
+from ._cuda_build import load as load_kernels
+from .fast_sweep import BDF, BE, CN, FlatState
+
+# Packed per-(half, batch) coefficient plane column indices.
+_W, _T0, _Q, _IDET, _A, _SB, _C1, _C0, _KEE, _KP = range(10)
+_NCOEF = 10
+
+# Steps one CUDA launch can fuse (csrc/sweep.cu kMaxSlots / 4).
+MAX_FUSED_STEPS = 64
+
+
+def _pack_coeffs(kc: fs.KindCoeffs) -> np.ndarray:
+    """KindCoeffs (1, 2, Bh, 1) planes -> (2, Bh, NCOEF) float32."""
+    cols = [kc.w, kc.T0, kc.q, kc.inv_det, kc.a, kc.Sbase, kc.c1, kc.c0,
+            kc.k_ee, kc.k_p]
+    packed = np.concatenate([np.asarray(c)[0, :, :, :] for c in cols],
+                            axis=-1)
+    return packed.astype(np.float32)
+
+
+def _scan_strides(blk: int) -> Tuple[int, ...]:
+    """The Hillis-Steele pass strides 1, 2, 4, ... below blk."""
+    out = []
+    d = 1
+    while d < blk:
+        out.append(d)
+        d *= 2
+    return tuple(out)
+
+
+def _scan_masks(blk: int) -> np.ndarray:
+    """Per-pass edge masks: masks[k, 0, col] = 1.0 iff col >= stride_k."""
+    col = np.arange(blk)[None, :]
+    return np.asarray([col >= d for d in _scan_strides(blk)],
+                      dtype=np.float32).reshape(-1, 1, blk)
+
+
+def _scan_npass(a_max: float, blk: int, tol: float) -> int:
+    """Passes needed for the truncated scan to be `tol`-accurate: the
+    smallest k with a^(2^k)/(1-a) < tol (the neglected upwind tail, a < 1
+    being the carry multiplier); tol=0 keeps all log2(blk) passes."""
+    full = len(_scan_strides(blk))
+    if tol <= 0.0 or not np.isfinite(a_max):
+        return full
+    a = min(max(float(a_max), 0.0), 1.0 - 1e-12)
+    for k in range(full):
+        if a ** (1 << k) / (1.0 - a) < tol:
+            return k
+    return full
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the kernels (the blocked TPU algorithm)
+# ---------------------------------------------------------------------------
+
+class _Coef(NamedTuple):
+    w: torch.Tensor
+    T0: torch.Tensor
+    q: torch.Tensor
+    idet: torch.Tensor
+    a: torch.Tensor
+    Sb: torch.Tensor
+    c1: torch.Tensor
+    c0: torch.Tensor
+    kee: torch.Tensor
+    kp: torch.Tensor
+
+
+def _unpack_coef(c: torch.Tensor) -> _Coef:
+    """(Bh, NCOEF) -> ten (Bh, 1) columns."""
+    return _Coef(*(c[:, k:k + 1] for k in range(_NCOEF)))
+
+
+def _hillis_steele(b, a, masks, npass: int):
+    """Inclusive prefix of carry_j = a*carry_{j-1} + b_j along axis 1
+    (zero init), truncated to `npass` roll + mul + add passes."""
+    pref = b
+    apow = a
+    for k in range(npass):
+        rolled = torch.roll(pref, 1 << k, dims=1)
+        pref = pref + (apow * masks[k]) * rolled
+        apow = apow * apow
+    return pref
+
+
+def _substep_block(kind, kc: _Coef, first, masks, e0, e1, p0, p1, h0, h1,
+                   c_in, ptail, htail, npass: int):
+    """One sub-step on one (Bh, blk) block: RHS build, truncated in-block
+    scan, 2x2 reconstruct. `c_in` is the carry entering the block and
+    `ptail`/`htail` the previous block's last p1/h1 edge values.
+    Returns (o0, o1, carry leaving the block)."""
+
+    def shift1(x, tail):
+        return torch.where(first, tail, torch.roll(x, 1, dims=1))
+
+    psi = 0.5 * (e0 + e1)
+    S = kc.Sb + kc.c1 * psi + kc.c0
+
+    if kind == BE:
+        r0 = S + kc.kee * e0
+        r1 = S + kc.kee * e1
+    elif kind == CN:
+        r0 = S + kc.kee * e0 - kc.q * e1 + kc.w * shift1(p1, ptail)
+        r1 = S + kc.q * e0 + kc.kee * e1
+    else:  # BDF
+        r0 = (
+            S + kc.kee * h0 - 2.0 * kc.w * h1 - kc.kp * p0 - kc.q * p1
+            + kc.w * (4.0 * shift1(h1, htail) + shift1(p1, ptail))
+        )
+        r1 = S + 2.0 * kc.w * h0 + kc.kee * h1 + kc.q * p0 - kc.kp * p1
+
+    b = (kc.q * r0 + kc.T0 * r1) * kc.idet
+
+    b_adj = torch.where(first, b + kc.a * c_in, b)
+    pref = _hillis_steele(b_adj, kc.a, masks, npass)
+    carry_in = torch.where(first, c_in, torch.roll(pref, 1, dims=1))
+
+    u = r0 + kc.w * carry_in
+    o0 = (kc.T0 * u - kc.q * r1) * kc.idet
+    o1 = (kc.q * u + kc.T0 * r1) * kc.idet
+    return o0, o1, pref[:, -1:]
+
+
+def _block_setup(e0: torch.Tensor, blk: int, npass_max: int):
+    N = e0.shape[-1]
+    if N % blk:
+        raise ValueError(f"block {blk} does not divide N={N}")
+    masks = torch.as_tensor(_scan_masks(blk)[:max(1, npass_max)],
+                            device=e0.device)
+    first = torch.arange(blk, device=e0.device)[None, :] < 1
+    zt = torch.zeros((e0.shape[1], 1), dtype=e0.dtype, device=e0.device)
+    return N // blk, masks, first, zt
+
+
+def _half_inflow(carries, s_of, bc, flip, h: int, reflective: bool):
+    """Carries entering half h, one per (step, phase) slot: s * the
+    boundary value, or for the mu>0 half of a reflective slab s * the
+    flipped mu<0 outflow `carries` of the same slot."""
+    if h == 1 and reflective:
+        return [s * c[flip] for s, c in zip(s_of, carries)]
+    return [s * bc[h] for s in s_of]
+
+
+def bdf2_launch_ref(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int,
+                    s_be: float, s_cn: float, s_bdf: float,
+                    reflective: bool, symmetric_half: bool, blk: int,
+                    npass_be: int, npass_cn: int, npass_bdf: int):
+    """Plain version of B1 (``_make_bdf2_kernel``): K whole BDF2 4-phase
+    steps. Returns (ends0, ends1, half0, half1, prev0, prev1)."""
+    nb, masks, first, zt = _block_setup(
+        e0, blk, max(npass_be, npass_cn, npass_bdf))
+    outs = [torch.empty_like(e0) for _ in range(6)]
+    s_of = [s for _ in range(K) for s in (s_be, s_cn, s_be, s_bdf)]
+    carries = None
+    for h in (0, 1):
+        carries = _half_inflow(carries, s_of, bc, flip, h, reflective)
+        etails, htails = [zt] * K, [zt] * K
+        kbe, kcn, kbdf = (_unpack_coef(c[h]) for c in (cbe, ccn, cbdf))
+        snap_cn = symmetric_half or h == 0
+        for i in range(nb):
+            sl = slice(i * blk, (i + 1) * blk)
+            x0, x1 = e0[h, :, sl], e1[h, :, sl]
+            for k in range(K):
+                et, ht = etails[k], htails[k]
+                c = 4 * k
+                # Phase 0: BE(dt/2) predictor.
+                b0, b1, carries[c] = _substep_block(
+                    BE, kbe, first, masks, x0, x1, x0, x1, x0, x1,
+                    carries[c], zt, zt, npass_be)
+                # Phase 1: CN(dt/2) corrector -> half snapshot: the CN
+                # output for mu<0, the phase-0 BE output for mu>0
+                # (reference quirk, solver.cpp:733 vs 784-787).
+                hc0, hc1, carries[c + 1] = _substep_block(
+                    CN, kcn, first, masks, b0, b1, x0, x1, x0, x1,
+                    carries[c + 1], et, zt, npass_cn)
+                hs0, hs1 = (hc0, hc1) if snap_cn else (b0, b1)
+                # Phase 2: second BE(dt/2) predictor.
+                d0, d1, carries[c + 2] = _substep_block(
+                    BE, kbe, first, masks, hc0, hc1, x0, x1, hs0, hs1,
+                    carries[c + 2], zt, zt, npass_be)
+                # Phase 3: BDF2 corrector (prev = step input ends).
+                f0, f1, carries[c + 3] = _substep_block(
+                    BDF, kbdf, first, masks, d0, d1, x0, x1, hs0, hs1,
+                    carries[c + 3], et, ht, npass_bdf)
+                etails[k], htails[k] = x1[:, -1:], hs1[:, -1:]
+                if k == K - 1:
+                    outs[4][h, :, sl], outs[5][h, :, sl] = x0, x1
+                x0, x1 = f0, f1
+            outs[0][h, :, sl], outs[1][h, :, sl] = x0, x1
+            outs[2][h, :, sl], outs[3][h, :, sl] = hs0, hs1
+    return tuple(outs)
+
+
+def multistep_launch_ref(kind: int, coef, bc, flip, e0, e1, *, K: int,
+                         s: float, reflective: bool, blk: int, npass: int):
+    """Plain version of B2 (``_make_multistep_kernel``): K whole BE or CN
+    steps; prev = the last step's input. Returns (e0, e1, p0, p1)."""
+    if kind not in (BE, CN):
+        raise ValueError(f"multistep kernel runs BE or CN, got {kind}")
+    nb, masks, first, zt = _block_setup(e0, blk, npass)
+    outs = [torch.empty_like(e0) for _ in range(4)]
+    s_of = [s] * K
+    carries = None
+    for h in (0, 1):
+        carries = _half_inflow(carries, s_of, bc, flip, h, reflective)
+        etails = [zt] * K
+        kc = _unpack_coef(coef[h])
+        for i in range(nb):
+            sl = slice(i * blk, (i + 1) * blk)
+            x0, x1 = e0[h, :, sl], e1[h, :, sl]
+            for k in range(K):
+                f0, f1, carries[k] = _substep_block(
+                    kind, kc, first, masks, x0, x1, x0, x1, x0, x1,
+                    carries[k], etails[k], zt, npass)
+                etails[k] = x1[:, -1:]
+                if k == K - 1:
+                    outs[2][h, :, sl], outs[3][h, :, sl] = x0, x1
+                x0, x1 = f0, f1
+            outs[0][h, :, sl], outs[1][h, :, sl] = x0, x1
+    return tuple(outs)
+
+
+def _substep_planes(kind: int, planes):
+    """(e0, e1, p0, p1, h0, h1) from the kind's input planes: BE takes
+    (e0, e1), CN (e0, e1, p1), BDF all six; unused slots repeat e."""
+    if kind == BDF:
+        return tuple(planes)
+    if kind == CN:
+        e0, e1, p1 = planes
+        return e0, e1, e0, p1, e0, e1
+    if kind == BE:
+        e0, e1 = planes
+        return e0, e1, e0, e1, e0, e1
+    raise ValueError(f"unknown sub-step kind {kind}")
+
+
+def substep_launch_ref(kind: int, coef, bc, flip, planes, *, s: float,
+                       reflective: bool, blk: int, npass: int):
+    """Plain version of B3 (``_make_kernel``): one sub-step. Returns the
+    new (e0, e1)."""
+    e0, e1, p0, p1, h0, h1 = _substep_planes(kind, planes)
+    nb, masks, first, zt = _block_setup(e0, blk, npass)
+    o0, o1 = torch.empty_like(e0), torch.empty_like(e0)
+    carry = None
+    for h in (0, 1):
+        carry = _half_inflow(carry, [s], bc, flip, h, reflective)
+        ptail = htail = zt
+        kc = _unpack_coef(coef[h])
+        for i in range(nb):
+            sl = slice(i * blk, (i + 1) * blk)
+            blocks = [x[h, :, sl] for x in (e0, e1, p0, p1, h0, h1)]
+            o0[h, :, sl], o1[h, :, sl], carry[0] = _substep_block(
+                kind, kc, first, masks, *blocks, carry[0], ptail, htail,
+                npass)
+            ptail, htail = blocks[3][:, -1:], blocks[5][:, -1:]
+    return o0, o1
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check_cuda(name: str, coefs, bc, flip, planes) -> Tuple[int, int]:
+    """Validate the kernel's inputs; returns (Bh, N)."""
+    e0 = planes[0]
+    if e0.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {e0.device}")
+    if e0.dim() != 3 or e0.shape[0] != 2:
+        raise ValueError(f"{name}: planes must be (2, Bh, N), got "
+                         f"{tuple(e0.shape)}")
+    _, Bh, N = e0.shape
+    for t in planes:
+        if (t.device != e0.device or t.dtype != torch.float32
+                or t.shape != e0.shape or not t.is_contiguous()):
+            raise ValueError(f"{name}: every plane must be a contiguous "
+                             f"float32 (2, {Bh}, {N}) tensor on {e0.device}")
+    for c in coefs:
+        if (c.device != e0.device or c.dtype != torch.float32
+                or tuple(c.shape) != (2, Bh, _NCOEF)
+                or not c.is_contiguous()):
+            raise ValueError(f"{name}: coefficients must be contiguous "
+                             f"float32 (2, {Bh}, {_NCOEF}) on {e0.device}")
+    if (bc.device != e0.device or bc.dtype != torch.float32
+            or tuple(bc.shape) != (2, Bh, 1) or not bc.is_contiguous()):
+        raise ValueError(f"{name}: bc must be contiguous float32 "
+                         f"(2, {Bh}, 1) on {e0.device}")
+    if (flip.device != e0.device or flip.dtype != torch.int32
+            or tuple(flip.shape) != (Bh,) or not flip.is_contiguous()):
+        raise ValueError(f"{name}: flip must be contiguous int32 ({Bh},) "
+                         f"on {e0.device}")
+    return Bh, N
+
+
+def _raise_on(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+
+
+def _check_K(name: str, K: int) -> None:
+    if not 1 <= K <= MAX_FUSED_STEPS:
+        raise ValueError(f"{name}: K={K} outside 1..{MAX_FUSED_STEPS}")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def bdf2_launch(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int, s_be: float,
+                s_cn: float, s_bdf: float, reflective: bool,
+                symmetric_half: bool, blk: int, npass_be: int,
+                npass_cn: int, npass_bdf: int):
+    """B1: K whole BDF2 steps in one launch. Returns (ends0, ends1,
+    half0, half1, prev0, prev1). `blk`/`npass_*` shape the plain
+    version's blocked scan; the kernel scans its own tiles exactly."""
+    if e0.device.type == "cpu":
+        return bdf2_launch_ref(
+            cbe, ccn, cbdf, bc, flip, e0, e1, K=K, s_be=s_be, s_cn=s_cn,
+            s_bdf=s_bdf, reflective=reflective,
+            symmetric_half=symmetric_half, blk=blk, npass_be=npass_be,
+            npass_cn=npass_cn, npass_bdf=npass_bdf)
+    name = "bdf2_launch"
+    Bh, N = _check_cuda(name, (cbe, ccn, cbdf), bc, flip, (e0, e1))
+    _check_K(name, K)
+    lib = load_kernels()
+    outs = [torch.empty_like(e0) for _ in range(6)]
+    rec = torch.empty((Bh, 4 * K), dtype=torch.float32, device=e0.device)
+    with torch.cuda.device(e0.device):
+        rc = lib.rt_sweep_bdf2(
+            *map(_ptr, (cbe, ccn, cbdf, bc, flip, rec, e0, e1, *outs)),
+            Bh, N, K, s_be, s_cn, s_bdf, int(symmetric_half),
+            int(reflective), _stream(e0.device))
+    _raise_on(name, rc)
+    bdf2_launch.launches += 1
+    return tuple(outs)
+
+
+def multistep_launch(kind: int, coef, bc, flip, e0, e1, *, K: int,
+                     s: float, reflective: bool, blk: int, npass: int):
+    """B2: K whole BE or CN steps in one launch. Returns (e0, e1, p0, p1)."""
+    if e0.device.type == "cpu":
+        return multistep_launch_ref(kind, coef, bc, flip, e0, e1, K=K, s=s,
+                                    reflective=reflective, blk=blk,
+                                    npass=npass)
+    name = "multistep_launch"
+    if kind not in (BE, CN):
+        raise ValueError(f"{name}: runs BE or CN, got kind {kind}")
+    Bh, N = _check_cuda(name, (coef,), bc, flip, (e0, e1))
+    _check_K(name, K)
+    lib = load_kernels()
+    outs = [torch.empty_like(e0) for _ in range(4)]
+    rec = torch.empty((Bh, K), dtype=torch.float32, device=e0.device)
+    with torch.cuda.device(e0.device):
+        rc = lib.rt_sweep_multistep(
+            kind, *map(_ptr, (coef, bc, flip, rec, e0, e1, *outs)),
+            Bh, N, K, s, int(reflective), _stream(e0.device))
+    _raise_on(name, rc)
+    multistep_launch.launches += 1
+    return tuple(outs)
+
+
+def substep_launch(kind: int, coef, bc, flip, planes, *, s: float,
+                   reflective: bool, blk: int, npass: int):
+    """B3: one sub-step. `planes` is (e0, e1) for BE, (e0, e1, p1) for
+    CN, (e0, e1, p0, p1, h0, h1) for BDF. Returns the new (e0, e1)."""
+    if planes[0].device.type == "cpu":
+        return substep_launch_ref(kind, coef, bc, flip, planes, s=s,
+                                  reflective=reflective, blk=blk,
+                                  npass=npass)
+    name = "substep_launch"
+    e0, e1, p0, p1, h0, h1 = _substep_planes(kind, planes)
+    Bh, N = _check_cuda(name, (coef,), bc, flip, tuple(planes))
+    lib = load_kernels()
+    o0, o1 = torch.empty_like(e0), torch.empty_like(e0)
+    rec = torch.empty((Bh, 1), dtype=torch.float32, device=e0.device)
+    with torch.cuda.device(e0.device):
+        rc = lib.rt_sweep_substep(
+            kind, *map(_ptr, (coef, bc, flip, rec, e0, e1, p0, p1, h0, h1,
+                              o0, o1)),
+            Bh, N, s, int(reflective), _stream(e0.device))
+    _raise_on(name, rc)
+    substep_launch.launches += 1
+    return o0, o1
+
+
+def reset_launch_counts() -> None:
+    """Zero every wrapper's count of kernel launches."""
+    for w in (bdf2_launch, multistep_launch, substep_launch):
+        w.launches = 0
+
+
+reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+class CudaSweepEngine:
+    """The counterpart of PallasEngine: K-step fused sweeps over flat
+    (2, Bh, N) float32 planes on `device` (CUDA kernels on a card, their
+    plain versions on the CPU)."""
+
+    def __init__(self, cfg: Config, tables, block: Optional[int] = None,
+                 scan_tol: float = 1e-10, device="cuda"):
+        self.cfg = cfg
+        self.tables = tables
+        self.scan_tol = scan_tol
+        self.device = torch.device(device)
+        Mh, G = cfg.M // 2, cfg.G
+        self.Mh, self.G = Mh, G
+        self.Bh = Mh * G
+        self.block = self._select_block(cfg, block)
+        self.nblocks = cfg.N // self.block
+
+        self.kcs = fs.kind_coeffs(cfg, tables, np.float32)
+        # Accuracy-bounded scan truncation of the plain versions (see
+        # _scan_npass), per kind from the largest carry multiplier.
+        self.scan_npass = {
+            kind: _scan_npass(
+                float(np.max(np.asarray(kc.a, dtype=np.float64))),
+                self.block, scan_tol)
+            for kind, kc in self.kcs.items()
+        }
+        bc_neg, bc_pos = fs.boundary_planes(cfg, tables, np.float32)
+        self.reflective = bc_pos is None
+        if self.reflective:
+            bc_pos = np.zeros(self.Bh, dtype=np.float32)  # unused
+        dev = self.device
+        self.bc = torch.as_tensor(
+            np.stack([bc_neg, bc_pos])[..., None].astype(np.float32),
+            device=dev)                                   # (2, Bh, 1)
+        self.flip = torch.as_tensor(
+            fs._refl_flip_indices(Mh, G).astype(np.int32), device=dev)
+        self.coef = {kind: torch.as_tensor(_pack_coeffs(kc), device=dev)
+                     for kind, kc in self.kcs.items()}
+
+    def _select_block(self, cfg: Config, block: Optional[int]) -> int:
+        """The JAX engine's block auto-selection (pallas_sweep.py:742-806),
+        kept as is: it shapes the plain versions' blocked scan; the CUDA
+        kernels tile N their own way. An explicit `block` is pinned."""
+        auto_block = block is None
+        if auto_block:
+            block = 2048
+        while cfg.N % block != 0 or (block & (block - 1)):
+            block //= 2
+            if block == 0:
+                raise ValueError(f"N={cfg.N} has no power-of-two block")
+        while auto_block and self.Bh * block > (1 << 17) and block > 128:
+            block //= 2
+        while (auto_block and cfg.ts_method == 3
+                and self.Bh * block > (1 << 17) and block > 512):
+            block //= 2
+        if auto_block:
+            target = 1 << 17
+            while (self.Bh * block * 2 <= target and block < cfg.N
+                   and cfg.N % (block * 2) == 0):
+                block *= 2
+        # Whole-N fallback for decks with no 128-multiple power-of-two
+        # block (N = 100, 50); auto mode only.
+        if auto_block and block % 128 != 0 and block != cfg.N:
+            block = cfg.N
+        return block
+
+    # -- stepping ---------------------------------------------------------------
+
+    def substep(self, kind: int, st: FlatState
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if kind == BDF:
+            planes = (st.e0, st.e1, st.p0, st.p1, st.h0, st.h1)
+        elif kind == CN:
+            planes = (st.e0, st.e1, st.p1)
+        else:
+            planes = (st.e0, st.e1)
+        return substep_launch(
+            kind, self.coef[kind], self.bc, self.flip, planes,
+            s=self.kcs[kind].s, reflective=self.reflective, blk=self.block,
+            npass=self.scan_npass[kind])
+
+    def step(self, st: FlatState) -> FlatState:
+        cfg = self.cfg
+        if cfg.ts_method == 1:
+            ne0, ne1 = self.substep(BE, st)
+            return FlatState(ne0, ne1, st.e0, st.e1, st.h0, st.h1)
+        if cfg.ts_method == 2:
+            st1 = FlatState(st.e0, st.e1, st.e0, st.e1, st.h0, st.h1)
+            ne0, ne1 = self.substep(CN, st1)
+            return FlatState(ne0, ne1, st.e0, st.e1, st.h0, st.h1)
+        # BDF2: the whole 4-phase cycle in one fused kernel launch.
+        return self.multi_step(st, 1)
+
+    def max_steps_per_launch(self) -> int:
+        """K for the fused multi-step kernel: the JAX engine's choice
+        (pallas_sweep.py:1018-1040), kept until it is re-derived on the
+        card."""
+        p = self.Bh * self.block
+        if self.cfg.ts_method in (1, 2):
+            return 16 if self.Bh <= 16 else 8
+        if p <= (1 << 16):
+            return 8
+        if p <= (1 << 17):
+            return 4
+        return 1
+
+    def multi_step(self, st: FlatState, K: int) -> FlatState:
+        """K whole timesteps in ONE kernel launch (intermediate steps'
+        planes never touch device memory). Same trajectory as K calls of
+        step() for BDF2; BE/CN fuse the K sub-steps the same way."""
+        if self.cfg.ts_method in (1, 2):
+            kind = BE if self.cfg.ts_method == 1 else CN
+            ne0, ne1, np0, np1 = multistep_launch(
+                kind, self.coef[kind], self.bc, self.flip, st.e0, st.e1,
+                K=K, s=self.kcs[kind].s, reflective=self.reflective,
+                blk=self.block, npass=self.scan_npass[kind])
+            return FlatState(ne0, ne1, np0, np1, st.h0, st.h1)
+        ne0, ne1, nh0, nh1, np0, np1 = bdf2_launch(
+            self.coef[BE], self.coef[CN], self.coef[BDF], self.bc,
+            self.flip, st.e0, st.e1, K=K, s_be=self.kcs[BE].s,
+            s_cn=self.kcs[CN].s, s_bdf=self.kcs[BDF].s,
+            reflective=self.reflective,
+            symmetric_half=self.cfg.bdf2_symmetric_half, blk=self.block,
+            npass_be=self.scan_npass[BE], npass_cn=self.scan_npass[CN],
+            npass_bdf=self.scan_npass[BDF])
+        return FlatState(ne0, ne1, np0, np1, nh0, nh1)
+
+    def solve(self, state: Optional[FlatState] = None,
+              num_steps: Optional[int] = None,
+              steps_per_launch: Optional[int] = None) -> FlatState:
+        """Run n timesteps, K whole steps per kernel launch (default
+        max_steps_per_launch(), or as many as remain)."""
+        n = self.cfg.max_timesteps if num_steps is None else num_steps
+        if state is None:
+            state = self.init_state()
+        K = steps_per_launch or min(self.max_steps_per_launch(), max(n, 1))
+        K = min(K, MAX_FUSED_STEPS)
+        body, tail = divmod(n, K)
+        for _ in range(body):
+            state = self.multi_step(state, K)
+        if tail:
+            state = self.multi_step(state, tail)
+        return state
+
+    # -- layout -------------------------------------------------------------------
+
+    def init_state(self) -> FlatState:
+        """psi = ends = B_g everywhere (src/solver.cpp:165-181)."""
+        cfg = self.cfg
+        Bg = np.broadcast_to(
+            np.asarray(self.tables.B, dtype=np.float64)[None, :],
+            (self.Mh, self.G)).reshape(self.Bh).astype(np.float32)
+        plane = torch.as_tensor(Bg, device=self.device)[None, :, None]
+        plane = plane.expand(2, self.Bh, cfg.N).contiguous()
+        return FlatState(plane, plane, plane, plane, plane, plane)
+
+    def from_ends(self, ends, prev, half) -> FlatState:
+        """Global (M, G, N, 2) arrays -> FlatState on the engine's device."""
+        def planes(x):
+            x = torch.as_tensor(x).to(device=self.device,
+                                      dtype=torch.float32)
+            return fs.from_ends(x)
+
+        (e0, e1), (p0, p1), (h0, h1) = planes(ends), planes(prev), planes(half)
+        return FlatState(e0, e1, p0, p1, h0, h1)
+
+    def ends_pair(self, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+        return fs.ends_pair(x0, x1, self.Mh, self.G)
+
+    def ends(self, st: FlatState) -> torch.Tensor:
+        return self.ends_pair(st.e0, st.e1)
