@@ -21,13 +21,26 @@ Phases, one line each; any failure exits nonzero before the result line:
    reflective left, source right): three windows of 64 steps after a
    two-launch warm-up, timed with CUDA events; prints the median updates/s,
    the plain version's time for one K-step launch at the same shape and
-   the peak device memory.
+   the peak device memory above what the phase started with;
+6. tiny-batch auto route (the packed-rows halo engine, B4 and B5): the CLI
+   with --engine auto --dtype float32 on prm/single_group.prm (routes to
+   the plain engine) against its CPU run; HaloCudaEngine against
+   CudaSweepEngine at the benchmarks/suite.py gray_s8 shape (S_8 gray,
+   Bh = 4, N = 2^18, Courant 0.4, reflective left) for BDF2, BE and CN, 64
+   steps, ends, prev and half within DRIFT_TOL; then gray_s8 through
+   make_multichip_engine("auto"), which must pick HaloCudaEngine, timed as
+   in phase 5, and the same workload on CudaSweepEngine.
 
-Every kernel wrapper's launch count is zeroed before phase 4 and read after
-phase 5: each kernel must have launched on the main path. Then each kernel is
-timed against its plain version at the full-size shape. The last lines are
-the kernels JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}.
+Phase 3 also holds B4 and B5 against their plain versions (rows 2 and 8, a
+segment and a reset cell off the kernel's tile, reset 0 and > 0, K 1/3/8
+and 16 for BE/CN, both half modes). Every kernel wrapper's launch count is
+zeroed before phase 4 and read after phase 5, and zeroed again before phase
+6 and read after it: each kernel of a path must have launched on it (B1-B3
+on phases 4-5, B4-B5 on phase 6). Then each kernel is timed against its
+plain version at its full-size shape, beside its bound (the larger of the
+bytes it must move over 3.35 TB/s and the operations it must do over 67
+TFLOP/s f32, the H100 SXM data-sheet peaks). The last lines are the kernels
+JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -55,7 +68,21 @@ REPLACES = {
     "bdf2_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:444",
     "multistep_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:387",
     "substep_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:229",
+    "halo_bdf2_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:638",
+    "halo_multistep_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:568",
 }
+# The kernels each path must launch.
+PATH_PLAIN = ("bdf2_launch", "multistep_launch", "substep_launch")
+PATH_AUTO = ("halo_bdf2_launch", "halo_multistep_launch")
+# Peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s.
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+# f32 operations per cell of one sub-step, counted from substep_tile in
+# csrc/sweep.cu: psi 2, source 3, right-hand sides (BE 4, CN 10, BDF 22),
+# b 4, carry 2, u 2, two edges 8. The kernel's own scan work (the a^n
+# products, shuffles) is not part of the function and is not counted.
+FLOPS_PER_CELL = {"BE": 25, "CN": 31, "BDF": 43}
+BDF2_STEP_FLOPS = 2 * FLOPS_PER_CELL["BE"] + FLOPS_PER_CELL["CN"] + \
+    FLOPS_PER_CELL["BDF"]
 
 
 def card_line() -> str:
@@ -73,8 +100,9 @@ def ptxas_report(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(bdf2|multistep|substep)_kernel(?:ILi(\d)E)?",
-                          m.group(1))
+            k = re.search(
+                r"((?:halo_)?(?:bdf2|multistep|substep))_kernel(?:ILi(\d)E)?",
+                m.group(1))
             name = (f"{k.group(1)}_kernel"
                     + (f"<{k.group(2)}>" if k.group(2) else "")
                     if k else m.group(1))
@@ -91,6 +119,18 @@ def nerr(got, ref) -> float:
     """max|got - ref| / max|ref|, in float64."""
     got, ref = got.double(), ref.double()
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move `nbytes` and do `flops` f32 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def main() -> int:
@@ -213,27 +253,103 @@ def main() -> int:
         st = rand_state(e, 20 + K)
         check("bdf2_launch", f"B1-K{K}-{label}", e.multi_step(st, K),
               bdf2_plain(e, st, K))
+
+    # B4/B5 on packed rows (2*Bh, 12800). Blocks of 1280 cells: reset 3
+    # restarts the chains at cell 3840, inside the first 4096-cell kernel
+    # tile, and leaves a 8960-cell segment (2 tiles and a ragged 768).
+    hblk = 1280
+    for M, G in ((2, 1), (4, 2)):
+        e = engine(load_config(deck, M=M, G=G, N=12800, ts_method=3))
+        rows = 2 * e.Bh
+        coef = {k: c.reshape(rows, -1) for k, c in e.coef.items()}
+        npass = {k: cs._scan_npass(float(np.max(e.kcs[k].a)), hblk, 1e-10)
+                 for k in e.kcs}
+        g = torch.Generator(device=dev).manual_seed(rows)
+        st = rand_state(e, 30 + rows)
+        x0, x1 = (p.reshape(rows, -1) for p in st[:2])
+
+        def seeds(C):
+            # The row's scale times a fill multiplier s in [0.5, 6.5).
+            return (x0[:, :1] * (0.5 + 6 * torch.rand(
+                (rows, C), generator=g, device=dev))).contiguous()
+
+        for reset in (0, 3):
+            for K, sym in ((1, False), (3, False), (3, True), (8, False)):
+                sd = seeds(4 * K)
+                kw = dict(K=K, symmetric_half=sym, blk=hblk,
+                          npass_be=npass[BE], npass_cn=npass[CN],
+                          npass_bdf=npass[BDF])
+                args = (coef[BE], coef[CN], coef[BDF], sd, reset, x0, x1)
+                check("halo_bdf2_launch",
+                      f"B4-rows{rows}-r{reset}-K{K}-"
+                      f"{'sym' if sym else 'asym'}",
+                      cs.halo_bdf2_launch(*args, **kw),
+                      cs.halo_bdf2_launch_ref(*args, **kw))
+            for kind, label in ((BE, "BE"), (CN, "CN")):
+                for K in (1, 3, 8, 16):
+                    args = (kind, coef[kind], seeds(K), reset, x0, x1)
+                    kw = dict(K=K, blk=hblk, npass=npass[kind])
+                    check("halo_multistep_launch",
+                          f"B5-{label}-rows{rows}-r{reset}-K{K}",
+                          cs.halo_multistep_launch(*args, **kw),
+                          cs.halo_multistep_launch_ref(*args, **kw))
     torch.cuda.synchronize()
     print(f"phase 3 kernel parity: ok, max normalised error "
           + ", ".join(checks), flush=True)
 
     # -- 4. main path ------------------------------------------------------------
+    names = ("phi", "phi_plus", "psi", "x", "F", "e_ave", "left_ends",
+             "right_ends")
+
+    def run_cli(tmp, deck_path, steps, device, tag, engine_args):
+        outdir = os.path.join(tmp, f"{tag}_{device}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([deck_path, "--outdir", outdir, *engine_args,
+                           "--steps", str(steps), "--device", device,
+                           "--profile"])
+        if rc != 0:
+            raise RuntimeError(f"cli {tag} {device} exit {rc}:\n"
+                               + buf.getvalue()[-3000:])
+        return outdir, buf.getvalue().splitlines()
+
+    def cli_vs_cpu(tmp, deck_path, steps, tag, engine_args):
+        """The CLI on the card against its CPU run: 8 finite CSVs within
+        DRIFT_TOL. Returns (summary, the card run's stdout lines)."""
+        gpu_dir, out = run_cli(tmp, deck_path, steps, "cuda", tag,
+                               engine_args)
+        cpu_dir, _ = run_cli(tmp, deck_path, steps, "cpu", tag, engine_args)
+        phi = np.loadtxt(os.path.join(cpu_dir, "phi.csv"), ndmin=2)
+        worst_csv = 0.0
+        for name in names:
+            got = np.loadtxt(os.path.join(gpu_dir, f"{name}.csv"), ndmin=2)
+            ref = np.loadtxt(os.path.join(cpu_dir, f"{name}.csv"), ndmin=2)
+            if got.shape != ref.shape or not np.all(np.isfinite(got)):
+                raise AssertionError(f"{tag} {name}.csv: shape {got.shape} "
+                                     f"vs {ref.shape} or not finite")
+            # F cancels to roundoff at equilibrium; phi bounds it.
+            scale = np.abs(phi).max() if name == "F" else np.abs(ref).max()
+            err = float(np.abs(got - ref).max() / max(scale, 1e-300))
+            worst_csv = max(worst_csv, err)
+            if not err <= DRIFT_TOL:
+                raise AssertionError(f"{tag} {name}.csv: GPU vs CPU "
+                                     f"normalised error {err:.3e} > "
+                                     f"{DRIFT_TOL}")
+        profile = [ln for ln in out if ln.startswith("wall:")]
+        return (f"{tag} {steps} steps 8 CSVs finite, vs CPU "
+                f"{worst_csv:.1e} [{profile[0] if profile else ''}]"), out
+
+    def read_counts(path, label):
+        counts = {name: getattr(cs, name).launches for name in path}
+        missing = [name for name, n in counts.items() if n == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on {label}: "
+                                 f"{missing} ({counts})")
+        return counts
+
+    pallas = ["--engine", "pallas"]
     cs.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-
-        def run_cli(deck_path, steps, device, tag):
-            outdir = os.path.join(tmp, f"{tag}_{device}")
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc = cli.main([deck_path, "--outdir", outdir, "--engine",
-                               "pallas", "--steps", str(steps), "--device",
-                               device, "--profile"])
-            if rc != 0:
-                raise RuntimeError(f"cli {tag} {device} exit {rc}:\n"
-                                   + buf.getvalue()[-3000:])
-            profile = [ln for ln in buf.getvalue().splitlines()
-                       if ln.startswith("wall:")]
-            return outdir, profile[0] if profile else ""
 
         def variant(ts_method):
             text = open(os.path.join(ROOT, "prm", "single_group.prm")).read()
@@ -244,33 +360,11 @@ def main() -> int:
                 fh.write(text.replace("ts_method=3", f"ts_method={ts_method}"))
             return path
 
-        names = ("phi", "phi_plus", "psi", "x", "F", "e_ave", "left_ends",
-                 "right_ends")
         runs = [(os.path.join(ROOT, "prm", "llnl_slab_test.prm"), 2, "llnl"),
                 (os.path.join(ROOT, "prm", "single_group.prm"), 200, "gray"),
                 (variant(1), 200, "gray-BE"), (variant(2), 200, "gray-CN")]
-        summary = []
-        for deck_path, steps, tag in runs:
-            gpu_dir, profile = run_cli(deck_path, steps, "cuda", tag)
-            cpu_dir, _ = run_cli(deck_path, steps, "cpu", tag)
-            phi = np.loadtxt(os.path.join(cpu_dir, "phi.csv"), ndmin=2)
-            worst_csv = 0.0
-            for name in names:
-                got = np.loadtxt(os.path.join(gpu_dir, f"{name}.csv"), ndmin=2)
-                ref = np.loadtxt(os.path.join(cpu_dir, f"{name}.csv"), ndmin=2)
-                if got.shape != ref.shape or not np.all(np.isfinite(got)):
-                    raise AssertionError(f"{tag} {name}.csv: shape {got.shape} "
-                                         f"vs {ref.shape} or not finite")
-                # F cancels to roundoff at equilibrium; phi bounds it.
-                scale = np.abs(phi).max() if name == "F" else np.abs(ref).max()
-                err = float(np.abs(got - ref).max() / max(scale, 1e-300))
-                worst_csv = max(worst_csv, err)
-                if not err <= DRIFT_TOL:
-                    raise AssertionError(f"{tag} {name}.csv: GPU vs CPU "
-                                         f"normalised error {err:.3e} > "
-                                         f"{DRIFT_TOL}")
-            summary.append(f"{tag} {steps} steps 8 CSVs finite, vs CPU "
-                           f"{worst_csv:.1e} [{profile}]")
+        summary = [cli_vs_cpu(tmp, deck_path, steps, tag, pallas)[0]
+                   for deck_path, steps, tag in runs]
         for ts_method in (1, 2):
             e = engine(load_config(variant(ts_method)))
             st = e.init_state()
@@ -282,41 +376,60 @@ def main() -> int:
         print("phase 4 main path: ok; " + "; ".join(summary), flush=True)
 
     # -- 5. full size ------------------------------------------------------------
-    M, G, N, steps = 32, 1, 1 << 20, 64
     C = constants.SPEED_OF_LIGHT
 
-    def bench_cfg(ts_method):
+    def gray_cfg(M, N, ts_method, steps=64):
+        """bench.py's and benchmarks/suite.py's gray workload: S_M, one
+        group, cell Courant 0.4, reflective left, source right."""
         return Config(
-            M=M, G=G, N=N, X=1.0, bc_left_indicator=2, bc_right_indicator=1,
-            psi_source=tuple(tuple(4.0931 for _ in range(G))
-                             for _ in range(M)),
+            M=M, G=1, N=N, X=1.0, bc_left_indicator=2, bc_right_indicator=1,
+            psi_source=tuple((4.0931,) for _ in range(M)),
             rho=1.0, kappa_grey=1.0, T=1.0, ts_method=ts_method,
             dt=0.4 * (1.0 / N) / C, max_timesteps=steps,
             include_validation=False)
 
-    big = engine(bench_cfg(3))
-    K = big.max_steps_per_launch()
-    torch.cuda.reset_peak_memory_stats()
-    # Warm-up: two launches, so the caching allocator already holds every
-    # plane the timed solves allocate (no cudaMalloc inside a window).
-    st = big.solve(big.init_state(), num_steps=2 * K, steps_per_launch=K)
-    torch.cuda.synchronize()
-    windows = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        st = big.solve(st, num_steps=steps, steps_per_launch=K)
-        stop.record()
+    def windows_of(solve, init, warm_steps, steps=64):
+        """Three CUDA-event windows of `steps` steps after a warm-up of
+        `warm_steps` (two launches, so the caching allocator already
+        holds every plane a window allocates). Returns (median seconds,
+        the windows, the final state)."""
+        st = solve(init, warm_steps)
         torch.cuda.synchronize()
-        windows.append(start.elapsed_time(stop) / 1e3)
-    seconds = sorted(windows)[1]
-    for plane in st:
-        m = float(plane.abs().max())
-        if not np.isfinite(m) or m > 1e3:
-            raise AssertionError(f"full-size state diverged (max|x|={m})")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    rate = 4 * M * G * N * steps / seconds
+        windows = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            st = solve(st, steps)
+            stop.record()
+            torch.cuda.synchronize()
+            windows.append(start.elapsed_time(stop) / 1e3)
+        for plane in st:
+            m = float(plane.abs().max())
+            if not np.isfinite(m) or m > 1e3:
+                raise AssertionError(f"full-size state diverged (max|x|={m})")
+        return sorted(windows)[1], windows, st
+
+    def fmt_windows(windows):
+        return ", ".join(f"{w:.4f}" for w in windows)
+
+    def peak_from():
+        """Starts a peak-memory reading; the returned function gives the
+        peak in GiB above what was allocated when it started (tensors an
+        earlier phase still holds are not the run's)."""
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return lambda: (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    M, N, steps = 32, 1 << 20, 64
+    big = engine(gray_cfg(M, N, 3))
+    K = big.max_steps_per_launch()
+    peak = peak_from()
+    seconds, windows, st = windows_of(
+        lambda s, n: big.solve(s, num_steps=n, steps_per_launch=K),
+        big.init_state(), 2 * K)
+    peak_gib = peak()
+    rate = 4 * M * N * steps / seconds
 
     def timed(fn, reps):
         fn()                                           # warm-up
@@ -330,35 +443,151 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps, out
 
-    launches = {name: getattr(cs, name).launches for name in REPLACES}
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing} ({launches})")
+    launches = read_counts(PATH_PLAIN, "the main path (phases 4-5)")
 
     plain_ms, _ = timed(lambda: bdf2_plain(big, st, K), 1)
     print(f"phase 5 full size: gray S_32 N=2^20 BDF2 K={K} block "
           f"{big.block}: {steps} steps in {seconds:.4f} s (median of "
-          f"{', '.join(f'{w:.4f}' for w in windows)}) = {rate:.6g} "
+          f"{fmt_windows(windows)}) = {rate:.6g} "
           f"updates/s; plain version {plain_ms:.1f} ms per K-step launch; "
-          f"peak device memory {peak_gib:.2f} GiB; max|x| ok; card: {card}",
+          f"peak device memory {peak_gib:.3f} GiB above the phase's start; "
+          f"max|x| ok; card: {card}",
           flush=True)
 
-    # -- kernel vs plain at the full-size shape (not counted above) ------------
-    rows = []
-    cn_eng = engine(bench_cfg(2))
+    # -- 6. tiny-batch auto route ------------------------------------------------
+    from radiative_transfer_tpu_torch.parallel import make_multichip_engine
+    from radiative_transfer_tpu_torch.parallel.halo_cuda import HaloCudaEngine
+
+    cs.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cli_summary, out = cli_vs_cpu(
+            tmp, os.path.join(ROOT, "prm", "single_group.prm"), 200,
+            "gray-auto", ["--engine", "auto", "--dtype", "float32"])
+    if "auto engine: CudaSweepEngine (single chip)" not in out:
+        raise AssertionError("cli --engine auto on single_group.prm did not "
+                             "pick CudaSweepEngine: " + "; ".join(out[:4]))
+
+    Ms, Ns = 8, 1 << 18                    # suite.py gray_s8
+
+    def auto_engine(cfg):
+        tables, _, _ = transport.build_tables(cfg)
+        eng = make_multichip_engine(cfg, tables, device=dev)
+        if not isinstance(eng, HaloCudaEngine):
+            raise AssertionError(f"auto picked {type(eng).__name__} for "
+                                 f"gray_s8 ts_method={cfg.ts_method}")
+        return eng
+
+    pairs = []
+    for ts_method, label in ((3, "BDF2"), (1, "BE"), (2, "CN")):
+        he = auto_engine(gray_cfg(Ms, Ns, ts_method))
+        pe = engine(gray_cfg(Ms, Ns, ts_method))
+        hs, ps = he.solve(num_steps=64), pe.solve(num_steps=64)
+        errs = [nerr(he.ends_pair(a, b), pe.ends_pair(c, d)) for a, b, c, d in
+                ((hs.e0, hs.e1, ps.e0, ps.e1), (hs.p0, hs.p1, ps.p0, ps.p1),
+                 (hs.h0, hs.h1, ps.h0, ps.h1))]
+        if not max(errs) <= DRIFT_TOL:
+            raise AssertionError(f"gray_s8 {label}: HaloCudaEngine vs "
+                                 f"CudaSweepEngine ends/prev/half {errs}")
+        pairs.append(f"{label} K={he.K_launch} H={he.H} block {he.block} "
+                     f"ends/prev/half {max(errs):.1e}")
+
+    halo = auto_engine(gray_cfg(Ms, Ns, 3))
+    Kh = halo.K_launch
+    peak = peak_from()
+    h_seconds, h_windows, hst = windows_of(
+        lambda s, n: halo.solve(s, num_steps=n), halo.init_state(), 2 * Kh)
+    h_peak = peak()
+    launches.update(read_counts(PATH_AUTO, "the auto route (phase 6)"))
+
+    plain8 = engine(gray_cfg(Ms, Ns, 3))
+    K8 = plain8.max_steps_per_launch()
+    peak = peak_from()
+    p_seconds, p_windows, _ = windows_of(
+        lambda s, n: plain8.solve(s, num_steps=n, steps_per_launch=K8),
+        plain8.init_state(), 2 * K8)
+    p_peak = peak()
+
+    # One main and one fixup launch of the halo engine, as it runs them.
+    rows8 = halo.rows
+    x0 = torch.cat([hst.e0.new_zeros((2, halo.Bh, halo.H)), hst.e0], -1)
+    x1 = torch.cat([hst.e1.new_zeros((2, halo.Bh, halo.H)), hst.e1], -1)
+    main_seeds = halo._main_seeds(Kh)
+    main_ms, (_, rec) = timed(
+        lambda: halo._launch(Kh, main_seeds, halo.hb, x0, x1), 20)
+    fix_seeds = halo._fix_seeds(Kh, rec)
+    f0 = hst.e0[..., :halo.H].contiguous()
+    f1 = hst.e1[..., :halo.H].contiguous()
+    fix_ms, _ = timed(lambda: halo._launch(Kh, fix_seeds, 0, f0, f1), 100)
+    ups = 4 * Ms * Ns * 64
+    print(f"phase 6 auto route: ok; {cli_summary}; gray_s8 vs "
+          f"CudaSweepEngine 64 steps: {'; '.join(pairs)}; gray_s8 BDF2 "
+          f"(S_8, Bh=4, N=2^18) via auto = HaloCudaEngine K={Kh} H={halo.H}: "
+          f"64 steps in {h_seconds:.4f} s (median of {fmt_windows(h_windows)})"
+          f" = {ups / h_seconds:.6g} updates/s, peak device memory "
+          f"{h_peak:.3f} GiB above the run's start, main launch {main_ms:.3f} ms, fixup launch "
+          f"{fix_ms:.3f} ms; CudaSweepEngine K={K8}: 64 steps in "
+          f"{p_seconds:.4f} s (median of {fmt_windows(p_windows)}) = "
+          f"{ups / p_seconds:.6g} updates/s, peak {p_peak:.3f} GiB; halo/plain "
+          f"{p_seconds / h_seconds:.3f}x; card: {card}", flush=True)
+
+    # -- kernel vs plain at the full-size shapes (not counted above) ------------
+    # Bytes: each input read once, each output written once (a record the
+    # kernel only passes between its own launches is not counted; the halo
+    # kernels read seeds and write a record of the same shape).
+    table = []
+    cn_eng = engine(gray_cfg(M, N, 2))
     Kcn = cn_eng.max_steps_per_launch()
     rs = rand_state(big, 99)
     rcn = rand_state(cn_eng, 98)
+    consts = (big.coef[BE], big.coef[CN], big.coef[BDF], big.bc, big.flip)
+    planes = 2 * big.Bh * N * 4            # bytes of one (2, Bh, N) plane
+    cells = 2 * big.Bh * N
+
+    # B5 at gray_s8 CN: its main launch over H + N packed cells.
+    halo_cn = auto_engine(gray_cfg(Ms, Ns, 2))
+    Kc5 = halo_cn.K_launch
+    g5 = torch.Generator(device=dev).manual_seed(97)
+    xc = [torch.cat([p.new_zeros((2, halo_cn.Bh, halo_cn.H)), p], -1)
+          .reshape(halo_cn.rows, -1)
+          * (0.5 + torch.rand((halo_cn.rows, halo_cn.H + Ns), generator=g5,
+                              device=dev))
+          for p in halo_cn.init_state()[:2]]
+    s5 = halo_cn._main_seeds(Kc5)
+    b5_args = (CN, halo_cn.coef[CN], s5, halo_cn.hb, *xc)
+    b5_kw = dict(K=Kc5, blk=halo_cn.block, npass=halo_cn.scan_npass[CN])
+    # B4 at gray_s8 BDF2: the main launch timed above, on random planes.
+    xb = [x * (0.5 + torch.rand(x.shape, generator=g5, device=dev))
+          for x in (x0.reshape(rows8, -1), x1.reshape(rows8, -1))]
+    b4_args = (halo.coef[BE], halo.coef[CN], halo.coef[BDF], main_seeds,
+               halo.hb, *xb)
+    b4_kw = dict(K=Kh, symmetric_half=False, blk=halo.block,
+                 npass_be=halo.scan_npass[BE], npass_cn=halo.scan_npass[CN],
+                 npass_bdf=halo.scan_npass[BDF])
+    Xh = xb[0].shape[1]
+
     jobs = [
         ("bdf2_launch", lambda: big.multi_step(rs, K),
-         lambda: bdf2_plain(big, rs, K), 20),
+         lambda: bdf2_plain(big, rs, K), 20,
+         8 * planes + nbytes(*consts), cells * K * BDF2_STEP_FLOPS),
         ("multistep_launch", lambda: cn_eng.multi_step(rcn, Kcn)[:4],
-         lambda: multistep_plain(cn_eng, rcn, Kcn), 10),
+         lambda: multistep_plain(cn_eng, rcn, Kcn), 10,
+         6 * planes + nbytes(cn_eng.coef[CN], big.bc, big.flip),
+         cells * Kcn * FLOPS_PER_CELL["CN"]),
         ("substep_launch", lambda: big.substep(BDF, rs),
-         lambda: substep_plain(big, BDF, rs), 50),
+         lambda: substep_plain(big, BDF, rs), 50,
+         8 * planes + nbytes(big.coef[BDF], big.bc, big.flip),
+         cells * FLOPS_PER_CELL["BDF"]),
+        ("halo_bdf2_launch", lambda: cs.halo_bdf2_launch(*b4_args, **b4_kw),
+         lambda: cs.halo_bdf2_launch_ref(*b4_args, **b4_kw), 20,
+         8 * nbytes(xb[0]) + nbytes(*b4_args[:3]) + 2 * nbytes(main_seeds),
+         rows8 * Xh * Kh * BDF2_STEP_FLOPS),
+        ("halo_multistep_launch",
+         lambda: cs.halo_multistep_launch(*b5_args, **b5_kw),
+         lambda: cs.halo_multistep_launch_ref(*b5_args, **b5_kw), 20,
+         6 * nbytes(xc[0]) + nbytes(halo_cn.coef[CN]) + 2 * nbytes(s5),
+         halo_cn.rows * xc[0].shape[1] * Kc5 * FLOPS_PER_CELL["CN"]),
     ]
-    for name, kernel_fn, plain_fn, reps in jobs:
+    for name, kernel_fn, plain_fn, reps, nb, flops in jobs:
         ms, got = timed(kernel_fn, reps)
         pms, ref = timed(plain_fn, 1)
         err = max(float((g.double() - r.double()).abs().max())
@@ -367,11 +596,16 @@ def main() -> int:
         if not norm <= TOL:
             raise AssertionError(f"{name} full size: normalised error "
                                  f"{norm:.3e} > {TOL}")
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": REPLACES[name],
-                     "launches": launches[name], "max_abs_err": err,
-                     "ms": ms, "plain_ms": pms})
-    print(json.dumps({"kernels": rows}), flush=True)
+        bound_ms, bound_by = bound(nb, flops)
+        table.append({"name": name, "route": "cuda", "source": SOURCE,
+                      "replaces": REPLACES[name],
+                      "launches": launches[name], "max_abs_err": err,
+                      "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
+                      "bound_by": bound_by,
+                      # No single PyTorch call computes this affine
+                      # recurrence with its 2x2 reconstruction.
+                      "library_ms": None})
+    print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,33 @@
 """Command-line driver: deck in, CSVs out.
 
-Port of radiative_transfer_tpu/cli.py on its ``--engine pallas`` path
-(reference: src/main.cc:60-136): read a .prm deck, run it on the CUDA
-sweep kernels, print the per-group balance diagnostic and write the 8
+Port of radiative_transfer_tpu/cli.py on its single-device f32 engine
+paths (reference: src/main.cc:60-136): read a .prm deck, run it on the
+CUDA sweep kernels, print the per-group balance diagnostic and write the 8
 CSVs the reference plot scripts consume.
 
 Usage:
-    python -m radiative_transfer_tpu_torch.cli DECK --outdir D --engine pallas
-        [--steps n] [--scan-tol x] [--profile] [--device cuda|cpu]
+    python -m radiative_transfer_tpu_torch.cli DECK --outdir D
+        --engine pallas|halo|auto [--dtype float64|float32] [--steps n]
+        [--scan-tol x] [--profile] [--device cuda|cpu]
 
-``--device cuda`` (the default) runs the CUDA kernels and fails with exit
-code 2 when there is no CUDA device; ``--device cpu`` runs the kernels'
-plain PyTorch versions. Every other engine and flag of the JAX package's
-CLI is refused with exit code 2: it is not ported yet.
+Engines:
+
+* ``pallas``: CudaSweepEngine, the fused f32 sweep (kernels B1-B3);
+* ``halo``: HaloCudaEngine, the packed-rows halo engine at one device
+  (B4-B5; the JAX CLI's ``--engine halo`` with its implied ``--mesh 1x1``);
+  exits 2 with guidance where its creep bound rejects the workload;
+* ``auto``: with ``--dtype float32``, parallel.make_multichip_engine's
+  pick (the halo engine at tiny batches, Bh < 8, where feasible, else
+  CudaSweepEngine), printed as ``auto engine: <Engine> (single chip)``.
+  At float64 (the default, as in JAX) it would need the double-float
+  engine, which is not ported yet: exit 2.
+
+``pallas`` and ``halo`` are float32 engines; at ``--dtype float64`` they
+print a note and run in float32, as the JAX CLI does. ``--device cuda``
+(the default) runs the CUDA kernels and fails with exit code 2 when there
+is no CUDA device; ``--device cpu`` runs the kernels' plain PyTorch
+versions. Every other engine and flag of the JAX package's CLI is refused
+with exit code 2: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,9 +58,15 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=None,
                     help="override max_timesteps")
     ap.add_argument("--engine", default="general",
-                    help="pallas: the fused f32 sweep on the CUDA kernels "
-                         "(the only engine ported so far; the JAX "
-                         "package's default, general, is not ported yet)")
+                    help="pallas: the fused f32 sweep on the CUDA kernels; "
+                         "halo: the packed-rows halo engine at one device; "
+                         "auto (with --dtype float32): the shape-aware pick "
+                         "of the two (the JAX package's default, general, "
+                         "is not ported yet)")
+    ap.add_argument("--dtype", choices=("float64", "float32"),
+                    default="float64",
+                    help="float32 for the f32 engines; float64 (default) "
+                         "needs the double-float engine, not ported yet")
     ap.add_argument("--scan-tol", type=float, default=1e-10,
                     help="accuracy bound of the plain versions' truncated "
                          "prefix scan (neglected upwind tail a^(2^k)/(1-a) "
@@ -59,12 +80,16 @@ def main(argv=None) -> int:
 
     if extra:
         print(f"not ported yet: {' '.join(extra)} (this CLI takes --outdir, "
-              "--steps, --engine pallas, --scan-tol, --profile, --device)",
-              file=sys.stderr)
+              "--steps, --engine pallas|halo|auto, --dtype, --scan-tol, "
+              "--profile, --device)", file=sys.stderr)
         return 2
-    if args.engine != "pallas":
+    if args.engine not in ("pallas", "halo", "auto"):
         print(f"--engine {args.engine} is not ported yet; use --engine "
-              "pallas", file=sys.stderr)
+              "pallas, halo or auto", file=sys.stderr)
+        return 2
+    if args.engine == "auto" and args.dtype != "float32":
+        print("--engine auto at float64: df engine not ported yet "
+              "(ROADMAP A6); use --dtype float32", file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (--device cpu "
@@ -76,7 +101,7 @@ def main(argv=None) -> int:
 
     from . import load_config
     from .models import transport
-    from .ops.cuda_sweep import CudaSweepEngine
+    from .parallel import make_multichip_engine
     from .utils import io as io_mod
     from .utils.profiling import updates_per_step
 
@@ -92,8 +117,20 @@ def main(argv=None) -> int:
         return 1
 
     t0 = time.perf_counter()
-    eng = CudaSweepEngine(cfg, tables, scan_tol=args.scan_tol,
-                          device=args.device)
+    if args.engine != "auto" and args.dtype != "float32":
+        print(f"note: the {args.engine} engine is float32-only")
+    try:
+        # pallas is the plain CudaSweepEngine, the selection's "single".
+        eng = make_multichip_engine(
+            cfg, tables, None,
+            engine="single" if args.engine == "pallas" else args.engine,
+            scan_tol=args.scan_tol, device=args.device)
+    except ValueError as e:
+        print(f"--engine {args.engine} infeasible for this workload: "
+              f"{e}\nfall back to --engine pallas", file=sys.stderr)
+        return 2
+    if args.engine == "auto":
+        print(f"auto engine: {type(eng).__name__} (single chip)")
     ends = eng.ends(eng.solve())
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)

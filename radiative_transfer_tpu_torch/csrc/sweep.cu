@@ -5,9 +5,14 @@
 //   rt_sweep_bdf2      <- _make_bdf2_kernel      (K whole BDF2 steps a launch)
 //   rt_sweep_multistep <- _make_multistep_kernel (K whole BE or CN steps)
 //   rt_sweep_substep   <- _make_kernel           (one BE, CN or BDF sub-step)
-// All three run on one __device__ sub-step routine, substep_tile (the
-// counterpart of _substep_block), and one block-wide scan of affine maps
-// (the counterpart of _hillis_steele).
+//   rt_sweep_halo_bdf2 <- _make_halo_bdf2_kernel (seeded K-step BDF2, packed
+//                                                 rows, for the halo engine)
+//   rt_sweep_halo_multistep <- _make_halo_multistep_kernel (seeded K-step
+//                                                 BE or CN, packed rows)
+// All run on one __device__ sub-step routine, substep_tile (the counterpart
+// of _substep_block), and one block-wide scan of affine maps (the
+// counterpart of _hillis_steele); the K-step kernels share their tile loops
+// (bdf2_segment, multistep_segment).
 //
 // What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
 // planes and per sub-step: the right-hand sides r0, r1 of every cell, the
@@ -39,12 +44,26 @@
 // * Cells past N in the last (ragged) tile load as 0 and are never stored.
 //   They lie downstream of every real cell, so they cannot change one; the
 //   row's outflow is taken at cell N-1.
+// * The halo kernels (B4, B5) take both direction halves as 2*Bh packed
+//   rows in one launch, with no reflective coupling inside (the engine runs
+//   a fixup launch for that, parallel/halo_cuda.py). Each row is two
+//   chains: cells [0, reset_cell) from zero carries, then
+//   [reset_cell, X) from the per-(row, slot) `seeds` values with zero
+//   upwind tails, each segment tiled from its own start (reset_cell is a
+//   multiple of the JAX block, not of this kernel's tile). Every row
+//   records its carries after the last cell. Because this kernel scans
+//   exactly, a seed's influence does not stop at the creep bound the JAX
+//   engine's truncated scan enforces: it decays as a^distance, so the
+//   engine's splice of the fixup launch over the first H cells leaves an
+//   error of order a^H beyond H (a < 1 the carry multiplier), not zero.
 //
 // What bounds it on this card: the serial carry chain of each row. A row's
 // tiles are visited one after another, each (step, phase) costing three block
 // barriers and ten shuffle rounds, and only 2*Bh blocks exist (Bh at a time
 // for a reflective boundary): 16 busy SMs of 132 at the gray S_32 bench
-// shape. Device-memory traffic is small beside that: 2 planes read and 6
+// shape. The halo kernels run all 2*Bh rows at once (8 SMs at gray S_8,
+// against the plain kernels' 4 at a time there). Device-memory traffic is
+// small beside that: 2 planes read and 6
 // written per K-step BDF2 launch (4 for BE/CN), as on the TPU. Splitting a
 // row over several blocks (a chained scan across blocks) is later work.
 
@@ -257,14 +276,33 @@ __device__ __forceinline__ void init_row(Shared& sm, int slots, int steps,
   __syncthreads();
 }
 
+// Starts a new chain: every slot's carry from seeds[slot] (0 where seeds is
+// null), zero upwind tails. The first barrier orders this after every read
+// and write of the previous chain's carries and tails.
+__device__ __forceinline__ void seed_row(Shared& sm, int slots, int steps,
+                                         const float* __restrict__ seeds) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < slots; i += blockDim.x)
+    sm.carry[i] = seeds ? seeds[i] : 0.f;
+  for (int i = threadIdx.x; i < steps; i += blockDim.x) {
+    sm.etail[i] = 0.f;
+    sm.htail[i] = 0.f;
+  }
+  __syncthreads();
+}
+
+// Writes the carries leaving the row's last cell, one per slot.
+__device__ __forceinline__ void write_record(const Shared& sm, int slots,
+                                             float* rec) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < slots; i += blockDim.x) rec[i] = sm.carry[i];
+}
+
 // The mu<0 half of a reflective slab records its outflow carries.
 __device__ __forceinline__ void record_row(const Shared& sm, int slots,
                                            float* rec, int h, int row,
                                            int reflective) {
-  if (h != 0 || !reflective) return;
-  __syncthreads();
-  for (int i = threadIdx.x; i < slots; i += blockDim.x)
-    rec[row * slots + i] = sm.carry[i];
+  if (h == 0 && reflective) write_record(sm, slots, rec + row * slots);
 }
 
 // Index among this thread's cells of the tile's last real cell, or -1.
@@ -273,42 +311,26 @@ __device__ __forceinline__ int tile_owner(int t0, int j0, int tile, int N) {
   return (last >= j0 && last < j0 + kCells) ? last - j0 : -1;
 }
 
-// B1, replaces _make_bdf2_kernel (pallas_sweep.py:444): K whole BDF2 steps,
-// each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector.
-__global__ void __launch_bounds__(kMaxThreads)
-    bdf2_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
-                const float* __restrict__ cbdf, const float* __restrict__ bc,
-                const int* __restrict__ flip, float* rec,
-                const float* __restrict__ e0g, const float* __restrict__ e1g,
-                float* __restrict__ o0g, float* __restrict__ o1g,
-                float* __restrict__ oh0g, float* __restrict__ oh1g,
-                float* __restrict__ op0g, float* __restrict__ op1g, int Bh,
-                int N, int K, float s_be, float s_cn, float s_bdf,
-                int symmetric, int reflective, int half0) {
-  __shared__ Shared sm;
-  const int row = blockIdx.x % Bh;
-  const int h = half0 + blockIdx.x / Bh;
-  const int hr = h * Bh + row;
-  const Coef kbe = load_coef(cbe + hr * kNCoef);
-  const Coef kcn = load_coef(ccn + hr * kNCoef);
-  const Coef kbdf = load_coef(cbdf + hr * kNCoef);
-  const float s_of[4] = {s_be, s_cn, s_be, s_bdf};
-  const int slots = 4 * K;
-  init_row(sm, slots, K, s_of, 4, bc, flip, rec, h, row, hr, reflective);
-
-  // The half snapshot is the CN output for mu<0 and the phase-0 BE output
-  // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
-  const bool snap_cn = symmetric || h == 0;
+// K whole BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF
+// corrector, over the cells [s0, s1) of one row (pointers are the row's),
+// in tiles aligned to s0. Starts from the carries and tails in shared
+// memory and leaves them there. The half snapshot is the CN output where
+// snap_cn, else the phase-0 BE output.
+__device__ __forceinline__ void bdf2_segment(
+    const Coef& kbe, const Coef& kcn, const Coef& kbdf, bool snap_cn,
+    const float* __restrict__ e0g, const float* __restrict__ e1g,
+    float* __restrict__ o0g, float* __restrict__ o1g,
+    float* __restrict__ oh0g, float* __restrict__ oh1g,
+    float* __restrict__ op0g, float* __restrict__ op1g, int s0, int s1,
+    int K, Shared& sm, int& buf) {
   const bool tail_thread = threadIdx.x == blockDim.x - 1;
-  const size_t base = static_cast<size_t>(hr) * N;
   const int tile = blockDim.x * kCells;
-  int buf = 0;
-  for (int t0 = 0; t0 < N; t0 += tile) {
+  for (int t0 = s0; t0 < s1; t0 += tile) {
     const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, N);
+    const int owner = tile_owner(t0, j0, tile, s1);
     float x0[kCells], x1[kCells], hs0[kCells], hs1[kCells];
-    load_cells(x0, e0g + base, j0, N);
-    load_cells(x1, e1g + base, j0, N);
+    load_cells(x0, e0g, j0, s1);
+    load_cells(x1, e1g, j0, s1);
     for (int k = 0; k < K; ++k) {
       float* cs = sm.carry + 4 * k;
       // prev = the step's input ends; its upwind edge feeds CN and BDF.
@@ -339,18 +361,116 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
       if (k == K - 1) {
         // prev of the final state = the LAST step's input.
-        store_cells(op0g + base, j0, N, x0);
-        store_cells(op1g + base, j0, N, x1);
+        store_cells(op0g, j0, s1, x0);
+        store_cells(op1g, j0, s1, x1);
       }
       copy_cells(x0, f0);
       copy_cells(x1, f1);
     }
-    store_cells(o0g + base, j0, N, x0);
-    store_cells(o1g + base, j0, N, x1);
-    store_cells(oh0g + base, j0, N, hs0);
-    store_cells(oh1g + base, j0, N, hs1);
+    store_cells(o0g, j0, s1, x0);
+    store_cells(o1g, j0, s1, x1);
+    store_cells(oh0g, j0, s1, hs0);
+    store_cells(oh1g, j0, s1, hs1);
   }
+}
+
+// K whole BE or CN steps over the cells [s0, s1) of one row, as
+// bdf2_segment; prev = each step's input.
+template <int KIND>
+__device__ __forceinline__ void multistep_segment(
+    const Coef& kc, const float* __restrict__ e0g,
+    const float* __restrict__ e1g, float* __restrict__ o0g,
+    float* __restrict__ o1g, float* __restrict__ op0g,
+    float* __restrict__ op1g, int s0, int s1, int K, Shared& sm, int& buf) {
+  const bool tail_thread = threadIdx.x == blockDim.x - 1;
+  const int tile = blockDim.x * kCells;
+  for (int t0 = s0; t0 < s1; t0 += tile) {
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, s1);
+    float x0[kCells], x1[kCells];
+    load_cells(x0, e0g, j0, s1);
+    load_cells(x1, e1g, j0, s1);
+    for (int k = 0; k < K; ++k) {
+      float x1_up = 0.f;
+      if constexpr (KIND == kCN)
+        x1_up = upwind_value(x1[kCells - 1], &sm.etail[k], sm.edge_p);
+      float f0[kCells], f1[kCells];
+      substep_tile<KIND>(kc, x0, x1, x0, x1, x0, x1, x1_up, 0.f,
+                         sm.carry + k, owner, sm, buf, f0, f1);
+      if (tail_thread) sm.etail[k] = x1[kCells - 1];
+      if (k == K - 1) {
+        store_cells(op0g, j0, s1, x0);
+        store_cells(op1g, j0, s1, x1);
+      }
+      copy_cells(x0, f0);
+      copy_cells(x1, f1);
+    }
+    store_cells(o0g, j0, s1, x0);
+    store_cells(o1g, j0, s1, x1);
+  }
+}
+
+// B1, replaces _make_bdf2_kernel (pallas_sweep.py:444): K whole BDF2 steps.
+__global__ void __launch_bounds__(kMaxThreads)
+    bdf2_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
+                const float* __restrict__ cbdf, const float* __restrict__ bc,
+                const int* __restrict__ flip, float* rec,
+                const float* __restrict__ e0g, const float* __restrict__ e1g,
+                float* __restrict__ o0g, float* __restrict__ o1g,
+                float* __restrict__ oh0g, float* __restrict__ oh1g,
+                float* __restrict__ op0g, float* __restrict__ op1g, int Bh,
+                int N, int K, float s_be, float s_cn, float s_bdf,
+                int symmetric, int reflective, int half0) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x % Bh;
+  const int h = half0 + blockIdx.x / Bh;
+  const int hr = h * Bh + row;
+  const float s_of[4] = {s_be, s_cn, s_be, s_bdf};
+  const int slots = 4 * K;
+  init_row(sm, slots, K, s_of, 4, bc, flip, rec, h, row, hr, reflective);
+  // The half snapshot is the CN output for mu<0 and the phase-0 BE output
+  // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
+  const size_t base = static_cast<size_t>(hr) * N;
+  int buf = 0;
+  bdf2_segment(load_coef(cbe + hr * kNCoef), load_coef(ccn + hr * kNCoef),
+               load_coef(cbdf + hr * kNCoef), symmetric || h == 0, e0g + base,
+               e1g + base, o0g + base, o1g + base, oh0g + base, oh1g + base,
+               op0g + base, op1g + base, 0, N, K, sm, buf);
   record_row(sm, slots, rec, h, row, reflective);
+}
+
+// B4, replaces _make_halo_bdf2_kernel (pallas_sweep.py:638): K whole seeded
+// BDF2 steps over packed rows (mu<0 rows first), one thread block a row.
+__global__ void __launch_bounds__(kMaxThreads)
+    halo_bdf2_kernel(const float* __restrict__ cbe,
+                     const float* __restrict__ ccn,
+                     const float* __restrict__ cbdf,
+                     const float* __restrict__ seeds, float* rec,
+                     const float* __restrict__ e0g,
+                     const float* __restrict__ e1g, float* __restrict__ o0g,
+                     float* __restrict__ o1g, float* __restrict__ oh0g,
+                     float* __restrict__ oh1g, float* __restrict__ op0g,
+                     float* __restrict__ op1g, int rows, int X, int K,
+                     int reset_cell, int symmetric) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x;
+  const int slots = 4 * K;
+  const Coef kbe = load_coef(cbe + row * kNCoef);
+  const Coef kcn = load_coef(ccn + row * kNCoef);
+  const Coef kbdf = load_coef(cbdf + row * kNCoef);
+  // The per-row blend of the half snapshot: both halves share the launch.
+  const bool snap_cn = symmetric || row < rows / 2;
+  const size_t base = static_cast<size_t>(row) * X;
+  int buf = 0;
+  seed_row(sm, slots, K, nullptr);
+  bdf2_segment(kbe, kcn, kbdf, snap_cn, e0g + base, e1g + base, o0g + base,
+               o1g + base, oh0g + base, oh1g + base, op0g + base, op1g + base,
+               0, reset_cell, K, sm, buf);
+  seed_row(sm, slots, K, seeds + static_cast<size_t>(row) * slots);
+  bdf2_segment(kbe, kcn, kbdf, snap_cn, e0g + base, e1g + base, o0g + base,
+               o1g + base, oh0g + base, oh1g + base, op0g + base, op1g + base,
+               reset_cell, X, K, sm, buf);
+  write_record(sm, slots, rec + static_cast<size_t>(row) * slots);
 }
 
 // B2, replaces _make_multistep_kernel (pallas_sweep.py:387): K whole BE or
@@ -369,39 +489,39 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int row = blockIdx.x % Bh;
   const int h = half0 + blockIdx.x / Bh;
   const int hr = h * Bh + row;
-  const Coef kc = load_coef(coef + hr * kNCoef);
   const float s_of[1] = {s};
   init_row(sm, K, K, s_of, 1, bc, flip, rec, h, row, hr, reflective);
-
-  const bool tail_thread = threadIdx.x == blockDim.x - 1;
   const size_t base = static_cast<size_t>(hr) * N;
-  const int tile = blockDim.x * kCells;
   int buf = 0;
-  for (int t0 = 0; t0 < N; t0 += tile) {
-    const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, N);
-    float x0[kCells], x1[kCells];
-    load_cells(x0, e0g + base, j0, N);
-    load_cells(x1, e1g + base, j0, N);
-    for (int k = 0; k < K; ++k) {
-      float x1_up = 0.f;
-      if constexpr (KIND == kCN)
-        x1_up = upwind_value(x1[kCells - 1], &sm.etail[k], sm.edge_p);
-      float f0[kCells], f1[kCells];
-      substep_tile<KIND>(kc, x0, x1, x0, x1, x0, x1, x1_up, 0.f,
-                         sm.carry + k, owner, sm, buf, f0, f1);
-      if (tail_thread) sm.etail[k] = x1[kCells - 1];
-      if (k == K - 1) {
-        store_cells(op0g + base, j0, N, x0);
-        store_cells(op1g + base, j0, N, x1);
-      }
-      copy_cells(x0, f0);
-      copy_cells(x1, f1);
-    }
-    store_cells(o0g + base, j0, N, x0);
-    store_cells(o1g + base, j0, N, x1);
-  }
+  multistep_segment<KIND>(load_coef(coef + hr * kNCoef), e0g + base,
+                          e1g + base, o0g + base, o1g + base, op0g + base,
+                          op1g + base, 0, N, K, sm, buf);
   record_row(sm, K, rec, h, row, reflective);
+}
+
+// B5, replaces _make_halo_multistep_kernel (pallas_sweep.py:568): K whole
+// seeded BE or CN steps over packed rows, as halo_bdf2_kernel.
+template <int KIND>
+__global__ void __launch_bounds__(kMaxThreads)
+    halo_multistep_kernel(const float* __restrict__ coef,
+                          const float* __restrict__ seeds, float* rec,
+                          const float* __restrict__ e0g,
+                          const float* __restrict__ e1g,
+                          float* __restrict__ o0g, float* __restrict__ o1g,
+                          float* __restrict__ op0g, float* __restrict__ op1g,
+                          int X, int K, int reset_cell) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x;
+  const Coef kc = load_coef(coef + row * kNCoef);
+  const size_t base = static_cast<size_t>(row) * X;
+  int buf = 0;
+  seed_row(sm, K, K, nullptr);
+  multistep_segment<KIND>(kc, e0g + base, e1g + base, o0g + base, o1g + base,
+                          op0g + base, op1g + base, 0, reset_cell, K, sm, buf);
+  seed_row(sm, K, K, seeds + static_cast<size_t>(row) * K);
+  multistep_segment<KIND>(kc, e0g + base, e1g + base, o0g + base, o1g + base,
+                          op0g + base, op1g + base, reset_cell, X, K, sm, buf);
+  write_record(sm, K, rec + static_cast<size_t>(row) * K);
 }
 
 // B3, replaces _make_kernel (pallas_sweep.py:229): one sub-step. BE reads
@@ -560,6 +680,44 @@ int rt_sweep_substep(int kind, const float* coef, const float* bc,
           coef, bc, flip, rec, e0, e1, p0, p1, h0, h1, o0, o1, Bh, N, s,
           reflective, half0);
   });
+}
+
+// The halo kernels take packed (rows, X) planes, rows = 2*Bh with the mu<0
+// rows first, coefficients (rows, 10), seeds and rec (rows, slots), and the
+// cell reset_cell in [0, X) where the seeded chain starts.
+
+int rt_sweep_halo_bdf2(const float* cbe, const float* ccn, const float* cbdf,
+                       const float* seeds, float* rec, const float* e0,
+                       const float* e1, float* o0, float* o1, float* oh0,
+                       float* oh1, float* op0, float* op1, int rows, int X,
+                       int K, int reset_cell, int symmetric, void* stream) {
+  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
+      reset_cell < 0 || reset_cell >= X)
+    return static_cast<int>(cudaErrorInvalidValue);
+  halo_bdf2_kernel<<<rows, pick_threads(X), 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      cbe, ccn, cbdf, seeds, rec, e0, e1, o0, o1, oh0, oh1, op0, op1, rows, X,
+      K, reset_cell, symmetric);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_sweep_halo_multistep(int kind, const float* coef, const float* seeds,
+                            float* rec, const float* e0, const float* e1,
+                            float* o0, float* o1, float* op0, float* op1,
+                            int rows, int X, int K, int reset_cell,
+                            void* stream) {
+  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
+      reset_cell < 0 || reset_cell >= X || (kind != kBE && kind != kCN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = pick_threads(X);
+  if (kind == kBE)
+    halo_multistep_kernel<kBE><<<rows, threads, 0, st>>>(
+        coef, seeds, rec, e0, e1, o0, o1, op0, op1, X, K, reset_cell);
+  else
+    halo_multistep_kernel<kCN><<<rows, threads, 0, st>>>(
+        coef, seeds, rec, e0, e1, o0, o1, op0, op1, X, K, reset_cell);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,14 +1,20 @@
 """Single-pass sweep engine on hand-written CUDA kernels.
 
 Port of radiative_transfer_tpu/ops/pallas_sweep.py (PallasEngine and its
-kernel factories _make_kernel, _make_multistep_kernel and
-_make_bdf2_kernel). Three kernel wrappers carry the engine:
+kernel factories). Three kernel wrappers carry the engine:
 
 * ``substep_launch``   — one BE, CN or BDF sub-step (B3, ``_make_kernel``);
 * ``multistep_launch`` — K whole BE or CN steps (B2,
   ``_make_multistep_kernel``);
 * ``bdf2_launch``      — K whole BDF2 four-phase steps (B1,
   ``_make_bdf2_kernel``).
+
+Two more carry the packed-rows halo engine (parallel/halo_cuda.py):
+
+* ``halo_bdf2_launch``      — seeded K-step BDF2 over packed rows (B4,
+  ``_make_halo_bdf2_kernel``);
+* ``halo_multistep_launch`` — seeded K-step BE or CN (B5,
+  ``_make_halo_multistep_kernel``).
 
 Each wrapper launches its kernel in csrc/sweep.cu for a CUDA tensor and
 raises if it cannot; for a CPU tensor it runs its plain PyTorch version
@@ -20,7 +26,8 @@ wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 State layout: flat sweep-order planes (2, Bh, N) float32 (ops/fast_sweep
 module doc). Coefficients: (2, Bh, 10) float32 per sub-step kind, in the
-column order _W.._KP.
+column order _W.._KP. The halo kernels take the same arrays packed as
+(rows, X) = (2*Bh, X), the mu<0 rows first.
 """
 
 from __future__ import annotations
@@ -163,7 +170,7 @@ def _block_setup(e0: torch.Tensor, blk: int, npass_max: int):
     masks = torch.as_tensor(_scan_masks(blk)[:max(1, npass_max)],
                             device=e0.device)
     first = torch.arange(blk, device=e0.device)[None, :] < 1
-    zt = torch.zeros((e0.shape[1], 1), dtype=e0.dtype, device=e0.device)
+    zt = torch.zeros((e0.shape[-2], 1), dtype=e0.dtype, device=e0.device)
     return N // blk, masks, first, zt
 
 
@@ -174,6 +181,64 @@ def _half_inflow(carries, s_of, bc, flip, h: int, reflective: bool):
     if h == 1 and reflective:
         return [s * c[flip] for s, c in zip(s_of, carries)]
     return [s * bc[h] for s in s_of]
+
+
+def _pick(snap_cn, cn, be):
+    """The half snapshot: `cn` where `snap_cn` (a bool, or a (rows, 1)
+    mask for packed rows), else `be`."""
+    if isinstance(snap_cn, bool):
+        return cn if snap_cn else be
+    return torch.where(snap_cn, cn, be)
+
+
+def _bdf2_block(kbe, kcn, kbdf, first, masks, x0, x1, carries, etails,
+                htails, zt, K: int, snap_cn, npass_be: int, npass_cn: int,
+                npass_bdf: int):
+    """K whole BDF2 steps on one (rows, blk) block. `carries` (4K slots,
+    column 4k+p for step k phase p), `etails` and `htails` (K each) enter
+    as the previous block left them and are updated in place. Returns
+    (ends0, ends1, half0, half1, prev0, prev1), prev being the last step's
+    input."""
+    for k in range(K):
+        et, ht = etails[k], htails[k]
+        c = 4 * k
+        # Phase 0: BE(dt/2) predictor.
+        b0, b1, carries[c] = _substep_block(
+            BE, kbe, first, masks, x0, x1, x0, x1, x0, x1, carries[c], zt,
+            zt, npass_be)
+        # Phase 1: CN(dt/2) corrector -> half snapshot: the CN output for
+        # mu<0, the phase-0 BE output for mu>0 (reference quirk,
+        # solver.cpp:733 vs 784-787).
+        hc0, hc1, carries[c + 1] = _substep_block(
+            CN, kcn, first, masks, b0, b1, x0, x1, x0, x1, carries[c + 1],
+            et, zt, npass_cn)
+        hs0, hs1 = _pick(snap_cn, hc0, b0), _pick(snap_cn, hc1, b1)
+        # Phase 2: second BE(dt/2) predictor.
+        d0, d1, carries[c + 2] = _substep_block(
+            BE, kbe, first, masks, hc0, hc1, x0, x1, hs0, hs1,
+            carries[c + 2], zt, zt, npass_be)
+        # Phase 3: BDF2 corrector (prev = step input ends).
+        f0, f1, carries[c + 3] = _substep_block(
+            BDF, kbdf, first, masks, d0, d1, x0, x1, hs0, hs1,
+            carries[c + 3], et, ht, npass_bdf)
+        etails[k], htails[k] = x1[:, -1:], hs1[:, -1:]
+        p0, p1 = x0, x1
+        x0, x1 = f0, f1
+    return x0, x1, hs0, hs1, p0, p1
+
+
+def _multistep_block(kind, kc, first, masks, x0, x1, carries, etails, zt,
+                     K: int, npass: int):
+    """K whole BE or CN steps on one block, carries and tails updated in
+    place. Returns (ends0, ends1, prev0, prev1)."""
+    for k in range(K):
+        f0, f1, carries[k] = _substep_block(
+            kind, kc, first, masks, x0, x1, x0, x1, x0, x1, carries[k],
+            etails[k], zt, npass)
+        etails[k] = x1[:, -1:]
+        p0, p1 = x0, x1
+        x0, x1 = f0, f1
+    return x0, x1, p0, p1
 
 
 def bdf2_launch_ref(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int,
@@ -190,39 +255,15 @@ def bdf2_launch_ref(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int,
     for h in (0, 1):
         carries = _half_inflow(carries, s_of, bc, flip, h, reflective)
         etails, htails = [zt] * K, [zt] * K
-        kbe, kcn, kbdf = (_unpack_coef(c[h]) for c in (cbe, ccn, cbdf))
-        snap_cn = symmetric_half or h == 0
+        kcs = [_unpack_coef(c[h]) for c in (cbe, ccn, cbdf)]
         for i in range(nb):
             sl = slice(i * blk, (i + 1) * blk)
-            x0, x1 = e0[h, :, sl], e1[h, :, sl]
-            for k in range(K):
-                et, ht = etails[k], htails[k]
-                c = 4 * k
-                # Phase 0: BE(dt/2) predictor.
-                b0, b1, carries[c] = _substep_block(
-                    BE, kbe, first, masks, x0, x1, x0, x1, x0, x1,
-                    carries[c], zt, zt, npass_be)
-                # Phase 1: CN(dt/2) corrector -> half snapshot: the CN
-                # output for mu<0, the phase-0 BE output for mu>0
-                # (reference quirk, solver.cpp:733 vs 784-787).
-                hc0, hc1, carries[c + 1] = _substep_block(
-                    CN, kcn, first, masks, b0, b1, x0, x1, x0, x1,
-                    carries[c + 1], et, zt, npass_cn)
-                hs0, hs1 = (hc0, hc1) if snap_cn else (b0, b1)
-                # Phase 2: second BE(dt/2) predictor.
-                d0, d1, carries[c + 2] = _substep_block(
-                    BE, kbe, first, masks, hc0, hc1, x0, x1, hs0, hs1,
-                    carries[c + 2], zt, zt, npass_be)
-                # Phase 3: BDF2 corrector (prev = step input ends).
-                f0, f1, carries[c + 3] = _substep_block(
-                    BDF, kbdf, first, masks, d0, d1, x0, x1, hs0, hs1,
-                    carries[c + 3], et, ht, npass_bdf)
-                etails[k], htails[k] = x1[:, -1:], hs1[:, -1:]
-                if k == K - 1:
-                    outs[4][h, :, sl], outs[5][h, :, sl] = x0, x1
-                x0, x1 = f0, f1
-            outs[0][h, :, sl], outs[1][h, :, sl] = x0, x1
-            outs[2][h, :, sl], outs[3][h, :, sl] = hs0, hs1
+            x0, x1, hs0, hs1, p0, p1 = _bdf2_block(
+                *kcs, first, masks, e0[h, :, sl], e1[h, :, sl], carries,
+                etails, htails, zt, K, symmetric_half or h == 0, npass_be,
+                npass_cn, npass_bdf)
+            for o, g in zip(outs, (x0, x1, hs0, hs1, p0, p1)):
+                o[h, :, sl] = g
     return tuple(outs)
 
 
@@ -234,25 +275,81 @@ def multistep_launch_ref(kind: int, coef, bc, flip, e0, e1, *, K: int,
         raise ValueError(f"multistep kernel runs BE or CN, got {kind}")
     nb, masks, first, zt = _block_setup(e0, blk, npass)
     outs = [torch.empty_like(e0) for _ in range(4)]
-    s_of = [s] * K
     carries = None
     for h in (0, 1):
-        carries = _half_inflow(carries, s_of, bc, flip, h, reflective)
+        carries = _half_inflow(carries, [s] * K, bc, flip, h, reflective)
         etails = [zt] * K
         kc = _unpack_coef(coef[h])
         for i in range(nb):
             sl = slice(i * blk, (i + 1) * blk)
-            x0, x1 = e0[h, :, sl], e1[h, :, sl]
-            for k in range(K):
-                f0, f1, carries[k] = _substep_block(
-                    kind, kc, first, masks, x0, x1, x0, x1, x0, x1,
-                    carries[k], etails[k], zt, npass)
-                etails[k] = x1[:, -1:]
-                if k == K - 1:
-                    outs[2][h, :, sl], outs[3][h, :, sl] = x0, x1
-                x0, x1 = f0, f1
-            outs[0][h, :, sl], outs[1][h, :, sl] = x0, x1
+            got = _multistep_block(kind, kc, first, masks, e0[h, :, sl],
+                                   e1[h, :, sl], carries, etails, zt, K,
+                                   npass)
+            for o, g in zip(outs, got):
+                o[h, :, sl] = g
     return tuple(outs)
+
+
+def halo_bdf2_launch_ref(cbe, ccn, cbdf, seeds, reset: int, e0, e1, *,
+                         K: int, symmetric_half: bool, blk: int,
+                         npass_be: int, npass_cn: int, npass_bdf: int):
+    """Plain version of B4 (``_make_halo_bdf2_kernel``): K whole BDF2
+    steps over packed (rows, X) planes, mu<0 rows first, both halves in
+    each block visit. Coefficients are (rows, NCOEF). The carries and
+    upwind tails start at zero at block 0 and restart at block `reset`
+    from `seeds` (rows, 4K; column 4k+p is step k phase p, the fill
+    multiplier already folded in) with zero tails. The half snapshot
+    blends per row (CN output for the mu<0 rows, phase-0 BE for the mu>0
+    rows) unless `symmetric_half`. Returns (ends0, ends1, half0, half1,
+    prev0, prev1, record), the record (rows, 4K) holding every row's
+    carries after the last block."""
+    nb, masks, first, zt = _block_setup(
+        e0, blk, max(npass_be, npass_cn, npass_bdf))
+    rows = e0.shape[0]
+    outs = [torch.empty_like(e0) for _ in range(6)]
+    kcs = [_unpack_coef(c) for c in (cbe, ccn, cbdf)]
+    snap_cn = (True if symmetric_half else
+               torch.arange(rows, device=e0.device)[:, None] < rows // 2)
+    for i in range(nb):
+        if i == 0:
+            carries = [zt] * (4 * K)
+        if i == reset:
+            carries = [seeds[:, c:c + 1] for c in range(4 * K)]
+        if i in (0, reset):
+            etails, htails = [zt] * K, [zt] * K
+        sl = slice(i * blk, (i + 1) * blk)
+        got = _bdf2_block(*kcs, first, masks, e0[:, sl], e1[:, sl], carries,
+                          etails, htails, zt, K, snap_cn, npass_be,
+                          npass_cn, npass_bdf)
+        for o, g in zip(outs, got):
+            o[:, sl] = g
+    return (*outs, torch.cat(carries, dim=1))
+
+
+def halo_multistep_launch_ref(kind: int, coef, seeds, reset: int, e0, e1, *,
+                              K: int, blk: int, npass: int):
+    """Plain version of B5 (``_make_halo_multistep_kernel``): K whole BE or
+    CN steps over packed (rows, X) planes, seeded as in
+    ``halo_bdf2_launch_ref`` from `seeds` (rows, K). Returns (ends0,
+    ends1, prev0, prev1, record (rows, K))."""
+    if kind not in (BE, CN):
+        raise ValueError(f"halo multistep kernel runs BE or CN, got {kind}")
+    nb, masks, first, zt = _block_setup(e0, blk, npass)
+    outs = [torch.empty_like(e0) for _ in range(4)]
+    kc = _unpack_coef(coef)
+    for i in range(nb):
+        if i == 0:
+            carries = [zt] * K
+        if i == reset:
+            carries = [seeds[:, k:k + 1] for k in range(K)]
+        if i in (0, reset):
+            etails = [zt] * K
+        sl = slice(i * blk, (i + 1) * blk)
+        got = _multistep_block(kind, kc, first, masks, e0[:, sl], e1[:, sl],
+                               carries, etails, zt, K, npass)
+        for o, g in zip(outs, got):
+            o[:, sl] = g
+    return (*outs, torch.cat(carries, dim=1))
 
 
 def _substep_planes(kind: int, planes):
@@ -422,9 +519,90 @@ def substep_launch(kind: int, coef, bc, flip, planes, *, s: float,
     return o0, o1
 
 
+def _check_packed(name: str, coefs, seeds, planes, C: int, reset: int,
+                  blk: int) -> Tuple[int, int]:
+    """Validate a packed-rows kernel's inputs; returns (rows, X)."""
+    e0 = planes[0]
+    if e0.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {e0.device}")
+    if e0.dim() != 2 or e0.shape[0] < 2 or e0.shape[0] % 2:
+        raise ValueError(f"{name}: planes must be packed (2*Bh, X), got "
+                         f"{tuple(e0.shape)}")
+    rows, X = e0.shape
+    for t in planes:
+        if (t.device != e0.device or t.dtype != torch.float32
+                or t.shape != e0.shape or not t.is_contiguous()):
+            raise ValueError(f"{name}: every plane must be a contiguous "
+                             f"float32 ({rows}, {X}) tensor on {e0.device}")
+    for t, cols, what in [(c, _NCOEF, "coefficients") for c in coefs] + [
+            (seeds, C, "seeds")]:
+        if (t.device != e0.device or t.dtype != torch.float32
+                or tuple(t.shape) != (rows, cols) or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be contiguous float32 "
+                             f"({rows}, {cols}) on {e0.device}")
+    if not 0 <= reset * blk < X:
+        raise ValueError(f"{name}: reset block {reset} x {blk} cells lies "
+                         f"outside the {X} cells")
+    return rows, X
+
+
+def halo_bdf2_launch(cbe, ccn, cbdf, seeds, reset: int, e0, e1, *, K: int,
+                     symmetric_half: bool, blk: int, npass_be: int,
+                     npass_cn: int, npass_bdf: int):
+    """B4: K whole seeded BDF2 steps over packed (rows, X) planes in one
+    launch (see ``halo_bdf2_launch_ref``). The kernel restarts the chains
+    at cell reset*blk and scans exactly. Returns (ends0, ends1, half0,
+    half1, prev0, prev1, record)."""
+    if e0.device.type == "cpu":
+        return halo_bdf2_launch_ref(
+            cbe, ccn, cbdf, seeds, reset, e0, e1, K=K,
+            symmetric_half=symmetric_half, blk=blk, npass_be=npass_be,
+            npass_cn=npass_cn, npass_bdf=npass_bdf)
+    name = "halo_bdf2_launch"
+    _check_K(name, K)
+    rows, X = _check_packed(name, (cbe, ccn, cbdf), seeds, (e0, e1), 4 * K,
+                            reset, blk)
+    lib = load_kernels()
+    outs = [torch.empty_like(e0) for _ in range(6)]
+    rec = torch.empty((rows, 4 * K), dtype=torch.float32, device=e0.device)
+    with torch.cuda.device(e0.device):
+        rc = lib.rt_sweep_halo_bdf2(
+            *map(_ptr, (cbe, ccn, cbdf, seeds, rec, e0, e1, *outs)),
+            rows, X, K, reset * blk, int(symmetric_half),
+            _stream(e0.device))
+    _raise_on(name, rc)
+    halo_bdf2_launch.launches += 1
+    return (*outs, rec)
+
+
+def halo_multistep_launch(kind: int, coef, seeds, reset: int, e0, e1, *,
+                          K: int, blk: int, npass: int):
+    """B5: K whole seeded BE or CN steps over packed (rows, X) planes in
+    one launch. Returns (ends0, ends1, prev0, prev1, record)."""
+    if e0.device.type == "cpu":
+        return halo_multistep_launch_ref(kind, coef, seeds, reset, e0, e1,
+                                         K=K, blk=blk, npass=npass)
+    name = "halo_multistep_launch"
+    if kind not in (BE, CN):
+        raise ValueError(f"{name}: runs BE or CN, got kind {kind}")
+    _check_K(name, K)
+    rows, X = _check_packed(name, (coef,), seeds, (e0, e1), K, reset, blk)
+    lib = load_kernels()
+    outs = [torch.empty_like(e0) for _ in range(4)]
+    rec = torch.empty((rows, K), dtype=torch.float32, device=e0.device)
+    with torch.cuda.device(e0.device):
+        rc = lib.rt_sweep_halo_multistep(
+            kind, *map(_ptr, (coef, seeds, rec, e0, e1, *outs)),
+            rows, X, K, reset * blk, _stream(e0.device))
+    _raise_on(name, rc)
+    halo_multistep_launch.launches += 1
+    return (*outs, rec)
+
+
 def reset_launch_counts() -> None:
     """Zero every wrapper's count of kernel launches."""
-    for w in (bdf2_launch, multistep_launch, substep_launch):
+    for w in (bdf2_launch, multistep_launch, substep_launch,
+              halo_bdf2_launch, halo_multistep_launch):
         w.launches = 0
 
 
@@ -432,10 +610,44 @@ reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------
-# The engine
+# The engines
 # ---------------------------------------------------------------------------
 
-class CudaSweepEngine:
+class FlatLayout:
+    """State layout shared by the engines: FlatState planes (2, Bh, N)
+    float32 on `self.device`, converted to and from the global (M, G, N, 2)
+    edge arrays. Needs cfg, tables, device, Mh, G and Bh."""
+
+    def init_state(self) -> FlatState:
+        """psi = ends = B_g everywhere (src/solver.cpp:165-181)."""
+        Bg = np.broadcast_to(
+            np.asarray(self.tables.B, dtype=np.float64)[None, :],
+            (self.Mh, self.G)).reshape(self.Bh).astype(np.float32)
+        plane = torch.as_tensor(Bg, device=self.device)[None, :, None]
+        plane = plane.expand(2, self.Bh, self.cfg.N).contiguous()
+        return FlatState(plane, plane, plane, plane, plane, plane)
+
+    def from_ends(self, ends, prev, half) -> FlatState:
+        """Global (M, G, N, 2) arrays -> FlatState on the engine's device."""
+        def planes(x):
+            x = torch.as_tensor(x).to(device=self.device,
+                                      dtype=torch.float32)
+            return fs.from_ends(x)
+
+        (e0, e1), (p0, p1), (h0, h1) = planes(ends), planes(prev), planes(half)
+        return FlatState(e0, e1, p0, p1, h0, h1)
+
+    def ends_pair(self, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+        return fs.ends_pair(x0, x1, self.Mh, self.G)
+
+    def ends(self, st: FlatState) -> torch.Tensor:
+        return self.ends_pair(st.e0, st.e1)
+
+    def prev_half_ends(self, st: FlatState):
+        return (self.ends_pair(st.p0, st.p1), self.ends_pair(st.h0, st.h1))
+
+
+class CudaSweepEngine(FlatLayout):
     """The counterpart of PallasEngine: K-step fused sweeps over flat
     (2, Bh, N) float32 planes on `device` (CUDA kernels on a card, their
     plain versions on the CPU)."""
@@ -578,31 +790,3 @@ class CudaSweepEngine:
         if tail:
             state = self.multi_step(state, tail)
         return state
-
-    # -- layout -------------------------------------------------------------------
-
-    def init_state(self) -> FlatState:
-        """psi = ends = B_g everywhere (src/solver.cpp:165-181)."""
-        cfg = self.cfg
-        Bg = np.broadcast_to(
-            np.asarray(self.tables.B, dtype=np.float64)[None, :],
-            (self.Mh, self.G)).reshape(self.Bh).astype(np.float32)
-        plane = torch.as_tensor(Bg, device=self.device)[None, :, None]
-        plane = plane.expand(2, self.Bh, cfg.N).contiguous()
-        return FlatState(plane, plane, plane, plane, plane, plane)
-
-    def from_ends(self, ends, prev, half) -> FlatState:
-        """Global (M, G, N, 2) arrays -> FlatState on the engine's device."""
-        def planes(x):
-            x = torch.as_tensor(x).to(device=self.device,
-                                      dtype=torch.float32)
-            return fs.from_ends(x)
-
-        (e0, e1), (p0, p1), (h0, h1) = planes(ends), planes(prev), planes(half)
-        return FlatState(e0, e1, p0, p1, h0, h1)
-
-    def ends_pair(self, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
-        return fs.ends_pair(x0, x1, self.Mh, self.G)
-
-    def ends(self, st: FlatState) -> torch.Tensor:
-        return self.ends_pair(st.e0, st.e1)

@@ -101,7 +101,7 @@ def test_writers_byte_identical(tmp_path):
 @pytest.mark.parametrize("extra", [
     ["--engine", "general"],
     ["--engine", "fast"],
-    ["--engine", "pallas", "--dtype", "float32"],
+    ["--engine", "df", "--dtype", "float32"],
     ["--engine", "pallas", "--mesh", "1x2"],
     ["--engine", "pallas", "--checkpoint-dir", "ck"],
     ["--engine", "pallas", "--device", "tpu"],
