@@ -7,7 +7,8 @@ Phases, one line each; any failure exits nonzero before the result line:
 
 1. environment: torch/CUDA versions and the card's name and power limit;
 2. build: compile csrc/*.cu with nvcc for sm_90a (radiative_transfer_tpu_torch
-   /_build/) and print its seconds and the compiler's register report;
+   /_build/) and print its seconds, each nvcc command's seconds and the
+   compiler's register report;
 3. kernel parity: each CUDA kernel (B1 bdf2, B2 multistep, B3 substep) on
    seeded random states against its plain PyTorch version on the same card,
    max error over max magnitude <= 1e-5 (the kernels scan exactly, the plain
@@ -29,18 +30,29 @@ Phases, one line each; any failure exits nonzero before the result line:
    Bh = 4, N = 2^18, Courant 0.4, reflective left) for BDF2, BE and CN, 64
    steps, ends, prev and half within DRIFT_TOL; then gray_s8 through
    make_multichip_engine("auto"), which must pick HaloCudaEngine, timed as
-   in phase 5, and the same workload on CudaSweepEngine.
+   in phase 5, and the same workload on CudaSweepEngine;
+7. f64-grade path (the double-float engine, B6 and B7): the CLI with
+   --engine df on prm/single_group.prm (200 steps) and its BE and CN
+   variants, prm/multi_group_equilibrium.prm (200 steps) and
+   prm/llnl_slab_test.prm (2 steps), each within DF_CLI_TOL of its CPU run;
+   --engine auto at the default float64 must print the df line; the
+   equilibrium deck (single_group.prm with psi_source = B) must keep
+   max|F| / B < 1e-12 after 200 steps; then the bench workload and gray_s8
+   on DFCudaEngine, timed as in phase 5.
 
 Phase 3 also holds B4 and B5 against their plain versions (rows 2 and 8, a
 segment and a reset cell off the kernel's tile, reset 0 and > 0, K 1/3/8
-and 16 for BE/CN, both half modes). Every kernel wrapper's launch count is
-zeroed before phase 4 and read after phase 5, and zeroed again before phase
-6 and read after it: each kernel of a path must have launched on it (B1-B3
-on phases 4-5, B4-B5 on phase 6). Then each kernel is timed against its
-plain version at its full-size shape, beside its bound (the larger of the
-bytes it must move over 3.35 TB/s and the operations it must do over 67
-TFLOP/s f32, the H100 SXM data-sheet peaks). The last lines are the kernels
-JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
+and 16 for BE/CN, both half modes), and B6 and B7 against theirs to
+DF_TOL in hi + lo (B6 with both half modes, reflective and source left, K 1,
+3 and the engine's, on an N off the kernel's tile and on N = 100; B7 BE and
+CN with K 1, reflective and source left, and K 8). Every kernel wrapper's launch count is zeroed before a
+path's phases and read after them: each kernel of a path must have
+launched on it (B1-B3 on phases 4-5, B4-B5 on phase 6, B6-B7 on phase 7).
+Then each kernel is timed against its plain version at its full-size shape,
+beside its bound (the larger of the bytes it must move over 3.35 TB/s and
+the operations it must do over 67 TFLOP/s f32, the H100 SXM data-sheet
+peaks). The last lines are the kernels JSON, the card's name and power
+limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -63,17 +75,28 @@ TOL = 1e-5
 # Pallas kernel 2.8e-6 (measured on the CPU). The CSVs of the GPU run are
 # held to the CPU run's within 5e-5.
 DRIFT_TOL = 5e-5
-SOURCE = "radiative_transfer_tpu_torch/csrc/sweep.cu"
+# The double-float kernels against their plain versions, per launch, in
+# max|d(hi + lo)| / max|hi + lo| (float64): both land within double-float
+# roundoff of the exact sub-step whatever scan the base solve ran. The
+# CLI's CSVs on the card against its CPU run: 1e-10 (trajectories of the
+# f64-grade engine drift ~1e-13 a step from float64).
+DF_TOL = 1e-11
+DF_CLI_TOL = 1e-10
+SWEEP_CU = "radiative_transfer_tpu_torch/csrc/sweep.cu"
+DF_CU = "radiative_transfer_tpu_torch/csrc/df_sweep.cu"
 REPLACES = {
     "bdf2_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:444",
     "multistep_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:387",
     "substep_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:229",
     "halo_bdf2_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:638",
     "halo_multistep_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:568",
+    "df_bdf2_launch": "radiative_transfer_tpu/ops/df_sweep.py:372",
+    "df_multistep_launch": "radiative_transfer_tpu/ops/df_sweep.py:475",
 }
 # The kernels each path must launch.
 PATH_PLAIN = ("bdf2_launch", "multistep_launch", "substep_launch")
 PATH_AUTO = ("halo_bdf2_launch", "halo_multistep_launch")
+PATH_DF = ("df_bdf2_launch", "df_multistep_launch")
 # Peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 # f32 operations per cell of one sub-step, counted from substep_tile in
@@ -83,6 +106,23 @@ PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 FLOPS_PER_CELL = {"BE": 25, "CN": 31, "BDF": 43}
 BDF2_STEP_FLOPS = 2 * FLOPS_PER_CELL["BE"] + FLOPS_PER_CELL["CN"] + \
     FLOPS_PER_CELL["BDF"]
+# f32 operations per cell of one double-float sub-step, counted from
+# df_substep in csrc/df_sweep.cu (two_sum 6, split 1 and an integer mask,
+# prod_err 8, a captured product 12 and 14 with a lo part): the right-hand
+# side's captures and two_sum cascades (BE 44, CN 110, BDF 226), the base
+# solve 16, the residual 104, the correction solve 16, the renormalisation
+# 12; the correction source adds 32 where use_correction is set. The scan
+# work (a^n products, shuffles) and the integer masks are not counted.
+DF_FLOPS_PER_CELL = {"BE": 192, "CN": 258, "BDF": 374}
+DF_CORR_FLOPS = 32
+
+
+def df_step_flops(ts_method: int, use_corr: bool) -> int:
+    """Operations per cell of one double-float timestep."""
+    phases = (("BE", "CN", "BE", "BDF") if ts_method == 3 else
+              ("BE",) if ts_method == 1 else ("CN",))
+    return sum(DF_FLOPS_PER_CELL[p] + DF_CORR_FLOPS * use_corr
+               for p in phases)
 
 
 def card_line() -> str:
@@ -101,8 +141,8 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(
-                r"((?:halo_)?(?:bdf2|multistep|substep))_kernel(?:ILi(\d)E)?",
-                m.group(1))
+                r"((?:halo_|df_)?(?:bdf2|multistep|substep))_kernel"
+                r"(?:ILi(\d)E)?", m.group(1))
             name = (f"{k.group(1)}_kernel"
                     + (f"<{k.group(2)}>" if k.group(2) else "")
                     if k else m.group(1))
@@ -115,10 +155,32 @@ def ptxas_report(log: str):
     return out
 
 
+def build_times(log: str):
+    """'<source or link>: <seconds> s' for each compiler command of the
+    build log (each command's line is followed by '# <seconds> s')."""
+    out, what = [], "?"
+    for line in log.splitlines():
+        m = re.match(r"# ([\d.]+) s$", line)
+        if m:
+            out.append(f"{what} {m.group(1)} s")
+        elif "nvcc" in line.split(" ", 1)[0]:
+            what = ("link" if "-shared" in line.split()
+                    else os.path.basename(line.split()[-1]))
+    return out
+
+
 def nerr(got, ref) -> float:
     """max|got - ref| / max|ref|, in float64."""
     got, ref = got.double(), ref.double()
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+def df_err(got, ref) -> float:
+    """nerr of hi + lo summed in float64, worst over the (hi, lo) plane
+    pairs of two double-float launches' outputs."""
+    return max(nerr(got[i].double() + got[i + 1].double(),
+                    ref[i].double() + ref[i + 1].double())
+               for i in range(0, len(ref), 2))
 
 
 def bound(nbytes: float, flops: float):
@@ -146,6 +208,7 @@ def main() -> int:
     from radiative_transfer_tpu_torch.config.config import Config
     from radiative_transfer_tpu_torch.models import transport
     from radiative_transfer_tpu_torch.ops import _cuda_build
+    from radiative_transfer_tpu_torch.ops import cuda_df as cd
     from radiative_transfer_tpu_torch.ops import cuda_sweep as cs
     from radiative_transfer_tpu_torch.ops.fast_sweep import (BDF, BE, CN,
                                                              FlatState)
@@ -165,7 +228,8 @@ def main() -> int:
     _cuda_build.load()
     build_s = time.perf_counter() - t0
     log = (lib_path.parent / "build.log").read_text()
-    print(f"phase 2 build: {build_s:.1f} s; ptxas: "
+    print(f"phase 2 build: {build_s:.1f} s ("
+          + ", ".join(build_times(log)) + "); ptxas: "
           + "; ".join(ptxas_report(log)), flush=True)
 
     def engine(cfg, **kw):
@@ -208,6 +272,39 @@ def main() -> int:
             substep_planes(kind, st), s=eng.kcs[kind].s,
             reflective=eng.reflective, blk=eng.block,
             npass=eng.scan_npass[kind])
+
+    def df_engine(cfg, **kw):
+        tables, _, _ = transport.build_tables(cfg)
+        return cd.DFCudaEngine(cfg, tables, device=dev, **kw)
+
+    def df_rand(eng, seed):
+        """(e0 hi, e0 lo, e1 hi, e1 lo): hi planes around the engine's
+        initial state, lo parts within half an ulp of them."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        base = eng.init_state().hi.e0
+        his = [(base * (0.5 + torch.rand(base.shape, generator=g,
+                                         device=dev))).contiguous()
+               for _ in range(2)]
+        los = [(h * (torch.rand(h.shape, generator=g, device=dev) - 0.5)
+                * 2.0 ** -24).contiguous() for h in his]
+        return his[0], los[0], his[1], los[1]
+
+    def df_launch(eng, ins, K, plain=False):
+        """One B6 or B7 launch of the engine's kind, or its plain version."""
+        kw = dict(K=K, reflective=eng.reflective,
+                  use_corr=bool(eng.cfg.use_correction), blk=eng.block)
+        if eng.cfg.ts_method == 3:
+            fn = cd.df_bdf2_launch_ref if plain else cd.df_bdf2_launch
+            return fn(*(eng.coef[k] for k in (BE, CN, BDF)),
+                      *(eng.dcoef[k] for k in (BE, CN, BDF)), eng.bc,
+                      eng.bcl, eng.flip, *ins,
+                      symmetric_half=eng.cfg.bdf2_symmetric_half,
+                      npass=eng.scan_npass, npass_c=eng.corr_npass, **kw)
+        kind = eng.cfg.ts_method
+        fn = cd.df_multistep_launch_ref if plain else cd.df_multistep_launch
+        return fn(kind, eng.coef[kind], eng.dcoef[kind], eng.bc, eng.bcl,
+                  eng.flip, *ins, npass=eng.scan_npass[kind],
+                  npass_c=eng.corr_npass[kind], **kw)
 
     # -- 3. kernel parity --------------------------------------------------------
     deck = os.path.join(ROOT, "prm", "multi_group_equilibrium.prm")
@@ -293,6 +390,40 @@ def main() -> int:
                           f"B5-{label}-rows{rows}-r{reset}-K{K}",
                           cs.halo_multistep_launch(*args, **kw),
                           cs.halo_multistep_launch_ref(*args, **kw))
+
+    # B6/B7, compared in hi + lo. N = 12800 is 6 full 2048-cell df tiles and
+    # a ragged 512 (plain versions: 25 blocks of 512); N = 100 is one ragged
+    # tile (plain: one whole-N block).
+    def dmg(ts_method, reflective, symmetric=False, N=12800):
+        return df_engine(load_config(
+            deck, M=8, G=4, N=N, ts_method=ts_method,
+            bc_left_indicator=2 if reflective else 1,
+            bdf2_symmetric_half=symmetric))
+
+    def df_check(name, label, got, ref):
+        err = df_err(got, ref)
+        checks.append(f"{label}={err:.1e}")
+        if not err <= DF_TOL:
+            raise AssertionError(f"{name} {label}: hi+lo normalised error "
+                                 f"{err:.3e} > {DF_TOL}")
+
+    b6_cases = [(dmg(3, True), 1, "refl-asym"), (dmg(3, True), 3, "refl-asym"),
+                (dmg(3, False, symmetric=True), 3, "src-sym"),
+                (dmg(3, True, symmetric=True), None, "refl-sym"),
+                (dmg(3, False), None, "src-asym"),
+                (dmg(3, True, N=100), 2, "refl-asym-N100")]
+    for e, K, label in b6_cases:
+        K = K or e.max_steps_per_launch()
+        ins = df_rand(e, 40 + K)
+        df_check("df_bdf2_launch", f"B6-K{K}-{label}", df_launch(e, ins, K),
+                 df_launch(e, ins, K, plain=True))
+    for ts_method, label in ((1, "BE"), (2, "CN")):
+        for K, refl in ((1, True), (1, False), (8, False)):
+            e = dmg(ts_method, refl)
+            ins = df_rand(e, 50 + K)
+            df_check("df_multistep_launch",
+                     f"B7-{label}-K{K}-{'refl' if refl else 'src'}",
+                     df_launch(e, ins, K), df_launch(e, ins, K, plain=True))
     torch.cuda.synchronize()
     print(f"phase 3 kernel parity: ok, max normalised error "
           + ", ".join(checks), flush=True)
@@ -313,9 +444,9 @@ def main() -> int:
                                + buf.getvalue()[-3000:])
         return outdir, buf.getvalue().splitlines()
 
-    def cli_vs_cpu(tmp, deck_path, steps, tag, engine_args):
+    def cli_vs_cpu(tmp, deck_path, steps, tag, engine_args, tol=DRIFT_TOL):
         """The CLI on the card against its CPU run: 8 finite CSVs within
-        DRIFT_TOL. Returns (summary, the card run's stdout lines)."""
+        `tol`. Returns (summary, the card run's stdout lines)."""
         gpu_dir, out = run_cli(tmp, deck_path, steps, "cuda", tag,
                                engine_args)
         cpu_dir, _ = run_cli(tmp, deck_path, steps, "cpu", tag, engine_args)
@@ -331,42 +462,45 @@ def main() -> int:
             scale = np.abs(phi).max() if name == "F" else np.abs(ref).max()
             err = float(np.abs(got - ref).max() / max(scale, 1e-300))
             worst_csv = max(worst_csv, err)
-            if not err <= DRIFT_TOL:
+            if not err <= tol:
                 raise AssertionError(f"{tag} {name}.csv: GPU vs CPU "
-                                     f"normalised error {err:.3e} > "
-                                     f"{DRIFT_TOL}")
+                                     f"normalised error {err:.3e} > {tol}")
         profile = [ln for ln in out if ln.startswith("wall:")]
         return (f"{tag} {steps} steps 8 CSVs finite, vs CPU "
                 f"{worst_csv:.1e} [{profile[0] if profile else ''}]"), out
 
     def read_counts(path, label):
-        counts = {name: getattr(cs, name).launches for name in path}
+        counts = {name: getattr(cd if name in PATH_DF else cs, name).launches
+                  for name in path}
         missing = [name for name, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels not launched on {label}: "
                                  f"{missing} ({counts})")
         return counts
 
+    gray_deck = os.path.join(ROOT, "prm", "single_group.prm")
+    llnl_deck = os.path.join(ROOT, "prm", "llnl_slab_test.prm")
+
+    def variant(tmp, ts_method):
+        """single_group.prm with ts_method (BE 1, CN 2), written to tmp."""
+        text = open(gray_deck).read()
+        if "ts_method=3" not in text:
+            raise RuntimeError("single_group.prm no longer says ts_method=3")
+        path = os.path.join(tmp, f"single_group_ts{ts_method}.prm")
+        with open(path, "w") as fh:
+            fh.write(text.replace("ts_method=3", f"ts_method={ts_method}"))
+        return path
+
     pallas = ["--engine", "pallas"]
     cs.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-
-        def variant(ts_method):
-            text = open(os.path.join(ROOT, "prm", "single_group.prm")).read()
-            if "ts_method=3" not in text:
-                raise RuntimeError("single_group.prm no longer says ts_method=3")
-            path = os.path.join(tmp, f"single_group_ts{ts_method}.prm")
-            with open(path, "w") as fh:
-                fh.write(text.replace("ts_method=3", f"ts_method={ts_method}"))
-            return path
-
-        runs = [(os.path.join(ROOT, "prm", "llnl_slab_test.prm"), 2, "llnl"),
-                (os.path.join(ROOT, "prm", "single_group.prm"), 200, "gray"),
-                (variant(1), 200, "gray-BE"), (variant(2), 200, "gray-CN")]
+        runs = [(llnl_deck, 2, "llnl"), (gray_deck, 200, "gray"),
+                (variant(tmp, 1), 200, "gray-BE"),
+                (variant(tmp, 2), 200, "gray-CN")]
         summary = [cli_vs_cpu(tmp, deck_path, steps, tag, pallas)[0]
                    for deck_path, steps, tag in runs]
         for ts_method in (1, 2):
-            e = engine(load_config(variant(ts_method)))
+            e = engine(load_config(variant(tmp, ts_method)))
             st = e.init_state()
             for _ in range(5):
                 st = e.step(st)
@@ -404,7 +538,8 @@ def main() -> int:
             stop.record()
             torch.cuda.synchronize()
             windows.append(start.elapsed_time(stop) / 1e3)
-        for plane in st:
+        planes = [p for x in st for p in (x if isinstance(x, tuple) else (x,))]
+        for plane in planes:
             m = float(plane.abs().max())
             if not np.isfinite(m) or m > 1e3:
                 raise AssertionError(f"full-size state diverged (max|x|={m})")
@@ -530,6 +665,64 @@ def main() -> int:
           f"{ups / p_seconds:.6g} updates/s, peak {p_peak:.3f} GiB; halo/plain "
           f"{p_seconds / h_seconds:.3f}x; card: {card}", flush=True)
 
+    # -- 7. f64-grade path -----------------------------------------------------
+    cd.reset_launch_counts()
+    df_args = ["--engine", "df"]
+    auto_line = "auto engine: df (single chip, double-float kernel)"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        runs = [(gray_deck, 200, "gray"), (variant(tmp, 1), 200, "gray-BE"),
+                (variant(tmp, 2), 200, "gray-CN"),
+                (deck, 200, "mg-equilibrium"),
+                (llnl_deck, 2, "llnl")]
+        df_summary = [cli_vs_cpu(tmp, deck_path, steps, f"df-{tag}", df_args,
+                                 DF_CLI_TOL)[0]
+                      for deck_path, steps, tag in runs]
+        before = cd.df_bdf2_launch.launches
+        auto_summary, out = cli_vs_cpu(tmp, gray_deck, 200, "df-auto", [
+            "--engine", "auto"], DF_CLI_TOL)
+    if auto_line not in out or cd.df_bdf2_launch.launches == before:
+        raise AssertionError("cli --engine auto at float64 did not run the df "
+                             "engine: " + "; ".join(out[:4]))
+
+    # Equilibrium: the boundary source equal to the Planck value B keeps the
+    # slab at rest; the net flux F stays at double-float roundoff.
+    tables0, _, _ = transport.build_tables(load_config(gray_deck))
+    Bv = float(tables0.B[0])
+    eq_cfg = load_config(gray_deck, psi_source=((Bv,), (Bv,)))
+    eq = df_engine(eq_cfg)
+    eq_res = transport.result_from_ends(eq_cfg, eq.tables,
+                                        eq.ends(eq.solve(num_steps=200)))
+    f_over_b = float(eq_res.F.abs().max()) / Bv
+    if not f_over_b < 1e-12:
+        raise AssertionError(f"df equilibrium: max|F|/B = {f_over_b:.3e} "
+                             ">= 1e-12 after 200 steps")
+
+    def df_timed(cfg):
+        """The engine and its 64-step windows, as in phase 5."""
+        eng = df_engine(cfg)
+        Kx = eng.max_steps_per_launch()
+        pk = peak_from()
+        secs, wins, _ = windows_of(
+            lambda s, n: eng.solve(s, num_steps=n, steps_per_launch=Kx),
+            eng.init_state(), 2 * Kx)
+        return eng, Kx, secs, wins, pk()
+
+    dbig, Kd, d_seconds, d_windows, d_peak = df_timed(gray_cfg(M, N, 3))
+    d_rate = 4 * M * N * steps / d_seconds
+    _, Kd8, d8_seconds, d8_windows, d8_peak = df_timed(gray_cfg(Ms, Ns, 3))
+    launches.update(read_counts(PATH_DF, "the f64-grade path (phase 7)"))
+    print(f"phase 7 f64-grade path: ok; {'; '.join(df_summary)}; "
+          f"{auto_summary} (prints '{auto_line}'); equilibrium max|F|/B "
+          f"{f_over_b:.3e} after 200 steps; bench (gray S_32, N=2^20, BDF2) "
+          f"on DFCudaEngine K={Kd} block {dbig.block}: {steps} steps in "
+          f"{d_seconds:.4f} s (median of {fmt_windows(d_windows)}) = "
+          f"{d_rate:.6g} updates/s, peak device memory {d_peak:.3f} GiB "
+          f"above the run's start; f32/df cost ratio "
+          f"{d_seconds / seconds:.3f} (phase 5: {rate:.6g}); gray_s8 BDF2 "
+          f"on DFCudaEngine K={Kd8}: 64 steps in {d8_seconds:.4f} s (median "
+          f"of {fmt_windows(d8_windows)}) = {ups / d8_seconds:.6g} "
+          f"updates/s, peak {d8_peak:.3f} GiB; card: {card}", flush=True)
+
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the
     # kernel only passes between its own launches is not counted; the halo
@@ -565,39 +758,72 @@ def main() -> int:
                  npass_bdf=halo.scan_npass[BDF])
     Xh = xb[0].shape[1]
 
+    # B6 at the df bench shape (the engine's K), B7 CN at the same shape:
+    # 4 planes in, 12 (B6) or 8 (B7) out, on random double-float states.
+    dcn = df_engine(gray_cfg(M, N, 2))
+    Kdc = dcn.max_steps_per_launch()
+    rd, rdc = df_rand(dbig, 96), df_rand(dcn, 95)
+    use_corr = bool(dbig.cfg.use_correction)
+
+    def df_consts(eng):
+        return nbytes(*eng.coef.values(), *eng.dcoef.values(), eng.bc,
+                      eng.bcl, eng.flip)
+
+    def abs_err(got, ref):
+        return max(float((g.double() - r.double()).abs().max())
+                   for g, r in zip(got, ref))
+
+    def df_abs_err(got, ref):
+        return max(float(((got[i].double() + got[i + 1].double())
+                          - (ref[i].double() + ref[i + 1].double()))
+                         .abs().max()) for i in range(0, len(ref), 2))
+
+    def f32_err(got, ref):
+        return max(nerr(g, r) for g, r in zip(got, ref))
+
+    f32 = (abs_err, f32_err, TOL, SWEEP_CU)
+    dfk = (df_abs_err, df_err, DF_TOL, DF_CU)
     jobs = [
         ("bdf2_launch", lambda: big.multi_step(rs, K),
          lambda: bdf2_plain(big, rs, K), 20,
-         8 * planes + nbytes(*consts), cells * K * BDF2_STEP_FLOPS),
+         8 * planes + nbytes(*consts), cells * K * BDF2_STEP_FLOPS, f32),
         ("multistep_launch", lambda: cn_eng.multi_step(rcn, Kcn)[:4],
          lambda: multistep_plain(cn_eng, rcn, Kcn), 10,
          6 * planes + nbytes(cn_eng.coef[CN], big.bc, big.flip),
-         cells * Kcn * FLOPS_PER_CELL["CN"]),
+         cells * Kcn * FLOPS_PER_CELL["CN"], f32),
         ("substep_launch", lambda: big.substep(BDF, rs),
          lambda: substep_plain(big, BDF, rs), 50,
          8 * planes + nbytes(big.coef[BDF], big.bc, big.flip),
-         cells * FLOPS_PER_CELL["BDF"]),
+         cells * FLOPS_PER_CELL["BDF"], f32),
         ("halo_bdf2_launch", lambda: cs.halo_bdf2_launch(*b4_args, **b4_kw),
          lambda: cs.halo_bdf2_launch_ref(*b4_args, **b4_kw), 20,
          8 * nbytes(xb[0]) + nbytes(*b4_args[:3]) + 2 * nbytes(main_seeds),
-         rows8 * Xh * Kh * BDF2_STEP_FLOPS),
+         rows8 * Xh * Kh * BDF2_STEP_FLOPS, f32),
         ("halo_multistep_launch",
          lambda: cs.halo_multistep_launch(*b5_args, **b5_kw),
          lambda: cs.halo_multistep_launch_ref(*b5_args, **b5_kw), 20,
          6 * nbytes(xc[0]) + nbytes(halo_cn.coef[CN]) + 2 * nbytes(s5),
-         halo_cn.rows * xc[0].shape[1] * Kc5 * FLOPS_PER_CELL["CN"]),
+         halo_cn.rows * xc[0].shape[1] * Kc5 * FLOPS_PER_CELL["CN"], f32),
+        ("df_bdf2_launch", lambda: df_launch(dbig, rd, Kd),
+         lambda: df_launch(dbig, rd, Kd, plain=True), 5,
+         16 * planes + df_consts(dbig),
+         cells * Kd * df_step_flops(3, use_corr), dfk),
+        ("df_multistep_launch", lambda: df_launch(dcn, rdc, Kdc),
+         lambda: df_launch(dcn, rdc, Kdc, plain=True), 5,
+         12 * planes + df_consts(dcn),
+         cells * Kdc * df_step_flops(2, use_corr), dfk),
     ]
-    for name, kernel_fn, plain_fn, reps, nb, flops in jobs:
+    for name, kernel_fn, plain_fn, reps, nb, flops, kind in jobs:
+        abs_fn, norm_fn, tol, source = kind
         ms, got = timed(kernel_fn, reps)
         pms, ref = timed(plain_fn, 1)
-        err = max(float((g.double() - r.double()).abs().max())
-                  for g, r in zip(got, ref))
-        norm = max(nerr(g, r) for g, r in zip(got, ref))
-        if not norm <= TOL:
+        err = abs_fn(got, ref)
+        norm = norm_fn(got, ref)
+        if not norm <= tol:
             raise AssertionError(f"{name} full size: normalised error "
-                                 f"{norm:.3e} > {TOL}")
+                                 f"{norm:.3e} > {tol}")
         bound_ms, bound_by = bound(nb, flops)
-        table.append({"name": name, "route": "cuda", "source": SOURCE,
+        table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": REPLACES[name],
                       "launches": launches[name], "max_abs_err": err,
                       "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,

@@ -1,13 +1,13 @@
 """Command-line driver: deck in, CSVs out.
 
-Port of radiative_transfer_tpu/cli.py on its single-device f32 engine
+Port of radiative_transfer_tpu/cli.py on its single-device kernel engine
 paths (reference: src/main.cc:60-136): read a .prm deck, run it on the
 CUDA sweep kernels, print the per-group balance diagnostic and write the 8
 CSVs the reference plot scripts consume.
 
 Usage:
     python -m radiative_transfer_tpu_torch.cli DECK --outdir D
-        --engine pallas|halo|auto [--dtype float64|float32] [--steps n]
+        --engine pallas|halo|df|auto [--dtype float64|float32] [--steps n]
         [--scan-tol x] [--profile] [--device cuda|cpu]
 
 Engines:
@@ -16,18 +16,28 @@ Engines:
 * ``halo``: HaloCudaEngine, the packed-rows halo engine at one device
   (B4-B5; the JAX CLI's ``--engine halo`` with its implied ``--mesh 1x1``);
   exits 2 with guidance where its creep bound rejects the workload;
-* ``auto``: with ``--dtype float32``, parallel.make_multichip_engine's
-  pick (the halo engine at tiny batches, Bh < 8, where feasible, else
-  CudaSweepEngine), printed as ``auto engine: <Engine> (single chip)``.
-  At float64 (the default, as in JAX) it would need the double-float
-  engine, which is not ported yet: exit 2.
+* ``df``: DFCudaEngine, the f64-grade double-float sweep (B6-B7), at
+  either ``--dtype`` (its tables are float64 whatever the dtype; at
+  float32 it says so, as the JAX CLI does);
+* ``auto``: at float64 (the default, as in JAX) the double-float engine,
+  printed as ``auto engine: df (single chip, double-float kernel)``; at
+  ``--dtype float32`` parallel.make_multichip_engine's pick (the halo
+  engine at tiny batches, Bh < 8, where feasible, else CudaSweepEngine),
+  printed as ``auto engine: <Engine> (single chip)``.
+
+Two routings differ from the JAX CLI's on purpose: auto at float64 stays
+on DFCudaEngine at tiny batches, where JAX tries its packed-rows df halo
+(kernels B14-B15, not ported; the same cells, bit for bit), and for an N
+with no TPU-friendly block, where JAX falls back to its XLA engine (the
+CUDA kernels tile any N).
 
 ``pallas`` and ``halo`` are float32 engines; at ``--dtype float64`` they
 print a note and run in float32, as the JAX CLI does. ``--device cuda``
 (the default) runs the CUDA kernels and fails with exit code 2 when there
 is no CUDA device; ``--device cpu`` runs the kernels' plain PyTorch
-versions. Every other engine and flag of the JAX package's CLI is refused
-with exit code 2: it is not ported yet.
+versions. Every other engine (``general``, ROADMAP A2; ``fast``, A7) and
+flag of the JAX package's CLI is refused with exit code 2: it is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -60,13 +70,14 @@ def main(argv=None) -> int:
     ap.add_argument("--engine", default="general",
                     help="pallas: the fused f32 sweep on the CUDA kernels; "
                          "halo: the packed-rows halo engine at one device; "
-                         "auto (with --dtype float32): the shape-aware pick "
-                         "of the two (the JAX package's default, general, "
-                         "is not ported yet)")
+                         "df: the f64-grade double-float sweep; auto: df at "
+                         "float64, else the shape-aware pick of pallas and "
+                         "halo (the JAX package's default, general, is not "
+                         "ported yet)")
     ap.add_argument("--dtype", choices=("float64", "float32"),
                     default="float64",
                     help="float32 for the f32 engines; float64 (default) "
-                         "needs the double-float engine, not ported yet")
+                         "picks the double-float engine under auto")
     ap.add_argument("--scan-tol", type=float, default=1e-10,
                     help="accuracy bound of the plain versions' truncated "
                          "prefix scan (neglected upwind tail a^(2^k)/(1-a) "
@@ -80,16 +91,14 @@ def main(argv=None) -> int:
 
     if extra:
         print(f"not ported yet: {' '.join(extra)} (this CLI takes --outdir, "
-              "--steps, --engine pallas|halo|auto, --dtype, --scan-tol, "
+              "--steps, --engine pallas|halo|df|auto, --dtype, --scan-tol, "
               "--profile, --device)", file=sys.stderr)
         return 2
-    if args.engine not in ("pallas", "halo", "auto"):
-        print(f"--engine {args.engine} is not ported yet; use --engine "
-              "pallas, halo or auto", file=sys.stderr)
-        return 2
-    if args.engine == "auto" and args.dtype != "float32":
-        print("--engine auto at float64: df engine not ported yet "
-              "(ROADMAP A6); use --dtype float32", file=sys.stderr)
+    if args.engine not in ("pallas", "halo", "df", "auto"):
+        item = {"general": " (ROADMAP A2)", "fast": " (ROADMAP A7)"}
+        print(f"--engine {args.engine} is not ported yet"
+              f"{item.get(args.engine, '')}; use --engine pallas, halo, df "
+              "or auto", file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (--device cpu "
@@ -117,19 +126,26 @@ def main(argv=None) -> int:
         return 1
 
     t0 = time.perf_counter()
-    if args.engine != "auto" and args.dtype != "float32":
-        print(f"note: the {args.engine} engine is float32-only")
+    engine = args.engine
+    if engine == "auto" and args.dtype == "float64":
+        engine = "df"
+        print("auto engine: df (single chip, double-float kernel)")
+    elif engine == "df" and args.dtype != "float64":
+        print("note: --engine df is f64-grade; building its tables at "
+              "float64 despite --dtype float32")
+    elif engine in ("pallas", "halo") and args.dtype != "float32":
+        print(f"note: the {engine} engine is float32-only")
     try:
         # pallas is the plain CudaSweepEngine, the selection's "single".
         eng = make_multichip_engine(
             cfg, tables, None,
-            engine="single" if args.engine == "pallas" else args.engine,
+            engine="single" if engine == "pallas" else engine,
             scan_tol=args.scan_tol, device=args.device)
     except ValueError as e:
         print(f"--engine {args.engine} infeasible for this workload: "
               f"{e}\nfall back to --engine pallas", file=sys.stderr)
         return 2
-    if args.engine == "auto":
+    if engine == "auto":
         print(f"auto engine: {type(eng).__name__} (single chip)")
     ends = eng.ends(eng.solve())
     if eng.device.type == "cuda":

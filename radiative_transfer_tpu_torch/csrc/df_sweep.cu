@@ -1,0 +1,630 @@
+// Hand-written Hopper (sm_90a) double-float kernels for the f64-grade sweep.
+//
+// Replaces the Pallas TPU kernel factories of
+// radiative_transfer_tpu/ops/df_sweep.py:
+//   rt_df_bdf2      <- _make_df_bdf2_kernel      (K whole double-float BDF2
+//                                                 steps a launch; B6)
+//   rt_df_multistep <- _make_df_multistep_kernel (K whole double-float BE
+//                                                 or CN steps; B7)
+// Both run on one __device__ sub-step routine, df_substep (the counterpart
+// of _df_substep), and the row-tile machinery of tiles.cuh (block-wide scan,
+// upwind exchange, cell loads and stores).
+//
+// What is computed. A value is an unevaluated sum hi + lo of two float32
+// numbers; the planes come in (hi, lo) pairs. Each sub-step of each row is
+// iterative refinement in four stages (ops/cuda_df.py module doc):
+//   1. capture the exact double-float right-hand side (r, r_err) from the
+//      state planes and the double-float coefficients;
+//   2. BASE: csrc/sweep.cu's float32 solve (b-build, the scan of
+//      carry_j = a*carry_{j-1} + b_j, 2x2 reconstruct) into o0, o1;
+//   3. RESIDUAL: rho = r_true - A*(o0, o1), from the base OUTPUTS alone,
+//      with error-free products and two_sum cascades;
+//   4. CORRECT: a second float32 scan solve of A*delta = rho, with its own
+//      carry, and out = two_sum(o, delta).
+// The kernels compute what the TPU kernels compute: float32 planes,
+// error-free transforms and two float32 scans. No double is used.
+//
+// Design.
+// * One thread block owns one row and walks N in tiles of blockDim*kCells
+//   cells, all K steps (times 4 phases for BDF2) per tile, as csrc/sweep.cu
+//   does. Shared memory carries, per (step, phase) slot, the base carry, the
+//   correction carry and the upwind base o1 edge (the residual's coupling to
+//   the upwind tile), plus the inflow's lo part for the first tile; per
+//   step, the upwind (hi, lo) edges of the p1 and h1 history planes. Each is
+//   read only where a barrier separates the read from the write it needs
+//   and from the next tile's overwrite.
+// * At the row start every slot holds the true double-float inflow: the
+//   boundary value, or for the mu>0 half of a reflective slab the flipped
+//   mu<0 CORRECTED outflow two_sum(base o1 edge, correction carry) of the
+//   same slot, which the mu<0 launch records as a (hi, lo) pair per slot.
+//   The history fills of the first cell (CN's and BDF's shifted p1 and h1)
+//   are that inflow; the base carry starts at its hi part and any
+//   difference lands in the residual.
+// * FMA contraction. nvcc contracts a*b + c into an FMA by default, which
+//   would corrupt every error-free transform that consumes a product. The
+//   capture, the residual, the last product of the correction solve and
+//   every two_sum are written with __fmul_rn/__fadd_rn/__fsub_rn, which nvcc
+//   never contracts, and the split is an integer mask. The base solve and
+//   the correction scan may contract freely: the residual is computed from
+//   the base outputs, so it is exact for whatever they are.
+// * The scans are exact over each tile (the plain versions truncate to
+//   npass/npass_c Hillis-Steele passes). The residual absorbs the
+//   difference, so kernel and plain version agree to double-float
+//   precision, not bit for bit.
+// * Cells past N in the last (ragged) tile load as 0 and are never stored;
+//   they lie downstream of every real cell.
+// * Registers: each thread holds kCells = 4 cells (sweep.cu holds 8): the
+//   (hi, lo) planes of the state, the half snapshot, a phase's input and
+//   output, and the right-hand side with its error terms are live at once.
+//   The coefficients (30 floats a kind) live in shared memory.
+//
+// What bounds it on this card: the arithmetic of each row's serial tile
+// walk on its one SM. A BDF2 cell-step is ~1016 float32 operations here
+// against the float32 kernel's 124 (capture, residual, second scan; counted
+// in chip_smoke.py), most of them __f*_rn that cannot fuse, and 2*Bh blocks
+// exist (Bh at a time for a reflective boundary). On an H100 at the bench
+// shape a 2048-cell tile-phase took ~4.1 us; its ~254 operations a cell
+// need ~2.1 us of the SM's 128 float32 lanes at 1.98 GHz, and the rest is
+// barriers and latency. Device-memory traffic is 4 planes read and 12 (B6)
+// or 8 (B7) written per K-step launch.
+
+#include <cuda_runtime.h>
+
+#include "tiles.cuh"
+
+namespace {
+
+constexpr int kBE = 1, kCN = 2, kBDF = 3;
+constexpr int kNCoef = 10;         // f32 pack: w T0 q idet a Sb c1 c0 kee kp
+constexpr int kNDF = 20;           // df pack: (lo, hh, hl) x 6, S0h, S0l
+constexpr int kCells = 4;          // consecutive cells per thread
+constexpr int kMaxThreads = 512;
+constexpr int kMaxSlots = 256;     // 4*K phase slots, K <= 64
+constexpr int kMaxSteps = kMaxSlots / 4;
+
+// Rounded float32 operations that nvcc never contracts into an FMA.
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+
+// Knuth two-sum: s + e == a + b exactly.
+__device__ __forceinline__ void two_sum(float a, float b, float& s,
+                                        float& e) {
+  s = add(a, b);
+  const float bb = sub(s, a);
+  e = add(sub(a, sub(s, bb)), sub(b, bb));
+}
+
+// Bitmask split: x == h + l exactly, h the top 12 significant bits.
+__device__ __forceinline__ void split(float x, float& h, float& l) {
+  h = __int_as_float(__float_as_int(x) & -4096);
+  l = sub(x, h);
+}
+
+// A double-float constant hi + lo with hi == hh + hl (host Veltkamp split).
+struct DFConst {
+  float hi, lo, hh, hl;
+};
+
+// x*y == p + prod_err for p = fl(x*y), given the splits of x and y.
+__device__ __forceinline__ float prod_err(float p, float xh, float xl,
+                                          float yh, float yl) {
+  return add(add(add(sub(mul(xh, yh), p), mul(xh, yl)), mul(xl, yh)),
+             mul(xl, yl));
+}
+
+// Captured product (_cap): p = fl(c.hi*v) and e with p + e ~= c*v to
+// ~2^-48 relative; the second form adds v's lo part.
+__device__ __forceinline__ void cap(const DFConst& c, float v, float& p,
+                                    float& e) {
+  float vh, vl;
+  split(v, vh, vl);
+  p = mul(c.hi, v);
+  e = add(prod_err(p, c.hh, c.hl, vh, vl), mul(c.lo, v));
+}
+__device__ __forceinline__ void cap(const DFConst& c, float v, float vlo,
+                                    float& p, float& e) {
+  cap(c, v, p, e);
+  e = add(e, mul(c.hi, vlo));
+}
+
+// One sub-step kind's coefficients: the base solve's float32 values and the
+// double-float constants of the capture and residual (hi parts are the
+// float32 values).
+struct KindCoef {
+  float w, T0, q, idet, a;
+  DFConst dT0, dq, dw, dkee, dkp, dc1;
+  float S0h, S0l;                  // S0 = Sbase + c0
+};
+
+__device__ __forceinline__ void load_kind(KindCoef& k,
+                                          const float* __restrict__ c,
+                                          const float* __restrict__ d) {
+  k.w = c[0];
+  k.T0 = c[1];
+  k.q = c[2];
+  k.idet = c[3];
+  k.a = c[4];
+  // Columns of the df pack, in _DF_ORDER: T0 q w kee kp c1.
+  auto dfc = [d](int n, float hi) {
+    return DFConst{hi, d[3 * n], d[3 * n + 1], d[3 * n + 2]};
+  };
+  k.dT0 = dfc(0, c[1]);
+  k.dq = dfc(1, c[2]);
+  k.dw = dfc(2, c[0]);
+  k.dkee = dfc(3, c[8]);
+  k.dkp = dfc(4, c[9]);
+  k.dc1 = dfc(5, c[6]);
+  k.S0h = d[18];
+  k.S0l = d[19];
+}
+
+struct Shared {
+  KindCoef kc[3];              // BE, CN, BDF (B7: its one kind first)
+  float carry[kMaxSlots];      // per-(step, phase) base carry into the tile
+  float ccarry[kMaxSlots];     // per-(step, phase) correction carry
+  float oth[kMaxSlots];        // upwind base o1 edge (the inflow at row start)
+  float otl[kMaxSlots];        // the inflow's lo part, read in tile 0 only
+  float eth[kMaxSteps];        // per-step upwind p1 edge (hi, lo)
+  float etl[kMaxSteps];
+  float hth[kMaxSteps];        // per-step upwind h1 edge (hi, lo)
+  float htl[kMaxSteps];
+  float scanA[2][32];          // cross-warp scan, double-buffered
+  float scanB[2][32];
+  float edge_h[32];            // last cell of each warp, pair exchange
+  float edge_l[32];
+  float edge_o[32];            // last base o1 of each warp
+};
+
+// The (hi, lo) planes of a cell-edge pair (x0, x1) over a thread's cells.
+struct Pair4 {
+  float h0[kCells], l0[kCells], h1[kCells], l1[kCells];
+};
+
+// Plane pointers: 4 inputs (e0 hi, lo, e1 hi, lo), then the outputs in
+// groups of 4 of the same order: ends, (B6) half, prev.
+struct Planes {
+  const float* in[4];
+  float* out[12];
+};
+
+struct Packs {
+  const float* c[3];           // f32 packs (2, Bh, kNCoef)
+  const float* d[3];           // df packs (2, Bh, kNDF)
+};
+
+__device__ __forceinline__ void load_pair(Pair4& x, const Planes& g,
+                                          size_t base, int j0, int N) {
+  load_cells(x.h0, g.in[0] + base, j0, N);
+  load_cells(x.l0, g.in[1] + base, j0, N);
+  load_cells(x.h1, g.in[2] + base, j0, N);
+  load_cells(x.l1, g.in[3] + base, j0, N);
+}
+
+// Stores x into the outputs first .. first+3.
+__device__ __forceinline__ void store_pair(const Planes& g, int first,
+                                           size_t base, int j0, int N,
+                                           const Pair4& x) {
+  store_cells(g.out[first] + base, j0, N, x.h0);
+  store_cells(g.out[first + 1] + base, j0, N, x.l0);
+  store_cells(g.out[first + 2] + base, j0, N, x.h1);
+  store_cells(g.out[first + 3] + base, j0, N, x.l1);
+}
+
+// The (hi, lo) value at the cell upwind of this thread's first cell: the
+// previous thread's last cell, or the previous tile's (*tail_h, *tail_l)
+// for thread 0, read after the barrier.
+__device__ __forceinline__ void upwind_pair(float my_h, float my_l,
+                                            const float* tail_h,
+                                            const float* tail_l, Shared& sm,
+                                            float& up_h, float& up_l) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  up_h = __shfl_up_sync(kFull, my_h, 1);
+  up_l = __shfl_up_sync(kFull, my_l, 1);
+  if (lane == 31) {
+    sm.edge_h[warp] = my_h;
+    sm.edge_l[warp] = my_l;
+  }
+  __syncthreads();
+  if (lane == 0) {
+    up_h = warp ? sm.edge_h[warp - 1] : *tail_h;
+    up_l = warp ? sm.edge_l[warp - 1] : *tail_l;
+  }
+}
+
+// One double-float sub-step of kind KIND over this thread's cells of the
+// tile (_df_substep). e: the sub-step's input; p/hp: the prev and half
+// history planes (CN reads p, BDF both); pu/hu: the (hi, lo) p1/h1 values
+// upwind of the thread's first cell. `first`: the row's first tile, where
+// thread 0's history fills are the slot's inflow. Slot s's carries and
+// upwind o1 edge are read and then replaced by this tile's; `owner` is the
+// index among this thread's cells of the tile's last real cell, or -1.
+template <int KIND>
+__device__ __forceinline__ void df_substep(
+    const KindCoef& k, bool use_corr, const Pair4& e, const Pair4& p,
+    const Pair4& hp, float pu_h, float pu_l, float hu_h, float hu_l, int s,
+    bool first, int owner, Shared& sm, int& buf, Pair4& o) {
+  // The slot's double-float inflow, read in the row's first tile only, where
+  // init_row's barrier orders it. In a later tile no barrier need lie
+  // between here and the previous tile owner's write of oth[s], and the
+  // inflow's lo part is nonzero only at the row start.
+  float ofl = 0.f;
+  if (first && threadIdx.x == 0) {
+    ofl = sm.otl[s];
+    if constexpr (KIND != kBE) {
+      pu_h = sm.oth[s];
+      pu_l = ofl;
+    }
+    if constexpr (KIND == kBDF) {
+      hu_h = sm.oth[s];
+      hu_l = ofl;
+    }
+  }
+
+  // -- 1. right-hand side with capture ---------------------------------------
+  float r0[kCells], r0e[kCells], r1[kCells], r1e[kCells], b[kCells];
+  float A = 1.f, B = 0.f;
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) {
+    float S, Se;
+    if (use_corr) {
+      float tpsi, epsi, pc, epc, eS;
+      two_sum(e.h0[c], e.h1[c], tpsi, epsi);
+      const float psi = mul(0.5f, tpsi);
+      const float psil = mul(0.5f, add(epsi, add(e.l0[c], e.l1[c])));
+      cap(k.dc1, psi, psil, pc, epc);
+      two_sum(k.S0h, pc, S, eS);
+      Se = add(eS, add(k.S0l, epc));
+    } else {
+      S = k.S0h;
+      Se = k.S0l;
+    }
+    if constexpr (KIND == kBE) {
+      float m0, em0, m1, em1, ea, eb;
+      cap(k.dkee, e.h0[c], e.l0[c], m0, em0);
+      cap(k.dkee, e.h1[c], e.l1[c], m1, em1);
+      two_sum(S, m0, r0[c], ea);
+      r0e[c] = add(add(Se, em0), ea);
+      two_sum(S, m1, r1[c], eb);
+      r1e[c] = add(add(Se, em1), eb);
+    } else if constexpr (KIND == kCN) {
+      const float psh = c ? p.h1[c - 1] : pu_h;
+      const float psl = c ? p.l1[c - 1] : pu_l;
+      float m0, em0, m1, em1, m2, em2, t1, t2, ea, eb, ec;
+      cap(k.dkee, e.h0[c], e.l0[c], m0, em0);
+      cap(k.dq, e.h1[c], e.l1[c], m1, em1);
+      cap(k.dw, psh, psl, m2, em2);
+      two_sum(S, m0, t1, ea);
+      two_sum(t1, -m1, t2, eb);
+      two_sum(t2, m2, r0[c], ec);
+      r0e[c] = add(sub(add(Se, em0), em1), add(em2, add(add(ea, eb), ec)));
+      float m3, em3, m4, em4, t3, ed, ee;
+      cap(k.dq, e.h0[c], e.l0[c], m3, em3);
+      cap(k.dkee, e.h1[c], e.l1[c], m4, em4);
+      two_sum(S, m3, t3, ed);
+      two_sum(t3, m4, r1[c], ee);
+      r1e[c] = add(add(Se, em3), add(em4, add(ed, ee)));
+    } else {
+      const float psh = c ? p.h1[c - 1] : pu_h;
+      const float psl = c ? p.l1[c - 1] : pu_l;
+      const float hsh = c ? hp.h1[c - 1] : hu_h;
+      const float hsl = c ? hp.l1[c - 1] : hu_l;
+      float n1, en1, n2, en2, n3, en3, n4, en4, n5, en5, n6, en6;
+      cap(k.dkee, hp.h0[c], hp.l0[c], n1, en1);
+      cap(k.dw, hp.h1[c], hp.l1[c], n2, en2);
+      cap(k.dkp, p.h0[c], p.l0[c], n3, en3);
+      cap(k.dq, p.h1[c], p.l1[c], n4, en4);
+      cap(k.dw, hsh, hsl, n5, en5);
+      cap(k.dw, psh, psl, n6, en6);
+      float t1, t2, t3, t4, t5, ea, eb, ec, ed, ee, ef;
+      two_sum(S, n1, t1, ea);
+      two_sum(t1, mul(-2.f, n2), t2, eb);
+      two_sum(t2, -n3, t3, ec);
+      two_sum(t3, -n4, t4, ed);
+      two_sum(t4, mul(4.f, n5), t5, ee);
+      two_sum(t5, n6, r0[c], ef);
+      r0e[c] = add(
+          sub(sub(add(Se, en1), add(mul(2.f, en2), en3)), en4),
+          add(add(mul(4.f, en5), en6),
+              add(add(add(ea, eb), add(ec, ed)), add(ee, ef))));
+      float n7, en7, n8, en8, n9, en9, n10, en10;
+      cap(k.dw, hp.h0[c], hp.l0[c], n7, en7);
+      cap(k.dkee, hp.h1[c], hp.l1[c], n8, en8);
+      cap(k.dq, p.h0[c], p.l0[c], n9, en9);
+      cap(k.dkp, p.h1[c], p.l1[c], n10, en10);
+      float u1, u2, u3, eg, eh, ei, ej;
+      two_sum(S, mul(2.f, n7), u1, eg);
+      two_sum(u1, n8, u2, eh);
+      two_sum(u2, n9, u3, ei);
+      two_sum(u3, -n10, r1[c], ej);
+      r1e[c] = add(sub(add(add(Se, mul(2.f, en7)), add(en8, en9)), en10),
+                   add(add(eg, eh), add(ei, ej)));
+    }
+    b[c] = (k.q * r0[c] + k.T0 * r1[c]) * k.idet;
+    B = k.a * B + b[c];
+    A = A * k.a;
+  }
+
+  // -- 2. base: float32 scan and reconstruct ---------------------------------
+  float exA, exB;
+  const float c_in =
+      block_exclusive_scan(A, B, &sm.carry[s], sm, buf, exA, exB);
+  float cur = exA * c_in + exB;  // carry entering this thread's first cell
+  float o0[kCells], o1[kCells];
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) {
+    const float u = r0[c] + k.w * cur;
+    o0[c] = (k.T0 * u - k.q * r1[c]) * k.idet;
+    o1[c] = (k.q * u + k.T0 * r1[c]) * k.idet;
+    cur = k.a * cur + b[c];
+    if (c == owner) sm.carry[s] = cur;
+  }
+
+  // -- 3. output-based residual ----------------------------------------------
+  // The upwind base o1: the previous cell's, or the slot's edge for thread 0
+  // (the previous tile's last o1, or the double-float inflow with its lo
+  // part at the row start).
+  const float o1u = upwind_value(o1[kCells - 1], &sm.oth[s], sm.edge_o);
+  const float o1u_l = ofl;  // 0 past the row's first tile and thread 0
+  float rho0[kCells], rho1[kCells];
+  A = 1.f;
+  B = 0.f;
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) {
+    const float o1r = c ? o1[c - 1] : o1u;
+    const float o1rl = c ? 0.f : o1u_l;
+    float pT0, eT0, pQ1, eQ1, pW, eW, t, x1, x2, x3;
+    cap(k.dT0, o0[c], pT0, eT0);
+    cap(k.dq, o1[c], pQ1, eQ1);
+    cap(k.dw, o1r, o1rl, pW, eW);
+    two_sum(r0[c], -pT0, t, x1);
+    two_sum(t, -pQ1, t, x2);
+    two_sum(t, pW, t, x3);
+    rho0[c] = add(t, add(add(add(x1, x2), x3),
+                         add(sub(r0e[c], add(eT0, eQ1)), eW)));
+    float pQ0, eQ0, pT1, eT1, y1, y2;
+    cap(k.dq, o0[c], pQ0, eQ0);
+    cap(k.dT0, o1[c], pT1, eT1);
+    two_sum(r1[c], pQ0, t, y1);
+    two_sum(t, -pT1, t, y2);
+    rho1[c] = add(t, add(add(y1, y2), sub(add(r1e[c], eQ0), eT1)));
+    b[c] = (k.q * rho0[c] + k.T0 * rho1[c]) * k.idet;
+    B = k.a * B + b[c];
+    A = A * k.a;
+  }
+
+  // -- 4. correction scan, reconstruct and renormalise -----------------------
+  const float cc_in =
+      block_exclusive_scan(A, B, &sm.ccarry[s], sm, buf, exA, exB);
+  cur = exA * cc_in + exB;
+#pragma unroll
+  for (int c = 0; c < kCells; ++c) {
+    const float u = rho0[c] + k.w * cur;
+    // The last products are rounded on their own: two_sum must see them.
+    const float d0 = mul(k.T0 * u - k.q * rho1[c], k.idet);
+    const float d1 = mul(k.q * u + k.T0 * rho1[c], k.idet);
+    cur = k.a * cur + b[c];
+    if (c == owner) {
+      // The next tile's residual couples against the BASE o1 edge.
+      sm.ccarry[s] = cur;
+      sm.oth[s] = o1[c];
+    }
+    two_sum(o0[c], d0, o.h0[c], o.l0[c]);
+    two_sum(o1[c], d1, o.h1[c], o.l1[c]);
+  }
+}
+
+// Slots entering a row (_half_init): every (step, phase) slot's base carry
+// and upwind o1 edge at the (hi, lo) inflow, a zero correction carry, and
+// zero history tails; the row's coefficients into shared memory.
+__device__ __forceinline__ void init_row(Shared& sm, int slots, int steps,
+                                         int nkinds, const Packs& pk,
+                                         const float* __restrict__ bc,
+                                         const float* __restrict__ bcl,
+                                         const int* __restrict__ flip,
+                                         const float* rec, int h, int row,
+                                         int hr, int reflective) {
+  if (threadIdx.x < nkinds)
+    load_kind(sm.kc[threadIdx.x], pk.c[threadIdx.x] + hr * kNCoef,
+              pk.d[threadIdx.x] + hr * kNDF);
+  const bool coupled = h == 1 && reflective;
+  const float* r = coupled ? rec + 2 * slots * flip[row] : nullptr;
+  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
+    const float vh = coupled ? r[i] : bc[hr];
+    const float vl = coupled ? r[slots + i] : bcl[hr];
+    sm.carry[i] = vh;
+    sm.ccarry[i] = 0.f;
+    sm.oth[i] = vh;
+    sm.otl[i] = vl;
+  }
+  for (int i = threadIdx.x; i < steps; i += blockDim.x) {
+    sm.eth[i] = sm.etl[i] = 0.f;
+    sm.hth[i] = sm.htl[i] = 0.f;
+  }
+  __syncthreads();
+}
+
+// The mu<0 half of a reflective slab records its corrected outflow per
+// slot, two_sum(base o1 edge, correction carry), as rec[row] = (hi[slots],
+// lo[slots]).
+__device__ __forceinline__ void record_row(const Shared& sm, int slots,
+                                           float* rec, int h, int row,
+                                           int reflective) {
+  if (!(h == 0 && reflective)) return;
+  __syncthreads();
+  float* r = rec + 2 * slots * row;
+  for (int i = threadIdx.x; i < slots; i += blockDim.x)
+    two_sum(sm.oth[i], sm.ccarry[i], r[i], r[slots + i]);
+}
+
+// B6, replaces _make_df_bdf2_kernel (df_sweep.py:372): K whole double-float
+// BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector.
+__global__ void __launch_bounds__(kMaxThreads)
+    df_bdf2_kernel(Packs pk, const float* __restrict__ bc,
+                   const float* __restrict__ bcl,
+                   const int* __restrict__ flip, float* rec, Planes g, int Bh,
+                   int N, int K, int symmetric, int reflective, int use_corr,
+                   int half0) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x % Bh;
+  const int h = half0 + blockIdx.x / Bh;
+  const int hr = h * Bh + row;
+  const int slots = 4 * K;
+  init_row(sm, slots, K, 3, pk, bc, bcl, flip, rec, h, row, hr, reflective);
+  // The half snapshot is the CN output for mu<0 and the phase-0 BE output
+  // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
+  const bool snap_cn = symmetric || h == 0;
+  const size_t base = static_cast<size_t>(hr) * N;
+  const bool tail_thread = threadIdx.x == blockDim.x - 1;
+  const int tile = blockDim.x * kCells;
+  int buf = 0;
+  for (int t0 = 0; t0 < N; t0 += tile) {
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, N, kCells);
+    const bool first = t0 == 0;
+    Pair4 x, hs;
+    load_pair(x, g, base, j0, N);
+    for (int k = 0; k < K; ++k) {
+      const int s = 4 * k;
+      // prev = the step's input; its upwind p1 edge feeds CN and BDF.
+      float xu_h, xu_l;
+      upwind_pair(x.h1[kCells - 1], x.l1[kCells - 1], &sm.eth[k], &sm.etl[k],
+                  sm, xu_h, xu_l);
+      Pair4 b, c;
+      df_substep<kBE>(sm.kc[0], use_corr, x, x, x, 0.f, 0.f, 0.f, 0.f, s,
+                      first, owner, sm, buf, b);
+      df_substep<kCN>(sm.kc[1], use_corr, b, x, x, xu_h, xu_l, 0.f, 0.f,
+                      s + 1, first, owner, sm, buf, c);
+      hs = snap_cn ? c : b;
+      float hu_h, hu_l;
+      upwind_pair(hs.h1[kCells - 1], hs.l1[kCells - 1], &sm.hth[k],
+                  &sm.htl[k], sm, hu_h, hu_l);
+      Pair4 d, f;
+      df_substep<kBE>(sm.kc[0], use_corr, c, x, x, 0.f, 0.f, 0.f, 0.f, s + 2,
+                      first, owner, sm, buf, d);
+      df_substep<kBDF>(sm.kc[2], use_corr, d, x, hs, xu_h, xu_l, hu_h, hu_l,
+                       s + 3, first, owner, sm, buf, f);
+      if (tail_thread) {
+        sm.eth[k] = x.h1[kCells - 1];
+        sm.etl[k] = x.l1[kCells - 1];
+        sm.hth[k] = hs.h1[kCells - 1];
+        sm.htl[k] = hs.l1[kCells - 1];
+      }
+      // prev of the final state = the LAST step's input.
+      if (k == K - 1) store_pair(g, 8, base, j0, N, x);
+      x = f;
+    }
+    store_pair(g, 0, base, j0, N, x);
+    store_pair(g, 4, base, j0, N, hs);
+  }
+  record_row(sm, slots, rec, h, row, reflective);
+}
+
+// B7, replaces _make_df_multistep_kernel (df_sweep.py:475): K whole
+// double-float BE or CN steps; prev = each step's input.
+template <int KIND>
+__global__ void __launch_bounds__(kMaxThreads)
+    df_multistep_kernel(Packs pk, const float* __restrict__ bc,
+                        const float* __restrict__ bcl,
+                        const int* __restrict__ flip, float* rec, Planes g,
+                        int Bh, int N, int K, int reflective, int use_corr,
+                        int half0) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x % Bh;
+  const int h = half0 + blockIdx.x / Bh;
+  const int hr = h * Bh + row;
+  init_row(sm, K, K, 1, pk, bc, bcl, flip, rec, h, row, hr, reflective);
+  const size_t base = static_cast<size_t>(hr) * N;
+  const bool tail_thread = threadIdx.x == blockDim.x - 1;
+  const int tile = blockDim.x * kCells;
+  int buf = 0;
+  for (int t0 = 0; t0 < N; t0 += tile) {
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, N, kCells);
+    const bool first = t0 == 0;
+    Pair4 x;
+    load_pair(x, g, base, j0, N);
+    for (int k = 0; k < K; ++k) {
+      float xu_h = 0.f, xu_l = 0.f;
+      if constexpr (KIND == kCN)
+        upwind_pair(x.h1[kCells - 1], x.l1[kCells - 1], &sm.eth[k],
+                    &sm.etl[k], sm, xu_h, xu_l);
+      Pair4 f;
+      df_substep<KIND>(sm.kc[0], use_corr, x, x, x, xu_h, xu_l, 0.f, 0.f, k,
+                       first, owner, sm, buf, f);
+      if (KIND == kCN && tail_thread) {
+        sm.eth[k] = x.h1[kCells - 1];
+        sm.etl[k] = x.l1[kCells - 1];
+      }
+      if (k == K - 1) store_pair(g, 4, base, j0, N, x);
+      x = f;
+    }
+    store_pair(g, 0, base, j0, N, x);
+  }
+  record_row(sm, K, rec, h, row, reflective);
+}
+
+Planes unpack_planes(void* const* planes, int nout) {
+  Planes g{};
+  for (int i = 0; i < 4; ++i) g.in[i] = static_cast<const float*>(planes[i]);
+  for (int i = 0; i < nout; ++i) g.out[i] = static_cast<float*>(planes[4 + i]);
+  return g;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry point launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (0 on success). Planes are contiguous (2, Bh, N)
+// float32, passed as an array of pointers: e0 hi, e0 lo, e1 hi, e1 lo, then
+// the outputs (ends, B6's half, prev; each e0 hi, e0 lo, e1 hi, e1 lo).
+// Coefficients are (2, Bh, 10) and (2, Bh, 20) float32, bc and bcl (2, Bh,
+// 1) float32, flip (Bh,) int32, rec a (Bh, 2, slots) float32 scratch record.
+
+int rt_df_bdf2(const float* cbe, const float* ccn, const float* cbdf,
+               const float* dbe, const float* dcn, const float* dbdf,
+               const float* bc, const float* bcl, const int* flip, float* rec,
+               void* const* planes, int Bh, int N, int K, int symmetric,
+               int reflective, int use_corr, void* stream) {
+  if (K < 1 || K > kMaxSteps || Bh < 1 || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Packs pk{{cbe, ccn, cbdf}, {dbe, dcn, dbdf}};
+  const Planes g = unpack_planes(planes, 12);
+  const int threads = pick_threads(N, kCells, kMaxThreads);
+  return launch_halves(Bh, reflective, [&](int grid, int half0) {
+    df_bdf2_kernel<<<grid, threads, 0, st>>>(pk, bc, bcl, flip, rec, g, Bh,
+                                             N, K, symmetric, reflective,
+                                             use_corr, half0);
+  });
+}
+
+int rt_df_multistep(int kind, const float* coef, const float* dcoef,
+                    const float* bc, const float* bcl, const int* flip,
+                    float* rec, void* const* planes, int Bh, int N, int K,
+                    int reflective, int use_corr, void* stream) {
+  if (K < 1 || K > kMaxSteps || Bh < 1 || N < 1 ||
+      (kind != kBE && kind != kCN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Packs pk{{coef, nullptr, nullptr}, {dcoef, nullptr, nullptr}};
+  const Planes g = unpack_planes(planes, 8);
+  const int threads = pick_threads(N, kCells, kMaxThreads);
+  return launch_halves(Bh, reflective, [&](int grid, int half0) {
+    if (kind == kBE)
+      df_multistep_kernel<kBE><<<grid, threads, 0, st>>>(
+          pk, bc, bcl, flip, rec, g, Bh, N, K, reflective, use_corr, half0);
+    else
+      df_multistep_kernel<kCN><<<grid, threads, 0, st>>>(
+          pk, bc, bcl, flip, rec, g, Bh, N, K, reflective, use_corr, half0);
+  });
+}
+
+}  // extern "C"

@@ -11,7 +11,8 @@
 //                                                 BE or CN, packed rows)
 // All run on one __device__ sub-step routine, substep_tile (the counterpart
 // of _substep_block), and one block-wide scan of affine maps (the
-// counterpart of _hillis_steele); the K-step kernels share their tile loops
+// counterpart of _hillis_steele, in tiles.cuh, which the double-float kernels
+// of df_sweep.cu share); the K-step kernels share their tile loops
 // (bdf2_segment, multistep_segment).
 //
 // What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
@@ -69,6 +70,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tiles.cuh"
+
 namespace {
 
 constexpr int kBE = 1, kCN = 2, kBDF = 3;
@@ -77,7 +80,6 @@ constexpr int kCells = 8;          // consecutive cells per thread
 constexpr int kMaxThreads = 512;
 constexpr int kMaxSlots = 256;     // 4*K phase carries, K <= 64
 constexpr int kMaxSteps = kMaxSlots / 4;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Coef {
   float w, T0, q, idet, a, Sb, c1, c0, kee, kp;
@@ -108,101 +110,10 @@ struct Shared {
   float edge_h[32];            // last cell of each warp, for the h1 shift
 };
 
-__device__ __forceinline__ void load_cells(float (&x)[kCells],
-                                           const float* __restrict__ g,
-                                           int j0, int N) {
-#pragma unroll
-  for (int c = 0; c < kCells; ++c) x[c] = (j0 + c < N) ? g[j0 + c] : 0.f;
-}
-
-__device__ __forceinline__ void store_cells(float* __restrict__ g, int j0,
-                                            int N, const float (&x)[kCells]) {
-#pragma unroll
-  for (int c = 0; c < kCells; ++c)
-    if (j0 + c < N) g[j0 + c] = x[c];
-}
-
 __device__ __forceinline__ void copy_cells(float (&dst)[kCells],
                                            const float (&src)[kCells]) {
 #pragma unroll
   for (int c = 0; c < kCells; ++c) dst[c] = src[c];
-}
-
-// Inclusive scan over a warp of the maps x -> A*x + B in lane order
-// ("f then g" composes to (gA*fA, gA*fB + gB)).
-__device__ __forceinline__ void warp_inclusive_scan(float& A, float& B) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float pA = __shfl_up_sync(kFull, A, d);
-    const float pB = __shfl_up_sync(kFull, B, d);
-    if (lane >= d) {
-      B = A * pB + B;
-      A = A * pA;
-    }
-  }
-}
-
-// Exclusive prefix, over the block's threads in order, of each thread's map
-// (A, B); also reads the carry entering the tile. The carry is read between
-// the two barriers: after the previous tile's write of it (which precedes the
-// writer's first barrier here) and before this tile's write (which follows
-// the second). `buf` alternates between calls, so a warp that runs ahead
-// into the next scan never overwrites totals that another warp still reads.
-__device__ __forceinline__ float block_exclusive_scan(
-    float A, float B, const float* carry, Shared& sm, int& buf, float& exA,
-    float& exB) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  warp_inclusive_scan(A, B);
-  if (lane == 31) {
-    sm.scanA[buf][warp] = A;
-    sm.scanB[buf][warp] = B;
-  }
-  __syncthreads();
-  const float c_in = *carry;
-  if (warp == 0) {
-    float wA = lane < nwarps ? sm.scanA[buf][lane] : 1.f;
-    float wB = lane < nwarps ? sm.scanB[buf][lane] : 0.f;
-    warp_inclusive_scan(wA, wB);
-    float xA = __shfl_up_sync(kFull, wA, 1);
-    float xB = __shfl_up_sync(kFull, wB, 1);
-    if (lane == 0) {
-      xA = 1.f;
-      xB = 0.f;
-    }
-    if (lane < nwarps) {
-      sm.scanA[buf][lane] = xA;
-      sm.scanB[buf][lane] = xB;
-    }
-  }
-  __syncthreads();
-  const float wA = sm.scanA[buf][warp], wB = sm.scanB[buf][warp];
-  float tA = __shfl_up_sync(kFull, A, 1);
-  float tB = __shfl_up_sync(kFull, B, 1);
-  if (lane == 0) {
-    tA = 1.f;
-    tB = 0.f;
-  }
-  exA = tA * wA;
-  exB = tA * wB + tB;
-  buf ^= 1;
-  return c_in;
-}
-
-// The value of x at the cell just upwind of this thread's first cell: the
-// previous thread's last cell, or *tile_tail (the previous tile's last cell)
-// for thread 0. *tile_tail is read after the barrier, so the previous tile's
-// write of it is visible.
-__device__ __forceinline__ float upwind_value(float my_last,
-                                              const float* tile_tail,
-                                              float* edge) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float v = __shfl_up_sync(kFull, my_last, 1);
-  if (lane == 31) edge[warp] = my_last;
-  __syncthreads();
-  if (lane == 0) v = warp ? edge[warp - 1] : *tile_tail;
-  return v;
 }
 
 // One sub-step of kind KIND over this thread's kCells cells of the tile
@@ -305,12 +216,6 @@ __device__ __forceinline__ void record_row(const Shared& sm, int slots,
   if (h == 0 && reflective) write_record(sm, slots, rec + row * slots);
 }
 
-// Index among this thread's cells of the tile's last real cell, or -1.
-__device__ __forceinline__ int tile_owner(int t0, int j0, int tile, int N) {
-  const int last = min(t0 + tile, N) - 1;
-  return (last >= j0 && last < j0 + kCells) ? last - j0 : -1;
-}
-
 // K whole BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF
 // corrector, over the cells [s0, s1) of one row (pointers are the row's),
 // in tiles aligned to s0. Starts from the carries and tails in shared
@@ -327,7 +232,7 @@ __device__ __forceinline__ void bdf2_segment(
   const int tile = blockDim.x * kCells;
   for (int t0 = s0; t0 < s1; t0 += tile) {
     const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, s1);
+    const int owner = tile_owner(t0, j0, tile, s1, kCells);
     float x0[kCells], x1[kCells], hs0[kCells], hs1[kCells];
     load_cells(x0, e0g, j0, s1);
     load_cells(x1, e1g, j0, s1);
@@ -386,7 +291,7 @@ __device__ __forceinline__ void multistep_segment(
   const int tile = blockDim.x * kCells;
   for (int t0 = s0; t0 < s1; t0 += tile) {
     const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, s1);
+    const int owner = tile_owner(t0, j0, tile, s1, kCells);
     float x0[kCells], x1[kCells];
     load_cells(x0, e0g, j0, s1);
     load_cells(x1, e1g, j0, s1);
@@ -552,7 +457,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   int buf = 0;
   for (int t0 = 0; t0 < N; t0 += tile) {
     const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, N);
+    const int owner = tile_owner(t0, j0, tile, N, kCells);
     float x0[kCells], x1[kCells], p0[kCells], p1[kCells], q0[kCells],
         q1[kCells], f0[kCells], f1[kCells];
     load_cells(x0, e0g + base, j0, N);
@@ -586,29 +491,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   record_row(sm, 1, rec, h, row, reflective);
 }
 
-// Threads per row block: enough warps for N cells, at most kMaxThreads.
-int pick_threads(int N) {
-  int t = (N + kCells - 1) / kCells;
-  t = (t + 31) / 32 * 32;
-  return t < 32 ? 32 : (t > kMaxThreads ? kMaxThreads : t);
-}
-
-// Launch `launch(grid, half0)` over the rows: both halves at once for a
-// source boundary, else the mu<0 half and then the mu>0 half, which reads
-// the former's outflow record.
-template <typename Launch>
-int launch_halves(int Bh, int reflective, Launch launch) {
-  if (!reflective) {
-    launch(2 * Bh, 0);
-    return static_cast<int>(cudaGetLastError());
-  }
-  launch(Bh, 0);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch(Bh, 1);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -627,7 +509,7 @@ int rt_sweep_bdf2(const float* cbe, const float* ccn, const float* cbdf,
   if (K < 1 || K > kMaxSteps || Bh < 1 || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = pick_threads(N);
+  const int threads = pick_threads(N, kCells, kMaxThreads);
   return launch_halves(Bh, reflective, [&](int grid, int half0) {
     bdf2_kernel<<<grid, threads, 0, st>>>(
         cbe, ccn, cbdf, bc, flip, rec, e0, e1, o0, o1, oh0, oh1, op0, op1, Bh,
@@ -644,7 +526,7 @@ int rt_sweep_multistep(int kind, const float* coef, const float* bc,
       (kind != kBE && kind != kCN))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = pick_threads(N);
+  const int threads = pick_threads(N, kCells, kMaxThreads);
   return launch_halves(Bh, reflective, [&](int grid, int half0) {
     if (kind == kBE)
       multistep_kernel<kBE><<<grid, threads, 0, st>>>(
@@ -665,7 +547,7 @@ int rt_sweep_substep(int kind, const float* coef, const float* bc,
   if (Bh < 1 || N < 1 || kind < kBE || kind > kBDF)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = pick_threads(N);
+  const int threads = pick_threads(N, kCells, kMaxThreads);
   return launch_halves(Bh, reflective, [&](int grid, int half0) {
     if (kind == kBE)
       substep_kernel<kBE><<<grid, threads, 0, st>>>(
@@ -694,7 +576,7 @@ int rt_sweep_halo_bdf2(const float* cbe, const float* ccn, const float* cbdf,
   if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
       reset_cell < 0 || reset_cell >= X)
     return static_cast<int>(cudaErrorInvalidValue);
-  halo_bdf2_kernel<<<rows, pick_threads(X), 0,
+  halo_bdf2_kernel<<<rows, pick_threads(X, kCells, kMaxThreads), 0,
                      static_cast<cudaStream_t>(stream)>>>(
       cbe, ccn, cbdf, seeds, rec, e0, e1, o0, o1, oh0, oh1, op0, op1, rows, X,
       K, reset_cell, symmetric);
@@ -710,7 +592,7 @@ int rt_sweep_halo_multistep(int kind, const float* coef, const float* seeds,
       reset_cell < 0 || reset_cell >= X || (kind != kBE && kind != kCN))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = pick_threads(X);
+  const int threads = pick_threads(X, kCells, kMaxThreads);
   if (kind == kBE)
     halo_multistep_kernel<kBE><<<rows, threads, 0, st>>>(
         coef, seeds, rec, e0, e1, o0, o1, op0, op1, X, K, reset_cell);

@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels of csrc/.
 
-``load()`` compiles csrc/*.cu with nvcc into a shared library with a
-plain C interface, at first use, and loads it with ctypes. The library
+``load()`` compiles each csrc/*.cu with its own nvcc, all started
+together (the build's wall time is the slowest file's, not their sum),
+links the objects into one shared library with a plain C interface, at
+first use, and loads it with ctypes. The library
 lands in radiative_transfer_tpu_torch/_build/<hash>/, keyed by a hash of
 the sources and flags, so a checkout builds once and a changed source
 rebuilds. The compiler's output (``-Xptxas -v``: registers, shared
-memory and spills of every kernel) is kept beside it as build.log.
+memory and spills of every kernel) is kept beside it as build.log, each
+command with its wall seconds.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -24,18 +29,22 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argtypes of each C entry point in csrc/sweep.cu (pointers and the stream
-# as c_void_p, so ctypes never cuts a 64-bit address).
+_PP = ctypes.POINTER(ctypes.c_void_p)     # an array of plane pointers
+# argtypes of each C entry point in csrc/sweep.cu and csrc/df_sweep.cu
+# (pointers and the stream as c_void_p, so ctypes never cuts a 64-bit
+# address).
 _SIGNATURES = {
     "rt_sweep_bdf2": [_P] * 14 + [_I, _I, _I, _F, _F, _F, _I, _I, _P],
     "rt_sweep_multistep": [_I] + [_P] * 10 + [_I, _I, _I, _F, _I, _P],
     "rt_sweep_substep": [_I] + [_P] * 12 + [_I, _I, _F, _I, _P],
     "rt_sweep_halo_bdf2": [_P] * 13 + [_I] * 5 + [_P],
     "rt_sweep_halo_multistep": [_I] + [_P] * 9 + [_I] * 4 + [_P],
+    "rt_df_bdf2": [_P] * 10 + [_PP] + [_I] * 6 + [_P],
+    "rt_df_multistep": [_I] + [_P] * 6 + [_PP] + [_I] * 5 + [_P],
 }
 
 
@@ -52,6 +61,13 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _run(cmd: list[str]):
+    """Run one compiler command: (command, process, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return cmd, proc, time.perf_counter() - t0
+
+
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists."""
     cu, cuh = _sources()
@@ -65,13 +81,25 @@ def build() -> Path:
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"libsweep.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           + proc.stderr[-6000:])
+    objs = [out.with_name(f"{p.stem}.{os.getpid()}.o") for p in cu]
+    with ThreadPoolExecutor(len(cu)) as pool:
+        results = list(pool.map(_run, (
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(cu, objs))))
+    if all(proc.returncode == 0 for _, proc, _ in results):
+        results.append(_run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                             *map(str, objs)]))
+    # Each command, its wall seconds, then its output.
+    (out.parent / "build.log").write_text("".join(
+        f"{' '.join(cmd)}\n# {secs:.2f} s\n{proc.stdout}{proc.stderr}"
+        for cmd, proc, secs in results))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for cmd, proc, _ in results:
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode} ({cmd[-1]}):\n"
+                + proc.stderr[-6000:])
     os.replace(tmp, out)
     return out
 

@@ -101,7 +101,7 @@ def test_writers_byte_identical(tmp_path):
 @pytest.mark.parametrize("extra", [
     ["--engine", "general"],
     ["--engine", "fast"],
-    ["--engine", "df", "--dtype", "float32"],
+    ["--engine", "df", "--mesh", "1x2"],
     ["--engine", "pallas", "--mesh", "1x2"],
     ["--engine", "pallas", "--checkpoint-dir", "ck"],
     ["--engine", "pallas", "--device", "tpu"],

@@ -305,20 +305,23 @@ def _run(main, argv):
     return rc, out.getvalue(), err.getvalue()
 
 
-@pytest.mark.parametrize("extra,message", [
-    (["--engine", "auto"], "df engine not ported yet (ROADMAP A6)"),
-    (["--engine", "auto", "--dtype", "float64"],
-     "df engine not ported yet (ROADMAP A6)"),
-    (["--engine", "halo"], "--engine halo infeasible for this workload"),
-    (["--engine", "halo", "--dtype", "float32"],
+@pytest.mark.parametrize("extra,rc,message", [
+    (["--engine", "auto", "--steps", "2"], 0,
+     "auto engine: df (single chip, double-float kernel)"),
+    (["--engine", "auto", "--dtype", "float64", "--steps", "2"], 0,
+     "auto engine: df (single chip, double-float kernel)"),
+    (["--engine", "halo"], 2, "--engine halo infeasible for this workload"),
+    (["--engine", "halo", "--dtype", "float32"], 2,
      "--engine halo infeasible for this workload"),
 ])
-def test_cli_exit_codes(tmp_path, extra, message):
-    rc, _, err = _run(port_cli.main, [GRAY, "--outdir", str(tmp_path),
-                                      "--device", "cpu", *extra])
-    assert rc == 2
-    assert message in err
-    assert not list(tmp_path.glob("*.csv"))
+def test_cli_exit_codes(tmp_path, extra, rc, message):
+    """auto at float64 (the default dtype) runs the double-float engine;
+    halo refuses a deck its creep bound rejects."""
+    got, out, err = _run(port_cli.main, [GRAY, "--outdir", str(tmp_path),
+                                         "--device", "cpu", *extra])
+    assert got == rc, err
+    assert message in (out if rc == 0 else err)
+    assert bool(list(tmp_path.glob("*.csv"))) == (rc == 0)
 
 
 def _csvs_close(got_dir, ref_dir, tol):

@@ -183,7 +183,7 @@ def test_import_without_jax():
         "import radiative_transfer_tpu_torch as rt\n"
         "from radiative_transfer_tpu_torch import cli\n"
         "from radiative_transfer_tpu_torch.ops import cuda_sweep, "
-        "_cuda_build\n"
+        "_cuda_build, cuda_df, df\n"
         "from radiative_transfer_tpu_torch.utils import io, profiling\n"
         "from radiative_transfer_tpu_torch.parallel import halo_cuda\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
