@@ -38,16 +38,29 @@ Phases, one line each; any failure exits nonzero before the result line:
    --engine auto at the default float64 must print the df line; the
    equilibrium deck (single_group.prm with psi_source = B) must keep
    max|F| / B < 1e-12 after 200 steps; then the bench workload and gray_s8
-   on DFCudaEngine, timed as in phase 5.
+   on DFCudaEngine, timed as in phase 5;
+8. f64 tiny-batch route (the packed-rows double-float halo engine, B14 and
+   B15): B14 and B15 against their plain versions to DF_TOL in hi + lo
+   (packed rows 2 and 32, a segment and a reset cell off the kernel's
+   2048-cell tile, reset 0 and > 0, K 1 and 2 for BDF2 in both half modes,
+   K 1 and 3 for BE and CN); then the path: the CLI with --engine auto at
+   the default float64 on a tiny-batch deck thick enough for the creep bound
+   (single_group.prm at N = 2048, X = 20.48), which must print JAX's df halo
+   line, within DF_CLI_TOL of its CPU run; DFHaloCudaEngine against
+   DFCudaEngine at gray_s8 for BDF2, BE and CN, 64 steps, ends, prev and
+   half within DF_TOL in hi + lo (and whether every plane is bit-equal);
+   then gray_s8 BDF2 through make_multichip_engine(engine="df"), which must
+   pick DFHaloCudaEngine, timed as in phase 5, and on DFCudaEngine.
 
 Phase 3 also holds B4 and B5 against their plain versions (rows 2 and 8, a
 segment and a reset cell off the kernel's tile, reset 0 and > 0, K 1/3/8
 and 16 for BE/CN, both half modes), and B6 and B7 against theirs to
 DF_TOL in hi + lo (B6 with both half modes, reflective and source left, K 1,
 3 and the engine's, on an N off the kernel's tile and on N = 100; B7 BE and
-CN with K 1, reflective and source left, and K 8). Every kernel wrapper's launch count is zeroed before a
-path's phases and read after them: each kernel of a path must have
-launched on it (B1-B3 on phases 4-5, B4-B5 on phase 6, B6-B7 on phase 7).
+CN with K 1, reflective and source left, and K 8). Every kernel wrapper's
+launch count is zeroed before a path's phases and read after them: each
+kernel of a path must have launched on it (B1-B3 on phases 4-5, B4-B5 on
+phase 6, B6-B7 on phase 7, B14-B15 on phase 8).
 Then each kernel is timed against its plain version at its full-size shape,
 beside its bound (the larger of the bytes it must move over 3.35 TB/s and
 the operations it must do over 67 TFLOP/s f32, the H100 SXM data-sheet
@@ -92,11 +105,14 @@ REPLACES = {
     "halo_multistep_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:568",
     "df_bdf2_launch": "radiative_transfer_tpu/ops/df_sweep.py:372",
     "df_multistep_launch": "radiative_transfer_tpu/ops/df_sweep.py:475",
+    "df_halo_bdf2_launch": "radiative_transfer_tpu/ops/df_sweep.py:640",
+    "df_halo_multistep_launch": "radiative_transfer_tpu/ops/df_sweep.py:541",
 }
 # The kernels each path must launch.
 PATH_PLAIN = ("bdf2_launch", "multistep_launch", "substep_launch")
 PATH_AUTO = ("halo_bdf2_launch", "halo_multistep_launch")
 PATH_DF = ("df_bdf2_launch", "df_multistep_launch")
+PATH_DF_HALO = ("df_halo_bdf2_launch", "df_halo_multistep_launch")
 # Peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 # f32 operations per cell of one sub-step, counted from substep_tile in
@@ -141,7 +157,7 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(
-                r"((?:halo_|df_)?(?:bdf2|multistep|substep))_kernel"
+                r"((?:df_)?(?:halo_)?(?:bdf2|multistep|substep))_kernel"
                 r"(?:ILi(\d)E)?", m.group(1))
             name = (f"{k.group(1)}_kernel"
                     + (f"<{k.group(2)}>" if k.group(2) else "")
@@ -470,8 +486,8 @@ def main() -> int:
                 f"{worst_csv:.1e} [{profile[0] if profile else ''}]"), out
 
     def read_counts(path, label):
-        counts = {name: getattr(cd if name in PATH_DF else cs, name).launches
-                  for name in path}
+        counts = {name: getattr(cd if name.startswith("df_") else cs,
+                                name).launches for name in path}
         missing = [name for name, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels not launched on {label}: "
@@ -723,6 +739,147 @@ def main() -> int:
           f"of {fmt_windows(d8_windows)}) = {ups / d8_seconds:.6g} "
           f"updates/s, peak {d8_peak:.3f} GiB; card: {card}", flush=True)
 
+    # -- 8. f64 tiny-batch route ---------------------------------------------
+    from radiative_transfer_tpu_torch.parallel.df_halo_cuda import (
+        DFHaloCudaEngine)
+
+    # B14/B15 on packed rows (2*Bh, 12800) against their plain versions, in
+    # hi + lo. Blocks of 1280 cells: reset 3 restarts the chains at cell
+    # 3840, inside the second 2048-cell df tile, and leaves an 8960-cell
+    # segment (4 tiles and a ragged 768) whose first tile is mid-row: the
+    # K = 1 cases run one sub-step a tile there, where a slot read before
+    # its barrier would show.
+    n_checks = len(checks)
+    for Mr, Gr in ((2, 1), (8, 4)):
+        e = df_engine(load_config(deck, M=Mr, G=Gr, N=12800, ts_method=3))
+        rows = 2 * e.Bh
+        coef = {k: c.reshape(rows, -1) for k, c in e.coef.items()}
+        dcoef = {k: c.reshape(rows, -1) for k, c in e.dcoef.items()}
+        npass = {k: cs._scan_npass(float(np.max(e.kcs[k].a)), hblk, 1e-10)
+                 for k in e.kcs}
+        npass_c = {k: cs._scan_npass(float(np.max(e.kcs[k].a)), hblk,
+                                     cd.CORR_SCAN_TOL) for k in e.kcs}
+        g = torch.Generator(device=dev).manual_seed(100 + rows)
+        ins = [p.reshape(rows, -1) for p in df_rand(e, 60 + rows)]
+
+        def df_seeds(C):
+            # (hi, lo): the row's scale times [0.5, 6.5), lo within an ulp.
+            sh = (ins[0][:, :1] * (0.5 + 6 * torch.rand(
+                (rows, C), generator=g, device=dev))).contiguous()
+            return sh, (sh * (torch.rand(sh.shape, generator=g, device=dev)
+                              - 0.5) * 2.0 ** -24).contiguous()
+
+        for reset in (0, 3):
+            for K, sym in ((1, False), (2, True)):
+                args = (*(coef[k] for k in (BE, CN, BDF)),
+                        *(dcoef[k] for k in (BE, CN, BDF)),
+                        *df_seeds(4 * K), reset, *ins)
+                kw = dict(K=K, symmetric_half=sym, use_corr=True, blk=hblk,
+                          npass=npass, npass_c=npass_c)
+                df_check("df_halo_bdf2_launch",
+                         f"B14-rows{rows}-r{reset}-K{K}-"
+                         f"{'sym' if sym else 'asym'}",
+                         cd.df_halo_bdf2_launch(*args, **kw),
+                         cd.df_halo_bdf2_launch_ref(*args, **kw))
+            for kind, label in ((BE, "BE"), (CN, "CN")):
+                for K in (1, 3):
+                    args = (kind, coef[kind], dcoef[kind], *df_seeds(K),
+                            reset, *ins)
+                    kw = dict(K=K, use_corr=True, blk=hblk,
+                              npass=npass[kind], npass_c=npass_c[kind])
+                    df_check("df_halo_multistep_launch",
+                             f"B15-{label}-rows{rows}-r{reset}-K{K}",
+                             cd.df_halo_multistep_launch(*args, **kw),
+                             cd.df_halo_multistep_launch_ref(*args, **kw))
+    halo_checks = checks[n_checks:]
+
+    cd.reset_launch_counts()
+    halo_line = ("auto engine: packed-rows df halo at 1-device mesh (tiny "
+                 "batch)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        text = open(gray_deck).read()
+        for old, new in (("N=100", "N=2048"), ("X=1.", "X=20.48")):
+            if old not in text:
+                raise RuntimeError(f"single_group.prm no longer says {old}")
+            text = text.replace(old, new)
+        thick = os.path.join(tmp, "single_group_thick.prm")
+        with open(thick, "w") as fh:
+            fh.write(text)
+        dh_cli, out = cli_vs_cpu(tmp, thick, 200, "df-auto-thick",
+                                 ["--engine", "auto"], DF_CLI_TOL)
+    if auto_line not in out or halo_line not in out:
+        raise AssertionError("cli --engine auto at float64 on the thick "
+                             "tiny-batch deck did not pick the df halo: "
+                             + "; ".join(out[:4]))
+
+    def df_auto(cfg):
+        tables, _, _ = transport.build_tables(cfg)
+        eng = make_multichip_engine(cfg, tables, engine="df", device=dev)
+        if not isinstance(eng, DFHaloCudaEngine):
+            raise AssertionError(f"engine='df' picked {type(eng).__name__} "
+                                 f"for gray_s8 ts_method={cfg.ts_method}")
+        return eng
+
+    dpairs, all_equal = [], True
+    for ts_method, label in ((3, "BDF2"), (1, "BE"), (2, "CN")):
+        he = df_auto(gray_cfg(Ms, Ns, ts_method))
+        pe = df_engine(gray_cfg(Ms, Ns, ts_method))
+        hs = he.solve(num_steps=64)
+        ps = pe.solve(num_steps=64,
+                      steps_per_launch=pe.max_steps_per_launch())
+        errs = [df_err(a, b) for a, b in (
+            ((hs.hi.e0, hs.lo.e0, hs.hi.e1, hs.lo.e1),
+             (ps.hi.e0, ps.lo.e0, ps.hi.e1, ps.lo.e1)),
+            ((hs.hi.p0, hs.lo.p0, hs.hi.p1, hs.lo.p1),
+             (ps.hi.p0, ps.lo.p0, ps.hi.p1, ps.lo.p1)),
+            ((hs.hi.h0, hs.lo.h0, hs.hi.h1, hs.lo.h1),
+             (ps.hi.h0, ps.lo.h0, ps.hi.h1, ps.lo.h1)))]
+        if not max(errs) <= DF_TOL:
+            raise AssertionError(f"gray_s8 {label}: DFHaloCudaEngine vs "
+                                 f"DFCudaEngine ends/prev/half {errs}")
+        equal = all(torch.equal(a, b) for a, b in zip((*hs.hi, *hs.lo),
+                                                      (*ps.hi, *ps.lo)))
+        all_equal &= equal
+        dpairs.append(f"{label} K={he.K_launch} H={he.H} block {he.block} "
+                      f"reach {he.reach} ends/prev/half {max(errs):.1e}, "
+                      f"bit-equal {equal}")
+
+    dhalo = df_auto(gray_cfg(Ms, Ns, 3))
+    Kdh = dhalo.K_launch
+    peak = peak_from()
+    dh_seconds, dh_windows, dhst = windows_of(
+        lambda s, n: dhalo.solve(s, num_steps=n), dhalo.init_state(),
+        2 * Kdh)
+    dh_peak = peak()
+    launches.update(read_counts(PATH_DF_HALO,
+                                "the f64 tiny-batch route (phase 8)"))
+    _, Kp8, dp_seconds, dp_windows, dp_peak = df_timed(gray_cfg(Ms, Ns, 3))
+
+    # One main and one fixup launch of the df halo engine, as it runs them.
+    dxe = [torch.cat([p.new_zeros((2, dhalo.Bh, dhalo.H)), p], -1)
+           for p in (dhst.hi.e0, dhst.lo.e0, dhst.hi.e1, dhst.lo.e1)]
+    dseeds = dhalo._main_seeds(Kdh)
+    dmain_ms, (_, drec) = timed(
+        lambda: dhalo._launch(Kdh, dseeds, dhalo.hb, dxe), 10)
+    dfix_seeds = dhalo._fix_seeds(Kdh, *drec)
+    dfix_in = [p[..., :dhalo.H].contiguous()
+               for p in (dhst.hi.e0, dhst.lo.e0, dhst.hi.e1, dhst.lo.e1)]
+    dfix_ms, _ = timed(lambda: dhalo._launch(Kdh, dfix_seeds, 0, dfix_in),
+                       50)
+    print(f"phase 8 f64 tiny-batch route: ok; kernel parity max hi+lo error "
+          + ", ".join(halo_checks) + f"; {dh_cli} (prints '{halo_line}'); "
+          f"gray_s8 DFHaloCudaEngine vs DFCudaEngine 64 steps: "
+          f"{'; '.join(dpairs)}; gray_s8 BDF2 via engine='df' = "
+          f"DFHaloCudaEngine K={Kdh} H={dhalo.H}: 64 steps in "
+          f"{dh_seconds:.4f} s (median of {fmt_windows(dh_windows)}) = "
+          f"{ups / dh_seconds:.6g} updates/s, peak device memory "
+          f"{dh_peak:.3f} GiB above the run's start, main launch "
+          f"{dmain_ms:.3f} ms, fixup launch {dfix_ms:.3f} ms; DFCudaEngine "
+          f"K={Kp8}: 64 steps in {dp_seconds:.4f} s (median of "
+          f"{fmt_windows(dp_windows)}) = {ups / dp_seconds:.6g} updates/s, "
+          f"peak {dp_peak:.3f} GiB; halo/plain "
+          f"{dp_seconds / dh_seconds:.3f}x; card: {card}", flush=True)
+
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the
     # kernel only passes between its own launches is not counted; the halo
@@ -781,6 +938,35 @@ def main() -> int:
     def f32_err(got, ref):
         return max(nerr(g, r) for g, r in zip(got, ref))
 
+    # B14 at gray_s8 BDF2 (the main launch timed above) and B15 at gray_s8
+    # CN, each over H + N packed cells on random double-float planes: 4
+    # planes in, 12 (B14) or 8 (B15) out, (hi, lo) seeds in, a record out.
+    def df_packed(eng, seed):
+        """(e0 hi, e0 lo, e1 hi, e1 lo) packed (rows, H + N): hi planes
+        around the equilibrium value, lo parts within an ulp of them."""
+        g8 = torch.Generator(device=dev).manual_seed(seed)
+        shape = (eng.rows, eng.H + eng.N_loc)
+        his = [float(eng.tables.B[0]) * (0.5 + torch.rand(
+            shape, generator=g8, device=dev)) for _ in range(2)]
+        los = [h * (torch.rand(shape, generator=g8, device=dev) - 0.5)
+               * 2.0 ** -24 for h in his]
+        return his[0], los[0], his[1], los[1]
+
+    b14_args = (*(dhalo.coef[k] for k in (BE, CN, BDF)),
+                *(dhalo.dcoef[k] for k in (BE, CN, BDF)), *dseeds, dhalo.hb,
+                *df_packed(dhalo, 94))
+    b14_kw = dict(K=Kdh, symmetric_half=False, use_corr=use_corr,
+                  blk=dhalo.block, npass=dhalo.scan_npass,
+                  npass_c=dhalo.corr_npass)
+    dhalo_cn = df_auto(gray_cfg(Ms, Ns, 2))
+    Kdc15 = dhalo_cn.K_launch
+    b15_args = (CN, dhalo_cn.coef[CN], dhalo_cn.dcoef[CN],
+                *dhalo_cn._main_seeds(Kdc15), dhalo_cn.hb,
+                *df_packed(dhalo_cn, 93))
+    b15_kw = dict(K=Kdc15, use_corr=use_corr, blk=dhalo_cn.block,
+                  npass=dhalo_cn.scan_npass[CN],
+                  npass_c=dhalo_cn.corr_npass[CN])
+
     f32 = (abs_err, f32_err, TOL, SWEEP_CU)
     dfk = (df_abs_err, df_err, DF_TOL, DF_CU)
     jobs = [
@@ -812,6 +998,18 @@ def main() -> int:
          lambda: df_launch(dcn, rdc, Kdc, plain=True), 5,
          12 * planes + df_consts(dcn),
          cells * Kdc * df_step_flops(2, use_corr), dfk),
+        ("df_halo_bdf2_launch",
+         lambda: cd.df_halo_bdf2_launch(*b14_args, **b14_kw),
+         lambda: cd.df_halo_bdf2_launch_ref(*b14_args, **b14_kw), 10,
+         16 * nbytes(b14_args[-1]) + nbytes(*b14_args[:6])
+         + 4 * nbytes(dseeds[0]),
+         b14_args[-1].numel() * Kdh * df_step_flops(3, use_corr), dfk),
+        ("df_halo_multistep_launch",
+         lambda: cd.df_halo_multistep_launch(*b15_args, **b15_kw),
+         lambda: cd.df_halo_multistep_launch_ref(*b15_args, **b15_kw), 10,
+         12 * nbytes(b15_args[-1]) + nbytes(*b15_args[1:3])
+         + 4 * nbytes(b15_args[3]),
+         b15_args[-1].numel() * Kdc15 * df_step_flops(2, use_corr), dfk),
     ]
     for name, kernel_fn, plain_fn, reps, nb, flops, kind in jobs:
         abs_fn, norm_fn, tol, source = kind

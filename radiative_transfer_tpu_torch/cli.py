@@ -19,17 +19,19 @@ Engines:
 * ``df``: DFCudaEngine, the f64-grade double-float sweep (B6-B7), at
   either ``--dtype`` (its tables are float64 whatever the dtype; at
   float32 it says so, as the JAX CLI does);
-* ``auto``: at float64 (the default, as in JAX) the double-float engine,
-  printed as ``auto engine: df (single chip, double-float kernel)``; at
-  ``--dtype float32`` parallel.make_multichip_engine's pick (the halo
-  engine at tiny batches, Bh < 8, where feasible, else CudaSweepEngine),
-  printed as ``auto engine: <Engine> (single chip)``.
+* ``auto``: at float64 (the default, as in JAX) the f64-grade selection,
+  printed as ``auto engine: df (single chip, double-float kernel)``: the
+  packed-rows DFHaloCudaEngine at tiny batches (Bh < 8, B14-B15) where its
+  creep bound admits the deck, then also printed as ``auto engine:
+  packed-rows df halo at 1-device mesh (tiny batch)``, else DFCudaEngine;
+  at ``--dtype float32`` parallel.make_multichip_engine's pick (the halo
+  engine at tiny batches where feasible, else CudaSweepEngine), printed as
+  ``auto engine: <Engine> (single chip)``. An explicit ``--engine df``
+  keeps the plain DFCudaEngine, as in JAX.
 
-Two routings differ from the JAX CLI's on purpose: auto at float64 stays
-on DFCudaEngine at tiny batches, where JAX tries its packed-rows df halo
-(kernels B14-B15, not ported; the same cells, bit for bit), and for an N
-with no TPU-friendly block, where JAX falls back to its XLA engine (the
-CUDA kernels tile any N).
+One routing differs from the JAX CLI's on purpose: auto at float64 stays
+on the double-float kernels for an N with no TPU-friendly block, where JAX
+falls back to its XLA engine (the CUDA kernels tile any N).
 
 ``pallas`` and ``halo`` are float32 engines; at ``--dtype float64`` they
 print a note and run in float32, as the JAX CLI does. ``--device cuda``
@@ -70,10 +72,10 @@ def main(argv=None) -> int:
     ap.add_argument("--engine", default="general",
                     help="pallas: the fused f32 sweep on the CUDA kernels; "
                          "halo: the packed-rows halo engine at one device; "
-                         "df: the f64-grade double-float sweep; auto: df at "
-                         "float64, else the shape-aware pick of pallas and "
-                         "halo (the JAX package's default, general, is not "
-                         "ported yet)")
+                         "df: the f64-grade double-float sweep; auto: the "
+                         "shape-aware pick of df and its packed-rows halo at "
+                         "float64, of pallas and halo at float32 (the JAX "
+                         "package's default, general, is not ported yet)")
     ap.add_argument("--dtype", choices=("float64", "float32"),
                     default="float64",
                     help="float32 for the f32 engines; float64 (default) "
@@ -110,6 +112,7 @@ def main(argv=None) -> int:
 
     from . import load_config
     from .models import transport
+    from .ops.cuda_df import DFCudaEngine
     from .parallel import make_multichip_engine
     from .utils import io as io_mod
     from .utils.profiling import updates_per_step
@@ -127,7 +130,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     engine = args.engine
-    if engine == "auto" and args.dtype == "float64":
+    auto_df = engine == "auto" and args.dtype == "float64"
+    if auto_df:
         engine = "df"
         print("auto engine: df (single chip, double-float kernel)")
     elif engine == "df" and args.dtype != "float64":
@@ -136,17 +140,25 @@ def main(argv=None) -> int:
     elif engine in ("pallas", "halo") and args.dtype != "float32":
         print(f"note: the {engine} engine is float32-only")
     try:
-        # pallas is the plain CudaSweepEngine, the selection's "single".
-        eng = make_multichip_engine(
-            cfg, tables, None,
-            engine="single" if engine == "pallas" else engine,
-            scan_tol=args.scan_tol, device=args.device)
+        if engine == "df" and not auto_df:
+            # An explicit --engine df pins the plain double-float kernel.
+            eng = DFCudaEngine(cfg, tables, scan_tol=args.scan_tol,
+                               device=args.device)
+        else:
+            # pallas is the plain CudaSweepEngine, the selection's "single".
+            eng = make_multichip_engine(
+                cfg, tables, None,
+                engine="single" if engine == "pallas" else engine,
+                scan_tol=args.scan_tol, device=args.device)
     except ValueError as e:
         print(f"--engine {args.engine} infeasible for this workload: "
               f"{e}\nfall back to --engine pallas", file=sys.stderr)
         return 2
     if engine == "auto":
         print(f"auto engine: {type(eng).__name__} (single chip)")
+    elif auto_df and not isinstance(eng, DFCudaEngine):
+        print("auto engine: packed-rows df halo at 1-device mesh (tiny "
+              "batch)")
     ends = eng.ends(eng.solve())
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)

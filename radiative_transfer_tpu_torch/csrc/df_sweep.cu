@@ -6,9 +6,15 @@
 //                                                 steps a launch; B6)
 //   rt_df_multistep <- _make_df_multistep_kernel (K whole double-float BE
 //                                                 or CN steps; B7)
-// Both run on one __device__ sub-step routine, df_substep (the counterpart
+//   rt_df_halo_bdf2 <- _make_df_halo_bdf2_kernel (seeded K-step BDF2, packed
+//                                                 rows, for the df halo
+//                                                 engine; B14)
+//   rt_df_halo_multistep <- _make_df_halo_multistep_kernel (seeded K-step
+//                                                 BE or CN, packed rows; B15)
+// All run on one __device__ sub-step routine, df_substep (the counterpart
 // of _df_substep), and the row-tile machinery of tiles.cuh (block-wide scan,
-// upwind exchange, cell loads and stores).
+// upwind exchange, cell loads and stores); the K-step kernels share their
+// tile loops (df_bdf2_segment, df_multistep_segment).
 //
 // What is computed. A value is an unevaluated sum hi + lo of two float32
 // numbers; the planes come in (hi, lo) pairs. Each sub-step of each row is
@@ -53,6 +59,20 @@
 //   precision, not bit for bit.
 // * Cells past N in the last (ragged) tile load as 0 and are never stored;
 //   they lie downstream of every real cell.
+// * The halo kernels (B14, B15) take both direction halves as 2*Bh packed
+//   rows in one launch, mu<0 rows first, with no reflective coupling inside
+//   (parallel/df_halo_cuda.py runs a fixup launch for it). Each row is two
+//   chains, as in sweep.cu's B4-B5: cells [0, reset_cell) from zero slots,
+//   then [reset_cell, X) from the per-(row, slot) (hi, lo) seeds: base carry
+//   and upwind o1 edge at the seed's hi part, the inflow's lo part at its lo
+//   part, a zero correction carry and zero history tails (no s-multiplier
+//   fold: the residual corrects the base's plain inflow). Each segment is
+//   tiled from its own start, so `first` is the segment's first tile, and
+//   the barriers of seed_row order the new seeds after every access of the
+//   previous chain's slots and before any read of them. Every row records
+//   its corrected outflow two_sum(base o1 edge, correction carry) per slot.
+//   The scans are exact, so a zero seed's error past the halo decays as
+//   a^H instead of stopping at the JAX engine's creep bound.
 // * Registers: each thread holds kCells = 4 cells (sweep.cu holds 8): the
 //   (hi, lo) planes of the state, the half snapshot, a phase's input and
 //   output, and the right-hand side with its error terms are live at once.
@@ -62,11 +82,12 @@
 // walk on its one SM. A BDF2 cell-step is ~1016 float32 operations here
 // against the float32 kernel's 124 (capture, residual, second scan; counted
 // in chip_smoke.py), most of them __f*_rn that cannot fuse, and 2*Bh blocks
-// exist (Bh at a time for a reflective boundary). On an H100 at the bench
+// exist (Bh at a time for a reflective boundary; all 2*Bh at once for the
+// halo kernels, which also run the H halo cells). On an H100 at the bench
 // shape a 2048-cell tile-phase took ~4.1 us; its ~254 operations a cell
 // need ~2.1 us of the SM's 128 float32 lanes at 1.98 GHz, and the rest is
-// barriers and latency. Device-memory traffic is 4 planes read and 12 (B6)
-// or 8 (B7) written per K-step launch.
+// barriers and latency. Device-memory traffic is 4 planes read and 12 (B6,
+// B14) or 8 (B7, B15) written per K-step launch.
 
 #include <cuda_runtime.h>
 
@@ -241,8 +262,9 @@ __device__ __forceinline__ void upwind_pair(float my_h, float my_l,
 // One double-float sub-step of kind KIND over this thread's cells of the
 // tile (_df_substep). e: the sub-step's input; p/hp: the prev and half
 // history planes (CN reads p, BDF both); pu/hu: the (hi, lo) p1/h1 values
-// upwind of the thread's first cell. `first`: the row's first tile, where
-// thread 0's history fills are the slot's inflow. Slot s's carries and
+// upwind of the thread's first cell. `first`: the chain's first tile (the
+// row's, or a halo row's at reset_cell), where thread 0's history fills are
+// the slot's inflow. Slot s's carries and
 // upwind o1 edge are read and then replaced by this tile's; `owner` is the
 // index among this thread's cells of the tile's last real cell, or -1.
 template <int KIND>
@@ -250,10 +272,12 @@ __device__ __forceinline__ void df_substep(
     const KindCoef& k, bool use_corr, const Pair4& e, const Pair4& p,
     const Pair4& hp, float pu_h, float pu_l, float hu_h, float hu_l, int s,
     bool first, int owner, Shared& sm, int& buf, Pair4& o) {
-  // The slot's double-float inflow, read in the row's first tile only, where
-  // init_row's barrier orders it. In a later tile no barrier need lie
-  // between here and the previous tile owner's write of oth[s], and the
-  // inflow's lo part is nonzero only at the row start.
+  // The slot's double-float inflow, read in the chain's first tile only,
+  // where the last barrier of init_row or seed_row orders it after the slot's
+  // initialisation, and the owner's write of oth[s] in this sub-step follows
+  // barriers that thread 0 reaches after this read. In a later tile no
+  // barrier need lie between here and the previous tile owner's write of
+  // oth[s], and the inflow's lo part is nonzero only at the chain start.
   float ofl = 0.f;
   if (first && threadIdx.x == 0) {
     ofl = sm.otl[s];
@@ -423,6 +447,15 @@ __device__ __forceinline__ void df_substep(
 // Slots entering a row (_half_init): every (step, phase) slot's base carry
 // and upwind o1 edge at the (hi, lo) inflow, a zero correction carry, and
 // zero history tails; the row's coefficients into shared memory.
+// Row r's coefficients of the first nkinds kinds into shared memory; a
+// barrier must follow before any read.
+__device__ __forceinline__ void load_kinds(Shared& sm, int nkinds,
+                                           const Packs& pk, int r) {
+  if (threadIdx.x < nkinds)
+    load_kind(sm.kc[threadIdx.x], pk.c[threadIdx.x] + r * kNCoef,
+              pk.d[threadIdx.x] + r * kNDF);
+}
+
 __device__ __forceinline__ void init_row(Shared& sm, int slots, int steps,
                                          int nkinds, const Packs& pk,
                                          const float* __restrict__ bc,
@@ -430,9 +463,7 @@ __device__ __forceinline__ void init_row(Shared& sm, int slots, int steps,
                                          const int* __restrict__ flip,
                                          const float* rec, int h, int row,
                                          int hr, int reflective) {
-  if (threadIdx.x < nkinds)
-    load_kind(sm.kc[threadIdx.x], pk.c[threadIdx.x] + hr * kNCoef,
-              pk.d[threadIdx.x] + hr * kNDF);
+  load_kinds(sm, nkinds, pk, hr);
   const bool coupled = h == 1 && reflective;
   const float* r = coupled ? rec + 2 * slots * flip[row] : nullptr;
   for (int i = threadIdx.x; i < slots; i += blockDim.x) {
@@ -450,46 +481,67 @@ __device__ __forceinline__ void init_row(Shared& sm, int slots, int steps,
   __syncthreads();
 }
 
+// Starts a chain (the reset block of _make_df_halo_*_kernel): every slot's
+// base carry and upwind o1 edge at the seed's hi part, the inflow's lo part
+// at its lo part (0 where the seeds are null), a zero correction carry and
+// zero history tails. The first barrier orders this after every access of
+// the previous chain's slots and tails (the owner's last carry and edge
+// writes, the tail thread's tail writes, the first tile's inflow reads);
+// the second orders it before the new chain's first reads.
+__device__ __forceinline__ void seed_row(Shared& sm, int slots, int steps,
+                                         const float* __restrict__ sh,
+                                         const float* __restrict__ sl) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
+    const float vh = sh ? sh[i] : 0.f;
+    sm.carry[i] = vh;
+    sm.ccarry[i] = 0.f;
+    sm.oth[i] = vh;
+    sm.otl[i] = sl ? sl[i] : 0.f;
+  }
+  for (int i = threadIdx.x; i < steps; i += blockDim.x) {
+    sm.eth[i] = sm.etl[i] = 0.f;
+    sm.hth[i] = sm.htl[i] = 0.f;
+  }
+  __syncthreads();
+}
+
+// Writes each slot's corrected outflow, two_sum(base o1 edge, correction
+// carry), after the row's last cell: hi parts to rh[slot], lo to rl[slot].
+__device__ __forceinline__ void write_record(const Shared& sm, int slots,
+                                             float* rh, float* rl) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < slots; i += blockDim.x)
+    two_sum(sm.oth[i], sm.ccarry[i], rh[i], rl[i]);
+}
+
 // The mu<0 half of a reflective slab records its corrected outflow per
-// slot, two_sum(base o1 edge, correction carry), as rec[row] = (hi[slots],
-// lo[slots]).
+// slot as rec[row] = (hi[slots], lo[slots]).
 __device__ __forceinline__ void record_row(const Shared& sm, int slots,
                                            float* rec, int h, int row,
                                            int reflective) {
   if (!(h == 0 && reflective)) return;
-  __syncthreads();
   float* r = rec + 2 * slots * row;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x)
-    two_sum(sm.oth[i], sm.ccarry[i], r[i], r[slots + i]);
+  write_record(sm, slots, r, r + slots);
 }
 
-// B6, replaces _make_df_bdf2_kernel (df_sweep.py:372): K whole double-float
-// BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector.
-__global__ void __launch_bounds__(kMaxThreads)
-    df_bdf2_kernel(Packs pk, const float* __restrict__ bc,
-                   const float* __restrict__ bcl,
-                   const int* __restrict__ flip, float* rec, Planes g, int Bh,
-                   int N, int K, int symmetric, int reflective, int use_corr,
-                   int half0) {
-  __shared__ Shared sm;
-  const int row = blockIdx.x % Bh;
-  const int h = half0 + blockIdx.x / Bh;
-  const int hr = h * Bh + row;
-  const int slots = 4 * K;
-  init_row(sm, slots, K, 3, pk, bc, bcl, flip, rec, h, row, hr, reflective);
-  // The half snapshot is the CN output for mu<0 and the phase-0 BE output
-  // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
-  const bool snap_cn = symmetric || h == 0;
-  const size_t base = static_cast<size_t>(hr) * N;
+// K whole double-float BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and
+// the BDF corrector, over the cells [s0, s1) of the row at plane offset
+// `base`, in tiles aligned to s0. Starts from the slots and tails in shared
+// memory and leaves them there. The half snapshot is the CN output where
+// snap_cn, else the phase-0 BE output.
+__device__ __forceinline__ void df_bdf2_segment(const Planes& g, size_t base,
+                                                int s0, int s1, int K,
+                                                bool snap_cn, bool use_corr,
+                                                Shared& sm, int& buf) {
   const bool tail_thread = threadIdx.x == blockDim.x - 1;
   const int tile = blockDim.x * kCells;
-  int buf = 0;
-  for (int t0 = 0; t0 < N; t0 += tile) {
+  for (int t0 = s0; t0 < s1; t0 += tile) {
     const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, N, kCells);
-    const bool first = t0 == 0;
+    const int owner = tile_owner(t0, j0, tile, s1, kCells);
+    const bool first = t0 == s0;
     Pair4 x, hs;
-    load_pair(x, g, base, j0, N);
+    load_pair(x, g, base, j0, s1);
     for (int k = 0; k < K; ++k) {
       const int s = 4 * k;
       // prev = the step's input; its upwind p1 edge feeds CN and BDF.
@@ -517,12 +569,68 @@ __global__ void __launch_bounds__(kMaxThreads)
         sm.htl[k] = hs.l1[kCells - 1];
       }
       // prev of the final state = the LAST step's input.
-      if (k == K - 1) store_pair(g, 8, base, j0, N, x);
+      if (k == K - 1) store_pair(g, 8, base, j0, s1, x);
       x = f;
     }
-    store_pair(g, 0, base, j0, N, x);
-    store_pair(g, 4, base, j0, N, hs);
+    store_pair(g, 0, base, j0, s1, x);
+    store_pair(g, 4, base, j0, s1, hs);
   }
+}
+
+// K whole double-float BE or CN steps over the cells [s0, s1) of one row,
+// as df_bdf2_segment; prev = each step's input.
+template <int KIND>
+__device__ __forceinline__ void df_multistep_segment(const Planes& g,
+                                                     size_t base, int s0,
+                                                     int s1, int K,
+                                                     bool use_corr,
+                                                     Shared& sm, int& buf) {
+  const bool tail_thread = threadIdx.x == blockDim.x - 1;
+  const int tile = blockDim.x * kCells;
+  for (int t0 = s0; t0 < s1; t0 += tile) {
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, s1, kCells);
+    const bool first = t0 == s0;
+    Pair4 x;
+    load_pair(x, g, base, j0, s1);
+    for (int k = 0; k < K; ++k) {
+      float xu_h = 0.f, xu_l = 0.f;
+      if constexpr (KIND == kCN)
+        upwind_pair(x.h1[kCells - 1], x.l1[kCells - 1], &sm.eth[k],
+                    &sm.etl[k], sm, xu_h, xu_l);
+      Pair4 f;
+      df_substep<KIND>(sm.kc[0], use_corr, x, x, x, xu_h, xu_l, 0.f, 0.f, k,
+                       first, owner, sm, buf, f);
+      if (KIND == kCN && tail_thread) {
+        sm.eth[k] = x.h1[kCells - 1];
+        sm.etl[k] = x.l1[kCells - 1];
+      }
+      if (k == K - 1) store_pair(g, 4, base, j0, s1, x);
+      x = f;
+    }
+    store_pair(g, 0, base, j0, s1, x);
+  }
+}
+
+// B6, replaces _make_df_bdf2_kernel (df_sweep.py:372): K whole double-float
+// BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector.
+__global__ void __launch_bounds__(kMaxThreads)
+    df_bdf2_kernel(Packs pk, const float* __restrict__ bc,
+                   const float* __restrict__ bcl,
+                   const int* __restrict__ flip, float* rec, Planes g, int Bh,
+                   int N, int K, int symmetric, int reflective, int use_corr,
+                   int half0) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x % Bh;
+  const int h = half0 + blockIdx.x / Bh;
+  const int hr = h * Bh + row;
+  const int slots = 4 * K;
+  init_row(sm, slots, K, 3, pk, bc, bcl, flip, rec, h, row, hr, reflective);
+  // The half snapshot is the CN output for mu<0 and the phase-0 BE output
+  // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
+  int buf = 0;
+  df_bdf2_segment(g, static_cast<size_t>(hr) * N, 0, N, K,
+                  symmetric || h == 0, use_corr, sm, buf);
   record_row(sm, slots, rec, h, row, reflective);
 }
 
@@ -540,34 +648,58 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int h = half0 + blockIdx.x / Bh;
   const int hr = h * Bh + row;
   init_row(sm, K, K, 1, pk, bc, bcl, flip, rec, h, row, hr, reflective);
-  const size_t base = static_cast<size_t>(hr) * N;
-  const bool tail_thread = threadIdx.x == blockDim.x - 1;
-  const int tile = blockDim.x * kCells;
   int buf = 0;
-  for (int t0 = 0; t0 < N; t0 += tile) {
-    const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, N, kCells);
-    const bool first = t0 == 0;
-    Pair4 x;
-    load_pair(x, g, base, j0, N);
-    for (int k = 0; k < K; ++k) {
-      float xu_h = 0.f, xu_l = 0.f;
-      if constexpr (KIND == kCN)
-        upwind_pair(x.h1[kCells - 1], x.l1[kCells - 1], &sm.eth[k],
-                    &sm.etl[k], sm, xu_h, xu_l);
-      Pair4 f;
-      df_substep<KIND>(sm.kc[0], use_corr, x, x, x, xu_h, xu_l, 0.f, 0.f, k,
-                       first, owner, sm, buf, f);
-      if (KIND == kCN && tail_thread) {
-        sm.eth[k] = x.h1[kCells - 1];
-        sm.etl[k] = x.l1[kCells - 1];
-      }
-      if (k == K - 1) store_pair(g, 4, base, j0, N, x);
-      x = f;
-    }
-    store_pair(g, 0, base, j0, N, x);
-  }
+  df_multistep_segment<KIND>(g, static_cast<size_t>(hr) * N, 0, N, K,
+                             use_corr, sm, buf);
   record_row(sm, K, rec, h, row, reflective);
+}
+
+// B14, replaces _make_df_halo_bdf2_kernel (df_sweep.py:640): K whole seeded
+// double-float BDF2 steps over packed rows (mu<0 rows first), one thread
+// block a row. Seeds and the record are (rows, 4K); rec holds the hi parts,
+// then the lo parts.
+__global__ void __launch_bounds__(kMaxThreads)
+    df_halo_bdf2_kernel(Packs pk, const float* __restrict__ seeds_h,
+                        const float* __restrict__ seeds_l, float* rec,
+                        Planes g, int rows, int X, int K, int reset_cell,
+                        int symmetric, int use_corr) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x;
+  const int slots = 4 * K;
+  const size_t base = static_cast<size_t>(row) * X;
+  const size_t sd = static_cast<size_t>(row) * slots;
+  // The per-row blend of the half snapshot: both halves share the launch.
+  const bool snap_cn = symmetric || row < rows / 2;
+  load_kinds(sm, 3, pk, row);
+  int buf = 0;
+  seed_row(sm, slots, K, nullptr, nullptr);
+  df_bdf2_segment(g, base, 0, reset_cell, K, snap_cn, use_corr, sm, buf);
+  seed_row(sm, slots, K, seeds_h + sd, seeds_l + sd);
+  df_bdf2_segment(g, base, reset_cell, X, K, snap_cn, use_corr, sm, buf);
+  write_record(sm, slots, rec + sd,
+               rec + static_cast<size_t>(rows) * slots + sd);
+}
+
+// B15, replaces _make_df_halo_multistep_kernel (df_sweep.py:541): K whole
+// seeded double-float BE or CN steps over packed rows, as
+// df_halo_bdf2_kernel; seeds and the record are (rows, K).
+template <int KIND>
+__global__ void __launch_bounds__(kMaxThreads)
+    df_halo_multistep_kernel(Packs pk, const float* __restrict__ seeds_h,
+                             const float* __restrict__ seeds_l, float* rec,
+                             Planes g, int rows, int X, int K,
+                             int reset_cell, int use_corr) {
+  __shared__ Shared sm;
+  const int row = blockIdx.x;
+  const size_t base = static_cast<size_t>(row) * X;
+  const size_t sd = static_cast<size_t>(row) * K;
+  load_kinds(sm, 1, pk, row);
+  int buf = 0;
+  seed_row(sm, K, K, nullptr, nullptr);
+  df_multistep_segment<KIND>(g, base, 0, reset_cell, K, use_corr, sm, buf);
+  seed_row(sm, K, K, seeds_h + sd, seeds_l + sd);
+  df_multistep_segment<KIND>(g, base, reset_cell, X, K, use_corr, sm, buf);
+  write_record(sm, K, rec + sd, rec + static_cast<size_t>(rows) * K + sd);
 }
 
 Planes unpack_planes(void* const* planes, int nout) {
@@ -625,6 +757,48 @@ int rt_df_multistep(int kind, const float* coef, const float* dcoef,
       df_multistep_kernel<kCN><<<grid, threads, 0, st>>>(
           pk, bc, bcl, flip, rec, g, Bh, N, K, reflective, use_corr, half0);
   });
+}
+
+// The halo kernels take packed (rows, X) planes, rows = 2*Bh with the mu<0
+// rows first, coefficients (rows, 10) and (rows, 20), seeds hi and lo (rows,
+// slots), rec a (2, rows, slots) record (hi parts, then lo parts), and the
+// cell reset_cell in [0, X) where the seeded chain starts.
+
+int rt_df_halo_bdf2(const float* cbe, const float* ccn, const float* cbdf,
+                    const float* dbe, const float* dcn, const float* dbdf,
+                    const float* seeds_h, const float* seeds_l, float* rec,
+                    void* const* planes, int rows, int X, int K,
+                    int reset_cell, int symmetric, int use_corr,
+                    void* stream) {
+  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
+      reset_cell < 0 || reset_cell >= X)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Packs pk{{cbe, ccn, cbdf}, {dbe, dcn, dbdf}};
+  df_halo_bdf2_kernel<<<rows, pick_threads(X, kCells, kMaxThreads), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      pk, seeds_h, seeds_l, rec, unpack_planes(planes, 12), rows, X, K,
+      reset_cell, symmetric, use_corr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_df_halo_multistep(int kind, const float* coef, const float* dcoef,
+                         const float* seeds_h, const float* seeds_l,
+                         float* rec, void* const* planes, int rows, int X,
+                         int K, int reset_cell, int use_corr, void* stream) {
+  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
+      reset_cell < 0 || reset_cell >= X || (kind != kBE && kind != kCN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Packs pk{{coef, nullptr, nullptr}, {dcoef, nullptr, nullptr}};
+  const Planes g = unpack_planes(planes, 8);
+  const int threads = pick_threads(X, kCells, kMaxThreads);
+  if (kind == kBE)
+    df_halo_multistep_kernel<kBE><<<rows, threads, 0, st>>>(
+        pk, seeds_h, seeds_l, rec, g, rows, X, K, reset_cell, use_corr);
+  else
+    df_halo_multistep_kernel<kCN><<<rows, threads, 0, st>>>(
+        pk, seeds_h, seeds_l, rec, g, rows, X, K, reset_cell, use_corr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

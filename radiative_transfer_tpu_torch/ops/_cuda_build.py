@@ -45,6 +45,8 @@ _SIGNATURES = {
     "rt_sweep_halo_multistep": [_I] + [_P] * 9 + [_I] * 4 + [_P],
     "rt_df_bdf2": [_P] * 10 + [_PP] + [_I] * 6 + [_P],
     "rt_df_multistep": [_I] + [_P] * 6 + [_PP] + [_I] * 5 + [_P],
+    "rt_df_halo_bdf2": [_P] * 9 + [_PP] + [_I] * 6 + [_P],
+    "rt_df_halo_multistep": [_I] + [_P] * 5 + [_PP] + [_I] * 5 + [_P],
 }
 
 

@@ -1,13 +1,21 @@
 """Double-float (f64-grade) sweep engine on hand-written CUDA kernels.
 
 Port of radiative_transfer_tpu/ops/df_sweep.py (DFPallasEngine and its
-two single-device kernel factories). Two kernel wrappers carry the
-engine:
+four kernel factories). Two kernel wrappers carry the engine:
 
 * ``df_bdf2_launch``      — K whole double-float BDF2 four-phase steps
   (B6, ``_make_df_bdf2_kernel``): 4 planes in, 12 out;
 * ``df_multistep_launch`` — K whole double-float BE or CN steps (B7,
-  ``_make_df_multistep_kernel``): 4 planes in, 8 out.
+  ``_make_df_multistep_kernel``): 4 planes in, 8 out;
+
+and two more carry the packed-rows df halo engine
+(parallel/df_halo_cuda.py):
+
+* ``df_halo_bdf2_launch``      — B14, ``_make_df_halo_bdf2_kernel``;
+* ``df_halo_multistep_launch`` — B15, ``_make_df_halo_multistep_kernel``:
+  the same steps over (2*Bh, X) packed rows, mu<0 rows first, each row's
+  chain restarted at block `reset` from (hi, lo) seeds, with every row's
+  corrected outflow recorded per (step, phase).
 
 A value is carried as hi + lo, two float32 planes (ops/df.py). Every
 sub-step is iterative refinement inside the kernel, as in the JAX engine:
@@ -326,7 +334,8 @@ def _df_bdf2_block(kbs, kds, col0, first: bool, masks, use_corr: bool, x,
                    npass_c):
     """K whole double-float BDF2 steps on one block; `slots` (4K, index
     4k+p for step k phase p), `etails` and `htails` (K (hi, lo) pairs) are
-    updated in place. Returns (ends, half, prev), each a 4-tuple."""
+    updated in place; `snap_cn` as in ``cs._pick``. Returns (ends, half,
+    prev), each a 4-tuple."""
     for k in range(K):
         et, ht = etails[k], htails[k]
 
@@ -341,8 +350,9 @@ def _df_bdf2_block(kbs, kds, col0, first: bool, masks, use_corr: bool, x,
         # Phase 1: CN(dt/2) corrector (p1 = step input e1).
         hc = phase(1, CN, b, p=x, ptail=et)
         # Half snapshot: CN output for mu<0, phase-0 BE output for mu>0
-        # (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
-        hs = hc if snap_cn else b
+        # (reference quirk, solver.cpp:733 vs 784-787) unless symmetric;
+        # a (rows, 1) mask blends packed rows.
+        hs = tuple(cs._pick(snap_cn, a, bb) for a, bb in zip(hc, b))
         # Phase 2: second BE(dt/2) predictor.
         d = phase(2, BE, hc)
         # Phase 3: BDF2 corrector (prev = step input, half = hs).
@@ -426,6 +436,92 @@ def df_multistep_launch_ref(kind: int, coef, dcoef, bc, bcl, flip, e0h, e0l,
             for o, g in zip(outs, (*got[0], *got[1])):
                 o[h, :, sl] = g
     return tuple(outs)
+
+
+def _df_chain_slots(nslots: int, seeds_h, seeds_l, zt):
+    """Slots [carry, ccarry, otail_h, otail_l] where a packed chain starts:
+    zeros at block 0, the (hi, lo) seed columns at the reset block (base
+    carry and upwind o1 edge at the seed's hi part, the inflow's lo part
+    at its lo part; no s-multiplier fold)."""
+    if seeds_h is None:
+        return [[zt, zt, zt, zt] for _ in range(nslots)]
+    return [[seeds_h[:, c:c + 1], zt, seeds_h[:, c:c + 1],
+             seeds_l[:, c:c + 1]] for c in range(nslots)]
+
+
+def _df_record(slots):
+    """(rows, C) hi and lo of each slot's corrected outflow two_sum(base
+    o1 edge, correction carry) after the last block."""
+    vals = [df.two_sum(oth, cc) for _, cc, oth, _ in slots]
+    return (torch.cat([h for h, _ in vals], dim=1),
+            torch.cat([l for _, l in vals], dim=1))
+
+
+def df_halo_bdf2_launch_ref(cbe, ccn, cbdf, dbe, dcn, dbdf, seeds_h, seeds_l,
+                            reset: int, e0h, e0l, e1h, e1l, *, K: int,
+                            symmetric_half: bool, use_corr: bool, blk: int,
+                            npass: dict, npass_c: dict):
+    """Plain version of B14 (``_make_df_halo_bdf2_kernel``): K whole
+    double-float BDF2 steps over packed (rows, X) planes, mu<0 rows first,
+    both halves in each block visit. Coefficients are (rows, NCOEF) and
+    (rows, _NDF). The slots and history tails start at zero at block 0 and
+    restart at block `reset` from the (hi, lo) `seeds_*` (rows, 4K; column
+    4k+p is step k phase p) with zero tails; the half snapshot blends per
+    row unless `symmetric_half`. Returns the 12 planes of
+    ``df_bdf2_launch_ref`` and the (rows, 4K) record's hi and lo."""
+    nb, masks, col0, zt = cs._block_setup(
+        e0h, blk, max(*npass.values(), *npass_c.values()))
+    rows = e0h.shape[0]
+    outs = [torch.empty_like(e0h) for _ in range(12)]
+    kbs = {kind: cs._unpack_coef(c)
+           for kind, c in ((BE, cbe), (CN, ccn), (BDF, cbdf))}
+    kds = {kind: _unpack_dfc(d, kbs[kind])
+           for kind, d in ((BE, dbe), (CN, dcn), (BDF, dbdf))}
+    snap_cn = (True if symmetric_half else
+               torch.arange(rows, device=e0h.device)[:, None] < rows // 2)
+    for i in range(nb):
+        if i in (0, reset):
+            slots = _df_chain_slots(4 * K, seeds_h if i == reset else None,
+                                    seeds_l, zt)
+            etails, htails = [(zt, zt)] * K, [(zt, zt)] * K
+        sl = slice(i * blk, (i + 1) * blk)
+        x = tuple(pl[:, sl] for pl in (e0h, e0l, e1h, e1l))
+        got = _df_bdf2_block(kbs, kds, col0, i == reset, masks, use_corr, x,
+                             slots, etails, htails, K, snap_cn, npass,
+                             npass_c)
+        for o, g in zip(outs, (*got[0], *got[1], *got[2])):
+            o[:, sl] = g
+    return (*outs, *_df_record(slots))
+
+
+def df_halo_multistep_launch_ref(kind: int, coef, dcoef, seeds_h, seeds_l,
+                                 reset: int, e0h, e0l, e1h, e1l, *, K: int,
+                                 use_corr: bool, blk: int, npass: int,
+                                 npass_c: int):
+    """Plain version of B15 (``_make_df_halo_multistep_kernel``): K whole
+    double-float BE or CN steps over packed (rows, X) planes, seeded as in
+    ``df_halo_bdf2_launch_ref`` from (rows, K) seeds. Returns the 8 planes
+    of ``df_multistep_launch_ref`` and the (rows, K) record's hi and lo."""
+    if kind not in (BE, CN):
+        raise ValueError(
+            f"df halo multistep kernel runs BE or CN, got {kind}")
+    nb, masks, col0, zt = cs._block_setup(e0h, blk, max(npass, npass_c))
+    outs = [torch.empty_like(e0h) for _ in range(8)]
+    kb = cs._unpack_coef(coef)
+    kd = _unpack_dfc(dcoef, kb)
+    for i in range(nb):
+        if i in (0, reset):
+            slots = _df_chain_slots(K, seeds_h if i == reset else None,
+                                    seeds_l, zt)
+            etails = [(zt, zt)] * K
+        sl = slice(i * blk, (i + 1) * blk)
+        x = tuple(pl[:, sl] for pl in (e0h, e0l, e1h, e1l))
+        got = _df_multistep_block(kind, kb, kd, col0, i == reset, masks,
+                                  use_corr, x, slots, etails, K, npass,
+                                  npass_c)
+        for o, g in zip(outs, (*got[0], *got[1])):
+            o[:, sl] = g
+    return (*outs, *_df_record(slots))
 
 
 # ---------------------------------------------------------------------------
@@ -513,9 +609,90 @@ def df_multistep_launch(kind: int, coef, dcoef, bc, bcl, flip, e0h, e0l, e1h,
     return tuple(outs)
 
 
+def _check_df_packed(name: str, coefs, dcoefs, seeds_h, seeds_l, planes,
+                     C: int, reset: int, blk: int):
+    """Validate a packed-rows df kernel's inputs; returns (rows, X)."""
+    rows, X = cs._check_packed(name, coefs, seeds_h, planes, C, reset, blk)
+    dev = planes[0].device
+    for t, cols, what in [(d, _NDF, "df coefficients") for d in dcoefs] + [
+            (seeds_l, C, "seeds_l")]:
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != (rows, cols) or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be contiguous float32 "
+                             f"({rows}, {cols}) on {dev}")
+    return rows, X
+
+
+def df_halo_bdf2_launch(cbe, ccn, cbdf, dbe, dcn, dbdf, seeds_h, seeds_l,
+                        reset: int, e0h, e0l, e1h, e1l, *, K: int,
+                        symmetric_half: bool, use_corr: bool, blk: int,
+                        npass: dict, npass_c: dict):
+    """B14: K whole seeded double-float BDF2 steps over packed (rows, X)
+    planes in one launch (see ``df_halo_bdf2_launch_ref``). The kernel
+    restarts the chains at cell reset*blk and scans exactly. Returns the
+    12 planes and the record's hi and lo."""
+    if e0h.device.type == "cpu":
+        return df_halo_bdf2_launch_ref(
+            cbe, ccn, cbdf, dbe, dcn, dbdf, seeds_h, seeds_l, reset, e0h,
+            e0l, e1h, e1l, K=K, symmetric_half=symmetric_half,
+            use_corr=use_corr, blk=blk, npass=npass, npass_c=npass_c)
+    name = "df_halo_bdf2_launch"
+    cs._check_K(name, K)
+    ins = (e0h, e0l, e1h, e1l)
+    rows, X = _check_df_packed(name, (cbe, ccn, cbdf), (dbe, dcn, dbdf),
+                               seeds_h, seeds_l, ins, 4 * K, reset, blk)
+    lib = load_kernels()
+    outs = [torch.empty_like(e0h) for _ in range(12)]
+    rec = torch.empty((2, rows, 4 * K), dtype=torch.float32,
+                      device=e0h.device)
+    planes = _plane_array(ins, outs)
+    with torch.cuda.device(e0h.device):
+        rc = lib.rt_df_halo_bdf2(
+            *map(cs._ptr, (cbe, ccn, cbdf, dbe, dcn, dbdf, seeds_h, seeds_l,
+                           rec)),
+            planes, rows, X, K, reset * blk, int(symmetric_half),
+            int(use_corr), cs._stream(e0h.device))
+    cs._raise_on(name, rc)
+    df_halo_bdf2_launch.launches += 1
+    return (*outs, rec[0], rec[1])
+
+
+def df_halo_multistep_launch(kind: int, coef, dcoef, seeds_h, seeds_l,
+                             reset: int, e0h, e0l, e1h, e1l, *, K: int,
+                             use_corr: bool, blk: int, npass: int,
+                             npass_c: int):
+    """B15: K whole seeded double-float BE or CN steps over packed (rows,
+    X) planes in one launch. Returns the 8 planes and the record's hi and
+    lo."""
+    if e0h.device.type == "cpu":
+        return df_halo_multistep_launch_ref(
+            kind, coef, dcoef, seeds_h, seeds_l, reset, e0h, e0l, e1h, e1l,
+            K=K, use_corr=use_corr, blk=blk, npass=npass, npass_c=npass_c)
+    name = "df_halo_multistep_launch"
+    if kind not in (BE, CN):
+        raise ValueError(f"{name}: runs BE or CN, got kind {kind}")
+    cs._check_K(name, K)
+    ins = (e0h, e0l, e1h, e1l)
+    rows, X = _check_df_packed(name, (coef,), (dcoef,), seeds_h, seeds_l,
+                               ins, K, reset, blk)
+    lib = load_kernels()
+    outs = [torch.empty_like(e0h) for _ in range(8)]
+    rec = torch.empty((2, rows, K), dtype=torch.float32, device=e0h.device)
+    planes = _plane_array(ins, outs)
+    with torch.cuda.device(e0h.device):
+        rc = lib.rt_df_halo_multistep(
+            kind, *map(cs._ptr, (coef, dcoef, seeds_h, seeds_l, rec)),
+            planes, rows, X, K, reset * blk, int(use_corr),
+            cs._stream(e0h.device))
+    cs._raise_on(name, rc)
+    df_halo_multistep_launch.launches += 1
+    return (*outs, rec[0], rec[1])
+
+
 def reset_launch_counts() -> None:
-    """Zero both df wrappers' counts of kernel launches."""
-    for w in (df_bdf2_launch, df_multistep_launch):
+    """Zero every df wrapper's count of kernel launches."""
+    for w in (df_bdf2_launch, df_multistep_launch, df_halo_bdf2_launch,
+              df_halo_multistep_launch):
         w.launches = 0
 
 
@@ -534,7 +711,56 @@ class DFState(NamedTuple):
     lo: FlatState
 
 
-class DFCudaEngine:
+class DFLayout:
+    """State layout shared by the double-float engines: DFState planes
+    (2, Bh, N) float32 on `self.device`, converted to and from the global
+    float64 (M, G, N, 2) edge arrays. Needs cfg, tables, device, Mh, G and
+    Bh."""
+
+    def init_state(self) -> DFState:
+        """psi = ends = B_g everywhere (solver.cpp:165-181), split to
+        double-float so the initial condition is exact to ~2^-48."""
+        B64 = np.broadcast_to(
+            np.asarray(self.tables.B, dtype=np.float64)[None, :],
+            (self.Mh, self.G)).reshape(self.Bh)
+
+        def plane(v):
+            x = torch.as_tensor(v, device=self.device)[None, :, None]
+            return x.expand(2, self.Bh, self.cfg.N).contiguous()
+
+        bh, bl = df.np_df(B64)
+        ph, plo = plane(bh), plane(bl)
+        return DFState(FlatState(ph, ph, ph, ph, ph, ph),
+                       FlatState(plo, plo, plo, plo, plo, plo))
+
+    def from_ends(self, ends, prev, half) -> DFState:
+        """Global float64 (M, G, N, 2) arrays -> DFState on the engine's
+        device."""
+        his, los = [], []
+        for x in (ends, prev, half):
+            x = torch.as_tensor(x).to(device=self.device,
+                                      dtype=torch.float64)
+            for plane in fs.from_ends(x):
+                hi = plane.float()
+                his.append(hi)
+                los.append((plane - hi.double()).float())
+        return DFState(FlatState(*his), FlatState(*los))
+
+    def ends_pair(self, hi0, lo0, hi1, lo1) -> torch.Tensor:
+        """(hi, lo) edge planes -> global float64 (M, G, N, 2)."""
+        return fs.ends_pair(hi0.double() + lo0.double(),
+                            hi1.double() + lo1.double(), self.Mh, self.G)
+
+    def ends(self, st: DFState) -> torch.Tensor:
+        return self.ends_pair(st.hi.e0, st.lo.e0, st.hi.e1, st.lo.e1)
+
+    def prev_half_ends(self, st: DFState):
+        """(prev_ends, half_ends) as global float64 (M, G, N, 2) arrays."""
+        return (self.ends_pair(st.hi.p0, st.lo.p0, st.hi.p1, st.lo.p1),
+                self.ends_pair(st.hi.h0, st.lo.h0, st.hi.h1, st.lo.h1))
+
+
+class DFCudaEngine(DFLayout):
     """The counterpart of DFPallasEngine: f64-grade K-step fused sweeps
     over double-float (2, Bh, N) planes on `device` (the CUDA kernels B6
     and B7 on a card, their plain versions on the CPU)."""
@@ -638,47 +864,3 @@ class DFCudaEngine:
         if tail:
             state = self.multi_step(state, tail)
         return state
-
-    # -- state / layout -------------------------------------------------------
-
-    def init_state(self) -> DFState:
-        """psi = ends = B_g everywhere (solver.cpp:165-181), split to
-        double-float so the initial condition is exact to ~2^-48."""
-        B64 = np.broadcast_to(
-            np.asarray(self.tables.B, dtype=np.float64)[None, :],
-            (self.Mh, self.G)).reshape(self.Bh)
-
-        def plane(v):
-            x = torch.as_tensor(v, device=self.device)[None, :, None]
-            return x.expand(2, self.Bh, self.cfg.N).contiguous()
-
-        bh, bl = df.np_df(B64)
-        ph, plo = plane(bh), plane(bl)
-        return DFState(FlatState(ph, ph, ph, ph, ph, ph),
-                       FlatState(plo, plo, plo, plo, plo, plo))
-
-    def from_ends(self, ends, prev, half) -> DFState:
-        """Global float64 (M, G, N, 2) arrays -> DFState on the engine's
-        device."""
-        his, los = [], []
-        for x in (ends, prev, half):
-            x = torch.as_tensor(x).to(device=self.device,
-                                      dtype=torch.float64)
-            for plane in fs.from_ends(x):
-                hi = plane.float()
-                his.append(hi)
-                los.append((plane - hi.double()).float())
-        return DFState(FlatState(*his), FlatState(*los))
-
-    def ends_pair(self, hi0, lo0, hi1, lo1) -> torch.Tensor:
-        """(hi, lo) edge planes -> global float64 (M, G, N, 2)."""
-        return fs.ends_pair(hi0.double() + lo0.double(),
-                            hi1.double() + lo1.double(), self.Mh, self.G)
-
-    def ends(self, st: DFState) -> torch.Tensor:
-        return self.ends_pair(st.hi.e0, st.lo.e0, st.hi.e1, st.lo.e1)
-
-    def prev_half_ends(self, st: DFState):
-        """(prev_ends, half_ends) as global float64 (M, G, N, 2) arrays."""
-        return (self.ends_pair(st.hi.p0, st.lo.p0, st.hi.p1, st.lo.p1),
-                self.ends_pair(st.hi.h0, st.lo.h0, st.hi.h1, st.lo.h1))

@@ -14,7 +14,8 @@
   both half-snapshot modes, seeded numpy (hi, lo) states fed to both.
 * Engine: ``DFCudaEngine(device="cpu")`` against the JAX float64
   FastEngine on the cases of tests/test_df_sweep.py.
-* Selection and CLI, with the two routing divergences from JAX named.
+* Selection and CLI, with the one routing divergence from JAX named
+  (tests/test_torch_df_halo.py holds the tiny-batch df halo route).
 
 Tolerances. Per launch and per solve, 1e-11 of the reference's largest
 magnitude in hi + lo summed in float64 (the JAX engine's own bar against
@@ -55,6 +56,8 @@ from radiative_transfer_tpu_torch.models import transport as port_transport
 from radiative_transfer_tpu_torch.ops import cuda_df as port_cd
 from radiative_transfer_tpu_torch.ops import df as port_df
 from radiative_transfer_tpu_torch.ops import fast_sweep as port_fs
+from radiative_transfer_tpu_torch.parallel.df_halo_cuda import (
+    DFHaloCudaEngine)
 
 torch.set_num_threads(1)
 
@@ -382,13 +385,13 @@ def _thick(M, **kw):
 
 @pytest.mark.parametrize("case,over", [
     ("big-batch", _thick(16)),
-    # Divergence 1: JAX routes Bh < 8 to its packed-rows DFHaloEngine at a
-    # 1-device mesh (kernels B14-B15, not ported); the port stays on
-    # DFCudaEngine, which computes the same cells.
+    # Both route Bh < 8 to their packed-rows df halo at one device (JAX
+    # DFHaloEngine at a 1-device mesh, the port's DFHaloCudaEngine on
+    # B14-B15) where its creep bound admits the deck.
     ("tiny-batch", _thick(4)),
-    # Divergence 2: an N whose df block would be a whole-N block too big
-    # for TPU VMEM; the JAX CLI's auto at float64 falls back to its XLA
-    # engine there, the port's CUDA kernels tile any N.
+    # The one divergence left: an N whose df block would be a whole-N block
+    # too big for TPU VMEM; the JAX CLI's auto at float64 falls back to its
+    # XLA engine there, the port's CUDA kernels tile any N.
     ("awkward-N", dict(M=32, G=32, N=1001, psi_source=tuple(
         (4.0931,) * 32 for _ in range(32)))),
 ])
@@ -399,7 +402,10 @@ def test_df_selection(case, over):
     pt, _, _ = port_transport.build_tables(pcfg)
     pe = port_parallel.make_multichip_engine(pcfg, pt, engine="df",
                                              device="cpu")
-    assert isinstance(pe, port_cd.DFCudaEngine), case
+    if case == "tiny-batch":
+        assert isinstance(pe, DFHaloCudaEngine), case
+    else:
+        assert isinstance(pe, port_cd.DFCudaEngine), case
     if case == "awkward-N":
         assert not jax_dfs.whole_n_feasible(jcfg)
         assert not port_cd.whole_n_feasible(pcfg)
@@ -408,6 +414,7 @@ def test_df_selection(case, over):
                                             platform="tpu")
     if case == "tiny-batch":
         assert isinstance(je, jax_df_halo.DFHaloEngine)
+        assert (pe.block, pe.K_launch, pe.H) == (je.block, je.K_launch, je.H)
     else:
         assert isinstance(je, jax_dfs.DFPallasEngine)
         assert pe.block == je.block

@@ -185,7 +185,8 @@ def test_import_without_jax():
         "from radiative_transfer_tpu_torch.ops import cuda_sweep, "
         "_cuda_build, cuda_df, df\n"
         "from radiative_transfer_tpu_torch.utils import io, profiling\n"
-        "from radiative_transfer_tpu_torch.parallel import halo_cuda\n"
+        "from radiative_transfer_tpu_torch.parallel import halo_cuda, "
+        "df_halo_cuda\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and m.split('.')[0] in ('jax', 'radiative_transfer_tpu')]\n"
         "assert not bad, bad\n"
