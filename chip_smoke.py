@@ -50,7 +50,25 @@ Phases, one line each; any failure exits nonzero before the result line:
    DFCudaEngine at gray_s8 for BDF2, BE and CN, 64 steps, ends, prev and
    half within DF_TOL in hi + lo (and whether every plane is bit-equal);
    then gray_s8 BDF2 through make_multichip_engine(engine="df"), which must
-   pick DFHaloCudaEngine, timed as in phase 5, and on DFCudaEngine.
+   pick DFHaloCudaEngine, timed as in phase 5, and on DFCudaEngine;
+9. the adjoint path (B9 forward-with-records, B10 transposed step): B9 and
+   B10 against their plain versions (planes and cbc <= 1e-5, gradient packs
+   <= 1e-4 of their largest magnitude) for BE, CN and BDF2, reflective and
+   source left, rows of 4 B9 tiles (13 B10 sub-tiles) and a ragged single
+   tile; B9's step against B1's (B2's for BE/CN) at K = 1 (B1's tiles and
+   arithmetic: held to 1e-6, bit-equality reported); a transposition check
+   independent of the plain versions (with Sb = c0 = 0 and bc = 0 the step
+   is a linear map A of the state: <c, A d> = <B10(c), d> within 1e-5, for
+   random d and c = A d); make_diff_solve_cuda gradients on the card
+   against the same call on the CPU (gray off-equilibrium, M = 4,
+   N = 4096, 8 steps: value 1e-5, kappa 2e-3, psi_source 1e-4); then the
+   path at benchmarks/adjoint_bench.py's chip shape (gray S_32, N = 2^17,
+   BDF2, 96 steps): value_and_grad of sum(ends^2) * 1e-3 through
+   make_diff_solve_cuda at K = 1 against the same 96 steps forward on
+   CudaSweepEngine at its K, three CUDA-event windows each, the grad/forward
+   ratio and peak device memory; and 3 fit_params(solver="pallas")
+   iterations at that shape (the off-equilibrium boundary source from 20%
+   above it, the loss scaled to 1 at the start), every loss finite.
 
 Phase 3 also holds B4 and B5 against their plain versions (rows 2 and 8, a
 segment and a reset cell off the kernel's tile, reset 0 and > 0, K 1/3/8
@@ -60,7 +78,7 @@ DF_TOL in hi + lo (B6 with both half modes, reflective and source left, K 1,
 CN with K 1, reflective and source left, and K 8). Every kernel wrapper's
 launch count is zeroed before a path's phases and read after them: each
 kernel of a path must have launched on it (B1-B3 on phases 4-5, B4-B5 on
-phase 6, B6-B7 on phase 7, B14-B15 on phase 8).
+phase 6, B6-B7 on phase 7, B14-B15 on phase 8, B9-B10 on phase 9).
 Then each kernel is timed against its plain version at its full-size shape,
 beside its bound (the larger of the bytes it must move over 3.35 TB/s and
 the operations it must do over 67 TFLOP/s f32, the H100 SXM data-sheet
@@ -97,6 +115,11 @@ DF_TOL = 1e-11
 DF_CLI_TOL = 1e-10
 SWEEP_CU = "radiative_transfer_tpu_torch/csrc/sweep.cu"
 DF_CU = "radiative_transfer_tpu_torch/csrc/df_sweep.cu"
+ADJ_CU = "radiative_transfer_tpu_torch/csrc/adjoint.cu"
+# The adjoint kernels against their plain versions: gradient packs are row
+# sums over every cell, taken in another order than the plain version's
+# per-block sums (and from exact rather than truncated scans).
+ADJ_PACK_TOL = 1e-4
 REPLACES = {
     "bdf2_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:444",
     "multistep_launch": "radiative_transfer_tpu/ops/pallas_sweep.py:387",
@@ -107,12 +130,15 @@ REPLACES = {
     "df_multistep_launch": "radiative_transfer_tpu/ops/df_sweep.py:475",
     "df_halo_bdf2_launch": "radiative_transfer_tpu/ops/df_sweep.py:640",
     "df_halo_multistep_launch": "radiative_transfer_tpu/ops/df_sweep.py:541",
+    "fwd_record_launch": "radiative_transfer_tpu/ops/pallas_adjoint.py:266",
+    "bwd_launch": "radiative_transfer_tpu/ops/pallas_adjoint.py:374",
 }
 # The kernels each path must launch.
 PATH_PLAIN = ("bdf2_launch", "multistep_launch", "substep_launch")
 PATH_AUTO = ("halo_bdf2_launch", "halo_multistep_launch")
 PATH_DF = ("df_bdf2_launch", "df_multistep_launch")
 PATH_DF_HALO = ("df_halo_bdf2_launch", "df_halo_multistep_launch")
+PATH_ADJ = ("fwd_record_launch", "bwd_launch")
 # Peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 # f32 operations per cell of one sub-step, counted from substep_tile in
@@ -131,6 +157,18 @@ BDF2_STEP_FLOPS = 2 * FLOPS_PER_CELL["BE"] + FLOPS_PER_CELL["CN"] + \
 # work (a^n products, shuffles) and the integer masks are not counted.
 DF_FLOPS_PER_CELL = {"BE": 192, "CN": 258, "BDF": 374}
 DF_CORR_FLOPS = 32
+# f32 operations per cell of one adjoint phase, counted from phase_adj in
+# csrc/adjoint.cu: the cotangent solve and reversed-scan fix-up 14, the
+# right-hand side recomputed (psi 2, source 3, BE 4, CN 10, BDF 22) and u 2,
+# the cotangent right-hand sides and their history and shift terms (BE 8,
+# CN 20, BDF 48), the coefficient-gradient sums 36; a BDF2 step adds 8
+# adds that route the phases' cotangents. B10 also recomputes the forward
+# step (FLOPS_PER_CELL). The scan work (a^n products, shuffles) and the
+# row-end reductions are not counted.
+ADJ_FLOPS_PER_CELL = {"BE": 75, "CN": 93, "BDF": 133}
+ADJ_BDF2_STEP_FLOPS = (BDF2_STEP_FLOPS + 2 * ADJ_FLOPS_PER_CELL["BE"]
+                       + ADJ_FLOPS_PER_CELL["CN"] + ADJ_FLOPS_PER_CELL["BDF"]
+                       + 8)
 
 
 def df_step_flops(ts_method: int, use_corr: bool) -> int:
@@ -157,7 +195,8 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(
-                r"((?:df_)?(?:halo_)?(?:bdf2|multistep|substep))_kernel"
+                r"((?:df_)?(?:halo_)?(?:bdf2|multistep|substep)"
+                r"|fwd_record|bwd)_kernel"
                 r"(?:ILi(\d)E)?", m.group(1))
             name = (f"{k.group(1)}_kernel"
                     + (f"<{k.group(2)}>" if k.group(2) else "")
@@ -220,10 +259,12 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    from radiative_transfer_tpu_torch import adjoint as adj
     from radiative_transfer_tpu_torch import cli, constants, load_config
     from radiative_transfer_tpu_torch.config.config import Config
     from radiative_transfer_tpu_torch.models import transport
     from radiative_transfer_tpu_torch.ops import _cuda_build
+    from radiative_transfer_tpu_torch.ops import cuda_adjoint as ca
     from radiative_transfer_tpu_torch.ops import cuda_df as cd
     from radiative_transfer_tpu_torch.ops import cuda_sweep as cs
     from radiative_transfer_tpu_torch.ops.fast_sweep import (BDF, BE, CN,
@@ -485,9 +526,12 @@ def main() -> int:
         return (f"{tag} {steps} steps 8 CSVs finite, vs CPU "
                 f"{worst_csv:.1e} [{profile[0] if profile else ''}]"), out
 
+    def wrapper(name):
+        return getattr(ca if name in PATH_ADJ else
+                       cd if name.startswith("df_") else cs, name)
+
     def read_counts(path, label):
-        counts = {name: getattr(cd if name.startswith("df_") else cs,
-                                name).launches for name in path}
+        counts = {name: wrapper(name).launches for name in path}
         missing = [name for name, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels not launched on {label}: "
@@ -880,6 +924,208 @@ def main() -> int:
           f"peak {dp_peak:.3f} GiB; halo/plain "
           f"{dp_seconds / dh_seconds:.3f}x; card: {card}", flush=True)
 
+    # -- 9. the adjoint path -------------------------------------------------
+    def adj_coefs(eng):
+        z = torch.zeros((2, eng.Bh, cs._NCOEF), device=dev)
+        return [eng.coef.get(k, z) for k in (BE, CN, BDF)]
+
+    def adj_err(got, ref):
+        """Normalised error of a B10 output tuple, the packs scaled to the
+        planes' bar (planes and cbc TOL, packs ADJ_PACK_TOL)."""
+        errs = [nerr(g, r) if float(r.abs().max()) > 0 else
+                float(g.abs().max()) for g, r in zip(got, ref)]
+        return max(max(errs[:3]), max(errs[3:]) * TOL / ADJ_PACK_TOL)
+
+    n_checks = len(checks)
+    adj_cases = [(3, True, False, 12800), (3, False, True, 12800),
+                 (3, False, False, 12800), (3, True, True, 100),
+                 (1, True, False, 12800), (1, False, False, 5000),
+                 (2, False, False, 12800), (2, True, False, 12800)]
+    b1_parity, transposition = [], []
+    for ts_method, refl, sym, Nx in adj_cases:
+        # M = 8 x G = 4 (Bh = 16); N = 12800 is 3 full 4096-cell B9 tiles
+        # and a ragged 512, 13 B10 sub-tiles of 1024 (plain versions: 25
+        # blocks of 512); N = 5000 and 100 end mid-tile.
+        e = engine(load_config(deck, M=8, G=4, N=Nx, ts_method=ts_method,
+                               bc_left_indicator=2 if refl else 1,
+                               bdf2_symmetric_half=sym))
+        geo, co = ca.step_geometry(e), adj_coefs(e)
+        kname = {1: "BE", 2: "CN", 3: "BDF2"}[ts_method]
+        label = (f"{kname}-{'refl' if refl else 'src'}-"
+                 f"{'sym' if sym else 'asym'}-N{Nx}")
+        g9 = torch.Generator(device=dev).manual_seed(
+            200 + 10 * ts_method + Nx)
+        base = e.init_state().e0
+        e0, e1 = [(base * (0.5 + torch.rand(base.shape, generator=g9,
+                                            device=dev))).contiguous()
+                  for _ in range(2)]
+        fk = ca.fwd_record_launch(*co, e.bc, e.flip, e0, e1, **geo)
+        fr = ca.fwd_record_launch_ref(*co, e.bc, e.flip, e0, e1, **geo)
+        check("fwd_record_launch", f"B9-{label}", fk[:4], fr[:4])
+        one = e.multi_step(FlatState(e0, e1, e0, e1, e0, e1), 1)
+        ref1 = ((one.e0, one.e1, one.h0, one.h1) if ts_method == 3
+                else (one.e0, one.e1))
+        err1 = max(nerr(g, r) for g, r in zip(fk, ref1))
+        same = all(torch.equal(g, r) for g, r in zip(fk, ref1))
+        b1_parity.append(f"{label}={err1:.1e}{' bit-equal' if same else ''}")
+        if not err1 <= 1e-6:
+            raise AssertionError(f"B9 {label} against B1/B2 at K = 1: "
+                                 f"{err1:.3e} > 1e-6")
+        cots = [(torch.rand(base.shape, generator=g9, device=dev) - 0.5)
+                .contiguous() for _ in range(4)]
+        if ts_method != 3:
+            cots[2] = cots[3] = torch.zeros_like(cots[0])
+        bk = ca.bwd_launch(*co, e.flip, e0, e1, *cots, *fk[4:], **geo)
+        br = ca.bwd_launch_ref(*co, e.flip, e0, e1, *cots, *fr[4:], **geo)
+        err = adj_err(bk, br)
+        checks.append(f"B10-{label}={err:.1e}")
+        if not err <= TOL:
+            raise AssertionError(f"bwd_launch B10-{label}: normalised error "
+                                 f"{err:.3e} > {TOL} (packs {ADJ_PACK_TOL})")
+        # Transposition: with Sb = c0 = 0 and bc = 0 the step is a linear
+        # map A of the state, so <c, A d> = <A^T c, d> for any d and c;
+        # c = A d makes the left side |A d|^2, free of cancellation.
+        col = [c.clone() for c in co]
+        for c in col:
+            c[..., cs._SB] = 0.0
+            c[..., cs._C0] = 0.0
+        d = [(torch.rand(base.shape, generator=g9, device=dev) - 0.5)
+             .contiguous() for _ in range(2)]
+        out = ca.fwd_record_launch(*col, torch.zeros_like(e.bc), e.flip, *d,
+                                   **geo)
+        Ad = list(out[:4]) if ts_method == 3 else [
+            out[0], out[1], torch.zeros_like(d[0]), torch.zeros_like(d[0])]
+        lhs = sum(float((a.double() ** 2).sum()) for a in Ad)
+        tb = ca.bwd_launch(*col, e.flip, *d, *Ad, *out[4:], **geo)
+        rhs = sum(float((c.double() * x.double()).sum())
+                  for c, x in zip(tb[:2], d))
+        rel = abs(lhs - rhs) / abs(lhs)
+        transposition.append(f"{label}={rel:.1e}")
+        if not rel <= 1e-5:
+            raise AssertionError(f"transposition {label}: <c, A d> = {lhs} "
+                                 f"against <B10 c, d> = {rhs} ({rel:.3e})")
+    adj_checks = checks[n_checks:]
+
+    # make_diff_solve_cuda on the card against the same call on the CPU.
+    def gray_src(Mx, Nx, steps, refl=False, src=2.0):
+        """The gray workload off equilibrium (an O(1) kappa sensitivity)."""
+        cfg = gray_cfg(Mx, Nx, 3, steps)
+        return cfg.replace(bc_left_indicator=2 if refl else 1,
+                           psi_source=tuple((src,) for _ in range(Mx)))
+
+    small = gray_src(4, 4096, 8)
+    small_tab, _, _ = transport.build_tables(small)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        sf = ca.make_diff_solve_cuda(small, small_tab, num_steps=8,
+                                     device=where)
+        prm = {"kappa": torch.ones(1, dtype=torch.float64,
+                                   requires_grad=True),
+               "psi_source": torch.full((4, 1), 2.0, dtype=torch.float64,
+                                        requires_grad=True)}
+        val = torch.sum(sf(prm).ends ** 2) * 1e-3
+        val.backward()
+        grads[where] = (float(val.detach()), prm["kappa"].grad,
+                        prm["psi_source"].grad)
+    v_err = abs(grads["cuda"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
+    k_err = nerr(grads["cuda"][1], grads["cpu"][1])
+    s_err = nerr(grads["cuda"][2], grads["cpu"][2])
+    if not (v_err <= 1e-5 and k_err <= 2e-3 and s_err <= 1e-4):
+        raise AssertionError(f"make_diff_solve_cuda card vs CPU: value "
+                             f"{v_err:.3e}, kappa {k_err:.3e}, psi_source "
+                             f"{s_err:.3e}")
+
+    # The path at benchmarks/adjoint_bench.py's chip shape.
+    Ma, Na, na = 32, 1 << 17, 96
+    acfg = gray_cfg(Ma, Na, 3, na)
+    atab, _, _ = transport.build_tables(acfg)
+    fwd_eng = cs.CudaSweepEngine(acfg, atab, device=dev)
+    Ka = fwd_eng.max_steps_per_launch()
+    ca.reset_launch_counts()
+    sfa = ca.make_diff_solve_cuda(acfg, atab, num_steps=na, device=dev)
+    kap = torch.ones(1, dtype=torch.float64, requires_grad=True)
+
+    def grad_step():
+        kap.grad = None
+        val = torch.sum(sfa({"kappa": kap}).ends ** 2) * 1e-3
+        val.backward()
+        return val.detach(), kap.grad
+
+    def cuda_windows(fn, n=3):
+        """fn once to warm up, then n CUDA-event windows of one call each:
+        (median seconds, windows, the last result)."""
+        out = fn()
+        torch.cuda.synchronize()
+        wins = []
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            torch.cuda.synchronize()
+            wins.append(a.elapsed_time(b) / 1e3)
+        return sorted(wins)[n // 2], wins, out
+
+    peak = peak_from()
+    g_seconds, g_windows, (gval, ggrad) = cuda_windows(grad_step)
+    g_peak = peak()
+    if not (np.isfinite(float(gval)) and np.isfinite(float(ggrad[0]))):
+        raise AssertionError(f"adjoint grad step not finite: {gval}, {ggrad}")
+
+    # 3 fit_params iterations at that shape: recover the boundary source
+    # (2, off equilibrium) from a start 20% above it, on the phi profile of
+    # the 96-step solve. In 96 steps light crosses ~38 of the 2^17 cells,
+    # so kappa barely moves phi there (its loss would sit at float32
+    # roundoff); the source drives the inflow cells. The loss is scaled to
+    # 1 at the start.
+    fcfg = gray_src(Ma, Na, na, refl=True)
+    ftab, _, _ = transport.build_tables(fcfg)
+    wt_dev = torch.as_tensor(ftab.wt, device=dev)
+    fsolve = ca.make_diff_solve_cuda(fcfg, ftab, device=dev)
+    src0 = 1.2 * np.asarray(ftab.psi_source)
+    with torch.no_grad():
+        phi_t = transport.compute_phi(
+            transport.psi_from_ends(fsolve({}).ends), wt_dev)
+        phi_0 = transport.compute_phi(transport.psi_from_ends(
+            fsolve({"psi_source": src0}).ends), wt_dev)
+        loss_0 = torch.mean((phi_0 / phi_t - 1.0) ** 2)
+
+    def fit_loss(final, params):
+        phi = transport.compute_phi(transport.psi_from_ends(final.ends),
+                                    wt_dev)
+        return torch.mean((phi / phi_t - 1.0) ** 2) / loss_0
+
+    fit_p, fit_hist = adj.fit_params(
+        fcfg, ftab, None, fit_loss, {"psi_source": src0},
+        num_steps=na, learning_rate=0.05, iterations=3, solver="pallas",
+        device=dev)
+    if not all(np.isfinite(fit_hist)):
+        raise AssertionError(f"fit_params losses not finite: {fit_hist}")
+    launches.update(read_counts(PATH_ADJ, "the adjoint path (phase 9)"))
+
+    peak = peak_from()
+    f_seconds, f_windows, _ = cuda_windows(
+        lambda: fwd_eng.solve(fwd_eng.init_state(), num_steps=na,
+                              steps_per_launch=Ka))
+    f_peak = peak()
+    print(f"phase 9 adjoint path: ok; kernel parity max normalised error "
+          + ", ".join(adj_checks) + "; B9 vs B1/B2 at K = 1: "
+          + ", ".join(b1_parity) + "; transposition <c,A d> vs <B10 c,d>: "
+          + ", ".join(transposition) + f"; make_diff_solve_cuda card vs CPU "
+          f"(gray M=4 N=4096 8 steps): value {v_err:.1e}, kappa {k_err:.1e}, "
+          f"psi_source {s_err:.1e}; adjoint bench (gray S_32, N=2^17, BDF2, "
+          f"{na} steps): value_and_grad at K = 1 in {g_seconds:.4f} s (median "
+          f"of {fmt_windows(g_windows)}), peak device memory {g_peak:.3f} GiB "
+          f"above its start; forward on CudaSweepEngine K={Ka} in "
+          f"{f_seconds:.4f} s (median of {fmt_windows(f_windows)}), peak "
+          f"{f_peak:.3f} GiB; grad/forward {g_seconds / f_seconds:.3f}; "
+          f"fit_params 3 iterations, losses "
+          + ", ".join(f"{x:.6g}" for x in fit_hist)
+          + f" (x {float(loss_0):.6g}), mu<0 source 2.4 -> "
+          f"{float(fit_p['psi_source'][0, 0]):.6g}; card: {card}",
+          flush=True)
+
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the
     # kernel only passes between its own launches is not counted; the halo
@@ -967,6 +1213,25 @@ def main() -> int:
                   npass=dhalo_cn.scan_npass[CN],
                   npass_c=dhalo_cn.corr_npass[CN])
 
+    # B9 and B10 at the adjoint bench shape (gray S_32, N = 2^17, BDF2, the
+    # reflective two-launch coupling), one step on a random state: B9 reads
+    # 2 planes and writes 4 and its records; B10 reads the 2 input planes,
+    # 4 cotangent planes and the records, and writes 2 planes, cbc and the 3
+    # gradient packs.
+    ageo, aco = ca.step_geometry(fwd_eng), adj_coefs(fwd_eng)
+    ars = rand_state(fwd_eng, 92)
+    acells = 2 * fwd_eng.Bh * Na
+    aplane = acells * 4
+    ga = torch.Generator(device=dev).manual_seed(91)
+    acots = [(torch.rand(ars.e0.shape, generator=ga, device=dev) - 0.5)
+             .contiguous() for _ in range(4)]
+    b9_in = (*aco, fwd_eng.bc, fwd_eng.flip, ars.e0, ars.e1)
+    a_recs = ca.fwd_record_launch(*b9_in, **ageo)[4:]
+    p_recs = ca.fwd_record_launch_ref(*b9_in, **ageo)[4:]
+    b10_in = (*aco, fwd_eng.flip, ars.e0, ars.e1, *acots)
+    a_consts = nbytes(*aco, fwd_eng.bc, fwd_eng.flip)
+    a_small = 4 * fwd_eng.Bh * (2 + 3 * 2 * cs._NCOEF)   # cbc and packs
+
     f32 = (abs_err, f32_err, TOL, SWEEP_CU)
     dfk = (df_abs_err, df_err, DF_TOL, DF_CU)
     jobs = [
@@ -1010,6 +1275,15 @@ def main() -> int:
          12 * nbytes(b15_args[-1]) + nbytes(*b15_args[1:3])
          + 4 * nbytes(b15_args[3]),
          b15_args[-1].numel() * Kdc15 * df_step_flops(2, use_corr), dfk),
+        ("fwd_record_launch",
+         lambda: ca.fwd_record_launch(*b9_in, **ageo)[:4],
+         lambda: ca.fwd_record_launch_ref(*b9_in, **ageo)[:4], 20,
+         6 * aplane + nbytes(*a_recs) + a_consts, acells * BDF2_STEP_FLOPS,
+         (abs_err, f32_err, TOL, ADJ_CU)),
+        ("bwd_launch", lambda: ca.bwd_launch(*b10_in, *a_recs, **ageo),
+         lambda: ca.bwd_launch_ref(*b10_in, *p_recs, **ageo), 20,
+         8 * aplane + nbytes(*a_recs) + a_consts + a_small,
+         acells * ADJ_BDF2_STEP_FLOPS, (abs_err, adj_err, TOL, ADJ_CU)),
     ]
     for name, kernel_fn, plain_fn, reps, nb, flops, kind in jobs:
         abs_fn, norm_fn, tol, source = kind
@@ -1027,7 +1301,8 @@ def main() -> int:
                       "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
                       "bound_by": bound_by,
                       # No single PyTorch call computes this affine
-                      # recurrence with its 2x2 reconstruction.
+                      # recurrence with its 2x2 reconstruction (nor its
+                      # transpose).
                       "library_ms": None})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

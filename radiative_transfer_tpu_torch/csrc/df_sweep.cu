@@ -95,8 +95,6 @@
 
 namespace {
 
-constexpr int kBE = 1, kCN = 2, kBDF = 3;
-constexpr int kNCoef = 10;         // f32 pack: w T0 q idet a Sb c1 c0 kee kp
 constexpr int kNDF = 20;           // df pack: (lo, hh, hl) x 6, S0h, S0l
 constexpr int kCells = 4;          // consecutive cells per thread
 constexpr int kMaxThreads = 512;

@@ -10,9 +10,10 @@
 //   rt_sweep_halo_multistep <- _make_halo_multistep_kernel (seeded K-step
 //                                                 BE or CN, packed rows)
 // All run on one __device__ sub-step routine, substep_tile (the counterpart
-// of _substep_block), and one block-wide scan of affine maps (the
-// counterpart of _hillis_steele, in tiles.cuh, which the double-float kernels
-// of df_sweep.cu share); the K-step kernels share their tile loops
+// of _substep_block, in tiles.cuh, which the adjoint kernels of adjoint.cu
+// share), and one block-wide scan of affine maps (the counterpart of
+// _hillis_steele, in tiles.cuh, which the double-float kernels of
+// df_sweep.cu share too); the K-step kernels share their tile loops
 // (bdf2_segment, multistep_segment).
 //
 // What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
@@ -74,31 +75,10 @@
 
 namespace {
 
-constexpr int kBE = 1, kCN = 2, kBDF = 3;
-constexpr int kNCoef = 10;
 constexpr int kCells = 8;          // consecutive cells per thread
 constexpr int kMaxThreads = 512;
 constexpr int kMaxSlots = 256;     // 4*K phase carries, K <= 64
 constexpr int kMaxSteps = kMaxSlots / 4;
-
-struct Coef {
-  float w, T0, q, idet, a, Sb, c1, c0, kee, kp;
-};
-
-__device__ __forceinline__ Coef load_coef(const float* __restrict__ c) {
-  Coef k;
-  k.w = c[0];
-  k.T0 = c[1];
-  k.q = c[2];
-  k.idet = c[3];
-  k.a = c[4];
-  k.Sb = c[5];
-  k.c1 = c[6];
-  k.c0 = c[7];
-  k.kee = c[8];
-  k.kp = c[9];
-  return k;
-}
 
 struct Shared {
   float carry[kMaxSlots];      // per-(step, phase) carry entering the tile
@@ -114,56 +94,6 @@ __device__ __forceinline__ void copy_cells(float (&dst)[kCells],
                                            const float (&src)[kCells]) {
 #pragma unroll
   for (int c = 0; c < kCells; ++c) dst[c] = src[c];
-}
-
-// One sub-step of kind KIND over this thread's kCells cells of the tile
-// (_substep_block). p1_up/h1_up: the p1/h1 values of the cell upwind of the
-// thread's first cell (the shift1 terms of CN and BDF). *carry: the carry
-// entering the tile, replaced by the carry leaving it; `owner` is the index
-// among this thread's cells of the tile's last real cell, or -1.
-template <int KIND>
-__device__ __forceinline__ void substep_tile(
-    const Coef& k, const float (&e0)[kCells], const float (&e1)[kCells],
-    const float (&p0)[kCells], const float (&p1)[kCells],
-    const float (&h0)[kCells], const float (&h1)[kCells], float p1_up,
-    float h1_up, float* carry, int owner, Shared& sm, int& buf,
-    float (&o0)[kCells], float (&o1)[kCells]) {
-  float r0[kCells], r1[kCells], b[kCells];
-  float A = 1.f, B = 0.f;
-#pragma unroll
-  for (int c = 0; c < kCells; ++c) {
-    const float psi = 0.5f * (e0[c] + e1[c]);
-    const float S = k.Sb + k.c1 * psi + k.c0;
-    if constexpr (KIND == kBE) {
-      r0[c] = S + k.kee * e0[c];
-      r1[c] = S + k.kee * e1[c];
-    } else if constexpr (KIND == kCN) {
-      const float sp = c ? p1[c - 1] : p1_up;
-      r0[c] = S + k.kee * e0[c] - k.q * e1[c] + k.w * sp;
-      r1[c] = S + k.q * e0[c] + k.kee * e1[c];
-    } else {
-      const float sp = c ? p1[c - 1] : p1_up;
-      const float sh = c ? h1[c - 1] : h1_up;
-      r0[c] = S + k.kee * h0[c] - 2.f * k.w * h1[c] - k.kp * p0[c] -
-              k.q * p1[c] + k.w * (4.f * sh + sp);
-      r1[c] = S + 2.f * k.w * h0[c] + k.kee * h1[c] + k.q * p0[c] -
-              k.kp * p1[c];
-    }
-    b[c] = (k.q * r0[c] + k.T0 * r1[c]) * k.idet;
-    B = k.a * B + b[c];
-    A = A * k.a;
-  }
-  float exA, exB;
-  const float c_in = block_exclusive_scan(A, B, carry, sm, buf, exA, exB);
-  float cur = exA * c_in + exB;  // carry entering this thread's first cell
-#pragma unroll
-  for (int c = 0; c < kCells; ++c) {
-    const float u = r0[c] + k.w * cur;
-    o0[c] = (k.T0 * u - k.q * r1[c]) * k.idet;
-    o1[c] = (k.q * u + k.T0 * r1[c]) * k.idet;
-    cur = k.a * cur + b[c];
-    if (c == owner) *carry = cur;
-  }
 }
 
 // Carries entering a row: s of the slot's phase times the boundary value,

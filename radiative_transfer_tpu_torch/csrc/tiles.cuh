@@ -1,10 +1,13 @@
-// The row-tile machinery shared by the sweep kernels (sweep.cu) and the
-// double-float sweep kernels (df_sweep.cu), where one thread block walks one
-// row in tiles of blockDim*C cells, C consecutive cells a thread: the
-// block-wide scan of affine maps that stands in for the TPU kernels'
-// Hillis-Steele prefix (_hillis_steele), the exchange of the value upwind of
-// each thread's first cell, the cell loads and stores with the ragged-tile
-// rule, and the launch of the two direction halves.
+// The row-tile machinery shared by the sweep kernels (sweep.cu), the
+// double-float sweep kernels (df_sweep.cu) and the adjoint kernels
+// (adjoint.cu), where one thread block walks one row in tiles of blockDim*C
+// cells, C consecutive cells a thread: the block-wide scan of affine maps
+// that stands in for the TPU kernels' Hillis-Steele prefix (_hillis_steele),
+// the exchange of the value upwind of each thread's first cell, the cell
+// loads and stores with the ragged-tile rule, the launch of the two
+// direction halves, and the float32 sub-step of one tile (substep_tile),
+// which the sweep kernels and the adjoint's forward and recompute share, so
+// that the adjoint's step is the sweep's by construction.
 
 #pragma once
 
@@ -118,6 +121,91 @@ __device__ __forceinline__ int tile_owner(int t0, int j0, int tile, int N,
                                           int cells) {
   const int last = min(t0 + tile, N) - 1;
   return (last >= j0 && last < j0 + cells) ? last - j0 : -1;
+}
+
+constexpr int kBE = 1, kCN = 2, kBDF = 3;  // sub-step kinds
+constexpr int kNCoef = 10;  // f32 pack: w T0 q idet a Sb c1 c0 kee kp
+
+struct Coef {
+  float w, T0, q, idet, a, Sb, c1, c0, kee, kp;
+};
+
+__device__ __forceinline__ Coef load_coef(const float* __restrict__ c) {
+  Coef k;
+  k.w = c[0];
+  k.T0 = c[1];
+  k.q = c[2];
+  k.idet = c[3];
+  k.a = c[4];
+  k.Sb = c[5];
+  k.c1 = c[6];
+  k.c0 = c[7];
+  k.kee = c[8];
+  k.kp = c[9];
+  return k;
+}
+
+// The right-hand sides r0, r1 of one cell of a sub-step of kind KIND: e the
+// sub-step's own state, p/h its history planes, sp/sh the p1/h1 values of
+// the cell upwind (the shift1 terms of CN and BDF).
+template <int KIND>
+__device__ __forceinline__ void rhs(const Coef& k, float e0, float e1,
+                                    float p0, float p1, float h0, float h1,
+                                    float sp, float sh, float& r0,
+                                    float& r1) {
+  const float psi = 0.5f * (e0 + e1);
+  const float S = k.Sb + k.c1 * psi + k.c0;
+  if constexpr (KIND == kBE) {
+    r0 = S + k.kee * e0;
+    r1 = S + k.kee * e1;
+  } else if constexpr (KIND == kCN) {
+    r0 = S + k.kee * e0 - k.q * e1 + k.w * sp;
+    r1 = S + k.q * e0 + k.kee * e1;
+  } else {
+    r0 = S + k.kee * h0 - 2.f * k.w * h1 - k.kp * p0 - k.q * p1 +
+         k.w * (4.f * sh + sp);
+    r1 = S + 2.f * k.w * h0 + k.kee * h1 + k.q * p0 - k.kp * p1;
+  }
+}
+
+// One sub-step of kind KIND over this thread's C cells of the tile
+// (_substep_block): the right-hand sides, the exact scan of the carry
+// recurrence carry_j = a*carry_{j-1} + b_j, the 2x2 reconstruction. p1_up/
+// h1_up: the p1/h1 values of the cell upwind of the thread's first cell.
+// *carry: the carry entering the tile, replaced by the carry leaving it by
+// the thread that owns the tile's last real cell (`owner` its index among
+// the thread's cells, or -1: then nothing is written). If `cin` is given it
+// gets each cell's entering carry. Returns the carry entering the tile.
+template <int KIND, int C, class S>
+__device__ __forceinline__ float substep_tile(
+    const Coef& k, const float (&e0)[C], const float (&e1)[C],
+    const float (&p0)[C], const float (&p1)[C], const float (&h0)[C],
+    const float (&h1)[C], float p1_up, float h1_up, float* carry, int owner,
+    S& sm, int& buf, float (&o0)[C], float (&o1)[C],
+    float* cin = nullptr) {
+  float r0[C], r1[C], b[C];
+  float A = 1.f, B = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    rhs<KIND>(k, e0[c], e1[c], p0[c], p1[c], h0[c], h1[c],
+              c ? p1[c - 1] : p1_up, c ? h1[c - 1] : h1_up, r0[c], r1[c]);
+    b[c] = (k.q * r0[c] + k.T0 * r1[c]) * k.idet;
+    B = k.a * B + b[c];
+    A = A * k.a;
+  }
+  float exA, exB;
+  const float c_in = block_exclusive_scan(A, B, carry, sm, buf, exA, exB);
+  float cur = exA * c_in + exB;  // carry entering this thread's first cell
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (cin) cin[c] = cur;
+    const float u = r0[c] + k.w * cur;
+    o0[c] = (k.T0 * u - k.q * r1[c]) * k.idet;
+    o1[c] = (k.q * u + k.T0 * r1[c]) * k.idet;
+    cur = k.a * cur + b[c];
+    if (c == owner) *carry = cur;
+  }
+  return c_in;
 }
 
 // Threads per row block: enough warps for N cells at `cells` a thread, at

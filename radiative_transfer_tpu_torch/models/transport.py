@@ -7,8 +7,9 @@ kernel engine's path runs (reference: src/solver.cpp, include/solver.h):
            -> result_from_ends (torch float64 on the engine's device)
 
 Setup stays host numpy so that the port's tables are bit-equal to the
-JAX package's. The general f64 time stepper (substep, make_step_fn,
-solve, run_problem) is not ported yet.
+JAX package's. ``State`` and ``initial_state`` carry the global edge
+arrays of the differentiable solves (adjoint.py). The general f64 time
+stepper (substep, make_step_fn, solve, run_problem) is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +47,16 @@ class Tables(NamedTuple):
     e_edge: np.ndarray        # (G+1,)
     e_ave: np.ndarray         # (G,)
     de_ave: np.ndarray        # (G,)
+
+
+class State(NamedTuple):
+    """Sweep state in the global layout, float64 tensors (or numpy arrays
+    handed in by a caller). psi is derived: psi = 0.5*(ends[...,0] +
+    ends[...,1])."""
+
+    ends: torch.Tensor       # (M, G, N, 2)
+    prev_ends: torch.Tensor  # (M, G, N, 2) level-n edges (BDF2 history)
+    half_ends: torch.Tensor  # (M, G, N, 2) level-(n+1/2) edges
 
 
 def tables_from_numpy(d: dict) -> Tables:
@@ -104,6 +115,15 @@ def build_tables(cfg: Config
         de_ave=as_dt(grid.de_ave),
     )
     return tables, grid, ct
+
+
+def initial_state(cfg: Config, tables: Tables) -> State:
+    """psi = ends = B_g everywhere (reference: src/solver.cpp:165-181), as
+    float64 CPU tensors; a solve places the state on its own device.
+    prev/half start equal to ends (first committed before first read)."""
+    B = torch.as_tensor(np.asarray(tables.B), dtype=torch.float64)
+    ends = B[None, :, None, None].expand(cfg.M, cfg.G, cfg.N, 2)
+    return State(ends=ends, prev_ends=ends, half_ends=ends)
 
 
 def validate_tables(cfg: Config, tables_host: corr_mod.CorrectionTables) -> bool:

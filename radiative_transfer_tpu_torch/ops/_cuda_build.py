@@ -34,7 +34,8 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)     # an array of plane pointers
-# argtypes of each C entry point in csrc/sweep.cu and csrc/df_sweep.cu
+# argtypes of each C entry point in csrc/sweep.cu, csrc/df_sweep.cu and
+# csrc/adjoint.cu
 # (pointers and the stream as c_void_p, so ctypes never cuts a 64-bit
 # address).
 _SIGNATURES = {
@@ -47,6 +48,9 @@ _SIGNATURES = {
     "rt_df_multistep": [_I] + [_P] * 6 + [_PP] + [_I] * 5 + [_P],
     "rt_df_halo_bdf2": [_P] * 9 + [_PP] + [_I] * 6 + [_P],
     "rt_df_halo_multistep": [_I] + [_P] * 5 + [_PP] + [_I] * 5 + [_P],
+    "rt_adj_fwd_record": [_I] + [_P] * 15 + [_I] * 3 + [_F] * 3 + [_I] * 2
+    + [_P],
+    "rt_adj_bwd": [_I] + [_P] * 20 + [_I] * 3 + [_F] * 3 + [_I] * 2 + [_P],
 }
 
 

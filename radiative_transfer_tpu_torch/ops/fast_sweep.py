@@ -70,34 +70,45 @@ def _to_plane(x: np.ndarray, Mh: int, G: int) -> np.ndarray:
 def _kind_coeff_fields(cfg: Config, kind: int, ts: float, mu, rk,
                        B, cor1, cor2, cor3) -> dict:
     """The coefficient algebra (identical to the reference
-    solver.cpp:319-587), float64 numpy."""
+    solver.cpp:319-587). ``mu`` is always host numpy (the quadrature is
+    never a differentiable parameter); ``rk``/``B``/``cor*`` are float64
+    numpy, or float64 torch tensors for the differentiable build
+    (build_kind_coeffs_traced), in which case every host constant below
+    is lifted to a tensor before it meets them, as the JAX version's
+    tracers broadcast numpy. The numpy path is untouched by the lift."""
+    traced = isinstance(rk, torch.Tensor)
+
+    def lift(x):
+        return torch.as_tensor(x, dtype=torch.float64) if traced else x
+
     G = cfg.G
     absmu = np.abs(mu)[:, None] * np.ones((1, G))         # (M, G)
     dx = cfg.dx
 
     if kind == BE:
         w = _C * ts * absmu
-        T0 = 0.5 * ((1.0 + _C * ts * rk) * dx + w)
-        k_ee = np.full_like(w, 0.5 * dx)
-        k_p = np.zeros_like(w)
+        T0 = 0.5 * ((1.0 + _C * ts * rk) * dx + lift(w))
+        k_ee = lift(np.full_like(w, 0.5 * dx))
+        k_p = lift(np.zeros_like(w))
         s = 1.0
     elif kind == CN:
         tv = 0.5 * _C * ts * rk
         w = 0.5 * _C * ts * absmu
-        T0 = 0.5 * ((1.0 + tv) * dx + w)
-        k_ee = 0.5 * ((1.0 - tv) * dx - w)
-        k_p = np.zeros_like(w)
+        T0 = 0.5 * ((1.0 + tv) * dx + lift(w))
+        k_ee = 0.5 * ((1.0 - tv) * dx - lift(w))
+        k_p = lift(np.zeros_like(w))
         s = 2.0
     elif kind == BDF:
         tv = _C * rk * ts / 6.0
         w = _C * absmu * cfg.dt / 6.0   # FULL dt (solver.cpp:501)
-        T0 = 0.5 * ((1.0 + tv) * dx + w)
-        k_ee = 0.5 * ((1.0 - 4.0 * tv) * dx - 4.0 * w)
-        k_p = 0.5 * (w + tv * dx)
+        T0 = 0.5 * ((1.0 + tv) * dx + lift(w))
+        k_ee = 0.5 * ((1.0 - 4.0 * tv) * dx - 4.0 * lift(w))
+        k_p = 0.5 * (lift(w) + tv * dx)
         s = 6.0
     else:
         raise ValueError(f"unknown sub-step kind {kind}")
 
+    w = lift(w)
     q = 0.5 * w
     det = T0 * T0 + q * q
     a = q * w / det
@@ -105,15 +116,25 @@ def _kind_coeff_fields(cfg: Config, kind: int, ts: float, mu, rk,
     Sbase = 0.5 * _C * ts * dx * rk * B[None, :]          # (M, G)
     sc = 0.5 * _C * ts * dx
     if cfg.use_correction:
-        mb = mu[:, None] * cfg.beta                        # (M, 1), signed
+        mb = lift(mu[:, None] * cfg.beta)                  # (M, 1), signed
         c1 = sc * (cor1[None, :] * mb)
         c0 = sc * (cor2[None, :] * mb - cor3[None, :] * mb * mb)
     else:
-        c1 = np.zeros((cfg.M, G))
-        c0 = np.zeros((cfg.M, G))
+        c1 = lift(np.zeros((cfg.M, G)))
+        c0 = lift(np.zeros((cfg.M, G)))
 
     return dict(w=w, T0=T0, q=q, inv_det=1.0 / det, a=a, s=s,
                 Sbase=Sbase, c1=c1, c0=c0, k_ee=k_ee, k_p=k_p)
+
+
+def _fields_to_coeffs(fields: dict, ts: float, plane) -> KindCoeffs:
+    return KindCoeffs(
+        w=plane(fields["w"]), T0=plane(fields["T0"]), q=plane(fields["q"]),
+        inv_det=plane(fields["inv_det"]), a=plane(fields["a"]),
+        s=float(fields["s"]), Sbase=plane(fields["Sbase"]),
+        c1=plane(fields["c1"]), c0=plane(fields["c0"]),
+        k_ee=plane(fields["k_ee"]), k_p=plane(fields["k_p"]), ts=float(ts),
+    )
 
 
 def build_kind_coeffs(cfg: Config, tables, kind: int, ts: float,
@@ -139,13 +160,33 @@ def build_kind_coeffs(cfg: Config, tables, kind: int, ts: float,
             dtype=np.dtype(dtype),
         )
 
-    return KindCoeffs(
-        w=plane(fields["w"]), T0=plane(fields["T0"]), q=plane(fields["q"]),
-        inv_det=plane(fields["inv_det"]), a=plane(fields["a"]),
-        s=float(fields["s"]), Sbase=plane(fields["Sbase"]),
-        c1=plane(fields["c1"]), c0=plane(fields["c0"]),
-        k_ee=plane(fields["k_ee"]), k_p=plane(fields["k_p"]), ts=float(ts),
-    )
+    return _fields_to_coeffs(fields, ts, plane)
+
+
+def build_kind_coeffs_traced(cfg: Config, tables, kind: int,
+                             ts: float) -> KindCoeffs:
+    """Differentiable twin of build_kind_coeffs: the same algebra
+    (_kind_coeff_fields), with the per-group leaves of ``tables``
+    (adjoint.traced_tables) as float64 tensors that autograd follows, so
+    the returned (1, 2, Bh, 1) float64 planes carry the parameter
+    dependence into the step."""
+    Mh, G = cfg.M // 2, cfg.G
+    mu = np.asarray(tables.mu, dtype=np.float64)
+
+    def leaf(x):
+        return torch.as_tensor(x, dtype=torch.float64)
+
+    rk = leaf(tables.rhokap)[None, :] * torch.ones((cfg.M, 1),
+                                                   dtype=torch.float64)
+    fields = _kind_coeff_fields(cfg, kind, ts, mu, rk, leaf(tables.B),
+                                leaf(tables.cor1), leaf(tables.cor2),
+                                leaf(tables.cor3))
+
+    def plane(x):
+        x = torch.broadcast_to(leaf(x), (cfg.M, G))
+        return _to_plane(x, Mh, G)[None, :, :, None]
+
+    return _fields_to_coeffs(fields, ts, plane)
 
 
 def kind_coeffs(cfg: Config, tables, dtype) -> dict:

@@ -183,7 +183,8 @@ def test_import_without_jax():
         "import radiative_transfer_tpu_torch as rt\n"
         "from radiative_transfer_tpu_torch import cli\n"
         "from radiative_transfer_tpu_torch.ops import cuda_sweep, "
-        "_cuda_build, cuda_df, df\n"
+        "_cuda_build, cuda_df, df, cuda_adjoint\n"
+        "from radiative_transfer_tpu_torch import adjoint\n"
         "from radiative_transfer_tpu_torch.utils import io, profiling\n"
         "from radiative_transfer_tpu_torch.parallel import halo_cuda, "
         "df_halo_cuda\n"
