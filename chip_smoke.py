@@ -59,16 +59,32 @@ Phases, one line each; any failure exits nonzero before the result line:
    arithmetic: held to 1e-6, bit-equality reported); a transposition check
    independent of the plain versions (with Sb = c0 = 0 and bc = 0 the step
    is a linear map A of the state: <c, A d> = <B10(c), d> within 1e-5, for
-   random d and c = A d); make_diff_solve_cuda gradients on the card
-   against the same call on the CPU (gray off-equilibrium, M = 4,
-   N = 4096, 8 steps: value 1e-5, kappa 2e-3, psi_source 1e-4); then the
-   path at benchmarks/adjoint_bench.py's chip shape (gray S_32, N = 2^17,
-   BDF2, 96 steps): value_and_grad of sum(ends^2) * 1e-3 through
-   make_diff_solve_cuda at K = 1 against the same 96 steps forward on
-   CudaSweepEngine at its K, three CUDA-event windows each, the grad/forward
-   ratio and peak device memory; and 3 fit_params(solver="pallas")
-   iterations at that shape (the off-equilibrium boundary source from 20%
-   above it, the loss scaled to 1 at the start), every loss finite.
+   random d and c = A d); make_diff_solve_cuda(steps_per_launch=1)
+   gradients on the card against the same call on the CPU (gray
+   off-equilibrium, M = 4, N = 4096, 8 steps: value 1e-5, kappa 2e-3,
+   psi_source 1e-4); then the path at benchmarks/adjoint_bench.py's chip
+   shape (gray S_32, N = 2^17, BDF2, 96 steps): value_and_grad of
+   sum(ends^2) * 1e-3 through make_diff_solve_cuda at K = 1 against the
+   same 96 steps forward on CudaSweepEngine at its K, three CUDA-event
+   windows each, the grad/forward ratio and peak device memory;
+10. the K-fused adjoint (B11 K-step forward with records, B12 transposed
+   K-step launch): B11 and B12 against their plain versions (the
+   intermediate inputs with the planes; bars as phase 9) at K = 2, 3 and 4,
+   reflective and source left, both half modes, a 13-tile row with a ragged
+   last tile (N = 52736), 4-tile rows (N = 12800, one at K = 2), N = 5000
+   and N = 100; B11 against B1 at the same K (all six planes bit-equal),
+   B11's records and intermediate inputs against K chained B9 launches
+   (reported); the transposition check <c, A d> = <B12(c), d> within 1e-5;
+   K-fused against K = 1 gradients on the card within 1e-4 (JAX's
+   test_kfused_gradients_match_k1 at N = 4096) and remat groups of K-step
+   launches against none within 1e-4; card against CPU gradients at the
+   K-fused default at phase 9's bars; the adjoint bench in turns: the
+   forward, value_and_grad at K = 1 and at the K-fused default (K = 4),
+   printed as fwd_seconds, grad_k1_seconds, grad_kfused_seconds and both
+   ratios to the forward, with the K-fused step's peak memory; and 3
+   fit_params(solver="pallas") iterations at that shape on the K-fused
+   default (the off-equilibrium boundary source from 20% above it, the
+   loss scaled to 1 at the start), every loss finite.
 
 Phase 3 also holds B4 and B5 against their plain versions (rows 2 and 8, a
 segment and a reset cell off the kernel's tile, reset 0 and > 0, K 1/3/8
@@ -78,7 +94,8 @@ DF_TOL in hi + lo (B6 with both half modes, reflective and source left, K 1,
 CN with K 1, reflective and source left, and K 8). Every kernel wrapper's
 launch count is zeroed before a path's phases and read after them: each
 kernel of a path must have launched on it (B1-B3 on phases 4-5, B4-B5 on
-phase 6, B6-B7 on phase 7, B14-B15 on phase 8, B9-B10 on phase 9).
+phase 6, B6-B7 on phase 7, B14-B15 on phase 8, B9-B10 on phase 9,
+B11-B12 on phase 10's K-fused grad steps and fit).
 Then each kernel is timed against its plain version at its full-size shape,
 beside its bound (the larger of the bytes it must move over 3.35 TB/s and
 the operations it must do over 67 TFLOP/s f32, the H100 SXM data-sheet
@@ -132,6 +149,8 @@ REPLACES = {
     "df_halo_multistep_launch": "radiative_transfer_tpu/ops/df_sweep.py:541",
     "fwd_record_launch": "radiative_transfer_tpu/ops/pallas_adjoint.py:266",
     "bwd_launch": "radiative_transfer_tpu/ops/pallas_adjoint.py:374",
+    "fwd_record_k_launch": "radiative_transfer_tpu/ops/pallas_adjoint.py:571",
+    "bwd_k_launch": "radiative_transfer_tpu/ops/pallas_adjoint.py:687",
 }
 # The kernels each path must launch.
 PATH_PLAIN = ("bdf2_launch", "multistep_launch", "substep_launch")
@@ -139,6 +158,7 @@ PATH_AUTO = ("halo_bdf2_launch", "halo_multistep_launch")
 PATH_DF = ("df_bdf2_launch", "df_multistep_launch")
 PATH_DF_HALO = ("df_halo_bdf2_launch", "df_halo_multistep_launch")
 PATH_ADJ = ("fwd_record_launch", "bwd_launch")
+PATH_ADJ_K = ("fwd_record_k_launch", "bwd_k_launch")
 # Peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 # f32 operations per cell of one sub-step, counted from substep_tile in
@@ -196,7 +216,7 @@ def ptxas_report(log: str):
         if m:
             k = re.search(
                 r"((?:df_)?(?:halo_)?(?:bdf2|multistep|substep)"
-                r"|fwd_record|bwd)_kernel"
+                r"|fwd_record_k|fwd_record|bwd_k|bwd)_kernel"
                 r"(?:ILi(\d)E)?", m.group(1))
             name = (f"{k.group(1)}_kernel"
                     + (f"<{k.group(2)}>" if k.group(2) else "")
@@ -527,7 +547,7 @@ def main() -> int:
                 f"{worst_csv:.1e} [{profile[0] if profile else ''}]"), out
 
     def wrapper(name):
-        return getattr(ca if name in PATH_ADJ else
+        return getattr(ca if name in PATH_ADJ + PATH_ADJ_K else
                        cd if name.startswith("df_") else cs, name)
 
     def read_counts(path, label):
@@ -936,12 +956,33 @@ def main() -> int:
                 float(g.abs().max()) for g, r in zip(got, ref)]
         return max(max(errs[:3]), max(errs[3:]) * TOL / ADJ_PACK_TOL)
 
+    def linear_coefs(co):
+        """The packs with Sb = c0 = 0: with bc = 0 a step (or K steps) is
+        then a linear map A of its input state."""
+        col = [c.clone() for c in co]
+        for c in col:
+            c[..., cs._SB] = 0.0
+            c[..., cs._C0] = 0.0
+        return col
+
+    def transposition(label, d, Ad, Atc, readings):
+        """<c, A d> = <A^T c, d> with c = A d, which makes the left side
+        |A d|^2, free of cancellation; within 1e-5."""
+        lhs = sum(float((a.double() ** 2).sum()) for a in Ad)
+        rhs = sum(float((c.double() * x.double()).sum())
+                  for c, x in zip(Atc, d))
+        rel = abs(lhs - rhs) / abs(lhs)
+        readings.append(f"{label}={rel:.1e}")
+        if not rel <= 1e-5:
+            raise AssertionError(f"transposition {label}: <c, A d> = {lhs} "
+                                 f"against <A^T c, d> = {rhs} ({rel:.3e})")
+
     n_checks = len(checks)
     adj_cases = [(3, True, False, 12800), (3, False, True, 12800),
                  (3, False, False, 12800), (3, True, True, 100),
                  (1, True, False, 12800), (1, False, False, 5000),
                  (2, False, False, 12800), (2, True, False, 12800)]
-    b1_parity, transposition = [], []
+    b1_parity, b10_transposed = [], []
     for ts_method, refl, sym, Nx in adj_cases:
         # M = 8 x G = 4 (Bh = 16); N = 12800 is 3 full 4096-cell B9 tiles
         # and a ragged 512, 13 B10 sub-tiles of 1024 (plain versions: 25
@@ -982,28 +1023,15 @@ def main() -> int:
         if not err <= TOL:
             raise AssertionError(f"bwd_launch B10-{label}: normalised error "
                                  f"{err:.3e} > {TOL} (packs {ADJ_PACK_TOL})")
-        # Transposition: with Sb = c0 = 0 and bc = 0 the step is a linear
-        # map A of the state, so <c, A d> = <A^T c, d> for any d and c;
-        # c = A d makes the left side |A d|^2, free of cancellation.
-        col = [c.clone() for c in co]
-        for c in col:
-            c[..., cs._SB] = 0.0
-            c[..., cs._C0] = 0.0
+        col = linear_coefs(co)
         d = [(torch.rand(base.shape, generator=g9, device=dev) - 0.5)
              .contiguous() for _ in range(2)]
         out = ca.fwd_record_launch(*col, torch.zeros_like(e.bc), e.flip, *d,
                                    **geo)
         Ad = list(out[:4]) if ts_method == 3 else [
             out[0], out[1], torch.zeros_like(d[0]), torch.zeros_like(d[0])]
-        lhs = sum(float((a.double() ** 2).sum()) for a in Ad)
         tb = ca.bwd_launch(*col, e.flip, *d, *Ad, *out[4:], **geo)
-        rhs = sum(float((c.double() * x.double()).sum())
-                  for c, x in zip(tb[:2], d))
-        rel = abs(lhs - rhs) / abs(lhs)
-        transposition.append(f"{label}={rel:.1e}")
-        if not rel <= 1e-5:
-            raise AssertionError(f"transposition {label}: <c, A d> = {lhs} "
-                                 f"against <B10 c, d> = {rhs} ({rel:.3e})")
+        transposition(label, d, Ad, tb[:2], b10_transposed)
     adj_checks = checks[n_checks:]
 
     # make_diff_solve_cuda on the card against the same call on the CPU.
@@ -1015,25 +1043,37 @@ def main() -> int:
 
     small = gray_src(4, 4096, 8)
     small_tab, _, _ = transport.build_tables(small)
-    grads = {}
-    for where in ("cuda", "cpu"):
-        sf = ca.make_diff_solve_cuda(small, small_tab, num_steps=8,
-                                     device=where)
-        prm = {"kappa": torch.ones(1, dtype=torch.float64,
-                                   requires_grad=True),
-               "psi_source": torch.full((4, 1), 2.0, dtype=torch.float64,
-                                        requires_grad=True)}
-        val = torch.sum(sf(prm).ends ** 2) * 1e-3
-        val.backward()
-        grads[where] = (float(val.detach()), prm["kappa"].grad,
-                        prm["psi_source"].grad)
-    v_err = abs(grads["cuda"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
-    k_err = nerr(grads["cuda"][1], grads["cpu"][1])
-    s_err = nerr(grads["cuda"][2], grads["cpu"][2])
-    if not (v_err <= 1e-5 and k_err <= 2e-3 and s_err <= 1e-4):
-        raise AssertionError(f"make_diff_solve_cuda card vs CPU: value "
-                             f"{v_err:.3e}, kappa {k_err:.3e}, psi_source "
-                             f"{s_err:.3e}")
+
+    def card_vs_cpu(steps_per_launch):
+        """make_diff_solve_cuda on the card against the same call on the
+        CPU (gray off-equilibrium, M = 4, N = 4096, 8 steps): errors of the
+        value, the kappa and the psi_source gradients, held to 1e-5, 2e-3
+        and 1e-4."""
+        grads = {}
+        for where in ("cuda", "cpu"):
+            sf = ca.make_diff_solve_cuda(small, small_tab, num_steps=8,
+                                         steps_per_launch=steps_per_launch,
+                                         device=where)
+            prm = {"kappa": torch.ones(1, dtype=torch.float64,
+                                       requires_grad=True),
+                   "psi_source": torch.full((4, 1), 2.0, dtype=torch.float64,
+                                            requires_grad=True)}
+            val = torch.sum(sf(prm).ends ** 2) * 1e-3
+            val.backward()
+            grads[where] = (float(val.detach()), prm["kappa"].grad,
+                            prm["psi_source"].grad)
+        errs = (abs(grads["cuda"][0] - grads["cpu"][0])
+                / abs(grads["cpu"][0]),
+                nerr(grads["cuda"][1], grads["cpu"][1]),
+                nerr(grads["cuda"][2], grads["cpu"][2]))
+        if not (errs[0] <= 1e-5 and errs[1] <= 2e-3 and errs[2] <= 1e-4):
+            raise AssertionError(
+                f"make_diff_solve_cuda steps_per_launch={steps_per_launch} "
+                f"card vs CPU: value {errs[0]:.3e}, kappa {errs[1]:.3e}, "
+                f"psi_source {errs[2]:.3e}")
+        return errs
+
+    v_err, k_err, s_err = card_vs_cpu(1)
 
     # The path at benchmarks/adjoint_bench.py's chip shape.
     Ma, Na, na = 32, 1 << 17, 96
@@ -1042,12 +1082,13 @@ def main() -> int:
     fwd_eng = cs.CudaSweepEngine(acfg, atab, device=dev)
     Ka = fwd_eng.max_steps_per_launch()
     ca.reset_launch_counts()
-    sfa = ca.make_diff_solve_cuda(acfg, atab, num_steps=na, device=dev)
+    sfa = ca.make_diff_solve_cuda(acfg, atab, num_steps=na,
+                                  steps_per_launch=1, device=dev)
     kap = torch.ones(1, dtype=torch.float64, requires_grad=True)
 
-    def grad_step():
+    def grad_step(solve):
         kap.grad = None
-        val = torch.sum(sfa({"kappa": kap}).ends ** 2) * 1e-3
+        val = torch.sum(solve({"kappa": kap}).ends ** 2) * 1e-3
         val.backward()
         return val.detach(), kap.grad
 
@@ -1068,12 +1109,164 @@ def main() -> int:
         return sorted(wins)[n // 2], wins, out
 
     peak = peak_from()
-    g_seconds, g_windows, (gval, ggrad) = cuda_windows(grad_step)
+    g_seconds, g_windows, (gval, ggrad) = cuda_windows(
+        lambda: grad_step(sfa))
     g_peak = peak()
     if not (np.isfinite(float(gval)) and np.isfinite(float(ggrad[0]))):
         raise AssertionError(f"adjoint grad step not finite: {gval}, {ggrad}")
+    launches.update(read_counts(PATH_ADJ, "the adjoint path (phase 9)"))
 
-    # 3 fit_params iterations at that shape: recover the boundary source
+    peak = peak_from()
+    f_seconds, f_windows, _ = cuda_windows(
+        lambda: fwd_eng.solve(fwd_eng.init_state(), num_steps=na,
+                              steps_per_launch=Ka))
+    f_peak = peak()
+    print(f"phase 9 adjoint path: ok; kernel parity max normalised error "
+          + ", ".join(adj_checks) + "; B9 vs B1/B2 at K = 1: "
+          + ", ".join(b1_parity) + "; transposition <c,A d> vs <B10 c,d>: "
+          + ", ".join(b10_transposed) + f"; make_diff_solve_cuda card vs CPU "
+          f"(gray M=4 N=4096 8 steps): value {v_err:.1e}, kappa {k_err:.1e}, "
+          f"psi_source {s_err:.1e}; adjoint bench (gray S_32, N=2^17, BDF2, "
+          f"{na} steps): value_and_grad at K = 1 in {g_seconds:.4f} s (median "
+          f"of {fmt_windows(g_windows)}), peak device memory {g_peak:.3f} GiB "
+          f"above its start; forward on CudaSweepEngine K={Ka} in "
+          f"{f_seconds:.4f} s (median of {fmt_windows(f_windows)}), peak "
+          f"{f_peak:.3f} GiB; grad/forward {g_seconds / f_seconds:.3f}; "
+          f"card: {card}", flush=True)
+
+    # -- 10. the K-fused adjoint ---------------------------------------------
+    # B11/B12 against their plain versions, B11 against B1 at the same K (bit
+    # for bit) and its records against K chained B9 launches (reported), and
+    # the transposition check of the pair. M = 8 x G = 4 (Bh = 16); N =
+    # 52736 is 13 B11 tiles (the last ragged, 3584 cells) and 52 B12
+    # sub-tiles (plain versions: 103 blocks of 512); N = 12800 4 tiles and 13
+    # sub-tiles (plain: 25 blocks); N = 5000 and 100 end mid-tile.
+    n_checks = len(checks)
+    kf_cases = [(True, False, 3, 52736), (False, True, 2, 12800),
+                (True, True, 4, 12800), (False, False, 4, 5000),
+                (True, False, 2, 100)]
+    b1k_parity, b9k_records, k_transposition = [], [], []
+    for refl, sym, Kk, Nx in kf_cases:
+        e = engine(load_config(deck, M=8, G=4, N=Nx, ts_method=3,
+                               bc_left_indicator=2 if refl else 1,
+                               bdf2_symmetric_half=sym))
+        geo, co = ca.step_geometry(e), adj_coefs(e)
+        label = (f"K{Kk}-{'refl' if refl else 'src'}-"
+                 f"{'sym' if sym else 'asym'}-N{Nx}")
+        g10 = torch.Generator(device=dev).manual_seed(300 + 10 * Kk + Nx)
+        base = e.init_state().e0
+
+        def rnd(centred=False):
+            r = torch.rand(base.shape, generator=g10, device=dev)
+            return (r - 0.5 if centred else base * (0.5 + r)).contiguous()
+
+        e0, e1 = rnd(), rnd()
+        fk = ca.fwd_record_k_launch(*co, e.bc, e.flip, e0, e1, K=Kk, **geo)
+        fr = ca.fwd_record_k_launch_ref(*co, e.bc, e.flip, e0, e1, K=Kk,
+                                        **geo)
+        check("fwd_record_k_launch", f"B11-{label}", fk[:6] + fk[9:],
+              fr[:6] + fr[9:])
+        one = e.multi_step(FlatState(e0, e1, e0, e1, e0, e1), Kk)
+        if not all(torch.equal(g, r) for g, r in zip(
+                fk[:6], (one.e0, one.e1, one.h0, one.h1, one.p0, one.p1))):
+            raise AssertionError(f"B11 {label}: not bit-equal to B1 at "
+                                 f"K = {Kk}")
+        b1k_parity.append(f"{label} bit-equal")
+        # K chained B9 launches: their records and intermediate inputs.
+        ins, recs = [(e0, e1)], []
+        for _ in range(Kk):
+            o = ca.fwd_record_launch(*co, e.bc, e.flip, *ins[-1], **geo)
+            recs.append(o[4:])
+            ins.append(o[:2])
+        chained = (torch.cat([r[0] for r in recs], 1),
+                   torch.stack([r[1] for r in recs], 1),
+                   torch.stack([r[2] for r in recs], 1),
+                   *(torch.stack([x[i] for x in ins[1:Kk]]) for i in (0, 1)))
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(fk[6:], chained))
+        b9k_records.append(f"{label} " + ("bit-equal" if diff == 0.0 else
+                                          f"max|diff| {diff:.1e}"))
+        cots = [rnd(centred=True) for _ in range(6)]
+        bk = ca.bwd_k_launch(*co, e.flip, e0, e1, *fk[9:], *cots, *fk[6:9],
+                             K=Kk, **geo)
+        br = ca.bwd_k_launch_ref(*co, e.flip, e0, e1, *fr[9:], *cots,
+                                 *fr[6:9], K=Kk, **geo)
+        err = adj_err(bk, br)
+        checks.append(f"B12-{label}={err:.1e}")
+        if not err <= TOL:
+            raise AssertionError(f"bwd_k_launch B12-{label}: normalised "
+                                 f"error {err:.3e} > {TOL} (packs "
+                                 f"{ADJ_PACK_TOL})")
+        # The K-step launch maps the input state to its six output planes.
+        col = linear_coefs(co)
+        d = [rnd(centred=True) for _ in range(2)]
+        out = ca.fwd_record_k_launch(*col, torch.zeros_like(e.bc), e.flip, *d,
+                                     K=Kk, **geo)
+        tb = ca.bwd_k_launch(*col, e.flip, *d, *out[9:], *out[:6], *out[6:9],
+                             K=Kk, **geo)
+        transposition(label, d, out[:6], tb[:2], k_transposition)
+    kf_checks = checks[n_checks:]
+
+    # K-fused against K = 1 gradients on the card (JAX's
+    # test_kfused_gradients_match_k1 at N = 4096: 9 = 2 x 4 + 1 steps,
+    # reflective, correction physics, a half-ends term), and remat groups of
+    # K-step launches (JAX's test_kfused_remat_group: 17 steps, groups of 2
+    # launches) against none; both within 1e-4.
+    kcfg = load_config(gray_deck, M=4, N=4096, X=40.96, max_timesteps=9,
+                       bc_left_indicator=2, psi_source=((1.0,),) * 4, V=1.0,
+                       use_correction=True)
+    ktab, _, _ = transport.build_tables(kcfg)
+
+    def kgrad(cfg_, tab_, steps, params, loss, **kw):
+        sf = ca.make_diff_solve_cuda(cfg_, tab_, num_steps=steps, device=dev,
+                                     **kw)
+        tp = {k: torch.tensor(np.asarray(v, np.float64), requires_grad=True)
+              for k, v in params.items()}
+        loss(sf(tp)).backward()
+        return {k: v.grad for k, v in tp.items()}
+
+    kparams = {"T": np.asarray(1.0),
+               "psi_source": np.asarray(kcfg.psi_source, np.float64)}
+
+    def kloss(s):
+        return torch.sum(s.ends ** 2) + torch.sum(s.half_ends)
+
+    g_k1 = kgrad(kcfg, ktab, 9, kparams, kloss, steps_per_launch=1)
+    g_k4 = kgrad(kcfg, ktab, 9, kparams, kloss, steps_per_launch=4)
+    kvk1 = max(nerr(g_k4[k], g_k1[k]) for k in kparams)
+    rcfg = gray_src(4, 4096, 17)
+    rtab, _, _ = transport.build_tables(rcfg)
+
+    def rloss(s):
+        return torch.sum(s.ends ** 2)
+
+    g_plain = kgrad(rcfg, rtab, 17, {"kappa": np.ones(1)}, rloss,
+                    steps_per_launch=4)["kappa"]
+    g_remat = kgrad(rcfg, rtab, 17, {"kappa": np.ones(1)}, rloss,
+                    steps_per_launch=4, remat_group=2)["kappa"]
+    remat_err = nerr(g_remat, g_plain)
+    if not (kvk1 <= 1e-4 and remat_err <= 1e-4):
+        raise AssertionError(f"K-fused vs K = 1 gradients {kvk1:.3e}, remat "
+                             f"vs none {remat_err:.3e} (bar 1e-4)")
+    kv_err, kk_err, ks_err = card_vs_cpu(None)
+
+    # The adjoint bench again, in one call: the forward, value_and_grad at
+    # K = 1 and at the K-fused default (K = 4: 24 B11 and 24 B12 launches).
+    sfk = ca.make_diff_solve_cuda(acfg, atab, num_steps=na, device=dev)
+    f2_seconds, _, _ = cuda_windows(
+        lambda: fwd_eng.solve(fwd_eng.init_state(), num_steps=na,
+                              steps_per_launch=Ka))
+    g1_seconds, _, _ = cuda_windows(lambda: grad_step(sfa))
+    ca.reset_launch_counts()
+    peak = peak_from()
+    gk_seconds, gk_windows, (kval, kgr) = cuda_windows(
+        lambda: grad_step(sfk))
+    gk_peak = peak()
+    if not (np.isfinite(float(kval)) and np.isfinite(float(kgr[0]))):
+        raise AssertionError(f"K-fused grad step not finite: {kval}, {kgr}")
+
+    # 3 fit_params iterations at the bench shape, on the K-fused default:
+    # recover the boundary source
     # (2, off equilibrium) from a start 20% above it, on the phi profile of
     # the 96-step solve. In 96 steps light crosses ~38 of the 2^17 cells,
     # so kappa barely moves phi there (its loss would sit at float32
@@ -1102,29 +1295,29 @@ def main() -> int:
         device=dev)
     if not all(np.isfinite(fit_hist)):
         raise AssertionError(f"fit_params losses not finite: {fit_hist}")
-    launches.update(read_counts(PATH_ADJ, "the adjoint path (phase 9)"))
-
-    peak = peak_from()
-    f_seconds, f_windows, _ = cuda_windows(
-        lambda: fwd_eng.solve(fwd_eng.init_state(), num_steps=na,
-                              steps_per_launch=Ka))
-    f_peak = peak()
-    print(f"phase 9 adjoint path: ok; kernel parity max normalised error "
-          + ", ".join(adj_checks) + "; B9 vs B1/B2 at K = 1: "
-          + ", ".join(b1_parity) + "; transposition <c,A d> vs <B10 c,d>: "
-          + ", ".join(transposition) + f"; make_diff_solve_cuda card vs CPU "
-          f"(gray M=4 N=4096 8 steps): value {v_err:.1e}, kappa {k_err:.1e}, "
-          f"psi_source {s_err:.1e}; adjoint bench (gray S_32, N=2^17, BDF2, "
-          f"{na} steps): value_and_grad at K = 1 in {g_seconds:.4f} s (median "
-          f"of {fmt_windows(g_windows)}), peak device memory {g_peak:.3f} GiB "
-          f"above its start; forward on CudaSweepEngine K={Ka} in "
-          f"{f_seconds:.4f} s (median of {fmt_windows(f_windows)}), peak "
-          f"{f_peak:.3f} GiB; grad/forward {g_seconds / f_seconds:.3f}; "
-          f"fit_params 3 iterations, losses "
+    launches.update(read_counts(PATH_ADJ_K, "the K-fused adjoint (phase 10)"))
+    bench = {"fwd_seconds": f2_seconds, "grad_k1_seconds": g1_seconds,
+             "grad_kfused_seconds": gk_seconds,
+             "grad_k1_vs_fwd": g1_seconds / f2_seconds,
+             "grad_kfused_vs_fwd": gk_seconds / f2_seconds,
+             "grad_kfused_peak_gib": gk_peak}
+    print(f"phase 10 K-fused adjoint: ok; kernel parity max normalised error "
+          + ", ".join(kf_checks) + "; B11 vs B1 at the same K: "
+          + ", ".join(b1k_parity) + "; B11 records vs K chained B9: "
+          + ", ".join(b9k_records) + "; transposition <c,A d> vs "
+          "<B12 c,d>: " + ", ".join(k_transposition) + f"; K-fused vs K = 1 "
+          f"gradients (N=4096, 9 steps, K=4, reflective) {kvk1:.1e}, remat "
+          f"vs none (17 steps, groups of 2 launches) {remat_err:.1e}; card vs "
+          f"CPU at the K-fused default: value {kv_err:.1e}, kappa "
+          f"{kk_err:.1e}, psi_source {ks_err:.1e}; adjoint bench (gray S_32, "
+          f"N=2^17, BDF2, {na} steps) " + json.dumps(bench) + " (K-fused "
+          f"windows {fmt_windows(gk_windows)}); fit_params 3 iterations on "
+          f"the K-fused default, losses "
           + ", ".join(f"{x:.6g}" for x in fit_hist)
           + f" (x {float(loss_0):.6g}), mu<0 source 2.4 -> "
           f"{float(fit_p['psi_source'][0, 0]):.6g}; card: {card}",
           flush=True)
+
 
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the
@@ -1231,6 +1424,20 @@ def main() -> int:
     b10_in = (*aco, fwd_eng.flip, ars.e0, ars.e1, *acots)
     a_consts = nbytes(*aco, fwd_eng.bc, fwd_eng.flip)
     a_small = 4 * fwd_eng.Bh * (2 + 3 * 2 * cs._NCOEF)   # cbc and packs
+    # B11 and B12 at the same shape and the K-fused default (K = Ka): B11
+    # reads 2 planes and writes 6, the K-1 intermediate inputs (2 planes
+    # each) and its records; B12 reads the 2 input planes, the intermediate
+    # inputs, 6 cotangent planes and the records, and writes 2 planes, cbc
+    # and the 3 gradient packs.
+    b11_out = ca.fwd_record_k_launch(*b9_in, K=Ka, **ageo)
+    p11_out = ca.fwd_record_k_launch_ref(*b9_in, K=Ka, **ageo)
+    kcots = acots + [(torch.rand(ars.e0.shape, generator=ga, device=dev)
+                      - 0.5).contiguous() for _ in range(2)]
+    b12_in = (*aco, fwd_eng.flip, ars.e0, ars.e1, *b11_out[9:], *kcots,
+              *b11_out[6:9])
+    p12_in = (*aco, fwd_eng.flip, ars.e0, ars.e1, *p11_out[9:], *kcots,
+              *p11_out[6:9])
+    k_recs = nbytes(*b11_out[6:9])
 
     f32 = (abs_err, f32_err, TOL, SWEEP_CU)
     dfk = (df_abs_err, df_err, DF_TOL, DF_CU)
@@ -1284,6 +1491,17 @@ def main() -> int:
          lambda: ca.bwd_launch_ref(*b10_in, *p_recs, **ageo), 20,
          8 * aplane + nbytes(*a_recs) + a_consts + a_small,
          acells * ADJ_BDF2_STEP_FLOPS, (abs_err, adj_err, TOL, ADJ_CU)),
+        ("fwd_record_k_launch",
+         lambda: (lambda o: o[:6] + o[9:])(
+             ca.fwd_record_k_launch(*b9_in, K=Ka, **ageo)),
+         lambda: (lambda o: o[:6] + o[9:])(
+             ca.fwd_record_k_launch_ref(*b9_in, K=Ka, **ageo)), 10,
+         (8 + 2 * (Ka - 1)) * aplane + k_recs + a_consts,
+         acells * Ka * BDF2_STEP_FLOPS, (abs_err, f32_err, TOL, ADJ_CU)),
+        ("bwd_k_launch", lambda: ca.bwd_k_launch(*b12_in, K=Ka, **ageo),
+         lambda: ca.bwd_k_launch_ref(*p12_in, K=Ka, **ageo), 10,
+         (10 + 2 * (Ka - 1)) * aplane + k_recs + a_consts + a_small,
+         acells * Ka * ADJ_BDF2_STEP_FLOPS, (abs_err, adj_err, TOL, ADJ_CU)),
     ]
     for name, kernel_fn, plain_fn, reps, nb, flops, kind in jobs:
         abs_fn, norm_fn, tol, source = kind

@@ -223,9 +223,12 @@ def fit_params(cfg: Config, tables: Tables, state0: Optional[State],
     loss at the parameters before that iteration's update.
 
     ``solver='pallas'`` differentiates through the CUDA kernels with the
-    transposed-step kernel (ops/cuda_adjoint.make_diff_solve_cuda) on
-    `device` (the plain versions for ``device='cpu'``): f32-grade
-    gradients. ``'general'`` and ``'fast'`` are not ported yet.
+    transposed-step kernels (ops/cuda_adjoint.make_diff_solve_cuda at its
+    default, as JAX's: BDF2 fused K = min(max_steps_per_launch(), 4,
+    num_steps) steps a launch on B11-B12, the tail and BE/CN one step a
+    launch on B9-B10) on `device` (the plain versions for
+    ``device='cpu'``): f32-grade gradients. ``'general'`` and ``'fast'``
+    are not ported yet.
     """
     if solver == "general":
         raise NotImplementedError(

@@ -1,12 +1,18 @@
-// Hand-written Hopper (sm_90a) kernels for the kernel-rate adjoint at K = 1.
+// Hand-written Hopper (sm_90a) kernels for the kernel-rate adjoint.
 //
 // Replaces the Pallas TPU kernel factories of
 // radiative_transfer_tpu/ops/pallas_adjoint.py:
-//   rt_adj_fwd_record <- _make_fwd_record_kernel (B9: one whole BE, CN or
-//                        BDF2 step, plus per-tile entry records)
-//   rt_adj_bwd        <- _make_bwd_kernel        (B10: the transposed step)
-// The wrappers are ops/cuda_adjoint.py fwd_record_launch and bwd_launch; the
-// plain PyTorch versions beside them keep the JAX blocks and truncated scans.
+//   rt_adj_fwd_record   <- _make_fwd_record_kernel (B9: one whole BE, CN or
+//                          BDF2 step, plus per-tile entry records)
+//   rt_adj_bwd          <- _make_bwd_kernel        (B10: the transposed step)
+//   rt_adj_fwd_record_k <- _make_fwd_record_kernel_bdf2_k (B11: K whole BDF2
+//                          steps in one launch, plus per-(step, phase) entry
+//                          records and the intermediate steps' inputs)
+//   rt_adj_bwd_k        <- _make_bwd_kernel_bdf2_k (B12: the transposed K-step
+//                          launch)
+// The wrappers are ops/cuda_adjoint.py fwd_record_launch, bwd_launch,
+// fwd_record_k_launch and bwd_k_launch; the plain PyTorch versions beside
+// them keep the JAX blocks and truncated scans.
 //
 // What is computed. A step is one sub-step (BE, CN) or the BDF2 cycle of four
 // (BE, CN, BE, BDF). Per row (direction half h, batch r) and per sub-step:
@@ -14,15 +20,18 @@
 // carry_j = a*carry_{j-1} + b_j along the row in sweep order, the 2x2
 // reconstruction (ops/cuda_sweep.py _substep_block). B9 runs the step and
 // records, at the entry of each of its tiles, each phase's carry and the
-// upwind e1 and hs1 edges: (2, nph, Bh, ntiles) and (2, Bh, ntiles). B10
-// takes the cotangents of the step's outputs and returns those of its input
+// upwind e1 and hs1 edges: (2, nph, Bh, ntiles) and (2, Bh, ntiles); B11 runs
+// K BDF2 steps and records the same per step, (2, 4K, Bh, ntiles) and
+// (2, K, Bh, ntiles), and the inputs of steps 1..K-1, (K-1, 2, Bh, N). B10
+// and B12 take the cotangents of the outputs and return those of the input
 // planes, of the boundary values and of the ten packed coefficients
 // [w, T0, q, idet, a, Sb, c1, c0, kee, kp] of each kind (summed over the
-// row's cells): the step is affine in the state, so the state adjoint is
-// the transposed cycle; the coefficient gradients need the primal values,
-// which B10 recomputes per tile from the input planes and B9's records.
+// row's cells and the steps): a step is affine in the state, so the state
+// adjoint is the transposed cycle; the coefficient gradients need the primal
+// values, which B10/B12 recompute per tile from each step's input plane and
+// the records.
 //
-// Design. Both follow B1 (sweep.cu): ONE thread block owns ONE row and walks
+// Design. All follow B1 (sweep.cu): ONE thread block owns ONE row and walks
 // it in tiles with a loop inside the block; each phase's scan is exact
 // (serial over a thread's cells, a warp-shuffle scan of affine maps, one
 // cross-warp pass: tiles.cuh).
@@ -32,77 +41,90 @@
 //   (the inputs by definition) and, for BE/CN, the half planes. Thread 0
 //   writes each record as it reads it: the carry entering the tile in each
 //   phase's scan, the upwind edges in the exchanges.
-// * B10 walks each row's record tiles last to first, each in two passes
+// * B11 is B1's K-step row walk itself (segments.cuh bdf2_segment) with a
+//   record hook, so its six planes are B1's at the same K to the bit and its
+//   records are those of K chained B9 launches.
+// * B10 and B12 share one row walk (bwd_row; K = 1 at compile time for B10).
+//   Each row's record tiles are visited last to first, each in two passes
 //   over sub-tiles of blockDim*4 cells (half B1's cells a thread, at most
 //   256 threads: 1024-cell sub-tiles, four to a 4096-cell record tile).
-//   Pass 1 runs the forward over the sub-tiles in order from the tile's
-//   records and keeps each sub-tile's entering carries and hs1 edge in
-//   shared memory. Pass 2 visits the sub-tiles last to first: it loads e0,
-//   e1 and the output cotangents, recomputes the forward phases from the
-//   kept values, then runs the adjoint phases in reverse order
-//   (phase_adj). The adjoint of the carry scan is the same scan of maps
-//   lambda -> a*lambda + x run right to left (block_exclusive_scan_rev:
-//   __shfl_down_sync and a mirrored cross-warp pass); each phase's lambda
-//   enters from the downstream sub-tile, visited before, through a shared
-//   slot. The cotangents of the CN/BDF upwind shifts flow one cell
-//   upstream (downwind_value); at a sub-tile's last cell they come from
-//   the downstream sub-tile's first cell, kept in shared memory
-//   double-buffered by visit parity. So B10 runs the forward twice and the
-//   adjoint once; its recomputed primals round as 1024-cell tiles do,
+//   Pass 1 runs every step's forward over the sub-tiles in order from the
+//   step's input plane and the tile's records and keeps each sub-tile's
+//   entering carries and hs1 edges in shared memory. Pass 2 visits the
+//   sub-tiles last to first and there the steps newest to oldest: it loads
+//   step k's input, recomputes its forward phases from the kept values,
+//   then runs the adjoint phases in reverse order (phase_adj); step k's
+//   input cotangent, kept in registers, is step k-1's output cotangent. The
+//   adjoint of the carry scan is the same scan of maps lambda -> a*lambda + x
+//   run right to left (block_exclusive_scan_rev: __shfl_down_sync and a
+//   mirrored cross-warp pass); each (step, phase) lambda enters from the
+//   downstream sub-tile, visited before, through its own shared slot. The
+//   cotangents of the CN/BDF upwind shifts flow one cell upstream
+//   (downwind_value); at a sub-tile's last cell they come from the
+//   downstream sub-tile's first cell, kept in shared memory per step and
+//   double-buffered by visit parity. So B10/B12 run the forward twice and
+//   the adjoint once; the recomputed primals round as 1024-cell tiles do,
 //   which moves only the coefficient gradients, at f32 roundoff.
 // * Coefficient gradients: each thread sums its cells' terms over all its
-//   sub-tiles in registers (BE phases 0 and 2, CN phase 1, BDF phase 3);
-//   at the row's end a warp-shuffle and shared-memory reduction writes each
-//   column once. This sums in another order than Pallas's per-block sums.
+//   sub-tiles and steps in registers (BE phases 0 and 2, CN phase 1, BDF
+//   phase 3); at the row's end a warp-shuffle and shared-memory reduction
+//   writes each column once. This sums in another order than Pallas's
+//   per-block sums.
 // * Reflective left boundary: forward, the mu<0 launch records its outflow
 //   carries and the mu>0 launch reads them through `flip` (B1's scheme).
-//   Backward, the order is reversed: the mu>0 launch records each phase's
+//   Backward, the order is reversed: the mu>0 launch records each slot's
 //   inflow cotangent and the mu<0 launch starts its lambdas from s_p times
 //   that record, gathered through `flip`; only the mu<0 half's cotangent
 //   goes to bc. With a source boundary both halves share one launch.
-// * Registers: B10 holds the step input, the three phase outputs it needs
-//   and four phases' entering carries for 4 cells a thread (48 values),
+// * Registers: B10/B12 hold the step input, the three phase outputs they
+//   need and four phases' entering carries for 4 cells a thread (48 values),
 //   plus the cotangents and 27 gradient sums; coefficients sit in shared
 //   memory. Hence 4 cells and at most 256 threads (up to 255 registers).
 // * Cells past N in a row's last tile load as 0; forward they lie
 //   downstream of every real cell; backward their maps are the identity and
-//   their cotangents are forced to 0.
+//   their cotangents are forced to 0, so the cotangents chained from step to
+//   step stay 0 there.
 //
 // What bounds it on this card: the serial carry chain of each row, as for B1
-// (sweep.cu header): per 4096 cells B9 runs 4 scans (BDF2) and B10 48 (four
-// sub-tiles of 8 forward and 4 reversed) and 16 neighbour exchanges, each
-// with block barriers, on 2*Bh blocks (Bh at a time for a reflective
-// slab). Device-memory traffic is small beside that:
-// B9 reads 2 planes and writes 4, B10 reads 6 and writes 2.
+// (sweep.cu header): per 4096 cells and step B9/B11 run 4 scans (BDF2) and
+// B10/B12 48 (four sub-tiles of 8 forward and 4 reversed) and 16 neighbour
+// exchanges, each with block barriers, on 2*Bh blocks (Bh at a time for a
+// reflective slab). Device-memory traffic is small beside that: B9 reads 2
+// planes and writes 4, B10 reads 6 and writes 2; a K-step B11 reads 2 and
+// writes 6 + 2(K-1), B12 reads 8 + 2(K-1) and writes 2.
 
 #include <cuda_runtime.h>
 
-#include "tiles.cuh"
+#include "segments.cuh"
 
 namespace {
 
-// B9 tiles a row as B1 does (sweep.cu): kFwdCells consecutive cells a
-// thread, at most kFwdThreads threads; its records are per such tile. B10
-// walks each record tile as sub-tiles of blockDim*kCells cells, with half
-// B9's threads (at least a warp) and half its cells a thread.
-constexpr int kFwdCells = 8;
-constexpr int kFwdThreads = 512;
+// B9 and B11 tile a row as B1 does (segments.cuh): kFwdCells consecutive
+// cells a thread, at most kFwdThreads threads; their records are per such
+// tile. B10 and B12 walk each record tile as sub-tiles of blockDim*kCells
+// cells, with half B9's threads (at least a warp) and half its cells a
+// thread.
+constexpr int kFwdCells = kSegCells;
+constexpr int kFwdThreads = kSegThreads;
 constexpr int kCells = 4;
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxSub = 4;         // sub-tiles of a record tile
 constexpr int kNGrad = 9;          // w T0 q idet a S(=Sb=c0) c1 kee kp
 
+// Per-slot arrays hold one entry per (step, phase) slot (4 a BDF2 step, K <=
+// kMaxSteps steps: B12), per-step arrays one per step; B9 and B10 use the
+// first nph slots and step 0.
 struct Shared {
   Coef kc[3];                  // BE, CN, BDF coefficients of this row
-  float carry[4];              // B9: each phase's carry entering the tile;
-                               // B10: each phase's lambda from downstream
-  float fcarry[4];             // B10: the forward carries of its first pass
-  float sub_carry[kMaxSub][4];  // B10: each sub-tile's entering carries
-  float sub_ht[kMaxSub];       // B10: the hs1 edge upwind of each sub-tile
-  float htail;                 // hs1 of the previous (sub-)tile's last cell
-  float cet[2], cht[2];        // B10: shift cotangents from downstream,
-                               // double-buffered by tile parity
+  float carry[kMaxSlots];      // B9: each phase's carry entering the tile;
+                               // B10/B12: each slot's lambda from downstream
+  float fcarry[kMaxSlots];     // B10/B12: the forward carries of pass 1
+  float sub_carry[kMaxSub][kMaxSlots];  // each sub-tile's entering carries
+  float sub_ht[kMaxSub][kMaxSteps];     // the hs1 edge upwind of each
+  float htail[kMaxSteps];      // hs1 of the previous (sub-)tile's last cell
+  float cet[2][kMaxSteps];     // B10/B12: each step's shift cotangents from
+  float cht[2][kMaxSteps];     // downstream, double-buffered by visit parity
   float scanA[2][32];          // cross-warp scan, double-buffered
   float scanB[2][32];
   float edge_p[32], edge_h[32];    // upwind exchanges
@@ -335,7 +357,7 @@ __device__ __forceinline__ void fwd_record_row(
                                   0.f, &sm.carry[1], owner, sm, buf, c0, c1));
       const auto& hs0 = SNAP ? c0 : b0;
       const auto& hs1 = SNAP ? c1 : b1;
-      const float hs1_up = upwind_value(hs1[kFwdCells - 1], &sm.htail,
+      const float hs1_up = upwind_value(hs1[kFwdCells - 1], sm.htail,
                                         sm.edge_h);
       if (lead) rht[ebase + t] = hs1_up;
       float d0[kFwdCells], d1[kFwdCells];
@@ -344,7 +366,7 @@ __device__ __forceinline__ void fwd_record_row(
       record(3, substep_tile<kBDF>(sm.kc[2], d0, d1, x0, x1, hs0, hs1, x1_up,
                                    hs1_up, &sm.carry[3], owner, sm, buf, o0,
                                    o1));
-      if (tail_thread) sm.htail = hs1[kFwdCells - 1];
+      if (tail_thread) sm.htail[0] = hs1[kFwdCells - 1];
       store_cells(oh0g + base, j0, N, hs0);
       store_cells(oh1g + base, j0, N, hs1);
     } else {
@@ -390,7 +412,7 @@ __global__ void __launch_bounds__(kFwdThreads)
         (h == 1 && reflective) ? rec[flip[row] * nph + p] : bc[hr];
     sm.carry[p] = phase_s<TS>(p, s_be, s_cn, s_bdf) * in;
   }
-  if (threadIdx.x == 0) sm.htail = 0.f;
+  if (threadIdx.x == 0) sm.htail[0] = 0.f;
   __syncthreads();
   if (TS == 3 && !(symmetric || h == 0))
     fwd_record_row<TS, false>(sm, h, row, Bh, N, ntiles, e0g, e1g, o0g, o1g,
@@ -402,6 +424,78 @@ __global__ void __launch_bounds__(kFwdThreads)
     __syncthreads();
     if (threadIdx.x < nph) rec[row * nph + threadIdx.x] = sm.carry[threadIdx.x];
   }
+}
+
+// B11's records (bdf2_segment's hook), pointers at the row's first entry:
+// rc[slot * stride + t], ret/rht[k * stride + t] (stride = Bh * ntiles),
+// and step k's input planes ri0/ri1 at (k - 1) * plane (plane = 2 * Bh * N).
+struct KRecords {
+  float* rc;
+  float* ret;
+  float* rht;
+  float* ri0;
+  float* ri1;
+  size_t stride, plane;
+
+  __device__ __forceinline__ void input(int k, int j0, int N,
+                                        const float (&x0)[kSegCells],
+                                        const float (&x1)[kSegCells]) const {
+    store_cells(ri0 + (k - 1) * plane, j0, N, x0);
+    store_cells(ri1 + (k - 1) * plane, j0, N, x1);
+  }
+  __device__ __forceinline__ void carry(int t, int slot, float c) const {
+    if (threadIdx.x == 0) rc[slot * stride + t] = c;
+  }
+  __device__ __forceinline__ void edges(int t, int k, float e1,
+                                        float hs1) const {
+    if (threadIdx.x == 0) {
+      ret[k * stride + t] = e1;
+      rht[k * stride + t] = hs1;
+    }
+  }
+};
+
+// B11, replaces _make_fwd_record_kernel_bdf2_k (pallas_adjoint.py:571): K
+// whole BDF2 steps in ONE launch, B1's bdf2_kernel with records: the row
+// walk is bdf2_segment itself, its hook writing each (step, phase) slot's
+// carry and each step's upwind e1/hs1 edges at tile entry (thread 0, the
+// values it read between the scans' and exchanges' barriers) and the input
+// planes of steps 1..K-1 (every thread, its own cells).
+__global__ void __launch_bounds__(kFwdThreads)
+    fwd_record_k_kernel(const float* __restrict__ cbe,
+                        const float* __restrict__ ccn,
+                        const float* __restrict__ cbdf,
+                        const float* __restrict__ bc,
+                        const int* __restrict__ flip, float* rec,
+                        const float* __restrict__ e0g,
+                        const float* __restrict__ e1g,
+                        float* __restrict__ o0g, float* __restrict__ o1g,
+                        float* __restrict__ oh0g, float* __restrict__ oh1g,
+                        float* __restrict__ op0g, float* __restrict__ op1g,
+                        float* rc, float* ret, float* rht, float* ri0,
+                        float* ri1, int Bh, int N, int K, int ntiles,
+                        float s_be, float s_cn, float s_bdf, int symmetric,
+                        int reflective, int half0) {
+  __shared__ SegShared sm;
+  const int row = blockIdx.x % Bh;
+  const int h = half0 + blockIdx.x / Bh;
+  const int hr = h * Bh + row;
+  const float s_of[4] = {s_be, s_cn, s_be, s_bdf};
+  const int slots = 4 * K;
+  init_row(sm, slots, K, s_of, 4, bc, flip, rec, h, row, hr, reflective);
+  const size_t base = static_cast<size_t>(hr) * N;
+  const size_t stride = static_cast<size_t>(Bh) * ntiles;
+  const KRecords r{rc + static_cast<size_t>(h) * slots * stride + row * ntiles,
+                   ret + static_cast<size_t>(h) * K * stride + row * ntiles,
+                   rht + static_cast<size_t>(h) * K * stride + row * ntiles,
+                   ri0 + base, ri1 + base, stride,
+                   static_cast<size_t>(2) * Bh * N};
+  int buf = 0;
+  bdf2_segment(load_coef(cbe + hr * kNCoef), load_coef(ccn + hr * kNCoef),
+               load_coef(cbdf + hr * kNCoef), symmetric || h == 0, e0g + base,
+               e1g + base, o0g + base, o1g + base, oh0g + base, oh1g + base,
+               op0g + base, op1g + base, 0, N, K, sm, buf, r);
+  record_row(sm, slots, rec, h, row, reflective);
 }
 
 // One forward pass of the BDF2 step (TS 3) or the BE/CN sub-step over this
@@ -450,67 +544,90 @@ struct Fwd {
   }
 };
 
-// B10, replaces _make_bwd_kernel (pallas_adjoint.py:374): one row of the
-// transposed step. B9's record tiles (rtile cells) are visited last to
-// first; each in two passes over its sub-tiles of blockDim*kCells cells:
-// first in order, the forward from the tile's records, keeping each
-// sub-tile's entering carries and hs1 edge in shared memory; then last to
-// first, the forward recomputed from those and the adjoint phases in
-// reverse order. g holds this thread's gradient sums, kNGrad per kind
-// (BE, CN, BDF for BDF2; the one kind otherwise).
+// B10 and B12, replacing _make_bwd_kernel (pallas_adjoint.py:374) and
+// _make_bwd_kernel_bdf2_k (:687): one row of the transposed launch of K
+// steps (K = 1 for B10). The record tiles (rtile cells) of B9/B11 are
+// visited last to first; each in two passes over its sub-tiles of
+// blockDim*kCells cells. Pass 1, in order: every step's forward from its own
+// input plane (the launch's for step 0, B11's record of it otherwise) and
+// the tile's records, keeping each sub-tile's entering carries and hs1 edges
+// in shared memory. Pass 2, last to first: for k = K-1 down to 0, step k's
+// forward recomputed from those and its adjoint phases in reverse order;
+// step k's input cotangent, in registers for the same cells, is step k-1's
+// output cotangent. The external cotangents enter at step K-1 (JAX's
+// order): co (ends) and coh (half) as its outputs', cop (prev, which is
+// step K-1's input) added to its input's; the half cotangent of the steps
+// before is zero. Each (step, phase) slot keeps its own lambda and each
+// step its own shift cotangents, so step k-1 at a sub-tile reads step k's
+// input cotangent complete, its last cell's share from the downstream
+// sub-tile included. g holds this thread's gradient sums over all steps,
+// kNGrad per kind (BE, CN, BDF for BDF2; the one kind otherwise).
 template <int TS, bool SNAP>
 __device__ __forceinline__ void bwd_row(
-    Shared& sm, int h, int row, int Bh, int N, int ntiles, int rtile,
+    Shared& sm, int h, int row, int Bh, int N, int K, int ntiles, int rtile,
     const float* __restrict__ e0g, const float* __restrict__ e1g,
+    const float* __restrict__ ri0g, const float* __restrict__ ri1g,
     const float* __restrict__ co0g, const float* __restrict__ co1g,
     const float* __restrict__ coh0g, const float* __restrict__ coh1g,
+    const float* __restrict__ cop0g, const float* __restrict__ cop1g,
     const float* __restrict__ rc, const float* __restrict__ ret,
     const float* __restrict__ rht, float* __restrict__ ce0g,
     float* __restrict__ ce1g, float (&g)[3][kNGrad]) {
   constexpr int nph = TS == 3 ? 4 : 1;
+  const int slots = nph * K;
   const int sub = blockDim.x * kCells;
   const int nsub = (rtile + sub - 1) / sub;  // <= kMaxSub; a record tile
   // longer than one sub-tile is a whole 4096-cell tile, split exactly
   const bool tail_thread = threadIdx.x == blockDim.x - 1;
   const size_t base = static_cast<size_t>(h * Bh + row) * N;
-  const size_t rbase = (static_cast<size_t>(h) * nph * Bh + row) * ntiles;
-  const size_t ebase = (static_cast<size_t>(h) * Bh + row) * ntiles;
+  const size_t plane = static_cast<size_t>(2) * Bh * N;
+  // The row's records: slot or step i at tile t is [i * stride + t].
+  const size_t stride = static_cast<size_t>(Bh) * ntiles;
+  const float* rcr = rc + static_cast<size_t>(h) * slots * stride + row * ntiles;
+  const float* retr = ret + static_cast<size_t>(h) * K * stride + row * ntiles;
+  const float* rhtr = rht + static_cast<size_t>(h) * K * stride + row * ntiles;
+  auto in0 = [&](int k) { return (k ? ri0g + (k - 1) * plane : e0g) + base; };
+  auto in1 = [&](int k) { return (k ? ri1g + (k - 1) * plane : e1g) + base; };
   int buf = 0;
   int par = 0;  // sub-tile visits of pass 2 alternate the cet/cht buffers
   float scratch[kCells];  // unused outputs
   for (int t = ntiles - 1; t >= 0; --t) {
     const int t0 = t * rtile;
-    // The e1 and hs1 edges upwind of sub-tile s: the records for s = 0;
-    // e1 is an input, hs1 comes from the first pass.
-    auto et_of = [&](int s0) {
-      return s0 == t0 ? ret[ebase + t] : e1g[base + s0 - 1];
+    // Step k's e1 and hs1 edges upwind of sub-tile s0: the records for the
+    // tile's first; e1 is an input value, hs1 comes from the first pass.
+    auto et_of = [&](int k, int s0) {
+      return s0 == t0 ? retr[k * stride + t] : in1(k)[s0 - 1];
     };
     // Pass 1 (the previous tile's last reads of these slots precede the
     // first barrier).
     __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int p = 0; p < nph; ++p)
-        sm.fcarry[p] = rc[rbase + static_cast<size_t>(p) * Bh * ntiles + t];
-      sm.htail = TS == 3 ? rht[ebase + t] : 0.f;
-    }
+    for (int i = threadIdx.x; i < slots; i += blockDim.x)
+      sm.fcarry[i] = rcr[i * stride + t];
+    for (int k = threadIdx.x; k < K; k += blockDim.x)
+      sm.htail[k] = TS == 3 ? rhtr[k * stride + t] : 0.f;
     __syncthreads();
     for (int s = 0; s < nsub; ++s) {
       const int s0 = t0 + s * sub;
       if (s0 >= N) break;
       const int j0 = s0 + threadIdx.x * kCells;
       const int owner = tile_owner(s0, j0, sub, N, kCells);
-      float x0[kCells], x1[kCells];
-      load_cells(x0, e0g + base, j0, N);
-      load_cells(x1, e1g + base, j0, N);
-      const float et = threadIdx.x == 0 ? et_of(s0) : 0.f;
-      Fwd<TS, SNAP> f;
-      f.run(sm, buf, x0, x1, sm.fcarry, owner, &et, &sm.htail);
-      if (threadIdx.x == 0) {
-        for (int p = 0; p < nph; ++p) sm.sub_carry[s][p] = f.c_in[p];
-        sm.sub_ht[s] = f.hs1_up;
-      }
-      if constexpr (TS == 3) {
-        if (tail_thread) sm.htail = SNAP ? f.c1[kCells - 1] : f.b1[kCells - 1];
+      for (int k = 0; k < K; ++k) {
+        float x0[kCells], x1[kCells];
+        load_cells(x0, in0(k), j0, N);
+        load_cells(x1, in1(k), j0, N);
+        const float et = threadIdx.x == 0 ? et_of(k, s0) : 0.f;
+        Fwd<TS, SNAP> f;
+        f.run(sm, buf, x0, x1, sm.fcarry + nph * k, owner, &et,
+              &sm.htail[k]);
+        if (threadIdx.x == 0) {
+          for (int p = 0; p < nph; ++p)
+            sm.sub_carry[s][nph * k + p] = f.c_in[p];
+          sm.sub_ht[s][k] = f.hs1_up;
+        }
+        if constexpr (TS == 3) {
+          if (tail_thread)
+            sm.htail[k] = SNAP ? f.c1[kCells - 1] : f.b1[kCells - 1];
+        }
       }
     }
     // Pass 2.
@@ -518,99 +635,130 @@ __device__ __forceinline__ void bwd_row(
       const int s0 = t0 + s * sub;
       if (s0 >= N) continue;
       const int j0 = s0 + threadIdx.x * kCells;
-      float x0[kCells], x1[kCells], o0c[kCells], o1c[kCells];
-      load_cells(x0, e0g + base, j0, N);
-      load_cells(x1, e1g + base, j0, N);
-      load_cells(o0c, co0g + base, j0, N);
-      load_cells(o1c, co1g + base, j0, N);
-      const float et = threadIdx.x == 0 ? et_of(s0) : 0.f;
-      Fwd<TS, SNAP> f;
-      f.run(sm, buf, x0, x1, sm.sub_carry[s], -1, &et, &sm.sub_ht[s]);
-      float x0c[kCells], x1c[kCells], pshift[kCells];
+      // Step k's output cotangent: the launch's ends' for k = K-1 (loaded
+      // after the recompute, as B10 always did), then step k+1's input
+      // cotangent.
+      float oc0[kCells], oc1[kCells];
+      for (int k = K - 1; k >= 0; --k) {
+        float x0[kCells], x1[kCells];
+        load_cells(x0, in0(k), j0, N);
+        load_cells(x1, in1(k), j0, N);
+        const float et = threadIdx.x == 0 ? et_of(k, s0) : 0.f;
+        Fwd<TS, SNAP> f;
+        f.run(sm, buf, x0, x1, sm.sub_carry[s] + nph * k, -1, &et,
+              &sm.sub_ht[s][k]);
+        if (k == K - 1) {
+          load_cells(oc0, co0g + base, j0, N);
+          load_cells(oc1, co1g + base, j0, N);
+        }
+        float* lam = sm.carry + nph * k;
+        float x0c[kCells], x1c[kCells], pshift[kCells];
 #pragma unroll
-      for (int c = 0; c < kCells; ++c) x0c[c] = x1c[c] = pshift[c] = 0.f;
-      if constexpr (TS == 3) {
-        const auto& hs0 = SNAP ? f.c0 : f.b0;
-        const auto& hs1 = SNAP ? f.c1 : f.b1;
-        float hs0c[kCells], hs1c[kCells], hshift[kCells];
-        load_cells(hs0c, coh0g + base, j0, N);
-        load_cells(hs1c, coh1g + base, j0, N);
+        for (int c = 0; c < kCells; ++c) x0c[c] = x1c[c] = pshift[c] = 0.f;
+        if constexpr (TS == 3) {
+          const auto& hs0 = SNAP ? f.c0 : f.b0;
+          const auto& hs1 = SNAP ? f.c1 : f.b1;
+          float hs0c[kCells], hs1c[kCells], hshift[kCells];
+          if (k == K - 1) {
+            load_cells(hs0c, coh0g + base, j0, N);
+            load_cells(hs1c, coh1g + base, j0, N);
+          } else {
 #pragma unroll
-        for (int c = 0; c < kCells; ++c) hshift[c] = 0.f;
-        float dc0[kCells], dc1[kCells];
-        phase_adj<kBDF>(sm.kc[2], f.d0, f.d1, x0, x1, hs0, hs1, f.x1_up,
-                        f.hs1_up, f.cin[3], o0c, o1c, &sm.carry[3], j0, N, sm,
-                        buf, dc0, dc1, x0c, x1c, hs0c, hs1c, pshift, hshift,
-                        g[2]);
-        float cc0[kCells], cc1[kCells];
-        phase_adj<kBE>(sm.kc[0], f.c0, f.c1, x0, x1, hs0, hs1, 0.f, 0.f,
-                       f.cin[2], dc0, dc1, &sm.carry[2], j0, N, sm, buf, cc0,
-                       cc1, scratch, scratch, scratch, scratch, scratch,
-                       scratch, g[0]);
-        // hs1 feeds the BDF phase one cell downstream too.
-        const float hnext =
-            downwind_value(hshift[0], &sm.cht[par], sm.edge_dh);
+            for (int c = 0; c < kCells; ++c) hs0c[c] = hs1c[c] = 0.f;
+          }
 #pragma unroll
-        for (int c = 0; c < kCells; ++c)
-          hs1c[c] += c < kCells - 1 ? hshift[c + 1] : hnext;
-        if (threadIdx.x == 0) sm.cht[par ^ 1] = hshift[0];
-        float bc0[kCells], bc1[kCells];
+          for (int c = 0; c < kCells; ++c) hshift[c] = 0.f;
+          float dc0[kCells], dc1[kCells];
+          phase_adj<kBDF>(sm.kc[2], f.d0, f.d1, x0, x1, hs0, hs1, f.x1_up,
+                          f.hs1_up, f.cin[3], oc0, oc1, lam + 3, j0, N, sm,
+                          buf, dc0, dc1, x0c, x1c, hs0c, hs1c, pshift,
+                          hshift, g[2]);
+          float cc0[kCells], cc1[kCells];
+          phase_adj<kBE>(sm.kc[0], f.c0, f.c1, x0, x1, hs0, hs1, 0.f, 0.f,
+                         f.cin[2], dc0, dc1, lam + 2, j0, N, sm, buf, cc0,
+                         cc1, scratch, scratch, scratch, scratch, scratch,
+                         scratch, g[0]);
+          // hs1 feeds the BDF phase one cell downstream too.
+          const float hnext =
+              downwind_value(hshift[0], &sm.cht[par][k], sm.edge_dh);
 #pragma unroll
-        for (int c = 0; c < kCells; ++c) {
-          if constexpr (SNAP) {  // hs = the CN output
-            cc0[c] += hs0c[c];
-            cc1[c] += hs1c[c];
-            bc0[c] = bc1[c] = 0.f;
-          } else {               // hs = the phase-0 BE output
-            bc0[c] = hs0c[c];
-            bc1[c] = hs1c[c];
+          for (int c = 0; c < kCells; ++c)
+            hs1c[c] += c < kCells - 1 ? hshift[c + 1] : hnext;
+          if (threadIdx.x == 0) sm.cht[par ^ 1][k] = hshift[0];
+          float bc0[kCells], bc1[kCells];
+#pragma unroll
+          for (int c = 0; c < kCells; ++c) {
+            if constexpr (SNAP) {  // hs = the CN output
+              cc0[c] += hs0c[c];
+              cc1[c] += hs1c[c];
+              bc0[c] = bc1[c] = 0.f;
+            } else {               // hs = the phase-0 BE output
+              bc0[c] = hs0c[c];
+              bc1[c] = hs1c[c];
+            }
+          }
+          float e0c[kCells], e1c[kCells];
+          phase_adj<kCN>(sm.kc[1], f.b0, f.b1, x0, x1, x0, x1, f.x1_up, 0.f,
+                         f.cin[1], cc0, cc1, lam + 1, j0, N, sm, buf, e0c,
+                         e1c, scratch, scratch, scratch, scratch, pshift,
+                         scratch, g[1]);
+#pragma unroll
+          for (int c = 0; c < kCells; ++c) {
+            bc0[c] += e0c[c];
+            bc1[c] += e1c[c];
+          }
+          phase_adj<kBE>(sm.kc[0], x0, x1, x0, x1, x0, x1, 0.f, 0.f,
+                         f.cin[0], bc0, bc1, lam, j0, N, sm, buf, e0c, e1c,
+                         scratch, scratch, scratch, scratch, scratch,
+                         scratch, g[0]);
+#pragma unroll
+          for (int c = 0; c < kCells; ++c) {
+            x0c[c] += e0c[c];
+            x1c[c] += e1c[c];
+          }
+        } else {
+          constexpr int KIND = TS == 1 ? kBE : kCN;
+          float e0c[kCells], e1c[kCells];
+          phase_adj<KIND>(sm.kc[KIND - 1], x0, x1, x0, x1, x0, x1, f.x1_up,
+                          0.f, f.cin[0], oc0, oc1, lam, j0, N, sm, buf, e0c,
+                          e1c, scratch, scratch, scratch, scratch, pshift,
+                          scratch, g[0]);
+#pragma unroll
+          for (int c = 0; c < kCells; ++c) {
+            x0c[c] += e0c[c];
+            x1c[c] += e1c[c];
           }
         }
-        float e0c[kCells], e1c[kCells];
-        phase_adj<kCN>(sm.kc[1], f.b0, f.b1, x0, x1, x0, x1, f.x1_up, 0.f,
-                       f.cin[1], cc0, cc1, &sm.carry[1], j0, N, sm, buf, e0c,
-                       e1c, scratch, scratch, scratch, scratch, pshift,
-                       scratch, g[1]);
+        if constexpr (TS != 1) {
+          // The e1 plane (the prev history of CN and BDF) feeds the cell
+          // downstream: its cotangent flows one cell upstream.
+          const float pnext =
+              downwind_value(pshift[0], &sm.cet[par][k], sm.edge_dp);
+#pragma unroll
+          for (int c = 0; c < kCells; ++c)
+            x1c[c] += c < kCells - 1 ? pshift[c + 1] : pnext;
+          if (threadIdx.x == 0) sm.cet[par ^ 1][k] = pshift[0];
+        }
+        if (k == K - 1 && cop0g) {
+          // The launch's prev output is step K-1's input.
+          float q0[kCells], q1[kCells];
+          load_cells(q0, cop0g + base, j0, N);
+          load_cells(q1, cop1g + base, j0, N);
+#pragma unroll
+          for (int c = 0; c < kCells; ++c) {
+            x0c[c] += q0[c];
+            x1c[c] += q1[c];
+          }
+        }
 #pragma unroll
         for (int c = 0; c < kCells; ++c) {
-          bc0[c] += e0c[c];
-          bc1[c] += e1c[c];
+          oc0[c] = x0c[c];
+          oc1[c] = x1c[c];
         }
-        phase_adj<kBE>(sm.kc[0], x0, x1, x0, x1, x0, x1, 0.f, 0.f, f.cin[0],
-                       bc0, bc1, &sm.carry[0], j0, N, sm, buf, e0c, e1c,
-                       scratch, scratch, scratch, scratch, scratch, scratch,
-                       g[0]);
-#pragma unroll
-        for (int c = 0; c < kCells; ++c) {
-          x0c[c] += e0c[c];
-          x1c[c] += e1c[c];
-        }
-      } else {
-        constexpr int KIND = TS == 1 ? kBE : kCN;
-        float e0c[kCells], e1c[kCells];
-        phase_adj<KIND>(sm.kc[KIND - 1], x0, x1, x0, x1, x0, x1, f.x1_up, 0.f,
-                        f.cin[0], o0c, o1c, &sm.carry[0], j0, N, sm, buf, e0c,
-                        e1c, scratch, scratch, scratch, scratch, pshift,
-                        scratch, g[0]);
-#pragma unroll
-        for (int c = 0; c < kCells; ++c) {
-          x0c[c] += e0c[c];
-          x1c[c] += e1c[c];
-        }
-      }
-      if constexpr (TS != 1) {
-        // The e1 plane (the prev history of CN and BDF) feeds the cell
-        // downstream: its cotangent flows one cell upstream.
-        const float pnext =
-            downwind_value(pshift[0], &sm.cet[par], sm.edge_dp);
-#pragma unroll
-        for (int c = 0; c < kCells; ++c)
-          x1c[c] += c < kCells - 1 ? pshift[c + 1] : pnext;
-        if (threadIdx.x == 0) sm.cet[par ^ 1] = pshift[0];
       }
       par ^= 1;
-      store_cells(ce0g + base, j0, N, x0c);
-      store_cells(ce1g + base, j0, N, x1c);
+      store_cells(ce0g + base, j0, N, oc0);
+      store_cells(ce1g + base, j0, N, oc1);
     }
   }
 }
@@ -623,40 +771,40 @@ __device__ __forceinline__ void warp_sum_to(Shared& sm, int col, float v) {
   if ((threadIdx.x & 31) == 0) sm.red[col][threadIdx.x >> 5] = v;
 }
 
+// The whole of a B10/B12 row block: the lambdas entering the row, bwd_row,
+// the boundary cotangent and the row's gradient packs.
 template <int TS>
-__global__ void __launch_bounds__(kMaxThreads)
-    bwd_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
-               const float* __restrict__ cbdf, const int* __restrict__ flip,
-               float* rec, const float* __restrict__ e0g,
-               const float* __restrict__ e1g,
-               const float* __restrict__ co0g,
-               const float* __restrict__ co1g,
-               const float* __restrict__ coh0g,
-               const float* __restrict__ coh1g,
-               const float* __restrict__ rc, const float* __restrict__ ret,
-               const float* __restrict__ rht, float* __restrict__ ce0g,
-               float* __restrict__ ce1g, float* __restrict__ cbc,
-               float* __restrict__ gbe, float* __restrict__ gcn,
-               float* __restrict__ gbdf, int Bh, int N, int ntiles,
-               int rtile, float s_be, float s_cn, float s_bdf, int symmetric,
-               int reflective, int half0) {
-  __shared__ Shared sm;
+__device__ __forceinline__ void bwd_block(
+    Shared& sm, const float* __restrict__ cbe, const float* __restrict__ ccn,
+    const float* __restrict__ cbdf, const int* __restrict__ flip, float* rec,
+    const float* __restrict__ e0g, const float* __restrict__ e1g,
+    const float* __restrict__ ri0g, const float* __restrict__ ri1g,
+    const float* __restrict__ co0g, const float* __restrict__ co1g,
+    const float* __restrict__ coh0g, const float* __restrict__ coh1g,
+    const float* __restrict__ cop0g, const float* __restrict__ cop1g,
+    const float* __restrict__ rc, const float* __restrict__ ret,
+    const float* __restrict__ rht, float* __restrict__ ce0g,
+    float* __restrict__ ce1g, float* __restrict__ cbc,
+    float* __restrict__ gbe, float* __restrict__ gcn,
+    float* __restrict__ gbdf, int Bh, int N, int K, int ntiles, int rtile,
+    float s_be, float s_cn, float s_bdf, int symmetric, int reflective,
+    int half0) {
   constexpr int nph = TS == 3 ? 4 : 1;
   constexpr int nkinds = TS == 3 ? 3 : 1;
+  const int slots = nph * K;
   const int row = blockIdx.x % Bh;
   const int h = half0 + blockIdx.x / Bh;
   const int hr = h * Bh + row;
   load_row_coefs(sm, cbe, ccn, cbdf, hr);
   // Lambdas entering the row's last tile: 0, or for the mu<0 half of a
   // reflective slab s_p * the flipped row's mu>0 inflow cotangent.
-  if (threadIdx.x < nph) {
-    const int p = threadIdx.x;
-    sm.carry[p] = (h == 0 && reflective)
-                      ? phase_s<TS>(p, s_be, s_cn, s_bdf) *
-                            rec[flip[row] * nph + p]
+  for (int i = threadIdx.x; i < slots; i += blockDim.x)
+    sm.carry[i] = (h == 0 && reflective)
+                      ? phase_s<TS>(i % nph, s_be, s_cn, s_bdf) *
+                            rec[flip[row] * slots + i]
                       : 0.f;
-  }
-  if (threadIdx.x < 2) sm.cet[threadIdx.x] = sm.cht[threadIdx.x] = 0.f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    sm.cet[0][k] = sm.cet[1][k] = sm.cht[0][k] = sm.cht[1][k] = 0.f;
   __syncthreads();
   float g[3][kNGrad];
 #pragma unroll
@@ -664,22 +812,24 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
     for (int i = 0; i < kNGrad; ++i) g[k][i] = 0.f;
   if (TS == 3 && !(symmetric || h == 0))
-    bwd_row<TS, false>(sm, h, row, Bh, N, ntiles, rtile, e0g, e1g, co0g,
-                       co1g, coh0g, coh1g, rc, ret, rht, ce0g, ce1g, g);
+    bwd_row<TS, false>(sm, h, row, Bh, N, K, ntiles, rtile, e0g, e1g, ri0g,
+                       ri1g, co0g, co1g, coh0g, coh1g, cop0g, cop1g, rc, ret,
+                       rht, ce0g, ce1g, g);
   else
-    bwd_row<TS, true>(sm, h, row, Bh, N, ntiles, rtile, e0g, e1g, co0g, co1g,
-                      coh0g, coh1g, rc, ret, rht, ce0g, ce1g, g);
+    bwd_row<TS, true>(sm, h, row, Bh, N, K, ntiles, rtile, e0g, e1g, ri0g,
+                      ri1g, co0g, co1g, coh0g, coh1g, cop0g, cop1g, rc, ret,
+                      rht, ce0g, ce1g, g);
 
-  // The row's start reached: thread 0 holds (wrote) every phase's inflow
+  // The row's start reached: thread 0 holds (wrote) every slot's inflow
   // cotangent. They fold into bc with each phase's s; for a reflective slab
   // bc feeds the mu<0 half only and the mu>0 ones go to the record.
   if (threadIdx.x == 0) {
     if (h == 1 && reflective) {
-      for (int p = 0; p < nph; ++p) rec[row * nph + p] = sm.carry[p];
+      for (int i = 0; i < slots; ++i) rec[row * slots + i] = sm.carry[i];
     } else {
       float acc = 0.f;
-      for (int p = 0; p < nph; ++p)
-        acc = acc + phase_s<TS>(p, s_be, s_cn, s_bdf) * sm.carry[p];
+      for (int i = 0; i < slots; ++i)
+        acc = acc + phase_s<TS>(i % nph, s_be, s_cn, s_bdf) * sm.carry[i];
       cbc[hr] = acc;
     }
   }
@@ -700,10 +850,63 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// B9's threads a row block (B1's), B10's (half of them rounded up to a
-// warp: 256 sub-tiles of 1024 cells split a 4096-cell record tile exactly;
-// a row of fewer cells is one record tile of at most 4 sub-tiles), and
-// whether ntiles is B9's tile count for N.
+// B10: one BE, CN or BDF2 step (K = 1 at compile time).
+template <int TS>
+__global__ void __launch_bounds__(kMaxThreads)
+    bwd_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
+               const float* __restrict__ cbdf, const int* __restrict__ flip,
+               float* rec, const float* __restrict__ e0g,
+               const float* __restrict__ e1g,
+               const float* __restrict__ co0g,
+               const float* __restrict__ co1g,
+               const float* __restrict__ coh0g,
+               const float* __restrict__ coh1g,
+               const float* __restrict__ rc, const float* __restrict__ ret,
+               const float* __restrict__ rht, float* __restrict__ ce0g,
+               float* __restrict__ ce1g, float* __restrict__ cbc,
+               float* __restrict__ gbe, float* __restrict__ gcn,
+               float* __restrict__ gbdf, int Bh, int N, int ntiles,
+               int rtile, float s_be, float s_cn, float s_bdf, int symmetric,
+               int reflective, int half0) {
+  __shared__ Shared sm;
+  bwd_block<TS>(sm, cbe, ccn, cbdf, flip, rec, e0g, e1g, nullptr, nullptr,
+                co0g, co1g, coh0g, coh1g, nullptr, nullptr, rc, ret, rht,
+                ce0g, ce1g, cbc, gbe, gcn, gbdf, Bh, N, 1, ntiles, rtile,
+                s_be, s_cn, s_bdf, symmetric, reflective, half0);
+}
+
+// B12: K BDF2 steps, newest to oldest at every sub-tile, in ONE launch.
+__global__ void __launch_bounds__(kMaxThreads)
+    bwd_k_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
+                 const float* __restrict__ cbdf, const int* __restrict__ flip,
+                 float* rec, const float* __restrict__ e0g,
+                 const float* __restrict__ e1g,
+                 const float* __restrict__ ri0g,
+                 const float* __restrict__ ri1g,
+                 const float* __restrict__ co0g,
+                 const float* __restrict__ co1g,
+                 const float* __restrict__ coh0g,
+                 const float* __restrict__ coh1g,
+                 const float* __restrict__ cop0g,
+                 const float* __restrict__ cop1g,
+                 const float* __restrict__ rc, const float* __restrict__ ret,
+                 const float* __restrict__ rht, float* __restrict__ ce0g,
+                 float* __restrict__ ce1g, float* __restrict__ cbc,
+                 float* __restrict__ gbe, float* __restrict__ gcn,
+                 float* __restrict__ gbdf, int Bh, int N, int K, int ntiles,
+                 int rtile, float s_be, float s_cn, float s_bdf,
+                 int symmetric, int reflective, int half0) {
+  __shared__ Shared sm;
+  bwd_block<3>(sm, cbe, ccn, cbdf, flip, rec, e0g, e1g, ri0g, ri1g, co0g,
+               co1g, coh0g, coh1g, cop0g, cop1g, rc, ret, rht, ce0g, ce1g,
+               cbc, gbe, gcn, gbdf, Bh, N, K, ntiles, rtile, s_be, s_cn,
+               s_bdf, symmetric, reflective, half0);
+}
+
+// B9's and B11's threads a row block (B1's), B10's and B12's (half of them
+// rounded up to a warp: 256 sub-tiles of 1024 cells split a 4096-cell
+// record tile exactly; a row of fewer cells is one record tile of at most 4
+// sub-tiles), and whether ntiles is B9's tile count for N.
 inline int fwd_threads(int N) {
   return pick_threads(N, kFwdCells, kFwdThreads);
 }
@@ -711,6 +914,22 @@ inline int bwd_threads(int N) { return 32 * ((fwd_threads(N) + 63) / 64); }
 inline bool tiles_ok(int N, int ntiles) {
   const int tile = fwd_threads(N) * kFwdCells;
   return ntiles == (N + tile - 1) / tile;
+}
+
+// tiles.cuh launch_halves in the backward's reversed order: the mu>0 half
+// records its inflow cotangents, which the mu<0 half's outflow lambdas
+// start from.
+template <typename Launch>
+int launch_halves_rev(int Bh, int reflective, Launch launch) {
+  if (!reflective) {
+    launch(2 * Bh, 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  launch(Bh, 1);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch(Bh, 0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -788,17 +1007,59 @@ int rt_adj_bwd(int ts_method, const float* cbe, const float* ccn,
           rht, ce0, ce1, cbc, gbe, gcn, gbdf, Bh, N, ntiles, rtile, s_be,
           s_cn, s_bdf, symmetric, reflective, half0);
   };
-  if (!reflective) {
-    launch(2 * Bh, 0);
-    return static_cast<int>(cudaGetLastError());
-  }
-  // Reversed half order: the mu>0 half records its inflow cotangents, which
-  // the mu<0 half's outflow lambdas start from.
-  launch(Bh, 1);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch(Bh, 0);
-  return static_cast<int>(cudaGetLastError());
+  return launch_halves_rev(Bh, reflective, launch);
+}
+
+// The K-fused pair (B11, B12): BDF2 only, 1 <= K <= kMaxSteps; rc is
+// (2, 4K, Bh, ntiles), ret/rht (2, K, Bh, ntiles), ri0/ri1 (K-1, 2, Bh, N)
+// (step k's input at k-1; null at K = 1), rec a (Bh, 4K) scratch record;
+// B11 also writes op0/op1, the last step's input; B12 takes its cotangent
+// cop0/cop1 beside those of the ends (co) and the half snapshot (coh).
+
+int rt_adj_fwd_record_k(const float* cbe, const float* ccn, const float* cbdf,
+                        const float* bc, const int* flip, float* rec,
+                        const float* e0, const float* e1, float* o0,
+                        float* o1, float* oh0, float* oh1, float* op0,
+                        float* op1, float* rc, float* ret, float* rht,
+                        float* ri0, float* ri1, int Bh, int N, int K,
+                        int ntiles, float s_be, float s_cn, float s_bdf,
+                        int symmetric, int reflective, void* stream) {
+  if (Bh < 1 || N < 1 || K < 1 || K > kMaxSteps || !tiles_ok(N, ntiles) ||
+      (K > 1 && (!ri0 || !ri1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = fwd_threads(N);
+  return launch_halves(Bh, reflective, [&](int grid, int half0) {
+    fwd_record_k_kernel<<<grid, threads, 0, st>>>(
+        cbe, ccn, cbdf, bc, flip, rec, e0, e1, o0, o1, oh0, oh1, op0, op1,
+        rc, ret, rht, ri0, ri1, Bh, N, K, ntiles, s_be, s_cn, s_bdf,
+        symmetric, reflective, half0);
+  });
+}
+
+int rt_adj_bwd_k(const float* cbe, const float* ccn, const float* cbdf,
+                 const int* flip, float* rec, const float* e0,
+                 const float* e1, const float* ri0, const float* ri1,
+                 const float* co0, const float* co1, const float* coh0,
+                 const float* coh1, const float* cop0, const float* cop1,
+                 const float* rc, const float* ret, const float* rht,
+                 float* ce0, float* ce1, float* cbc, float* gbe, float* gcn,
+                 float* gbdf, int Bh, int N, int K, int ntiles, float s_be,
+                 float s_cn, float s_bdf, int symmetric, int reflective,
+                 void* stream) {
+  if (Bh < 1 || N < 1 || K < 1 || K > kMaxSteps || !tiles_ok(N, ntiles) ||
+      (K > 1 && (!ri0 || !ri1)) || !coh0 || !coh1 || !cop0 || !cop1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = bwd_threads(N);
+  const int rtile = fwd_threads(N) * kFwdCells;
+  auto launch = [&](int grid, int half0) {
+    bwd_k_kernel<<<grid, threads, 0, st>>>(
+        cbe, ccn, cbdf, flip, rec, e0, e1, ri0, ri1, co0, co1, coh0, coh1,
+        cop0, cop1, rc, ret, rht, ce0, ce1, cbc, gbe, gcn, gbdf, Bh, N, K,
+        ntiles, rtile, s_be, s_cn, s_bdf, symmetric, reflective, half0);
+  };
+  return launch_halves_rev(Bh, reflective, launch);
 }
 
 }  // extern "C"

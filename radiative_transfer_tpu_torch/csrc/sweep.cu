@@ -14,7 +14,8 @@
 // share), and one block-wide scan of affine maps (the counterpart of
 // _hillis_steele, in tiles.cuh, which the double-float kernels of
 // df_sweep.cu share too); the K-step kernels share their tile loops
-// (bdf2_segment, multistep_segment).
+// (bdf2_segment, in segments.cuh, which the K-fused adjoint forward of
+// adjoint.cu runs too, and multistep_segment).
 //
 // What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
 // planes and per sub-step: the right-hand sides r0, r1 of every cell, the
@@ -71,51 +72,14 @@
 
 #include <cuda_runtime.h>
 
-#include "tiles.cuh"
+#include "segments.cuh"
 
 namespace {
 
-constexpr int kCells = 8;          // consecutive cells per thread
-constexpr int kMaxThreads = 512;
-constexpr int kMaxSlots = 256;     // 4*K phase carries, K <= 64
-constexpr int kMaxSteps = kMaxSlots / 4;
-
-struct Shared {
-  float carry[kMaxSlots];      // per-(step, phase) carry entering the tile
-  float etail[kMaxSteps];      // per-step upwind p1 edge of the previous tile
-  float htail[kMaxSteps];      // per-step upwind h1 edge of the previous tile
-  float scanA[2][32];          // cross-warp scan, double-buffered
-  float scanB[2][32];
-  float edge_p[32];            // last cell of each warp, for the p1 shift
-  float edge_h[32];            // last cell of each warp, for the h1 shift
-};
-
-__device__ __forceinline__ void copy_cells(float (&dst)[kCells],
-                                           const float (&src)[kCells]) {
-#pragma unroll
-  for (int c = 0; c < kCells; ++c) dst[c] = src[c];
-}
-
-// Carries entering a row: s of the slot's phase times the boundary value,
-// or for the mu>0 half of a reflective slab the recorded mu<0 outflow of the
-// flipped row.
-__device__ __forceinline__ void init_row(Shared& sm, int slots, int steps,
-                                         const float* s_of, int phases,
-                                         const float* __restrict__ bc,
-                                         const int* __restrict__ flip,
-                                         const float* rec, int h, int row,
-                                         int hr, int reflective) {
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
-    const float in =
-        (h == 1 && reflective) ? rec[flip[row] * slots + i] : bc[hr];
-    sm.carry[i] = s_of[i % phases] * in;
-  }
-  for (int i = threadIdx.x; i < steps; i += blockDim.x) {
-    sm.etail[i] = 0.f;
-    sm.htail[i] = 0.f;
-  }
-  __syncthreads();
-}
+// B1's tile (segments.cuh), which every kernel of this file shares.
+constexpr int kCells = kSegCells;
+constexpr int kMaxThreads = kSegThreads;
+using Shared = SegShared;
 
 // Starts a new chain: every slot's carry from seeds[slot] (0 where seeds is
 // null), zero upwind tails. The first barrier orders this after every read
@@ -130,83 +94,6 @@ __device__ __forceinline__ void seed_row(Shared& sm, int slots, int steps,
     sm.htail[i] = 0.f;
   }
   __syncthreads();
-}
-
-// Writes the carries leaving the row's last cell, one per slot.
-__device__ __forceinline__ void write_record(const Shared& sm, int slots,
-                                             float* rec) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) rec[i] = sm.carry[i];
-}
-
-// The mu<0 half of a reflective slab records its outflow carries.
-__device__ __forceinline__ void record_row(const Shared& sm, int slots,
-                                           float* rec, int h, int row,
-                                           int reflective) {
-  if (h == 0 && reflective) write_record(sm, slots, rec + row * slots);
-}
-
-// K whole BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF
-// corrector, over the cells [s0, s1) of one row (pointers are the row's),
-// in tiles aligned to s0. Starts from the carries and tails in shared
-// memory and leaves them there. The half snapshot is the CN output where
-// snap_cn, else the phase-0 BE output.
-__device__ __forceinline__ void bdf2_segment(
-    const Coef& kbe, const Coef& kcn, const Coef& kbdf, bool snap_cn,
-    const float* __restrict__ e0g, const float* __restrict__ e1g,
-    float* __restrict__ o0g, float* __restrict__ o1g,
-    float* __restrict__ oh0g, float* __restrict__ oh1g,
-    float* __restrict__ op0g, float* __restrict__ op1g, int s0, int s1,
-    int K, Shared& sm, int& buf) {
-  const bool tail_thread = threadIdx.x == blockDim.x - 1;
-  const int tile = blockDim.x * kCells;
-  for (int t0 = s0; t0 < s1; t0 += tile) {
-    const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, s1, kCells);
-    float x0[kCells], x1[kCells], hs0[kCells], hs1[kCells];
-    load_cells(x0, e0g, j0, s1);
-    load_cells(x1, e1g, j0, s1);
-    for (int k = 0; k < K; ++k) {
-      float* cs = sm.carry + 4 * k;
-      // prev = the step's input ends; its upwind edge feeds CN and BDF.
-      const float x1_up =
-          upwind_value(x1[kCells - 1], &sm.etail[k], sm.edge_p);
-      float b0[kCells], b1[kCells];
-      substep_tile<kBE>(kbe, x0, x1, x0, x1, x0, x1, 0.f, 0.f, cs + 0, owner,
-                        sm, buf, b0, b1);
-      float c0[kCells], c1[kCells];
-      substep_tile<kCN>(kcn, b0, b1, x0, x1, x0, x1, x1_up, 0.f, cs + 1,
-                        owner, sm, buf, c0, c1);
-#pragma unroll
-      for (int c = 0; c < kCells; ++c) {
-        hs0[c] = snap_cn ? c0[c] : b0[c];
-        hs1[c] = snap_cn ? c1[c] : b1[c];
-      }
-      const float hs1_up =
-          upwind_value(hs1[kCells - 1], &sm.htail[k], sm.edge_h);
-      float d0[kCells], d1[kCells];
-      substep_tile<kBE>(kbe, c0, c1, x0, x1, hs0, hs1, 0.f, 0.f, cs + 2,
-                        owner, sm, buf, d0, d1);
-      float f0[kCells], f1[kCells];
-      substep_tile<kBDF>(kbdf, d0, d1, x0, x1, hs0, hs1, x1_up, hs1_up,
-                         cs + 3, owner, sm, buf, f0, f1);
-      if (tail_thread) {
-        sm.etail[k] = x1[kCells - 1];
-        sm.htail[k] = hs1[kCells - 1];
-      }
-      if (k == K - 1) {
-        // prev of the final state = the LAST step's input.
-        store_cells(op0g, j0, s1, x0);
-        store_cells(op1g, j0, s1, x1);
-      }
-      copy_cells(x0, f0);
-      copy_cells(x1, f1);
-    }
-    store_cells(o0g, j0, s1, x0);
-    store_cells(o1g, j0, s1, x1);
-    store_cells(oh0g, j0, s1, hs0);
-    store_cells(oh1g, j0, s1, hs1);
-  }
 }
 
 // K whole BE or CN steps over the cells [s0, s1) of one row, as

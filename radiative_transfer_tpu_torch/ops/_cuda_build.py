@@ -51,6 +51,8 @@ _SIGNATURES = {
     "rt_adj_fwd_record": [_I] + [_P] * 15 + [_I] * 3 + [_F] * 3 + [_I] * 2
     + [_P],
     "rt_adj_bwd": [_I] + [_P] * 20 + [_I] * 3 + [_F] * 3 + [_I] * 2 + [_P],
+    "rt_adj_fwd_record_k": [_P] * 19 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
+    "rt_adj_bwd_k": [_P] * 24 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
 }
 
 

@@ -1,15 +1,21 @@
-"""Kernel-rate adjoint: a differentiable whole timestep on CUDA kernels.
+"""Kernel-rate adjoint: differentiable whole timesteps on CUDA kernels.
 
-Port of radiative_transfer_tpu/ops/pallas_adjoint.py at K = 1 (one
-timestep a launch). Two kernel wrappers carry it:
+Port of radiative_transfer_tpu/ops/pallas_adjoint.py. Four kernel wrappers
+carry it:
 
-* ``fwd_record_launch`` — the K = 1 step plus per-tile records of each
-  phase's carry at tile entry and of the upwind e1 / hs1 edges (B9,
+* ``fwd_record_launch`` — one step plus per-tile records of each phase's
+  carry at tile entry and of the upwind e1 / hs1 edges (B9,
   ``_make_fwd_record_kernel``);
 * ``bwd_launch`` — the transposed step: tiles visited downstream to
   upstream, the forward recomputed from the inputs and records, the
   sub-step adjoint in reverse phase order, the coefficient and boundary
-  cotangents accumulated (B10, ``_make_bwd_kernel``).
+  cotangents accumulated (B10, ``_make_bwd_kernel``);
+* ``fwd_record_k_launch`` — K whole BDF2 steps in one launch with each
+  step's records and the intermediate steps' input planes (B11,
+  ``_make_fwd_record_kernel_bdf2_k``);
+* ``bwd_k_launch`` — the transposed K-step launch, the steps newest to
+  oldest at every tile, each recomputed from its own input plane (B12,
+  ``_make_bwd_kernel_bdf2_k``).
 
 Three structural facts keep it compact (module doc of the JAX original):
 the step is affine in the state, so the state adjoint is the transposed
@@ -24,17 +30,20 @@ Each wrapper launches its kernel in csrc/adjoint.cu for a CUDA tensor and
 raises if it cannot; for a CPU tensor it runs its plain PyTorch version
 (``*_launch_ref``), which keeps the JAX kernels' blocks, truncated
 Hillis-Steele scans (forward and reversed), (half, block) visit order and
-operation order. The records follow the visit unit: the plain versions
-record per JAX block, (2, nph, Bh, N // blk), the kernels per CUDA tile,
-(2, nph, Bh, record_tiles(N)); each backward refuses the other's. The
-kernels scan exactly, so on the card the backward is the exact adjoint of
-the card's own forward. Each wrapper counts its launches.
+operation order (the K-step plain versions are K plain steps: the JAX
+K-step kernels are their exact composition). The records follow the visit
+unit: the plain versions record per JAX block, (2, nph, Bh, N // blk), the
+kernels per CUDA tile, (2, nph, Bh, record_tiles(N)); each backward refuses
+the other's. The kernels scan exactly, so on the card the backward is the
+exact adjoint of the card's own forward. Each wrapper counts its launches.
 
-``DiffCudaStep`` (the counterpart of ``DiffPallasStep``) is the
-``torch.autograd.Function`` over the pair, and ``make_diff_solve_cuda``
-(``make_diff_solve_pallas``) the differentiable solve built on it, with
-the parameters entering through adjoint.traced_tables ->
-fast_sweep.build_kind_coeffs_traced -> ``_pack_coeffs_traced``.
+``DiffCudaStep`` and ``DiffCudaStepK`` (the counterparts of
+``DiffPallasStep`` and ``DiffPallasStepK``) are the
+``torch.autograd.Function``s over the pairs, and ``make_diff_solve_cuda``
+(``make_diff_solve_pallas``) the differentiable solve built on them, K-fused
+by default at BDF2 as JAX's, with the parameters entering through
+adjoint.traced_tables -> fast_sweep.build_kind_coeffs_traced ->
+``_pack_coeffs_traced``.
 """
 
 from __future__ import annotations
@@ -462,15 +471,89 @@ def bwd_launch_ref(cbe, ccn, cbdf, flip, e0, e1, co0, co1, coh0, coh1, rc,
     return (ce0, ce1, cbc, *gpack)
 
 
+def _bdf2_only(name: str, ts_method: int) -> None:
+    if ts_method != 3:
+        raise ValueError(f"{name}: the K-fused kernels run BDF2 (ts_method "
+                         f"3), got ts_method {ts_method}")
+
+
+def fwd_record_k_launch_ref(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int,
+                            ts_method: int, s_be: float, s_cn: float,
+                            s_bdf: float, reflective: bool,
+                            symmetric_half: bool, blk: int, npass: dict):
+    """Plain version of B11 (``_make_fwd_record_kernel_bdf2_k``): K whole
+    BDF2 steps with each step's records, as K plain B9 steps (the fused
+    program is exactly their composition: the JAX kernel runs B9's block
+    body per (step, block)). Returns (o0, o1, h0, h1, p0, p1, rc, ret, rht,
+    ri0, ri1): the last step's ends and half snapshot, p the last step's
+    input, rc (2, 4K, Bh, nb) with slot 4k+p step k's phase-p carries,
+    ret/rht (2, K, Bh, nb) step k's upwind edges, ri0/ri1 (K-1, 2, Bh, N)
+    the inputs of steps 1..K-1."""
+    _bdf2_only("fwd_record_k_launch_ref", ts_method)
+    geo = dict(ts_method=3, s_be=s_be, s_cn=s_cn, s_bdf=s_bdf,
+               reflective=reflective, symmetric_half=symmetric_half,
+               blk=blk, npass=npass)
+    ins, recs = [(e0, e1)], []
+    for _ in range(K):
+        o0, o1, h0, h1, *rec = fwd_record_launch_ref(
+            cbe, ccn, cbdf, bc, flip, *ins[-1], **geo)
+        recs.append(rec)
+        ins.append((o0, o1))
+    p0, p1 = ins[K - 1] if K > 1 else (e0.clone(), e1.clone())
+    rc = torch.cat([r[0] for r in recs], dim=1)
+    ret, rht = (torch.stack([r[i] for r in recs], dim=1) for i in (1, 2))
+    ri0, ri1 = (torch.stack([x[i] for x in ins[1:K]]) if K > 1 else
+                e0.new_empty((0, *e0.shape)) for i in (0, 1))
+    return o0, o1, h0, h1, p0, p1, rc, ret, rht, ri0, ri1
+
+
+def bwd_k_launch_ref(cbe, ccn, cbdf, flip, e0, e1, ri0, ri1, co0, co1, coh0,
+                     coh1, cop0, cop1, rc, ret, rht, *, K: int,
+                     ts_method: int, s_be: float, s_cn: float, s_bdf: float,
+                     reflective: bool, symmetric_half: bool, blk: int,
+                     npass: dict):
+    """Plain version of B12 (``_make_bwd_kernel_bdf2_k``): the transposed K
+    steps, newest to oldest, as K plain B10 steps. Step k recomputes from
+    its own input (e for k = 0, ri[k-1] otherwise) and its records; its
+    output cotangent is step k+1's input cotangent. The external cotangents
+    enter at step K-1 (JAX's order): (co0, co1) of the ends and (coh0,
+    coh1) of the half snapshot as its outputs', (cop0, cop1) of prev, which
+    is step K-1's input, added to its input's; the half cotangent of the
+    steps before is zero. Returns (ce0, ce1, cbc, gbe, gcn, gbdf), cbc and
+    the packs summed over the steps."""
+    _bdf2_only("bwd_k_launch_ref", ts_method)
+    if ri0.shape[0] != K - 1 or rc.shape[1] != 4 * K or ret.shape[1] != K:
+        raise ValueError(f"bwd_k_launch_ref: records of another K than {K}")
+    geo = dict(ts_method=3, s_be=s_be, s_cn=s_cn, s_bdf=s_bdf,
+               reflective=reflective, symmetric_half=symmetric_half,
+               blk=blk, npass=npass)
+    zero = torch.zeros_like(co0)
+    oc0, oc1 = co0, co1
+    sums = []
+    for k in reversed(range(K)):
+        x0, x1 = (e0, e1) if k == 0 else (ri0[k - 1], ri1[k - 1])
+        hc = (coh0, coh1) if k == K - 1 else (zero, zero)
+        oc0, oc1, *rest = bwd_launch_ref(
+            cbe, ccn, cbdf, flip, x0, x1, oc0, oc1, *hc,
+            rc[:, 4 * k:4 * k + 4], ret[:, k], rht[:, k], **geo)
+        if k == K - 1:
+            oc0, oc1 = oc0 + cop0, oc1 + cop1
+        sums.append(rest)
+    cbc, gbe, gcn, gbdf = (sum(s[i] for s in reversed(sums)) for i in range(4))
+    return oc0, oc1, cbc, gbe, gcn, gbdf
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_records(name: str, rc, ret, rht, nph: int, Bh: int, N: int,
-                   device) -> int:
+def _check_records(name: str, device, N: int, *pairs) -> int:
+    """Refuses records that are not contiguous float32 on `device` in the
+    kernels' shapes: `pairs` of (tensor, shape), each shape's last entry
+    None for the kernels' record_tiles(N). Returns record_tiles(N)."""
     nt = record_tiles(N)
-    for t, shape in ((rc, (2, nph, Bh, nt)), (ret, (2, Bh, nt)),
-                     (rht, (2, Bh, nt))):
+    for t, shape in pairs:
+        shape = tuple(nt if d is None else d for d in shape)
         if (t.device != device or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name}: records must be contiguous float32 "
@@ -538,7 +621,8 @@ def bwd_launch(cbe, ccn, cbdf, flip, e0, e1, co0, co1, coh0, coh1, rc, ret,
                       device=e0.device)
     Bh, N = cs._check_cuda(name, (cbe, ccn, cbdf), cbc, flip,
                            (e0, e1, *cots))
-    nt = _check_records(name, rc, ret, rht, nph, Bh, N, e0.device)
+    nt = _check_records(name, e0.device, N, (rc, (2, nph, Bh, None)),
+                        (ret, (2, Bh, None)), (rht, (2, Bh, None)))
     lib = load_kernels()
     ce0, ce1 = torch.empty_like(e0), torch.empty_like(e0)
     gpack = [torch.zeros((2, Bh, _NCOEF), dtype=torch.float32,
@@ -557,14 +641,95 @@ def bwd_launch(cbe, ccn, cbdf, flip, e0, e1, co0, co1, coh0, coh1, rc, ret,
     return (ce0, ce1, cbc, *gpack)
 
 
+def fwd_record_k_launch(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int,
+                        ts_method: int, s_be: float, s_cn: float,
+                        s_bdf: float, reflective: bool, symmetric_half: bool,
+                        blk: int, npass: dict):
+    """B11: K whole BDF2 steps in one launch with their records (see
+    fwd_record_k_launch_ref). On the card the records are per kernel tile,
+    rc (2, 4K, Bh, record_tiles(N)), ret/rht (2, K, Bh, record_tiles(N));
+    `blk`/`npass` shape the plain version only."""
+    name = "fwd_record_k_launch"
+    _bdf2_only(name, ts_method)
+    cs._check_K(name, K)
+    if e0.device.type == "cpu":
+        return fwd_record_k_launch_ref(
+            cbe, ccn, cbdf, bc, flip, e0, e1, K=K, ts_method=ts_method,
+            s_be=s_be, s_cn=s_cn, s_bdf=s_bdf, reflective=reflective,
+            symmetric_half=symmetric_half, blk=blk, npass=npass)
+    Bh, N = cs._check_cuda(name, (cbe, ccn, cbdf), bc, flip, (e0, e1))
+    nt = record_tiles(N)
+    lib = load_kernels()
+
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=e0.device)
+
+    outs = [torch.empty_like(e0) for _ in range(6)]
+    rc, ret, rht = new(2, 4 * K, Bh, nt), new(2, K, Bh, nt), new(2, K, Bh, nt)
+    ri0, ri1 = new(K - 1, 2, Bh, N), new(K - 1, 2, Bh, N)
+    outflow = new(Bh, 4 * K)
+    ri = (ri0, ri1) if K > 1 else (None, None)
+    with torch.cuda.device(e0.device):
+        rc_ = lib.rt_adj_fwd_record_k(
+            *map(_ptr, (cbe, ccn, cbdf, bc, flip, outflow, e0, e1, *outs, rc,
+                        ret, rht, *ri)),
+            Bh, N, K, nt, s_be, s_cn, s_bdf, int(symmetric_half),
+            int(reflective), cs._stream(e0.device))
+    cs._raise_on(name, rc_)
+    fwd_record_k_launch.launches += 1
+    return (*outs, rc, ret, rht, ri0, ri1)
+
+
+def bwd_k_launch(cbe, ccn, cbdf, flip, e0, e1, ri0, ri1, co0, co1, coh0,
+                 coh1, cop0, cop1, rc, ret, rht, *, K: int, ts_method: int,
+                 s_be: float, s_cn: float, s_bdf: float, reflective: bool,
+                 symmetric_half: bool, blk: int, npass: dict):
+    """B12: the transposed K steps in one launch (see bwd_k_launch_ref). On
+    the card it takes fwd_record_k_launch's per-tile records and refuses
+    any other shape."""
+    name = "bwd_k_launch"
+    _bdf2_only(name, ts_method)
+    cs._check_K(name, K)
+    if e0.device.type == "cpu":
+        return bwd_k_launch_ref(
+            cbe, ccn, cbdf, flip, e0, e1, ri0, ri1, co0, co1, coh0, coh1,
+            cop0, cop1, rc, ret, rht, K=K, ts_method=ts_method, s_be=s_be,
+            s_cn=s_cn, s_bdf=s_bdf, reflective=reflective,
+            symmetric_half=symmetric_half, blk=blk, npass=npass)
+    cbc = torch.zeros((2, e0.shape[1], 1), dtype=torch.float32,
+                      device=e0.device)
+    Bh, N = cs._check_cuda(name, (cbe, ccn, cbdf), cbc, flip,
+                           (e0, e1, co0, co1, coh0, coh1, cop0, cop1))
+    nt = _check_records(name, e0.device, N, (rc, (2, 4 * K, Bh, None)),
+                        (ret, (2, K, Bh, None)), (rht, (2, K, Bh, None)),
+                        (ri0, (K - 1, 2, Bh, N)), (ri1, (K - 1, 2, Bh, N)))
+    lib = load_kernels()
+    ce0, ce1 = torch.empty_like(e0), torch.empty_like(e0)
+    gpack = [torch.zeros((2, Bh, _NCOEF), dtype=torch.float32,
+                         device=e0.device) for _ in range(3)]
+    inflow = torch.empty((Bh, 4 * K), dtype=torch.float32, device=e0.device)
+    ri = (ri0, ri1) if K > 1 else (None, None)
+    with torch.cuda.device(e0.device):
+        rc_ = lib.rt_adj_bwd_k(
+            *map(_ptr, (cbe, ccn, cbdf, flip, inflow, e0, e1, *ri, co0, co1,
+                        coh0, coh1, cop0, cop1, rc, ret, rht, ce0, ce1, cbc,
+                        *gpack)),
+            Bh, N, K, nt, s_be, s_cn, s_bdf, int(symmetric_half),
+            int(reflective), cs._stream(e0.device))
+    cs._raise_on(name, rc_)
+    bwd_k_launch.launches += 1
+    return (ce0, ce1, cbc, *gpack)
+
+
 def _ptr(t) -> "object":
     """A tensor's device address for ctypes (None for an absent plane)."""
     return None if t is None else cs._ptr(t)
 
 
 def reset_launch_counts() -> None:
-    """Zero both wrappers' counts of kernel launches."""
-    for w in (fwd_record_launch, bwd_launch):
+    """Zero the four wrappers' counts of kernel launches."""
+    for w in (fwd_record_launch, bwd_launch, fwd_record_k_launch,
+              bwd_k_launch):
         w.launches = 0
 
 
@@ -639,6 +804,41 @@ class DiffCudaStep(torch.autograd.Function):
         return None, ce0, ce1, gbe, gcn, gbdf, cbc
 
 
+class DiffCudaStepK(torch.autograd.Function):
+    """K fused differentiable BDF2 timesteps (the counterpart of
+    ``DiffPallasStepK``):
+
+        DiffCudaStepK.apply(eng, K, e0, e1, cbe, ccn, cbdf, bc)
+            -> (o0, o1, h0, h1, p0, p1)
+
+    forward = B11, backward = B12 -> (ce0, ce1, gbe, gcn, gbdf, cbc). prev
+    is the LAST step's input (the K-step sweep's contract), returned because
+    the intermediate ends never leave the launch. The residuals are the
+    input planes, the packs, the records and the K-1 intermediate inputs:
+    two planes a step, as K = 1 keeps. Cotangents of outputs the loss does
+    not use arrive as zeros."""
+
+    @staticmethod
+    def forward(ctx, eng, K, e0, e1, cbe, ccn, cbdf, bc):
+        geo = step_geometry(eng)
+        o0, o1, h0, h1, p0, p1, *res = fwd_record_k_launch(
+            cbe, ccn, cbdf, bc, eng.flip, e0, e1, K=K, **geo)
+        ctx.geo = geo
+        ctx.K = K
+        ctx.flip = eng.flip
+        ctx.save_for_backward(e0, e1, cbe, ccn, cbdf, *res)
+        return o0, o1, h0, h1, p0, p1
+
+    @staticmethod
+    def backward(ctx, *cots):
+        e0, e1, cbe, ccn, cbdf, rc, ret, rht, ri0, ri1 = ctx.saved_tensors
+        cots = [c.to(torch.float32).contiguous() for c in cots]
+        ce0, ce1, cbc, gbe, gcn, gbdf = bwd_k_launch(
+            cbe, ccn, cbdf, ctx.flip, e0, e1, ri0, ri1, *cots, rc, ret, rht,
+            K=ctx.K, **ctx.geo)
+        return None, None, ce0, ce1, gbe, gcn, gbdf, cbc
+
+
 def make_diff_solve_cuda(cfg: Config, tables, num_steps=None,
                          remat_group: Optional[int] = None,
                          steps_per_launch: Optional[int] = None,
@@ -650,17 +850,21 @@ def make_diff_solve_cuda(cfg: Config, tables, num_steps=None,
     (numpy arrays or tensors); omitted ones stay at their ``tables``
     values. ``state=None`` starts from psi = B_g built from the traced B,
     so a T gradient includes the initial condition. Forward and backward
-    run B9 and B10 one timestep a launch (the plain versions for
-    ``device='cpu'``); gradients are the exact adjoint of that float32
-    program, f32-grade against the float64 adjoints.
+    run the CUDA kernels (the plain versions for ``device='cpu'``);
+    gradients are the exact adjoint of that float32 program, f32-grade
+    against the float64 adjoints.
 
-    ``steps_per_launch``: None or 1 runs K = 1 (JAX's default is the
-    K-fused BDF2 adjoint, B11-B12, not ported yet; ROADMAP §C); BE and CN
-    always run K = 1, as in JAX.
+    ``steps_per_launch`` (BDF2 only), JAX's rule: None fuses K =
+    min(max_steps_per_launch(), 4, num_steps) steps a launch on
+    ``DiffCudaStepK`` (B11-B12), an explicit value max(1, K); K = 1, or
+    num_steps < K, runs one step a launch on ``DiffCudaStep`` (B9-B10), as
+    BE and CN always do. num_steps % K tail steps run on ``DiffCudaStep``.
+    The kernels take K <= 64; a larger K raises ValueError.
 
-    Memory: the residuals are the two input planes of every step plus
-    the tiny records. ``remat_group=g`` (or None with num_steps > 256,
-    which picks g ~ sqrt(num_steps)) runs the steps in groups of g under
+    Memory: the residuals are two input planes a step (a K-step launch
+    keeps its input and its K-1 intermediate inputs) plus the tiny records.
+    ``remat_group=g`` (or None with num_steps > 256, which picks g ~
+    sqrt(number of launches)) runs the launches in groups of g under
     ``torch.utils.checkpoint``: only the group-boundary states and one
     group's residuals are held at a time, for one extra forward a group.
     """
@@ -668,12 +872,18 @@ def make_diff_solve_cuda(cfg: Config, tables, num_steps=None,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_diff_solve_cuda: no CUDA device; pass "
                            "device='cpu' for the plain versions")
-    if cfg.ts_method == 3 and steps_per_launch not in (None, 1):
-        raise NotImplementedError(
-            f"steps_per_launch={steps_per_launch}: the K-fused BDF2 adjoint "
-            "kernels (B11-B12) are not ported yet; K = 1 runs")
     n = cfg.max_timesteps if num_steps is None else num_steps
     eng = cs.CudaSweepEngine(cfg, tables, device=device)
+    if steps_per_launch is None:
+        K = (min(eng.max_steps_per_launch(), 4, max(n, 1))
+             if cfg.ts_method == 3 else 1)
+    else:
+        K = max(1, steps_per_launch)
+    if cfg.ts_method != 3 or n < K:
+        K = 1
+    if K > cs.MAX_FUSED_STEPS:
+        raise ValueError(f"steps_per_launch={K}: the K-fused kernels run at "
+                         f"most {cs.MAX_FUSED_STEPS} steps a launch")
     Mh, G, Bh = cfg.M // 2, cfg.G, eng.Bh
     if cfg.ts_method == 1:
         kinds = {BE: cfg.dt}
@@ -712,7 +922,8 @@ def make_diff_solve_cuda(cfg: Config, tables, num_steps=None,
             device=device, dtype=torch.float32)) for x in state]
         st = FlatState(*(p for pair in pairs for p in pair))
 
-        def run(s: FlatState, count: int) -> FlatState:
+        def steps(s: FlatState, count: int) -> FlatState:
+            """`count` launches of one step each."""
             for _ in range(count):
                 o0, o1, h0, h1 = DiffCudaStep.apply(eng, s.e0, s.e1, cbe,
                                                     ccn, cbdf, bc)
@@ -722,18 +933,30 @@ def make_diff_solve_cuda(cfg: Config, tables, num_steps=None,
                     s = FlatState(o0, o1, s.e0, s.e1, s.h0, s.h1)
             return s
 
+        def launches(s: FlatState, count: int) -> FlatState:
+            """`count` launches of K steps each."""
+            if K == 1:
+                return steps(s, count)
+            for _ in range(count):
+                o0, o1, h0, h1, p0, p1 = DiffCudaStepK.apply(
+                    eng, K, s.e0, s.e1, cbe, ccn, cbdf, bc)
+                s = FlatState(o0, o1, p0, p1, h0, h1)
+            return s
+
+        n_launch, n_tail = divmod(n, K)
         g = remat_group
         if g is None and n > 256:
-            g = max(1, int(math.sqrt(n)))
-        if g and g > 1 and n > g:
-            ngroups, tail = divmod(n, g)
+            g = max(1, int(math.sqrt(n_launch)))
+        if g and g > 1 and n_launch > g:
+            ngroups, gtail = divmod(n_launch, g)
             for _ in range(ngroups):
                 st = FlatState(*checkpoint(
-                    lambda *planes: tuple(run(FlatState(*planes), g)), *st,
-                    use_reentrant=False))
-            st = run(st, tail)
+                    lambda *planes: tuple(launches(FlatState(*planes), g)),
+                    *st, use_reentrant=False))
+            st = launches(st, gtail)
         else:
-            st = run(st, n)
+            st = launches(st, n_launch)
+        st = steps(st, n_tail)
 
         def pair(x0, x1):
             return fs.ends_pair(x0.to(torch.float64), x1.to(torch.float64),

@@ -19,13 +19,15 @@
   (tests/test_pallas_adjoint.py): value 1e-5, kappa and rho 2e-3,
   psi_source 1e-4, T 2e-3, initial-state gradients 1e-4, remat 1e-4; and
   against JAX ``make_diff_solve_pallas(steps_per_launch=1)`` in interpret
-  mode at 1e-5 (the same float32 program).
+  mode at 1e-5 (the same float32 program). The solves run the K-fused
+  default (B11-B12) where a test does not pin ``steps_per_launch=1``;
+  tests/test_torch_adjoint_k.py holds the K-fused pair itself.
 * ``fit_params(solver="pallas", device="cpu")`` against JAX
   ``fit_params(solver="fast")``, 5 Adam iterations on
   benchmarks/grad_convergence.py's problem at G = 4, N = 64, 4 steps:
   loss history within 1e-4 relative.
-* Refusals: the solvers and the K-fused route not ported yet, and the
-  card path without a card.
+* Refusals: the solvers not ported yet, and the card path without a
+  card.
 
 Every JAX program here runs once at a tiny size, compiled with XLA's
 backend optimisation off.
@@ -467,13 +469,17 @@ def test_initial_state_grad():
 def test_remat_group_gradients_unchanged():
     """torch.utils.checkpoint groups change memory, not the result: the
     recomputed forward is the same program, so the gradient is bit-equal
-    (held at JAX's 1e-4)."""
+    (held at JAX's 1e-4). One step a launch, so that 7 steps make two
+    groups of 3 launches and a tail (at the K-fused default, 7 steps are one
+    4-step launch and 3 tail steps: no group forms; groups of K-step
+    launches are test_torch_adjoint_k.py's test_kfused_remat_group)."""
     _, _, pcfg, pt = _both(GRAY, M=4, N=64, X=0.64, max_timesteps=7,
                            bc_left_indicator=1, psi_source=SRC)
 
     def gradof(**kw):
         sp = port_ca.make_diff_solve_cuda(pcfg, pt, num_steps=7,
-                                          device="cpu", **kw)
+                                          steps_per_launch=1, device="cpu",
+                                          **kw)
         k = torch.ones(1, dtype=torch.float64, requires_grad=True)
         torch.sum(sp({"kappa": k}).ends ** 2).backward()
         return k.grad.numpy()
@@ -500,7 +506,8 @@ def test_bdf2_reflective_matches_pallas_k1():
           "psi_source": jnp.asarray(SRC, jnp.float64)}
     jv, jg = _compile(jax.value_and_grad(
         lambda p: jnp.sum(sf(p, None).ends ** 2)), jp)(jp)
-    sp = port_ca.make_diff_solve_cuda(pcfg, pt, num_steps=2, device="cpu")
+    sp = port_ca.make_diff_solve_cuda(pcfg, pt, num_steps=2,
+                                      steps_per_launch=1, device="cpu")
     tp = {k: torch.tensor(np.asarray(v), requires_grad=True)
           for k, v in jp.items()}
     pv = torch.sum(sp(tp).ends ** 2)
@@ -587,9 +594,9 @@ def test_refusals():
         port_adj.fit_params(*args, solver="fast", device="cpu")
     with pytest.raises(ValueError, match="unknown solver"):
         port_adj.fit_params(*args, solver="xla", device="cpu")
-    with pytest.raises(NotImplementedError, match="B11-B12"):
-        port_ca.make_diff_solve_cuda(pcfg, pt, steps_per_launch=4,
-                                     device="cpu")
+    # The K-fused route builds at an explicit K (K > 64 is refused:
+    # test_torch_adjoint_k.py).
+    port_ca.make_diff_solve_cuda(pcfg, pt, steps_per_launch=4, device="cpu")
     sp = port_ca.make_diff_solve_cuda(pcfg, pt, device="cpu")
     with pytest.raises(ValueError, match="unknown differentiable"):
         sp({"sigma": np.ones(1)})
