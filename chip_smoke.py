@@ -85,6 +85,37 @@ Phases, one line each; any failure exits nonzero before the result line:
    fit_params(solver="pallas") iterations at that shape on the K-fused
    default (the off-equilibrium boundary source from 20% above it, the
    loss scaled to 1 at the start), every loss finite.
+11. B8, the per-sub-step mesh engine's zero-inflow kernel: BE, CN and BDF
+   against its plain version with nonzero pending corrections and halo
+   tails, on a one-tile row (N = 4096), a 7-tile row with a ragged last
+   tile (N = 26624), packed rows 32, <= 1e-5; on the llnl-shipped rung's
+   shard (rows 248, N_loc = 2^13), where the float32 plain version itself
+   lies above 1e-5 from its float64 evaluation, within that distance plus
+   1e-5 of the float64 evaluation (check_f64); timed at the gray rung's
+   shape (rows 32, N_loc = 2^20, BDF) and at the llnl-shipped one;
+12. B13, the fused engine's one-step kernel, both variants (the step and
+   materialize_only) and both half modes, the same way, and both variants
+   at the llnl-shipped shard as B8 there; timed at the gray rung's shape
+   and at the llnl-shipped one;
+13. the mesh path (benchmarks/weak_scaling.py's rungs): the gray rung (S_32,
+   G = 1, BDF2, Courant 0.4, 2^20 cells a shard) and the llnl-shipped rung
+   (the 124-group LLNL deck at its own dt = 1e-3, 2^13 cells a shard) at a
+   one-rank mesh on ShardedCudaEngine (B8), FusedExchangeCudaEngine (B13)
+   and, where its creep bound admits the rung (gray), HaloCudaEngine,
+   beside CudaSweepEngine: ends, prev and half within 1e-5 of
+   CudaSweepEngine after 8 steps (gray) and the deck's own 2 steps (llnl);
+   64 steps timed (updates/s, peak memory), the 64-step drift within 5e-5
+   where the reference's 64-step state stays inside bench.py's guard
+   (finite, max|x| < 1e3; llnl leaves it), recorded where it does not;
+   then two processes sharing the card over gloo (a check of the exchanges
+   on the real kernels, not a scaling figure), each case of rank_cases at
+   two shards against one rank: the gray rung (sharded, halo) and the LLNL
+   deck at dt = 1e-5 at the llnl-shipped shard size (sharded, fused) within
+   1e-5, the double-float halo engine on gray_s8 within DF_TOL, and the
+   llnl-shipped rung recorded beside its witness (each float32 result's
+   distance from DFCudaEngine); and the CLI with --mesh 1x1 for pallas,
+   fused and auto (prm/single_group.prm) and halo (its thick variant,
+   N = 2048, X = 20.48) against its CPU run.
 
 Phase 3 also holds B4 and B5 against their plain versions (rows 2 and 8, a
 segment and a reset cell off the kernel's tile, reset 0 and > 0, K 1/3/8
@@ -95,7 +126,13 @@ CN with K 1, reflective and source left, and K 8). Every kernel wrapper's
 launch count is zeroed before a path's phases and read after them: each
 kernel of a path must have launched on it (B1-B3 on phases 4-5, B4-B5 on
 phase 6, B6-B7 on phase 7, B14-B15 on phase 8, B9-B10 on phase 9,
-B11-B12 on phase 10's K-fused grad steps and fit).
+B11-B12 on phase 10's K-fused grad steps and fit, B8 and B13 on phase 13).
+With --mesh-worker OUT P STEPS the script is instead one rank of a
+P-rank run (phase 13 starts two). With --ranks P it runs only the mesh
+path on P ranks, one a card where the host has P cards (NCCL), else
+sharing them (gloo): every case of rank_cases at P shards against one
+rank, the gray rung's weak scaling, and the CLI under torchrun --mesh 1xP
+against the single-device CLI (see ranks_check).
 Then each kernel is timed against its plain version at its full-size shape,
 beside its bound (the larger of the bytes it must move over 3.35 TB/s and
 the operations it must do over 67 TFLOP/s f32, the H100 SXM data-sheet
@@ -151,6 +188,10 @@ REPLACES = {
     "bwd_launch": "radiative_transfer_tpu/ops/pallas_adjoint.py:374",
     "fwd_record_k_launch": "radiative_transfer_tpu/ops/pallas_adjoint.py:571",
     "bwd_k_launch": "radiative_transfer_tpu/ops/pallas_adjoint.py:687",
+    "sharded_substep_launch":
+        "radiative_transfer_tpu/ops/pallas_sweep.py:289",
+    "fused_step_launch":
+        "radiative_transfer_tpu/parallel/fused_exchange.py:149",
 }
 # The kernels each path must launch.
 PATH_PLAIN = ("bdf2_launch", "multistep_launch", "substep_launch")
@@ -159,6 +200,10 @@ PATH_DF = ("df_bdf2_launch", "df_multistep_launch")
 PATH_DF_HALO = ("df_halo_bdf2_launch", "df_halo_multistep_launch")
 PATH_ADJ = ("fwd_record_launch", "bwd_launch")
 PATH_ADJ_K = ("fwd_record_k_launch", "bwd_k_launch")
+PATH_SHARDED = ("sharded_substep_launch",)
+PATH_FUSED = ("fused_step_launch",)
+SHARDED_CU = "radiative_transfer_tpu_torch/csrc/sharded.cu"
+FUSED_CU = "radiative_transfer_tpu_torch/csrc/fused.cu"
 # Peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 # f32 operations per cell of one sub-step, counted from substep_tile in
@@ -189,6 +234,16 @@ ADJ_FLOPS_PER_CELL = {"BE": 75, "CN": 93, "BDF": 133}
 ADJ_BDF2_STEP_FLOPS = (BDF2_STEP_FLOPS + 2 * ADJ_FLOPS_PER_CELL["BE"]
                        + ADJ_FLOPS_PER_CELL["CN"] + ADJ_FLOPS_PER_CELL["BDF"]
                        + 8)
+# B8 rebuilds each input plane pair on load, counted from csrc/sharded.cu:
+# j * ln_a, expf (one), * inc, and a multiply-add per edge: 7 a pair, 5
+# for CN's lone p1 edge.
+B8_FLOPS_PER_CELL = {"BE": FLOPS_PER_CELL["BE"] + 7,
+                     "CN": FLOPS_PER_CELL["CN"] + 7 + 5,
+                     "BDF": FLOPS_PER_CELL["BDF"] + 3 * 7}
+# B13 runs two whole BDF2 cycles a cell (the correction cycle on zero
+# planes does the same arithmetic in csrc/fused.cu) and adds the correction
+# to both input edges.
+B13_FLOPS_PER_CELL = 2 * BDF2_STEP_FLOPS + 2
 
 
 def df_step_flops(ts_method: int, use_corr: bool) -> int:
@@ -197,6 +252,331 @@ def df_step_flops(ts_method: int, use_corr: bool) -> int:
               ("BE",) if ts_method == 1 else ("CN",))
     return sum(DF_FLOPS_PER_CELL[p] + DF_CORR_FLOPS * use_corr
                for p in phases)
+
+
+def gray_cfg(M, N, ts_method, steps=64):
+    """bench.py's and benchmarks/suite.py's gray workload: S_M, one group,
+    cell Courant 0.4, reflective left, source right."""
+    from radiative_transfer_tpu_torch import constants
+    from radiative_transfer_tpu_torch.config.config import Config
+
+    return Config(
+        M=M, G=1, N=N, X=1.0, bc_left_indicator=2, bc_right_indicator=1,
+        psi_source=tuple((4.0931,) for _ in range(M)),
+        rho=1.0, kappa_grey=1.0, T=1.0, ts_method=ts_method,
+        dt=0.4 * (1.0 / N) / constants.SPEED_OF_LIGHT, max_timesteps=steps,
+        include_validation=False)
+
+
+def rung_cfgs(shards: int):
+    """benchmarks/weak_scaling.py's rungs at `shards` shards, with the
+    steps phase 13 compares them after: gray (S_32, G = 1, BDF2, Courant
+    0.4, 2^20 cells a shard; 8 steps) and llnl-shipped (the 124-group LLNL
+    deck at its own dt = 1e-3, 2^13 cells a shard; the deck's 2 steps)."""
+    from radiative_transfer_tpu_torch import load_config
+
+    llnl = os.path.join(ROOT, "prm", "llnl_slab_test.prm")
+    return (("gray", gray_cfg(32, shards << 20, 3), 8),
+            ("llnl", load_config(llnl, N=shards << 13), 2))
+
+
+def rank_cases(shards: int):
+    """The multi-rank checks at `shards` shards: (tag, cfg, steps,
+    engines, bar) with each engine's planes after `steps` held to `bar`
+    against the same engine at one rank; bar None records the reading
+    where bench.py's guard is left (see Held.guarded). The two rungs of
+    rung_cfgs on the per-sub-step engine and auto's pick (gray: halo;
+    llnl-shipped: fused); the LLNL deck at dt = 1e-5 at the llnl-shipped
+    shard size on the per-sub-step and fused engines (the halo creep bound
+    still refuses it there, but its state stays inside the guard over the
+    deck's 2 steps);
+    and the double-float halo engine on gray_s8 (S_8, G = 1: a tiny batch,
+    Bh = 4; 2^17 cells a shard) at DF_TOL."""
+    from radiative_transfer_tpu_torch import load_config
+
+    (gtag, gray, gsteps), (ltag, llnl, lsteps) = rung_cfgs(shards)
+    small_dt = load_config(os.path.join(ROOT, "prm", "llnl_slab_test.prm"),
+                           N=shards << 13, dt=1e-5)
+    return ((gtag, gray, gsteps, ("pallas", "auto"), TOL),
+            (ltag, llnl, lsteps, ("pallas", "auto"), None),
+            ("llnl_dt1e-5", small_dt, 2, ("pallas", "fused"), TOL),
+            ("gray_s8_df", gray_cfg(8, shards << 17, 3), 8, ("df_halo",),
+             DF_TOL))
+
+
+KIND_OF = {"ShardedCudaEngine": "pallas", "HaloCudaEngine": "halo",
+           "FusedExchangeCudaEngine": "fused",
+           "DFHaloCudaEngine": "df_halo"}
+
+
+def planes_of(eng, st):
+    """The global (ends, prev, half) of an engine's state."""
+    return [eng.ends(st), *eng.prev_half_ends(st)]
+
+
+def guard(planes):
+    """(inside bench.py's guard: finite with max|x| < 1e3, max|x|)."""
+    import numpy as np
+
+    m = max(float(p.abs().max()) for p in planes)
+    return bool(np.isfinite(m) and m < 1e3), m
+
+
+class Held:
+    """Comparisons held to a bar; a failure is collected and fails the
+    phase. `guarded` holds a comparison only where the reference state is
+    inside bench.py's guard: on the llnl-shipped rung dt = 1e-3 lies far
+    outside BDF2's stability envelope (benchmarks/suite.py:52-53), the
+    state leaves the guard within the deck's 2 steps, and there the
+    float32 reference itself lies ~1e-4 from the double-float engine
+    (compare_ranks prints that witness), so two float32 orders of
+    summation can part by more than 1e-5: such a comparison is recorded,
+    not held."""
+
+    def __init__(self):
+        self.failures = []
+
+    def __call__(self, label, err, tol=TOL):
+        if not err <= tol:
+            self.failures.append(f"{label} {err:.3e} > {tol}")
+        return f"{label} {err:.1e}"
+
+    def guarded(self, label, err, ref_planes, tol=TOL):
+        inside, mx = guard(ref_planes)
+        if not inside:
+            return (f"{label} {err:.2e} (reference max|x| {mx:.3g}: outside "
+                    "the guard, recorded)")
+        return self(label, err, tol)
+
+
+def mesh_worker(out_path: str, shards: int, timed_steps: int) -> int:
+    """One rank of a multi-rank run (started with
+    parallel.distributed.launch_local): every case of rank_cases on a
+    1 x shards mesh; ends/prev/half after the case's steps saved by rank
+    0, and with `timed_steps` the gray rung's solve of that many steps
+    timed (8-step warm-up)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke mesh worker: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.parallel import (
+        distributed, make_multichip_engine, mesh)
+
+    distributed.initialize(device_type="cuda")
+    dev = distributed.local_device("cuda")
+    torch.cuda.set_device(dev)
+    m = mesh.make_mesh_1d(shards)
+    out = {}
+    for tag, cfg, steps, engines, _ in rank_cases(shards):
+        tables, _, _ = transport.build_tables(cfg)
+        for engine in engines:
+            eng = make_multichip_engine(cfg, tables, m, engine=engine,
+                                        device=dev)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            st = eng.solve(num_steps=steps)
+            planes = planes_of(eng, st)
+            torch.cuda.synchronize(dev)
+            key = f"{tag}/{engine}"
+            out[key + "/seconds"] = np.array(time.perf_counter() - t0)
+            out[key] = np.stack([p.cpu().numpy() for p in planes])
+            out[key + "/name"] = np.array(type(eng).__name__)
+            if timed_steps and tag == "gray":
+                eng.solve(num_steps=8)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                eng.solve(num_steps=timed_steps)
+                torch.cuda.synchronize(dev)
+                out[key + "/timed"] = np.array(time.perf_counter() - t0)
+            del eng, st, planes
+    if m.rank == 0:
+        np.savez(out_path, **out)
+    distributed.shutdown()
+    return 0
+
+
+def run_ranks(shards: int, timed_steps: int = 0):
+    """Start `shards` ranks of mesh_worker; returns (rank 0's results, the
+    backend line rank 0 printed, wall seconds with start-up)."""
+    import numpy as np
+
+    from radiative_transfer_tpu_torch.parallel import distributed
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        out_path = os.path.join(tmp, "ranks.npz")
+        t0 = time.perf_counter()
+        runs = distributed.launch_local(
+            [os.path.abspath(__file__), "--mesh-worker", out_path,
+             str(shards), str(timed_steps)], shards, cwd=ROOT, timeout=900)
+        wall = time.perf_counter() - t0
+        for r in runs:
+            if r.returncode != 0:
+                raise AssertionError(f"{shards}-rank run rc {r.returncode}:\n"
+                                     + r.stdout[-2000:] + r.stderr[-4000:])
+        backend = [ln for ln in runs[0].stdout.splitlines()
+                   if ln.startswith("distributed:")]
+        return dict(np.load(out_path)), (backend or [""])[0], wall
+
+
+def compare_ranks(ranks, shards, mesh_engine, held):
+    """Each case and engine of a multi-rank run (rank_cases) against the
+    same engine at one rank on this process's card; on the llnl-shipped
+    rung also the witness: every float32 result's distance from the
+    double-float DFCudaEngine after the same steps. Returns the printed
+    readings."""
+    import torch
+
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.ops import cuda_df as cd
+    from radiative_transfer_tpu_torch.ops import cuda_sweep as cs
+
+    lines = []
+    for tag, cfg, steps0, engines, bar in rank_cases(shards):
+        if bar is None:
+            tables, _, _ = transport.build_tables(cfg)
+            dev = torch.device("cuda", 0)
+            dfe = cd.DFCudaEngine(cfg, tables, device=dev)
+            witness = planes_of(dfe, dfe.solve(num_steps=steps0))
+            ref = cs.CudaSweepEngine(cfg, tables, device=dev)
+            ref_planes = planes_of(ref, ref.solve(num_steps=steps0))
+            to_df = {"CudaSweepEngine": max(
+                nerr(a, b) for a, b in zip(ref_planes, witness))}
+            del dfe, ref, ref_planes
+        for engine_name in engines:
+            key = f"{tag}/{engine_name}"
+            name = str(ranks[key + "/name"])
+            eng = mesh_engine(cfg, KIND_OF[name])
+            want = planes_of(eng, eng.solve(num_steps=steps0))
+            got = [torch.as_tensor(g, device=w.device)
+                   for g, w in zip(ranks[key], want)]
+            err = max(nerr(g, w) for g, w in zip(got, want))
+            label = (f"{tag} N={cfg.N} {engine_name} -> {name} {steps0} "
+                     "steps vs one rank")
+            line = (held.guarded(label, err, want) if bar is None
+                    else held(label, err, bar))
+            if bar is None:
+                to_df[f"{name} at one rank"] = max(
+                    nerr(a, b) for a, b in zip(want, witness))
+                to_df[f"{name} at {shards} ranks"] = max(
+                    nerr(a, b) for a, b in zip(got, witness))
+            lines.append(line + f" (ranks' solve "
+                         f"{float(ranks[key + '/seconds']):.3f} s)")
+            del eng, want, got
+        if bar is None:
+            lines.append(f"{tag} N={cfg.N} witness, distance from "
+                         f"DFCudaEngine after {steps0} steps: "
+                         + json.dumps(to_df))
+            del witness
+    return lines
+
+
+def ranks_check(shards: int) -> int:
+    """`chip_smoke.py --ranks P`: the mesh path on P ranks, one a card where
+    the host has P cards (NCCL), else sharing them (gloo): every case of
+    rank_cases at P shards against one rank on card 0 (compare_ranks), the
+    gray rung's 64 steps timed on each rank against one rank's 2^20-cell
+    rung (weak scaling), and the CLI under torchrun (--mesh 1xP; pallas,
+    fused, auto) against the single-device CLI on card 0 (5e-5 over 200
+    steps). Prints one JSON line; exits non-zero on a failed check."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.ops import _cuda_build
+    from radiative_transfer_tpu_torch.parallel import (
+        distributed, make_multichip_engine)
+    from radiative_transfer_tpu_torch.parallel import mesh as mesh_mod
+
+    card = card_line()
+    print(f"ranks {shards}: torch {torch.__version__}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
+          f"nvidia-smi: {card}", flush=True)
+    _cuda_build.build()                 # the ranks load the built library
+    dev = torch.device("cuda", 0)
+    mesh1 = mesh_mod.make_mesh_1d(1)
+
+    def mesh_engine(cfg, engine_name):
+        tables, _, _ = transport.build_tables(cfg)
+        return make_multichip_engine(cfg, tables, mesh1, engine=engine_name,
+                                     device=dev)
+
+    held = Held()
+    ranks, backend, wall = run_ranks(shards, timed_steps=64)
+    lines = compare_ranks(ranks, shards, mesh_engine, held)
+    scaling = {}
+    one_cfg = rung_cfgs(1)[0][1]
+    for engine_name in ("pallas", "auto"):
+        name = str(ranks[f"gray/{engine_name}/name"])
+        eng = mesh_engine(one_cfg, KIND_OF[name])
+        eng.solve(num_steps=8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.solve(num_steps=64)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter() - t0
+        tp = float(ranks[f"gray/{engine_name}/timed"])
+        scaling[name] = {"one_rank_s": t1, "ranks_s": tp,
+                         "efficiency": t1 / tp,
+                         "updates_per_s": 4 * 32 * (shards << 20) * 64 / tp}
+        del eng
+
+    deck = os.path.join(ROOT, "prm", "single_group.prm")
+    csvs = ("phi", "phi_plus", "psi", "x", "F", "e_ave", "left_ends",
+            "right_ends")
+    cli_errs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        base = [deck, "--dtype", "float32", "--steps", "200"]
+        ref_dir = os.path.join(tmp, "single")
+        run = subprocess.run(
+            [sys.executable, "-m", "radiative_transfer_tpu_torch.cli", *base,
+             "--engine", "pallas", "--outdir", ref_dir], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError("single-device cli: " + run.stderr[-3000:])
+        phi = np.loadtxt(os.path.join(ref_dir, "phi.csv"), ndmin=2)
+        for engine_name in ("pallas", "fused", "auto"):
+            outdir = os.path.join(tmp, engine_name)
+            run = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--nproc_per_node", str(shards), "--master_port",
+                 str(distributed.free_port()), "-m",
+                 "radiative_transfer_tpu_torch.cli", *base, "--engine",
+                 engine_name, "--mesh", f"1x{shards}", "--outdir", outdir],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if run.returncode != 0:
+                raise AssertionError(f"torchrun cli {engine_name}: "
+                                     + run.stdout[-2000:] + run.stderr[-3000:])
+            worst = 0.0
+            for name in csvs:
+                got = np.loadtxt(os.path.join(outdir, f"{name}.csv"), ndmin=2)
+                ref = np.loadtxt(os.path.join(ref_dir, f"{name}.csv"),
+                                 ndmin=2)
+                scale = np.abs(phi).max() if name == "F" else np.abs(ref).max()
+                worst = max(worst, float(np.abs(got - ref).max() / scale))
+            cli_errs[engine_name] = worst
+            if not worst <= DRIFT_TOL:
+                held.failures.append(f"torchrun cli {engine_name} {worst:.3e}"
+                                     f" > {DRIFT_TOL}")
+    print(f"ranks {shards}: {'FAILED' if held.failures else 'ok'}; {backend}; "
+          f"{wall:.1f} s wall with start-up; " + "; ".join(lines)
+          + "; gray rung 64 steps (weak scaling, 2^20 cells a rank): "
+          + json.dumps(scaling) + "; torchrun CLI --mesh 1x"
+          f"{shards} vs the single-device CLI (200 steps): "
+          + json.dumps(cli_errs) + f"; card: {card}", flush=True)
+    if held.failures:
+        print("failed: " + "; ".join(held.failures), file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "ranks": shards, "backend": backend}),
+          flush=True)
+    return 0
 
 
 def card_line() -> str:
@@ -280,12 +660,12 @@ def main() -> int:
     import numpy as np
 
     from radiative_transfer_tpu_torch import adjoint as adj
-    from radiative_transfer_tpu_torch import cli, constants, load_config
-    from radiative_transfer_tpu_torch.config.config import Config
+    from radiative_transfer_tpu_torch import cli, load_config
     from radiative_transfer_tpu_torch.models import transport
     from radiative_transfer_tpu_torch.ops import _cuda_build
     from radiative_transfer_tpu_torch.ops import cuda_adjoint as ca
     from radiative_transfer_tpu_torch.ops import cuda_df as cd
+    from radiative_transfer_tpu_torch.ops import cuda_fused as cf
     from radiative_transfer_tpu_torch.ops import cuda_sweep as cs
     from radiative_transfer_tpu_torch.ops.fast_sweep import (BDF, BE, CN,
                                                              FlatState)
@@ -402,6 +782,28 @@ def main() -> int:
         if not max(errs) <= TOL:
             raise AssertionError(f"{name} {label}: normalised error "
                                  f"{max(errs):.3e} > {TOL}")
+
+    def check_f64(name, label, got, ref, ref64):
+        """A kernel against its plain version where float32 rounding of the
+        function itself exceeds TOL (the llnl-shipped shard: 8192-cell
+        chains with a near 1 in its thin groups): both against the plain
+        version evaluated in float64 on the same inputs, the kernel held
+        to the float32 plain version's own distance from it plus TOL,
+        which is TOL against the plain version wherever that one is
+        accurate (the triangle inequality)."""
+        err_k = max(nerr(g, r) for g, r in zip(got, ref64))
+        err_p = max(nerr(g, r) for g, r in zip(ref, ref64))
+        err_kp = max(nerr(g, r) for g, r in zip(got, ref))
+        checks.append(f"{label}={err_kp:.1e} (vs float64: kernel "
+                      f"{err_k:.1e}, plain {err_p:.1e})")
+        if not err_k <= err_p + TOL:
+            raise AssertionError(f"{name} {label}: normalised error from "
+                                 f"the float64 plain version {err_k:.3e} > "
+                                 f"the float32 plain version's {err_p:.3e}"
+                                 f" + {TOL}")
+
+    def f64(xs):
+        return [x.double() for x in xs]
 
     eng = mg(3, reflective=True)
     for kind, label in ((BE, "BE"), (CN, "CN"), (BDF, "BDF")):
@@ -548,6 +950,7 @@ def main() -> int:
 
     def wrapper(name):
         return getattr(ca if name in PATH_ADJ + PATH_ADJ_K else
+                       cf if name in PATH_FUSED else
                        cd if name.startswith("df_") else cs, name)
 
     def read_counts(path, label):
@@ -590,18 +993,6 @@ def main() -> int:
         print("phase 4 main path: ok; " + "; ".join(summary), flush=True)
 
     # -- 5. full size ------------------------------------------------------------
-    C = constants.SPEED_OF_LIGHT
-
-    def gray_cfg(M, N, ts_method, steps=64):
-        """bench.py's and benchmarks/suite.py's gray workload: S_M, one
-        group, cell Courant 0.4, reflective left, source right."""
-        return Config(
-            M=M, G=1, N=N, X=1.0, bc_left_indicator=2, bc_right_indicator=1,
-            psi_source=tuple((4.0931,) for _ in range(M)),
-            rho=1.0, kappa_grey=1.0, T=1.0, ts_method=ts_method,
-            dt=0.4 * (1.0 / N) / C, max_timesteps=steps,
-            include_validation=False)
-
     def windows_of(solve, init, warm_steps, steps=64):
         """Three CUDA-event windows of `steps` steps after a warm-up of
         `warm_steps` (two launches, so the caching allocator already
@@ -1319,6 +1710,245 @@ def main() -> int:
           flush=True)
 
 
+    # -- 11. B8, the per-sub-step mesh engine's kernel --------------------------
+    from radiative_transfer_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh1 = mesh_mod.make_mesh_1d(1)
+
+    def mesh_engine(cfg, engine_name, mesh=mesh1, **kw):
+        tables, _, _ = transport.build_tables(cfg)
+        return make_multichip_engine(cfg, tables, mesh, engine=engine_name,
+                                     device=dev, **kw)
+
+    def b8_inputs(eng, kind, seed):
+        """Pending corrections (the engine's d0, a, ln_a; inc around the
+        row's scale, both signs), halo tails and planes around the initial
+        state, packed (rows, N_loc)."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rows = eng.rows
+        base = eng.init_state().e0.reshape(rows, -1)
+        scale = base[:, :1]
+        n_corr, n_halo, n_planes = {BE: (1, 0, 2), CN: (2, 1, 3),
+                                    BDF: (3, 2, 6)}[kind]
+
+        def rand(shape):
+            return torch.rand(shape, generator=g, device=dev)
+
+        corrs = [torch.cat([scale * (rand((rows, 1)) - 0.5),
+                            eng.cc[kind].reshape(rows, 3)], 1).contiguous()
+                 for _ in range(n_corr)]
+        halos = [(scale * (0.5 + rand((rows, 1)))).contiguous()
+                 for _ in range(n_halo)]
+        planes = [(base * (0.5 + rand(base.shape))).contiguous()
+                  for _ in range(n_planes)]
+        return (kind, eng.coef[kind], corrs, halos, planes), dict(
+            blk=eng.block, npass=eng.scan_npass[kind])
+
+    # Packed rows 32 (M = 8, G = 4); N = 4096 is one full 4096-cell kernel
+    # tile, N = 26624 six and a ragged 2048 (plain versions: blocks of 512).
+    n_checks = len(checks)
+    for Nr in (4096, 26624):
+        e = mesh_engine(load_config(deck, M=8, G=4, N=Nr, ts_method=3),
+                        "pallas", block=512)
+        for kind, label in ((BE, "BE"), (CN, "CN"), (BDF, "BDF")):
+            args, kw = b8_inputs(e, kind, 110 + kind)
+            check("sharded_substep_launch", f"B8-{label}-N{Nr}",
+                  cs.sharded_substep_launch(*args, **kw),
+                  cs.sharded_substep_launch_ref(*args, **kw))
+    b8_checks = checks[n_checks:]
+    # The llnl-shipped rung's shard (rows 248, N_loc = 2^13), each kind,
+    # and one BDF launch timed there.
+    llnl_cfg = rung_cfgs(1)[1][1]
+    sh_llnl = mesh_engine(llnl_cfg, "pallas")
+    n_checks = len(checks)
+    for kind, label in ((BE, "BE"), (CN, "CN"), (BDF, "BDF")):
+        args, kw = b8_inputs(sh_llnl, kind, 115 + kind)
+        l8_ms, l8_out = timed(
+            lambda: cs.sharded_substep_launch(*args, **kw), 20)
+        l8_plain_ms, l8_ref = timed(
+            lambda: cs.sharded_substep_launch_ref(*args, **kw), 1)
+        _, coef_, corrs_, halos_, planes_ = args
+        check_f64("sharded_substep_launch", f"B8-{label}-llnl", l8_out,
+                  l8_ref, cs.sharded_substep_launch_ref(
+                      kind, coef_.double(), f64(corrs_), f64(halos_),
+                      f64(planes_), **kw))
+    b8_llnl_checks = checks[n_checks:]
+    # The gray rung's shard (rows 32, N_loc = 2^20), BDF: timed below.
+    sh_gray = mesh_engine(gray_cfg(M, N, 3), "pallas")
+    b8_args, b8_kw = b8_inputs(sh_gray, BDF, 120)
+    torch.cuda.synchronize()
+    print("phase 11 B8: ok, max normalised error "
+          + ", ".join(b8_checks + b8_llnl_checks)
+          + f"; one BDF launch at the llnl-shipped shard (rows "
+          f"{sh_llnl.rows}, N_loc 2^13, block {sh_llnl.block}): "
+          f"{l8_ms:.4f} ms, plain {l8_plain_ms:.1f} ms; timed at the gray "
+          f"rung's shard (rows {sh_gray.rows}, N_loc 2^20, BDF) in the "
+          f"kernels line; card: {card}", flush=True)
+
+    # -- 12. B13, the fused engine's kernel --------------------------------------
+    def b13_inputs(eng, seed, materialize_only=False):
+        """The previous step's unknowns v around the row's scale (both
+        signs) and zero-boundary planes around the initial state."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rows = eng.rows
+        base = eng.init_state().z0.reshape(rows, -1)
+        v = (base[:, :1] * (torch.rand((rows, 7), generator=g, device=dev)
+                            - 0.5)).contiguous()
+        z = [(base * (0.5 + torch.rand(base.shape, generator=g,
+                                       device=dev))).contiguous()
+             for _ in range(2)]
+        return (eng.coef[BE], eng.coef[CN], eng.coef[BDF], v, *z), dict(
+            symmetric_half=eng.cfg.bdf2_symmetric_half, blk=eng.block,
+            npass=eng.scan_npass, materialize_only=materialize_only)
+
+    n_checks = len(checks)
+    for Nr in (4096, 26624):
+        for sym in (False, True):
+            e = mesh_engine(load_config(deck, M=8, G=4, N=Nr, ts_method=3,
+                                        bdf2_symmetric_half=sym),
+                            "fused", block=512)
+            for mo in (False, True):
+                args, kw = b13_inputs(e, 130 + 2 * sym + mo, mo)
+                check("fused_step_launch",
+                      f"B13-{'mat' if mo else 'step'}-"
+                      f"{'sym' if sym else 'asym'}-N{Nr}",
+                      cf.fused_step_launch(*args, **kw),
+                      cf.fused_step_launch_ref(*args, **kw))
+    b13_checks = checks[n_checks:]
+    t0 = time.perf_counter()
+    fx_gray = mesh_engine(gray_cfg(M, N, 3), "fused")
+    fx_build_s = time.perf_counter() - t0      # mostly the host outflow map
+    b13_args, b13_kw = b13_inputs(fx_gray, 140)
+    fx_llnl = mesh_engine(llnl_cfg, "fused")
+    n_checks = len(checks)
+    l13_ms = {}
+    for mo, label in ((False, "step"), (True, "mat")):
+        l13_args, l13_kw = b13_inputs(fx_llnl, 141 + mo, mo)
+        ms, l13_out = timed(
+            lambda: cf.fused_step_launch(*l13_args, **l13_kw), 20)
+        plain_ms, l13_ref = timed(
+            lambda: cf.fused_step_launch_ref(*l13_args, **l13_kw), 1)
+        l13_ms[label] = f"{ms:.4f} ms (plain {plain_ms:.1f} ms)"
+        check_f64("fused_step_launch", f"B13-{label}-llnl", l13_out,
+                  l13_ref, cf.fused_step_launch_ref(*f64(l13_args),
+                                                    **l13_kw))
+    b13_checks += checks[n_checks:]
+    print("phase 12 B13: ok, max normalised error " + ", ".join(b13_checks)
+          + f"; one launch at the llnl-shipped shard (rows {fx_llnl.rows}, "
+          f"N_loc 2^13, block {fx_llnl.block}): step {l13_ms['step']}, "
+          f"materialize_only {l13_ms['mat']}; the gray rung's shard (rows "
+          f"{fx_gray.rows}, N_loc 2^20) in the kernels line, its engine "
+          f"built in {fx_build_s:.1f} s; card: {card}",
+          flush=True)
+    # Phase 13 reuses these engines: the fused engine's host outflow map
+    # (parallel/step_response.py, float64 recurrences over every cell) takes
+    # tens of seconds to build at the gray rung.
+    built = {("gray", "pallas"): sh_gray, ("gray", "fused"): fx_gray,
+             ("llnl", "pallas"): sh_llnl, ("llnl", "fused"): fx_llnl}
+
+    # -- 13. the mesh path -------------------------------------------------------
+    cs.reset_launch_counts()
+    cf.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        mesh_cli = []
+        for engine_name in ("pallas", "fused", "auto"):
+            summary, out = cli_vs_cpu(
+                tmp, gray_deck, 200, f"mesh1x1-{engine_name}",
+                ["--engine", engine_name, "--mesh", "1x1", "--dtype",
+                 "float32"])
+            mesh_cli.append(summary)
+        if "auto engine: CudaSweepEngine" not in out:
+            raise AssertionError("cli --engine auto --mesh 1x1 on "
+                                 "single_group.prm did not keep the "
+                                 "single-device rule: " + "; ".join(out[:4]))
+        text = open(gray_deck).read()
+        for old, new in (("N=100", "N=2048"), ("X=1.", "X=20.48")):
+            text = text.replace(old, new)
+        thick = os.path.join(tmp, "single_group_thick.prm")
+        with open(thick, "w") as fh:
+            fh.write(text)
+        mesh_cli.append(cli_vs_cpu(
+            tmp, thick, 200, "mesh1x1-halo-thick",
+            ["--engine", "halo", "--mesh", "1x1", "--dtype", "float32"])[0])
+
+    held = Held()
+
+    rung_lines = []
+    for tag, cfg, steps0 in rung_cfgs(1):
+        ups_rung = 4 * cfg.M * cfg.G * cfg.N * 64
+        ref_e = engine(cfg)
+        ref0 = planes_of(ref_e, ref_e.solve(num_steps=steps0))
+        row = {}
+        if tag == "llnl":
+            # The float32 engines' distance from the double-float one.
+            dfe = df_engine(cfg)
+            d0 = planes_of(dfe, dfe.solve(num_steps=steps0))
+            row["CudaSweepEngine_vs_df_after_2"] = max(
+                nerr(a, b) for a, b in zip(ref0, d0))
+            del dfe
+        pk = peak_from()
+        torch.cuda.synchronize()
+        a_ev = torch.cuda.Event(enable_timing=True)
+        b_ev = torch.cuda.Event(enable_timing=True)
+        ref_e.solve(num_steps=8)                           # warm-up
+        a_ev.record()
+        rst = ref_e.solve(num_steps=64)
+        b_ev.record()
+        torch.cuda.synchronize()
+        ref_secs = a_ev.elapsed_time(b_ev) / 1e3
+        ref64 = planes_of(ref_e, rst)
+        ref_ok, ref_max = guard(ref64)
+        row["CudaSweepEngine"] = {"seconds_64": ref_secs,
+                                  "updates_per_s": ups_rung / ref_secs,
+                                  "peak_gib": pk(), "in_guard_64": ref_ok,
+                                  "max_abs_64": ref_max}
+        del ref_e, rst
+        names = ("pallas", "fused", "halo") if tag == "gray" else (
+            "pallas", "fused")
+        for engine_name in names:
+            eng = built.pop((tag, engine_name), None) or mesh_engine(
+                cfg, engine_name)
+            ename = type(eng).__name__
+            err0 = max(nerr(a, b) for a, b in zip(
+                planes_of(eng, eng.solve(num_steps=steps0)), ref0))
+            pk = peak_from()
+            eng.solve(num_steps=8)                         # warm-up
+            torch.cuda.synchronize()
+            a_ev.record()
+            st = eng.solve(num_steps=64)
+            b_ev.record()
+            torch.cuda.synchronize()
+            secs = a_ev.elapsed_time(b_ev) / 1e3
+            peak64 = pk()
+            got64 = planes_of(eng, st)              # 64 steps from the start
+            ok, mx = guard(got64)
+            drift = max(nerr(a, b) for a, b in zip(got64, ref64))
+            row[ename] = {
+                f"vs_CudaSweepEngine_after_{steps0}": held(
+                    f"{tag} {ename} after {steps0} steps", err0),
+                "seconds_64": secs, "updates_per_s": ups_rung / secs,
+                "peak_gib": peak64, "in_guard_64": ok, "max_abs_64": mx,
+                "drift_64": held.guarded(f"{tag} {ename} 64-step drift",
+                                         drift, ref64, DRIFT_TOL)}
+            del eng, st, got64
+        rung_lines.append(f"{tag} (N={cfg.N}) " + json.dumps(row))
+    launches.update(read_counts(PATH_SHARDED + PATH_FUSED,
+                                "the mesh path (phase 13)"))
+
+    # The two-rank rung: two processes share the card over gloo.
+    ranks, backend, two_wall = run_ranks(2)
+    two_lines = compare_ranks(ranks, 2, mesh_engine, held)
+    print(f"phase 13 mesh path: {'FAILED' if held.failures else 'ok'}; CLI "
+          "--mesh 1x1 vs CPU: " + "; ".join(mesh_cli) + "; one-rank rungs "
+          "(64 steps timed with CUDA events after an 8-step warm-up): "
+          + "; ".join(rung_lines)
+          + f"; two ranks sharing the card ({backend};"
+          " a check of the exchanges on the real kernels, not a scaling "
+          f"figure; {two_wall:.1f} s wall with start-up): "
+          + "; ".join(two_lines) + f"; card: {card}", flush=True)
+    if held.failures:
+        raise AssertionError("phase 13: " + "; ".join(held.failures))
+
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the
     # kernel only passes between its own launches is not counted; the halo
@@ -1439,6 +2069,12 @@ def main() -> int:
               *p11_out[6:9])
     k_recs = nbytes(*b11_out[6:9])
 
+    # B8 at the gray rung's shard (BDF: 6 planes in, 2 out) and B13 there
+    # (2 planes in, 4 out and the record).
+    b8_bytes = (8 * nbytes(b8_args[4][0]) + nbytes(b8_args[1], *b8_args[2],
+                                                   *b8_args[3]))
+    b13_bytes = (6 * nbytes(b13_args[4]) + nbytes(*b13_args[:4])
+                 + 4 * fx_gray.rows * 6)
     f32 = (abs_err, f32_err, TOL, SWEEP_CU)
     dfk = (df_abs_err, df_err, DF_TOL, DF_CU)
     jobs = [
@@ -1502,6 +2138,15 @@ def main() -> int:
          lambda: ca.bwd_k_launch_ref(*p12_in, K=Ka, **ageo), 10,
          (10 + 2 * (Ka - 1)) * aplane + k_recs + a_consts + a_small,
          acells * Ka * ADJ_BDF2_STEP_FLOPS, (abs_err, adj_err, TOL, ADJ_CU)),
+        ("sharded_substep_launch",
+         lambda: cs.sharded_substep_launch(*b8_args, **b8_kw),
+         lambda: cs.sharded_substep_launch_ref(*b8_args, **b8_kw), 20,
+         b8_bytes, b8_args[4][0].numel() * B8_FLOPS_PER_CELL["BDF"],
+         (abs_err, f32_err, TOL, SHARDED_CU)),
+        ("fused_step_launch", lambda: cf.fused_step_launch(*b13_args, **b13_kw),
+         lambda: cf.fused_step_launch_ref(*b13_args, **b13_kw), 10,
+         b13_bytes, b13_args[4].numel() * B13_FLOPS_PER_CELL,
+         (abs_err, f32_err, TOL, FUSED_CU)),
     ]
     for name, kernel_fn, plain_fn, reps, nb, flops, kind in jobs:
         abs_fn, norm_fn, tol, source = kind
@@ -1531,4 +2176,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2], int(sys.argv[3]),
+                             int(sys.argv[4])))
+    if sys.argv[1:2] == ["--ranks"]:
+        sys.exit(ranks_check(int(sys.argv[2])))
     sys.exit(main())

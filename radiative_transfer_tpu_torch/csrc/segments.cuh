@@ -5,6 +5,9 @@
 // records, and one tile loop (bdf2_segment) with a hook for the records the
 // adjoint keeps. B11 runs the very loop B1 runs, so its six planes are B1's
 // to the bit; with the default hook (NoRecords) the loop is B1's as it was.
+// Also the one-sub-step row walk (substep_segment) with a load hook, which
+// B3 (sweep.cu substep_kernel) and B8 (sharded.cu, the corrections of the
+// mesh engine applied on load) share.
 
 #pragma once
 
@@ -151,6 +154,53 @@ __device__ __forceinline__ void bdf2_segment(
     store_cells(o1g, j0, s1, x1);
     store_cells(oh0g, j0, s1, hs0);
     store_cells(oh1g, j0, s1, hs1);
+  }
+}
+
+// One sub-step of kind KIND over the N cells of one row (pointers are the
+// row's), in tiles from cell 0 (B3, and B8 with its pending corrections
+// applied on load): the carry and the upwind p1/h1 tails start where the
+// caller left them, in sm.carry[0], sm.etail[0] and sm.htail[0].
+// load(j0, x0, x1, p0, p1, q0, q1) fills the thread's cells from j0 of the
+// planes KIND reads: e (x0, x1); CN also p1; BDF also p0, p1 and h (q0, q1).
+template <int KIND, class Load>
+__device__ __forceinline__ void substep_segment(const Coef& kc,
+                                                const Load& load,
+                                                float* __restrict__ o0g,
+                                                float* __restrict__ o1g,
+                                                int N, SegShared& sm,
+                                                int& buf) {
+  const bool tail_thread = threadIdx.x == blockDim.x - 1;
+  const int tile = blockDim.x * kSegCells;
+  for (int t0 = 0; t0 < N; t0 += tile) {
+    const int j0 = t0 + threadIdx.x * kSegCells;
+    const int owner = tile_owner(t0, j0, tile, N, kSegCells);
+    float x0[kSegCells], x1[kSegCells], p0[kSegCells], p1[kSegCells],
+        q0[kSegCells], q1[kSegCells], f0[kSegCells], f1[kSegCells];
+    load(j0, x0, x1, p0, p1, q0, q1);
+    if constexpr (KIND == kBE) {
+      substep_tile<kBE>(kc, x0, x1, x0, x1, x0, x1, 0.f, 0.f, sm.carry,
+                        owner, sm, buf, f0, f1);
+    } else if constexpr (KIND == kCN) {
+      const float p1_up =
+          upwind_value(p1[kSegCells - 1], sm.etail, sm.edge_p);
+      substep_tile<kCN>(kc, x0, x1, x0, p1, x0, x1, p1_up, 0.f, sm.carry,
+                        owner, sm, buf, f0, f1);
+      if (tail_thread) sm.etail[0] = p1[kSegCells - 1];
+    } else {
+      const float p1_up =
+          upwind_value(p1[kSegCells - 1], sm.etail, sm.edge_p);
+      const float h1_up =
+          upwind_value(q1[kSegCells - 1], sm.htail, sm.edge_h);
+      substep_tile<kBDF>(kc, x0, x1, p0, p1, q0, q1, p1_up, h1_up, sm.carry,
+                         owner, sm, buf, f0, f1);
+      if (tail_thread) {
+        sm.etail[0] = p1[kSegCells - 1];
+        sm.htail[0] = q1[kSegCells - 1];
+      }
+    }
+    store_cells(o0g, j0, N, f0);
+    store_cells(o1g, j0, N, f1);
   }
 }
 

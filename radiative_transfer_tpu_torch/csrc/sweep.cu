@@ -15,7 +15,8 @@
 // _hillis_steele, in tiles.cuh, which the double-float kernels of
 // df_sweep.cu share too); the K-step kernels share their tile loops
 // (bdf2_segment, in segments.cuh, which the K-fused adjoint forward of
-// adjoint.cu runs too, and multistep_segment).
+// adjoint.cu runs too, and multistep_segment); B3 runs substep_segment (in
+// segments.cuh), which the mesh engine's B8 (sharded.cu) runs too.
 //
 // What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
 // planes and per sub-step: the right-hand sides r0, r1 of every cell, the
@@ -246,6 +247,27 @@ __global__ void __launch_bounds__(kMaxThreads)
   write_record(sm, K, rec + static_cast<size_t>(row) * K);
 }
 
+// B3's loads: the planes of kind KIND as they are.
+template <int KIND>
+struct PlainLoad {
+  const float *e0, *e1, *p0, *p1, *h0, *h1;
+  int N;
+  __device__ __forceinline__ void operator()(
+      int j0, float (&x0)[kCells], float (&x1)[kCells], float (&q0p)[kCells],
+      float (&q1p)[kCells], float (&q0h)[kCells],
+      float (&q1h)[kCells]) const {
+    load_cells(x0, e0, j0, N);
+    load_cells(x1, e1, j0, N);
+    if constexpr (KIND == kCN) load_cells(q1p, p1, j0, N);
+    if constexpr (KIND == kBDF) {
+      load_cells(q0p, p0, j0, N);
+      load_cells(q1p, p1, j0, N);
+      load_cells(q0h, h0, j0, N);
+      load_cells(q1h, h1, j0, N);
+    }
+  }
+};
+
 // B3, replaces _make_kernel (pallas_sweep.py:229): one sub-step. BE reads
 // (e0, e1), CN also p1, BDF all six planes.
 template <int KIND>
@@ -264,47 +286,14 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int row = blockIdx.x % Bh;
   const int h = half0 + blockIdx.x / Bh;
   const int hr = h * Bh + row;
-  const Coef kc = load_coef(coef + hr * kNCoef);
   const float s_of[1] = {s};
   init_row(sm, 1, 1, s_of, 1, bc, flip, rec, h, row, hr, reflective);
-
-  const bool tail_thread = threadIdx.x == blockDim.x - 1;
   const size_t base = static_cast<size_t>(hr) * N;
-  const int tile = blockDim.x * kCells;
+  const PlainLoad<KIND> load{e0g + base, e1g + base, p0g + base,
+                             p1g + base, h0g + base, h1g + base, N};
   int buf = 0;
-  for (int t0 = 0; t0 < N; t0 += tile) {
-    const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, N, kCells);
-    float x0[kCells], x1[kCells], p0[kCells], p1[kCells], q0[kCells],
-        q1[kCells], f0[kCells], f1[kCells];
-    load_cells(x0, e0g + base, j0, N);
-    load_cells(x1, e1g + base, j0, N);
-    if constexpr (KIND == kBE) {
-      substep_tile<kBE>(kc, x0, x1, x0, x1, x0, x1, 0.f, 0.f, sm.carry,
-                        owner, sm, buf, f0, f1);
-    } else if constexpr (KIND == kCN) {
-      load_cells(p1, p1g + base, j0, N);
-      const float p1_up = upwind_value(p1[kCells - 1], sm.etail, sm.edge_p);
-      substep_tile<kCN>(kc, x0, x1, x0, p1, x0, x1, p1_up, 0.f, sm.carry,
-                        owner, sm, buf, f0, f1);
-      if (tail_thread) sm.etail[0] = p1[kCells - 1];
-    } else {
-      load_cells(p0, p0g + base, j0, N);
-      load_cells(p1, p1g + base, j0, N);
-      load_cells(q0, h0g + base, j0, N);
-      load_cells(q1, h1g + base, j0, N);
-      const float p1_up = upwind_value(p1[kCells - 1], sm.etail, sm.edge_p);
-      const float h1_up = upwind_value(q1[kCells - 1], sm.htail, sm.edge_h);
-      substep_tile<kBDF>(kc, x0, x1, p0, p1, q0, q1, p1_up, h1_up, sm.carry,
-                         owner, sm, buf, f0, f1);
-      if (tail_thread) {
-        sm.etail[0] = p1[kCells - 1];
-        sm.htail[0] = q1[kCells - 1];
-      }
-    }
-    store_cells(o0g + base, j0, N, f0);
-    store_cells(o1g + base, j0, N, f1);
-  }
+  substep_segment<KIND>(load_coef(coef + hr * kNCoef), load, o0g + base,
+                        o1g + base, N, sm, buf);
   record_row(sm, 1, rec, h, row, reflective);
 }
 

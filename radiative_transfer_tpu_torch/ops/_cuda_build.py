@@ -34,10 +34,9 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)     # an array of plane pointers
-# argtypes of each C entry point in csrc/sweep.cu, csrc/df_sweep.cu and
-# csrc/adjoint.cu
-# (pointers and the stream as c_void_p, so ctypes never cuts a 64-bit
-# address).
+# argtypes of each C entry point in csrc/sweep.cu, csrc/df_sweep.cu,
+# csrc/adjoint.cu, csrc/sharded.cu and csrc/fused.cu (pointers and the
+# stream as c_void_p, so ctypes never cuts a 64-bit address).
 _SIGNATURES = {
     "rt_sweep_bdf2": [_P] * 14 + [_I, _I, _I, _F, _F, _F, _I, _I, _P],
     "rt_sweep_multistep": [_I] + [_P] * 10 + [_I, _I, _I, _F, _I, _P],
@@ -53,6 +52,8 @@ _SIGNATURES = {
     "rt_adj_bwd": [_I] + [_P] * 20 + [_I] * 3 + [_F] * 3 + [_I] * 2 + [_P],
     "rt_adj_fwd_record_k": [_P] * 19 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
     "rt_adj_bwd_k": [_P] * 24 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
+    "rt_sharded_substep": [_I] + [_P] * 14 + [_I] * 2 + [_P],
+    "rt_fused_step": [_P] * 11 + [_I] * 4 + [_P],
 }
 
 

@@ -715,7 +715,14 @@ class DFLayout:
     """State layout shared by the double-float engines: DFState planes
     (2, Bh, N) float32 on `self.device`, converted to and from the global
     float64 (M, G, N, 2) edge arrays. Needs cfg, tables, device, Mh, G and
-    Bh."""
+    Bh. A mesh engine's planes are its rank's shard: it overrides `_local`
+    and `_gather`, as for cuda_sweep.FlatLayout."""
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x
 
     def init_state(self) -> DFState:
         """psi = ends = B_g everywhere (solver.cpp:165-181), split to
@@ -726,7 +733,7 @@ class DFLayout:
 
         def plane(v):
             x = torch.as_tensor(v, device=self.device)[None, :, None]
-            return x.expand(2, self.Bh, self.cfg.N).contiguous()
+            return self._local(x.expand(2, self.Bh, self.cfg.N)).contiguous()
 
         bh, bl = df.np_df(B64)
         ph, plo = plane(bh), plane(bl)
@@ -741,6 +748,7 @@ class DFLayout:
             x = torch.as_tensor(x).to(device=self.device,
                                       dtype=torch.float64)
             for plane in fs.from_ends(x):
+                plane = self._local(plane)
                 hi = plane.float()
                 his.append(hi)
                 los.append((plane - hi.double()).float())
@@ -748,8 +756,10 @@ class DFLayout:
 
     def ends_pair(self, hi0, lo0, hi1, lo1) -> torch.Tensor:
         """(hi, lo) edge planes -> global float64 (M, G, N, 2)."""
-        return fs.ends_pair(hi0.double() + lo0.double(),
-                            hi1.double() + lo1.double(), self.Mh, self.G)
+        g = self._gather
+        return fs.ends_pair(g(hi0).double() + g(lo0).double(),
+                            g(hi1).double() + g(lo1).double(), self.Mh,
+                            self.G)
 
     def ends(self, st: DFState) -> torch.Tensor:
         return self.ends_pair(st.hi.e0, st.lo.e0, st.hi.e1, st.lo.e1)

@@ -16,8 +16,14 @@ Two more carry the packed-rows halo engine (parallel/halo_cuda.py):
 * ``halo_multistep_launch`` — seeded K-step BE or CN (B5,
   ``_make_halo_multistep_kernel``).
 
-Each wrapper launches its kernel in csrc/sweep.cu for a CUDA tensor and
-raises if it cannot; for a CPU tensor it runs its plain PyTorch version
+One carries the per-sub-step mesh engine (parallel/sharded_cuda.py):
+
+* ``sharded_substep_launch`` — a zero-inflow BE, CN or BDF sub-step over
+  packed rows, the pending corrections applied on load (B8,
+  ``_make_sharded_packed_kernel``; csrc/sharded.cu).
+
+Each wrapper launches its kernel in csrc/sweep.cu (B8: csrc/sharded.cu)
+for a CUDA tensor and raises if it cannot; for a CPU tensor it runs its plain PyTorch version
 (``*_launch_ref``), which keeps the JAX kernel's blocked algorithm: the
 same (half, block) visit order, the same truncated Hillis-Steele scan
 (_scan_npass passes) and the same operation order, so on the CPU it
@@ -388,6 +394,67 @@ def substep_launch_ref(kind: int, coef, bc, flip, planes, *, s: float,
     return o0, o1
 
 
+def _corrected(z0, z1, corr, j):
+    """True planes from zero-inflow planes and a pending inflow correction
+    (rows, 4) = (inc, d0, a, ln_a): z0 + d0 a^j inc, z1 + a^{j+1} inc, with
+    a^j = exp(j ln_a) on the cell indices `j` (float32)."""
+    inc, d0, a, ln_a = (corr[:, k:k + 1] for k in range(4))
+    apj = torch.exp(j * ln_a) * inc
+    return z0 + d0 * apj, z1 + a * apj
+
+
+def _sharded_planes(kind: int, planes):
+    """The planes of a zero-inflow sub-step of `kind` in kernel order: BE
+    (e0, e1), CN (e0, e1, p1), BDF (e0, e1, p0, p1, h0, h1)."""
+    n = {BE: 2, CN: 3, BDF: 6}.get(kind)
+    if n is None:
+        raise ValueError(f"unknown sub-step kind {kind}")
+    if len(planes) != n:
+        raise ValueError(f"kind {kind} takes {n} planes, got {len(planes)}")
+    return tuple(planes)
+
+
+def sharded_substep_launch_ref(kind: int, coef, corrs, halos, planes, *,
+                               blk: int, npass: int):
+    """Plain version of B8 (``_make_sharded_packed_kernel``): one sub-step
+    of `kind` with zero inflow over packed (rows, N_loc) planes, both
+    direction halves side by side. Each input plane pair arrives as
+    zero-inflow planes plus a pending correction, (rows, 4) `corrs`: e's
+    for BE; e's and p1's for CN; e's, p's and h's for BDF; rebuilt on load.
+    The CN/BDF upwind tails of the first block come from the (rows, 1)
+    `halos` (p1's; BDF also h1's). Returns the zero-inflow (o0, o1)."""
+    planes = _sharded_planes(kind, planes)
+    e0r = planes[0]
+    nb, masks, first, zt = _block_setup(e0r, blk, npass)
+    kc = _unpack_coef(coef)
+    o0, o1 = torch.empty_like(e0r), torch.empty_like(e0r)
+    carry = zt
+    ptail = halos[0] if kind in (CN, BDF) else zt
+    htail = halos[1] if kind == BDF else zt
+    for i in range(nb):
+        sl = slice(i * blk, (i + 1) * blk)
+        jloc = torch.arange(i * blk, (i + 1) * blk, dtype=torch.float32,
+                            device=e0r.device)[None, :]
+        blocks = [x[:, sl] for x in planes]
+        e0, e1 = _corrected(blocks[0], blocks[1], corrs[0], jloc)
+        if kind == BDF:
+            p0, p1 = _corrected(blocks[2], blocks[3], corrs[1], jloc)
+            h0, h1 = _corrected(blocks[4], blocks[5], corrs[2], jloc)
+        elif kind == CN:
+            _, p1 = _corrected(blocks[2], blocks[2], corrs[1], jloc)
+            p0, h0, h1 = e0, e0, e1
+        else:
+            p0, p1, h0, h1 = e0, e1, e0, e1
+        o0[:, sl], o1[:, sl], carry = _substep_block(
+            kind, kc, first, masks, e0, e1, p0, p1, h0, h1, carry, ptail,
+            htail, npass)
+        if kind in (CN, BDF):
+            ptail = p1[:, -1:]
+        if kind == BDF:
+            htail = h1[:, -1:]
+    return o0, o1
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -519,9 +586,42 @@ def substep_launch(kind: int, coef, bc, flip, planes, *, s: float,
     return o0, o1
 
 
-def _check_packed(name: str, coefs, seeds, planes, C: int, reset: int,
-                  blk: int) -> Tuple[int, int]:
-    """Validate a packed-rows kernel's inputs; returns (rows, X)."""
+def sharded_substep_launch(kind: int, coef, corrs, halos, planes, *,
+                           blk: int, npass: int):
+    """B8: one zero-inflow sub-step over packed (rows, N_loc) planes with
+    the pending corrections applied on load (see
+    ``sharded_substep_launch_ref``). Returns (o0, o1)."""
+    planes = _sharded_planes(kind, planes)
+    if planes[0].device.type == "cpu":
+        return sharded_substep_launch_ref(kind, coef, corrs, halos, planes,
+                                          blk=blk, npass=npass)
+    name = "sharded_substep_launch"
+    n_corr, n_halo = {BE: (1, 0), CN: (2, 1), BDF: (3, 2)}[kind]
+    if len(corrs) != n_corr or len(halos) != n_halo:
+        raise ValueError(f"{name}: kind {kind} takes {n_corr} corrections "
+                         f"and {n_halo} halo columns")
+    rows, N = _check_packed_planes(name, planes)
+    for t, cols, what in ([(coef, _NCOEF, "coefficients")]
+                          + [(c, 4, "corrections") for c in corrs]
+                          + [(h, 1, "halo columns") for h in halos]):
+        _check_rows(name, t, planes[0], rows, cols, what)
+    lib = load_kernels()
+    o0, o1 = torch.empty_like(planes[0]), torch.empty_like(planes[0])
+    e0, e1, p0, p1, h0, h1 = _substep_planes(kind, planes)
+    pad = list(corrs) + [corrs[0]] * (3 - n_corr)
+    hpad = list(halos) + [o0] * (2 - n_halo)    # unread
+    with torch.cuda.device(o0.device):
+        rc = lib.rt_sharded_substep(
+            kind, *map(_ptr, (coef, *pad, *hpad, e0, e1, p0, p1, h0, h1,
+                              o0, o1)),
+            rows, N, _stream(o0.device))
+    _raise_on(name, rc)
+    sharded_substep_launch.launches += 1
+    return o0, o1
+
+
+def _check_packed_planes(name: str, planes) -> Tuple[int, int]:
+    """Packed (rows, X) planes on one CUDA device; returns (rows, X)."""
     e0 = planes[0]
     if e0.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {e0.device}")
@@ -534,12 +634,23 @@ def _check_packed(name: str, coefs, seeds, planes, C: int, reset: int,
                 or t.shape != e0.shape or not t.is_contiguous()):
             raise ValueError(f"{name}: every plane must be a contiguous "
                              f"float32 ({rows}, {X}) tensor on {e0.device}")
+    return rows, X
+
+
+def _check_rows(name: str, t, like, rows: int, cols: int, what: str):
+    if (t.device != like.device or t.dtype != torch.float32
+            or tuple(t.shape) != (rows, cols) or not t.is_contiguous()):
+        raise ValueError(f"{name}: {what} must be contiguous float32 "
+                         f"({rows}, {cols}) on {like.device}")
+
+
+def _check_packed(name: str, coefs, seeds, planes, C: int, reset: int,
+                  blk: int) -> Tuple[int, int]:
+    """Validate a packed-rows kernel's inputs; returns (rows, X)."""
+    rows, X = _check_packed_planes(name, planes)
     for t, cols, what in [(c, _NCOEF, "coefficients") for c in coefs] + [
             (seeds, C, "seeds")]:
-        if (t.device != e0.device or t.dtype != torch.float32
-                or tuple(t.shape) != (rows, cols) or not t.is_contiguous()):
-            raise ValueError(f"{name}: {what} must be contiguous float32 "
-                             f"({rows}, {cols}) on {e0.device}")
+        _check_rows(name, t, planes[0], rows, cols, what)
     if not 0 <= reset * blk < X:
         raise ValueError(f"{name}: reset block {reset} x {blk} cells lies "
                          f"outside the {X} cells")
@@ -602,7 +713,8 @@ def halo_multistep_launch(kind: int, coef, seeds, reset: int, e0, e1, *,
 def reset_launch_counts() -> None:
     """Zero every wrapper's count of kernel launches."""
     for w in (bdf2_launch, multistep_launch, substep_launch,
-              halo_bdf2_launch, halo_multistep_launch):
+              halo_bdf2_launch, halo_multistep_launch,
+              sharded_substep_launch):
         w.launches = 0
 
 
@@ -616,7 +728,16 @@ reset_launch_counts()
 class FlatLayout:
     """State layout shared by the engines: FlatState planes (2, Bh, N)
     float32 on `self.device`, converted to and from the global (M, G, N, 2)
-    edge arrays. Needs cfg, tables, device, Mh, G and Bh."""
+    edge arrays. Needs cfg, tables, device, Mh, G and Bh. A mesh engine's
+    planes are its rank's shard: it overrides `_local` (the shard of a
+    global plane) and `_gather` (the global plane from every shard),
+    parallel/mesh.ShardedLayout."""
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x
 
     def init_state(self) -> FlatState:
         """psi = ends = B_g everywhere (src/solver.cpp:165-181)."""
@@ -624,7 +745,7 @@ class FlatLayout:
             np.asarray(self.tables.B, dtype=np.float64)[None, :],
             (self.Mh, self.G)).reshape(self.Bh).astype(np.float32)
         plane = torch.as_tensor(Bg, device=self.device)[None, :, None]
-        plane = plane.expand(2, self.Bh, self.cfg.N).contiguous()
+        plane = self._local(plane.expand(2, self.Bh, self.cfg.N)).contiguous()
         return FlatState(plane, plane, plane, plane, plane, plane)
 
     def from_ends(self, ends, prev, half) -> FlatState:
@@ -632,13 +753,14 @@ class FlatLayout:
         def planes(x):
             x = torch.as_tensor(x).to(device=self.device,
                                       dtype=torch.float32)
-            return fs.from_ends(x)
+            return [self._local(p) for p in fs.from_ends(x)]
 
         (e0, e1), (p0, p1), (h0, h1) = planes(ends), planes(prev), planes(half)
         return FlatState(e0, e1, p0, p1, h0, h1)
 
     def ends_pair(self, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
-        return fs.ends_pair(x0, x1, self.Mh, self.G)
+        return fs.ends_pair(self._gather(x0), self._gather(x1), self.Mh,
+                            self.G)
 
     def ends(self, st: FlatState) -> torch.Tensor:
         return self.ends_pair(st.e0, st.e1)

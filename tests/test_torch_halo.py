@@ -45,6 +45,7 @@ from radiative_transfer_tpu_torch import parallel as port_parallel
 from radiative_transfer_tpu_torch.models import transport as port_transport
 from radiative_transfer_tpu_torch.ops import cuda_sweep as port_cs
 from radiative_transfer_tpu_torch.ops import fast_sweep as port_fs
+from radiative_transfer_tpu_torch.parallel import mesh as port_mesh
 from radiative_transfer_tpu_torch.parallel.halo_cuda import HaloCudaEngine
 
 torch.set_num_threads(1)
@@ -282,8 +283,10 @@ def test_selection_pins_and_refusals():
                       HaloCudaEngine)
     assert isinstance(make(cfg, tables, engine="single", device="cpu"),
                       port_cs.CudaSweepEngine)
-    with pytest.raises(NotImplementedError, match="A11"):
-        make(cfg, tables, mesh=object(), device="cpu")
+    # The mesh engines are ported; the XLA fast engines (A7) are not.
+    with pytest.raises(NotImplementedError, match="A7"):
+        make(cfg, tables, mesh=port_mesh.make_mesh_1d(1), engine="fast",
+             device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         make(cfg, tables, engine="fused", device="cpu")
     thin = port.load_config(GRAY)

@@ -183,11 +183,12 @@ def test_import_without_jax():
         "import radiative_transfer_tpu_torch as rt\n"
         "from radiative_transfer_tpu_torch import cli\n"
         "from radiative_transfer_tpu_torch.ops import cuda_sweep, "
-        "_cuda_build, cuda_df, df, cuda_adjoint\n"
+        "_cuda_build, cuda_df, df, cuda_adjoint, cuda_fused\n"
         "from radiative_transfer_tpu_torch import adjoint\n"
         "from radiative_transfer_tpu_torch.utils import io, profiling\n"
         "from radiative_transfer_tpu_torch.parallel import halo_cuda, "
-        "df_halo_cuda\n"
+        "df_halo_cuda, sharded_cuda, fused_exchange_cuda, step_response, "
+        "mesh, distributed\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and m.split('.')[0] in ('jax', 'radiative_transfer_tpu')]\n"
         "assert not bad, bad\n"
