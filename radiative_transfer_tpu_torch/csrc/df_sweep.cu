@@ -13,8 +13,9 @@
 //                                                 BE or CN, packed rows; B15)
 // All run on one __device__ sub-step routine, df_substep (the counterpart
 // of _df_substep), and the row-tile machinery of tiles.cuh (block-wide scan,
-// upwind exchange, cell loads and stores); the K-step kernels share their
-// tile loops (df_bdf2_segment, df_multistep_segment).
+// upwind exchange, cell loads and stores); B7, B14 and B15 share their tile
+// loops (df_bdf2_segment, df_multistep_segment), B6 runs the same tiles as
+// a cluster wavefront.
 //
 // What is computed. A value is an unevaluated sum hi + lo of two float32
 // numbers; the planes come in (hi, lo) pairs. Each sub-step of each row is
@@ -31,14 +32,17 @@
 // error-free transforms and two float32 scans. No double is used.
 //
 // Design.
-// * One thread block owns one row and walks N in tiles of blockDim*kCells
-//   cells, all K steps (times 4 phases for BDF2) per tile, as csrc/sweep.cu
-//   does. Shared memory carries, per (step, phase) slot, the base carry, the
-//   correction carry and the upwind base o1 edge (the residual's coupling to
-//   the upwind tile), plus the inflow's lo part for the first tile; per
-//   step, the upwind (hi, lo) edges of the p1 and h1 history planes. Each is
-//   read only where a barrier separates the read from the write it needs
-//   and from the next tile's overwrite.
+// * B7, B14 and B15: one thread block owns one row and walks N in tiles of
+//   blockDim*kCells cells, all K steps (times 4 phases for BDF2) per tile,
+//   as csrc/sweep.cu does. B6 runs the same tiles and slots as a wavefront
+//   over a thread block cluster (df_bdf2_kernel below): tile t of a row on
+//   block t mod C, each slot's state handed to the next tile's block
+//   through distributed shared memory. Shared memory carries, per (step,
+//   phase) slot, the base carry, the correction carry and the upwind base
+//   o1 edge (the residual's coupling to the upwind tile), plus the inflow's
+//   lo part for the first tile; per step, the upwind (hi, lo) edges of the
+//   p1 and h1 history planes. Each is read only where a barrier separates
+//   the read from the write it needs and from the next tile's overwrite.
 // * At the row start every slot holds the true double-float inflow: the
 //   boundary value, or for the mu>0 half of a reflective slab the flipped
 //   mu<0 CORRECTED outflow two_sum(base o1 edge, correction carry) of the
@@ -79,17 +83,24 @@
 //   The coefficients (30 floats a kind) live in shared memory.
 //
 // What bounds it on this card: the arithmetic of each row's serial tile
-// walk on its one SM. A BDF2 cell-step is ~1016 float32 operations here
-// against the float32 kernel's 124 (capture, residual, second scan; counted
-// in chip_smoke.py), most of them __f*_rn that cannot fuse, and 2*Bh blocks
-// exist (Bh at a time for a reflective boundary; all 2*Bh at once for the
-// halo kernels, which also run the H halo cells). On an H100 at the bench
-// shape a 2048-cell tile-phase took ~4.1 us; its ~254 operations a cell
-// need ~2.1 us of the SM's 128 float32 lanes at 1.98 GHz, and the rest is
-// barriers and latency. Device-memory traffic is 4 planes read and 12 (B6,
-// B14) or 8 (B7, B15) written per K-step launch.
+// walk. A BDF2 cell-step is ~1016 float32 operations here against the
+// float32 kernel's 124 (capture, residual, second scan; counted in
+// chip_smoke.py), most of them __f*_rn that cannot fuse. B7, B14 and B15
+// run 2*Bh blocks (Bh at a time for a reflective boundary; all 2*Bh at once
+// for the halo kernels, which also run the H halo cells), each walking its
+// row's T tiles x slots in order on one SM. On an H100 at the bench shape a
+// 2048-cell tile-phase took ~4.1 us; its ~254 operations a cell need ~2.1
+// us of the SM's 128 float32 lanes at 1.98 GHz, and the rest is barriers
+// and latency. B6's wavefront puts C blocks on each row, so a row's
+// critical path is ~T handoffs of one tile-phase each plus the 4K - 1
+// slots of the last tile, not T * 4K tile-phases. Device-memory traffic is
+// 4 planes read and 12 (B6, B14) or 8 (B7, B15) written per K-step launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
 
 #include "tiles.cuh"
 
@@ -100,6 +111,7 @@ constexpr int kCells = 4;          // consecutive cells per thread
 constexpr int kMaxThreads = 512;
 constexpr int kMaxSlots = 256;     // 4*K phase slots, K <= 64
 constexpr int kMaxSteps = kMaxSlots / 4;
+constexpr int kMaxCluster = 16;    // B6: blocks a row (above 8 non-portable)
 
 // Rounded float32 operations that nvcc never contracts into an FMA.
 __device__ __forceinline__ float mul(float a, float b) {
@@ -610,8 +622,128 @@ __device__ __forceinline__ void df_multistep_segment(const Planes& g,
   }
 }
 
+// -- B6's wavefront: a row's tiles across a thread block cluster -----------
+//
+// Slot s of tile t needs only slot s of tile t-1 (the base carry, the
+// correction carry and the upwind base o1 edge that df_substep reads and
+// rewrites; with slot 4k step k's upwind p1 edge, with slot 4k+1 its upwind
+// h1 edge) and slot s-1 of tile t itself. So the C blocks of a row's
+// cluster run tiles t = rank, rank + C, ... through all 4K slots each, and
+// tile t can run slot s while tile t+1 runs slot s-1. Each block holds, per
+// slot, a mailbox and an mbarrier (one arrival a phase). Before slot s of
+// tile t > 0 thread 0 waits on the barrier (acquire, cluster scope) and
+// copies the mailbox into the slot's shared state, and the block runs
+// df_substep unchanged. After it, the thread that owns the
+// tile's last cell (the tile is full: only the row's last tile is ragged,
+// and it sends nothing) writes the slot's new state into the mailbox of
+// block (t+1) mod C through the cluster's shared window and arrives on that
+// block's barrier (release, cluster scope).
+//
+// No "mailbox free" signal is needed. Block b = t mod C reads its mailbox
+// for slot s once per tile, before running slot s of tile t. The next write
+// to it carries tile t+C's input and comes from tile t+C-1, after tile
+// t+C-1 finished slot s, which needed tile t+C-2's slot s message, and so
+// on back to tile t+1, which needed tile t's slot s message, sent after
+// tile t ran slot s, after it read its mailbox. Each link is a release
+// (the sender's arrive) and an acquire (the receiver's wait) at cluster
+// scope, so the read happens before the overwrite. The same chain keeps an
+// mbarrier at most one phase ahead of its waiter: the arrival for tile t+C
+// comes after tile t's wait completed. Every tile a block waits for waits
+// on all 4K barriers once, so one parity bit a block serves every slot.
+
+struct Mail {
+  float carry, ccarry, oth;    // base carry, correction carry, o1 edge
+  float th, tl;                // slot 4k: p1 edge; slot 4k+1: h1 edge
+};
+
+struct Mailbox {
+  Mail mail[kMaxSlots];
+  alignas(8) uint64_t bar[kMaxSlots];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address of the same shared variable in cluster block `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(const uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// Tile t > 0 takes slot s's state from its mailbox: thread 0 waits, then
+// copies. No barrier follows here: every other thread first reads the
+// slot's state after the next block barrier (upwind_pair's before slots 4k
+// and 4k+2, the base scan's first inside df_substep otherwise), and the
+// copy overwrites state last read C tiles ago.
+__device__ __forceinline__ void receive(Shared& sm, Mailbox& mb, int s,
+                                        uint32_t parity) {
+  if (threadIdx.x == 0) {
+    while (!mbar_try_wait(&mb.bar[s], parity)) {
+    }
+    const Mail& m = mb.mail[s];
+    sm.carry[s] = m.carry;
+    sm.ccarry[s] = m.ccarry;
+    sm.oth[s] = m.oth;
+    if (s % 4 == 0) {
+      sm.eth[s / 4] = m.th;
+      sm.etl[s / 4] = m.tl;
+    } else if (s % 4 == 1) {
+      sm.hth[s / 4] = m.th;
+      sm.htl[s / 4] = m.tl;
+    }
+  }
+}
+
+// Slot s's new state, by the thread that wrote it in df_substep (the owner
+// of the full tile's last cell), into block `next`'s mailbox; (th, tl) is
+// the tail the slot carries (0 where it carries none).
+__device__ __forceinline__ void send(const Shared& sm, Mailbox& mb, int s,
+                                     uint32_t next, float th, float tl) {
+  const uint32_t m = cluster_addr(&mb.mail[s], next);
+  auto at = [m](size_t off) { return m + static_cast<uint32_t>(off); };
+  st_cluster(at(offsetof(Mail, carry)), sm.carry[s]);
+  st_cluster(at(offsetof(Mail, ccarry)), sm.ccarry[s]);
+  st_cluster(at(offsetof(Mail, oth)), sm.oth[s]);
+  st_cluster(at(offsetof(Mail, th)), th);
+  st_cluster(at(offsetof(Mail, tl)), tl);
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
+          cluster_addr(&mb.bar[s], next))
+      : "memory");
+}
+
 // B6, replaces _make_df_bdf2_kernel (df_sweep.py:372): K whole double-float
-// BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector.
+// BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector, as a
+// wavefront over (tile, slot): the cluster of C blocks at blockIdx.x / C
+// owns one row, block rank r its tiles r, r + C, ... The tiles, slots and
+// arithmetic are df_bdf2_segment's; only who runs a tile and how a slot's
+// state reaches the next tile differ.
 __global__ void __launch_bounds__(kMaxThreads)
     df_bdf2_kernel(Packs pk, const float* __restrict__ bc,
                    const float* __restrict__ bcl,
@@ -619,17 +751,133 @@ __global__ void __launch_bounds__(kMaxThreads)
                    int N, int K, int symmetric, int reflective, int use_corr,
                    int half0) {
   __shared__ Shared sm;
-  const int row = blockIdx.x % Bh;
-  const int h = half0 + blockIdx.x / Bh;
+  __shared__ Mailbox mb;
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cr = blockIdx.x / C;
+  const int row = cr % Bh;
+  const int h = half0 + cr / Bh;
   const int hr = h * Bh + row;
   const int slots = 4 * K;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                       smem_addr(&mb.bar[s])),
+                   "r"(1)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // Every block's barriers exist before any block arrives on them.
+  cluster.sync();
+  // Kinds and tails on every block; the slots' inflow serves tile 0 only.
   init_row(sm, slots, K, 3, pk, bc, bcl, flip, rec, h, row, hr, reflective);
   // The half snapshot is the CN output for mu<0 and the phase-0 BE output
   // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
+  const bool snap_cn = symmetric || h == 0;
+  const size_t base = static_cast<size_t>(hr) * N;
+  const int tile = blockDim.x * kCells;
+  const int T = (N + tile - 1) / tile;
+  const uint32_t next = (rank + 1) % C;
   int buf = 0;
-  df_bdf2_segment(g, static_cast<size_t>(hr) * N, 0, N, K,
-                  symmetric || h == 0, use_corr, sm, buf);
-  record_row(sm, slots, rec, h, row, reflective);
+  uint32_t parity = 0;
+  for (int t = rank; t < T; t += C) {
+    const int t0 = t * tile;
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, N, kCells);
+    const bool first = t == 0;
+    const bool sender = t + 1 < T && owner >= 0;
+    Pair4 x, hs;
+    load_pair(x, g, base, j0, N);
+    for (int k = 0; k < K; ++k) {
+      const int s = 4 * k;
+      if (!first) receive(sm, mb, s, parity);
+      // prev = the step's input; its upwind p1 edge feeds CN and BDF.
+      float xu_h, xu_l;
+      upwind_pair(x.h1[kCells - 1], x.l1[kCells - 1], &sm.eth[k], &sm.etl[k],
+                  sm, xu_h, xu_l);
+      Pair4 b, c;
+      df_substep<kBE>(sm.kc[0], use_corr, x, x, x, 0.f, 0.f, 0.f, 0.f, s,
+                      first, owner, sm, buf, b);
+      if (sender)
+        send(sm, mb, s, next, x.h1[kCells - 1], x.l1[kCells - 1]);
+      if (!first) receive(sm, mb, s + 1, parity);
+      df_substep<kCN>(sm.kc[1], use_corr, b, x, x, xu_h, xu_l, 0.f, 0.f, s + 1,
+                      first, owner, sm, buf, c);
+      hs = snap_cn ? c : b;
+      if (sender)
+        send(sm, mb, s + 1, next, hs.h1[kCells - 1], hs.l1[kCells - 1]);
+      if (!first) receive(sm, mb, s + 2, parity);
+      float hu_h, hu_l;
+      upwind_pair(hs.h1[kCells - 1], hs.l1[kCells - 1], &sm.hth[k],
+                  &sm.htl[k], sm, hu_h, hu_l);
+      Pair4 d, f;
+      df_substep<kBE>(sm.kc[0], use_corr, c, x, x, 0.f, 0.f, 0.f, 0.f, s + 2,
+                      first, owner, sm, buf, d);
+      if (sender) send(sm, mb, s + 2, next, 0.f, 0.f);
+      if (!first) receive(sm, mb, s + 3, parity);
+      df_substep<kBDF>(sm.kc[2], use_corr, d, x, hs, xu_h, xu_l, hu_h, hu_l,
+                       s + 3, first, owner, sm, buf, f);
+      if (sender) send(sm, mb, s + 3, next, 0.f, 0.f);
+      // prev of the final state = the LAST step's input.
+      if (k == K - 1) store_pair(g, 8, base, j0, N, x);
+      x = f;
+    }
+    store_pair(g, 0, base, j0, N, x);
+    store_pair(g, 4, base, j0, N, hs);
+    if (!first) parity ^= 1u;
+  }
+  // The block that ran the row's last tile holds the outflow slots.
+  if (rank == (T - 1) % C) record_row(sm, slots, rec, h, row, reflective);
+  // No block leaves while a cluster peer may still address its mailboxes.
+  cluster.sync();
+}
+
+// How many clusters of c blocks of `threads` threads the card holds at
+// once (cudaOccupancyMaxActiveClusters), cached per device.
+int active_clusters(int c, int threads) {
+  constexpr int kDevices = 16;
+  static int cache[kDevices][kMaxThreads / 32 + 1][kMaxCluster + 1] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kDevices) return 0;
+  int& n = cache[dev][threads / 32][c];
+  if (n == 0) {
+    if (c > 8)
+      cudaFuncSetAttribute(df_bdf2_kernel,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(c);
+    cfg.blockDim = dim3(threads);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int got = 0;
+    if (cudaOccupancyMaxActiveClusters(&got, df_bdf2_kernel, &cfg) !=
+        cudaSuccess)
+      got = 0;
+    cudaGetLastError();  // a size the card refuses only counts 0 clusters
+    n = got > 0 ? got : -1;
+  }
+  return n;
+}
+
+// B6's blocks a row. At most 4K tiles of a row are active at once (one a
+// slot), so C = min(max_cluster, 4K, tiles); then C shrinks until the
+// launch's `clusters` rows fit on the card at once: a cluster that waits
+// for a free GPC doubles the launch (8 blocks a row at the df bench's 16
+// rows leave one cluster for a second wave on an H100), while one block
+// fewer a row costs at most a 4K/C share of each tile's handoff slack.
+int df_bdf2_cluster(int tiles, int K, int threads, int max_cluster,
+                    int clusters) {
+  int c = 4 * K < max_cluster ? 4 * K : max_cluster;
+  if (tiles < c) c = tiles;
+  while (c > 1 && active_clusters(c, threads) < clusters) --c;
+  return c;
 }
 
 // B7, replaces _make_df_multistep_kernel (df_sweep.py:475): K whole
@@ -718,22 +966,63 @@ extern "C" {
 // Coefficients are (2, Bh, 10) and (2, Bh, 20) float32, bc and bcl (2, Bh,
 // 1) float32, flip (Bh,) int32, rec a (Bh, 2, slots) float32 scratch record.
 
+// B6's launch shape for rows of N cells at K steps, at most max_threads
+// threads a block and max_cluster blocks a row, `clusters` rows a launch
+// (Bh for a reflective boundary, else 2*Bh): out = (threads a block, blocks
+// a row (the cluster), tiles a row).
+int rt_df_bdf2_geometry(int N, int K, int max_threads, int max_cluster,
+                        int clusters, int* out) {
+  const int threads = pick_threads(N, kCells, max_threads);
+  const int tiles = (N + threads * kCells - 1) / (threads * kCells);
+  out[0] = threads;
+  out[1] = df_bdf2_cluster(tiles, K, threads, max_cluster, clusters);
+  out[2] = tiles;
+  return 0;
+}
+
 int rt_df_bdf2(const float* cbe, const float* ccn, const float* cbdf,
                const float* dbe, const float* dcn, const float* dbdf,
                const float* bc, const float* bcl, const int* flip, float* rec,
                void* const* planes, int Bh, int N, int K, int symmetric,
-               int reflective, int use_corr, void* stream) {
-  if (K < 1 || K > kMaxSteps || Bh < 1 || N < 1)
+               int reflective, int use_corr, int max_threads,
+               int max_cluster, void* stream) {
+  if (K < 1 || K > kMaxSteps || Bh < 1 || N < 1 || max_threads < 32 ||
+      max_threads > kMaxThreads || max_threads % 32 || max_cluster < 1 ||
+      max_cluster > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Packs pk{{cbe, ccn, cbdf}, {dbe, dcn, dbdf}};
   const Planes g = unpack_planes(planes, 12);
-  const int threads = pick_threads(N, kCells, kMaxThreads);
-  return launch_halves(Bh, reflective, [&](int grid, int half0) {
-    df_bdf2_kernel<<<grid, threads, 0, st>>>(pk, bc, bcl, flip, rec, g, Bh,
-                                             N, K, symmetric, reflective,
-                                             use_corr, half0);
+  int geo[3];
+  rt_df_bdf2_geometry(N, K, max_threads, max_cluster,
+                      reflective ? Bh : 2 * Bh, geo);
+  const int threads = geo[0], C = geo[1];
+  if (C > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        df_bdf2_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // A refused cluster launch returns its error here; launch_halves then
+  // reads it from cudaGetLastError() too, and skips the second half.
+  cudaError_t err = cudaSuccess;
+  const int rc = launch_halves(Bh, reflective, [&](int grid, int half0) {
+    if (err != cudaSuccess) return;
+    cfg.gridDim = dim3(grid * C);
+    err = cudaLaunchKernelEx(&cfg, df_bdf2_kernel, pk, bc, bcl, flip, rec, g,
+                             Bh, N, K, symmetric, reflective, use_corr,
+                             half0);
   });
+  return err != cudaSuccess ? static_cast<int>(err) : rc;
 }
 
 int rt_df_multistep(int kind, const float* coef, const float* dcoef,

@@ -168,6 +168,49 @@ __device__ __forceinline__ void rhs(const Coef& k, float e0, float e1,
   }
 }
 
+// The first stage of substep_tile: the right-hand sides r0, r1 and b of
+// the thread's C cells, and the composed map (A, B) of their carries.
+template <int KIND, int C>
+__device__ __forceinline__ void substep_rhs(
+    const Coef& k, const float (&e0)[C], const float (&e1)[C],
+    const float (&p0)[C], const float (&p1)[C], const float (&h0)[C],
+    const float (&h1)[C], float p1_up, float h1_up, float (&r0)[C],
+    float (&r1)[C], float (&b)[C], float& A, float& B) {
+  A = 1.f;
+  B = 0.f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    rhs<KIND>(k, e0[c], e1[c], p0[c], p1[c], h0[c], h1[c],
+              c ? p1[c - 1] : p1_up, c ? h1[c - 1] : h1_up, r0[c], r1[c]);
+    b[c] = (k.q * r0[c] + k.T0 * r1[c]) * k.idet;
+    B = k.a * B + b[c];
+    A = A * k.a;
+  }
+}
+
+// The last stage of substep_tile: the 2x2 reconstruction of the thread's
+// cells from `cur`, the carry entering its first cell; the owner of the
+// tile's last real cell (`owner` its index, or -1) writes the carry leaving
+// it to *carry, and `cin` (if given) gets each cell's entering carry.
+template <int C>
+__device__ __forceinline__ void substep_out(const Coef& k,
+                                            const float (&r0)[C],
+                                            const float (&r1)[C],
+                                            const float (&b)[C], float cur,
+                                            float* carry, int owner,
+                                            float (&o0)[C], float (&o1)[C],
+                                            float* cin = nullptr) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (cin) cin[c] = cur;
+    const float u = r0[c] + k.w * cur;
+    o0[c] = (k.T0 * u - k.q * r1[c]) * k.idet;
+    o1[c] = (k.q * u + k.T0 * r1[c]) * k.idet;
+    cur = k.a * cur + b[c];
+    if (c == owner) *carry = cur;
+  }
+}
+
 // One sub-step of kind KIND over this thread's C cells of the tile
 // (_substep_block): the right-hand sides, the exact scan of the carry
 // recurrence carry_j = a*carry_{j-1} + b_j, the 2x2 reconstruction. p1_up/
@@ -183,28 +226,12 @@ __device__ __forceinline__ float substep_tile(
     const float (&h1)[C], float p1_up, float h1_up, float* carry, int owner,
     S& sm, int& buf, float (&o0)[C], float (&o1)[C],
     float* cin = nullptr) {
-  float r0[C], r1[C], b[C];
-  float A = 1.f, B = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    rhs<KIND>(k, e0[c], e1[c], p0[c], p1[c], h0[c], h1[c],
-              c ? p1[c - 1] : p1_up, c ? h1[c - 1] : h1_up, r0[c], r1[c]);
-    b[c] = (k.q * r0[c] + k.T0 * r1[c]) * k.idet;
-    B = k.a * B + b[c];
-    A = A * k.a;
-  }
+  float r0[C], r1[C], b[C], A, B;
+  substep_rhs<KIND>(k, e0, e1, p0, p1, h0, h1, p1_up, h1_up, r0, r1, b, A, B);
   float exA, exB;
   const float c_in = block_exclusive_scan(A, B, carry, sm, buf, exA, exB);
-  float cur = exA * c_in + exB;  // carry entering this thread's first cell
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (cin) cin[c] = cur;
-    const float u = r0[c] + k.w * cur;
-    o0[c] = (k.T0 * u - k.q * r1[c]) * k.idet;
-    o1[c] = (k.q * u + k.T0 * r1[c]) * k.idet;
-    cur = k.a * cur + b[c];
-    if (c == owner) *carry = cur;
-  }
+  // exA * c_in + exB: the carry entering this thread's first cell.
+  substep_out(k, r0, r1, b, exA * c_in + exB, carry, owner, o0, o1, cin);
   return c_in;
 }
 

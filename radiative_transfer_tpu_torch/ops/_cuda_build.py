@@ -43,7 +43,8 @@ _SIGNATURES = {
     "rt_sweep_substep": [_I] + [_P] * 12 + [_I, _I, _F, _I, _P],
     "rt_sweep_halo_bdf2": [_P] * 13 + [_I] * 5 + [_P],
     "rt_sweep_halo_multistep": [_I] + [_P] * 9 + [_I] * 4 + [_P],
-    "rt_df_bdf2": [_P] * 10 + [_PP] + [_I] * 6 + [_P],
+    "rt_df_bdf2": [_P] * 10 + [_PP] + [_I] * 8 + [_P],
+    "rt_df_bdf2_geometry": [_I] * 5 + [_P],
     "rt_df_multistep": [_I] + [_P] * 6 + [_PP] + [_I] * 5 + [_P],
     "rt_df_halo_bdf2": [_P] * 9 + [_PP] + [_I] * 6 + [_P],
     "rt_df_halo_multistep": [_I] + [_P] * 5 + [_PP] + [_I] * 5 + [_P],
@@ -52,7 +53,8 @@ _SIGNATURES = {
     "rt_adj_bwd": [_I] + [_P] * 20 + [_I] * 3 + [_F] * 3 + [_I] * 2 + [_P],
     "rt_adj_fwd_record_k": [_P] * 19 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
     "rt_adj_bwd_k": [_P] * 24 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
-    "rt_sharded_substep": [_I] + [_P] * 14 + [_I] * 2 + [_P],
+    "rt_sharded_substep": [_I] + [_P] * 15 + [_I] * 3 + [_P],
+    "rt_sharded_geometry": [_I, _I, _P],
     "rt_fused_step": [_P] * 11 + [_I] * 4 + [_P],
 }
 

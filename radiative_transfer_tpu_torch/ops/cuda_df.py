@@ -51,7 +51,7 @@ none (ops/df.py).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -547,13 +547,34 @@ def _plane_array(ins, outs):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
+# B6's launch shape: at most this many threads a block (a tile is 4 cells
+# a thread) and blocks a row (above 8 a non-portable cluster size); the
+# kernel takes fewer blocks a row where the card cannot hold every row's
+# cluster at once. 512 threads beat 256, and 16 blocks beat 8 at gray_s8
+# (chip_smoke.py times both).
+DF_BDF2_THREADS = 512
+DF_BDF2_MAX_CLUSTER = 16
+
+
+def df_bdf2_geometry(N: int, K: int, rows: int) -> Tuple[int, int, int]:
+    """B6's launch shape for `rows` rows a launch (Bh for a reflective
+    boundary, else 2*Bh) of N cells at K steps: (threads a block, blocks a
+    row, i.e. the cluster size, tiles a row)."""
+    out = (ctypes.c_int * 3)()
+    load_kernels().rt_df_bdf2_geometry(N, K, DF_BDF2_THREADS,
+                                       DF_BDF2_MAX_CLUSTER, rows, out)
+    return tuple(out)
+
+
 def df_bdf2_launch(cbe, ccn, cbdf, dbe, dcn, dbdf, bc, bcl, flip, e0h, e0l,
                    e1h, e1l, *, K: int, reflective: bool,
                    symmetric_half: bool, use_corr: bool, blk: int,
                    npass: dict, npass_c: dict):
     """B6: K whole double-float BDF2 steps in one launch (see
     ``df_bdf2_launch_ref``). `blk`/`npass`/`npass_c` shape the plain
-    version's blocked scans; the kernel scans its own tiles exactly."""
+    version's blocked scans; the kernel scans its own tiles exactly, each
+    row's tiles as a wavefront over a cluster of blocks
+    (``df_bdf2_geometry``)."""
     if e0h.device.type == "cpu":
         return df_bdf2_launch_ref(
             cbe, ccn, cbdf, dbe, dcn, dbdf, bc, bcl, flip, e0h, e0l, e1h,
@@ -573,7 +594,8 @@ def df_bdf2_launch(cbe, ccn, cbdf, dbe, dcn, dbdf, bc, bcl, flip, e0h, e0l,
             *map(cs._ptr, (cbe, ccn, cbdf, dbe, dcn, dbdf, bc, bcl, flip,
                            rec)),
             planes, Bh, N, K, int(symmetric_half), int(reflective),
-            int(use_corr), cs._stream(e0h.device))
+            int(use_corr), DF_BDF2_THREADS, DF_BDF2_MAX_CLUSTER,
+            cs._stream(e0h.device))
     cs._raise_on(name, rc)
     df_bdf2_launch.launches += 1
     return tuple(outs)

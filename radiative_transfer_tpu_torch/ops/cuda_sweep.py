@@ -586,11 +586,26 @@ def substep_launch(kind: int, coef, bc, flip, planes, *, s: float,
     return o0, o1
 
 
+# B8's threads a block at most (a tile is 8 cells a thread): small tiles let
+# many blocks a SM overlap one tile's scan with another's loads (64 measured
+# fastest of 32-512 at the gray rung's shard, chip_smoke.py).
+SHARDED_THREADS = 64
+
+
+def sharded_geometry(N: int) -> Tuple[int, int]:
+    """B8's launch shape for rows of N cells: (threads a block, tiles a
+    row); the kernel runs one block a tile."""
+    out = (ctypes.c_int * 2)()
+    load_kernels().rt_sharded_geometry(N, SHARDED_THREADS, out)
+    return tuple(out)
+
+
 def sharded_substep_launch(kind: int, coef, corrs, halos, planes, *,
                            blk: int, npass: int):
     """B8: one zero-inflow sub-step over packed (rows, N_loc) planes with
     the pending corrections applied on load (see
-    ``sharded_substep_launch_ref``). Returns (o0, o1)."""
+    ``sharded_substep_launch_ref``), one block a tile, the tiles' carries
+    chained by decoupled look-back. Returns (o0, o1)."""
     planes = _sharded_planes(kind, planes)
     if planes[0].device.type == "cpu":
         return sharded_substep_launch_ref(kind, coef, corrs, halos, planes,
@@ -610,11 +625,16 @@ def sharded_substep_launch(kind: int, coef, corrs, halos, planes, *,
     e0, e1, p0, p1, h0, h1 = _substep_planes(kind, planes)
     pad = list(corrs) + [corrs[0]] * (3 - n_corr)
     hpad = list(halos) + [o0] * (2 - n_halo)    # unread
+    # The look-back's status words, a word a tile, and the tile counter:
+    # the entry point zeroes them before the launch.
+    _, tiles = sharded_geometry(N)
+    status = torch.empty(rows * tiles + 1, dtype=torch.int64,
+                         device=o0.device)
     with torch.cuda.device(o0.device):
         rc = lib.rt_sharded_substep(
             kind, *map(_ptr, (coef, *pad, *hpad, e0, e1, p0, p1, h0, h1,
-                              o0, o1)),
-            rows, N, _stream(o0.device))
+                              o0, o1, status)),
+            rows, N, SHARDED_THREADS, _stream(o0.device))
     _raise_on(name, rc)
     sharded_substep_launch.launches += 1
     return o0, o1
