@@ -22,7 +22,9 @@ Phases, one line each; any failure exits nonzero before the result line:
    reflective left, source right): three windows of 64 steps after a
    two-launch warm-up, timed with CUDA events; prints the median updates/s,
    the plain version's time for one K-step launch at the same shape and
-   the peak device memory above what the phase started with;
+   the peak device memory above what the phase started with, and B1's
+   and B2-CN's launch shapes at that size (rows x blocks a row x tiles;
+   more than one block a row);
 6. tiny-batch auto route (the packed-rows halo engine, B4 and B5): the CLI
    with --engine auto --dtype float32 on prm/single_group.prm (routes to
    the plain engine) against its CPU run; HaloCudaEngine against
@@ -136,7 +138,14 @@ held: a row of one 2048-cell tile, 3 tiles (as many blocks a row as
 tiles), T = C + 1 tiles at K = 1 and 2 (C the blocks a row that
 df_bdf2_geometry picks), 19 tiles with a ragged last one at K = 3 and the
 engine's K; reflective and source left, both half modes, use_correction
-on and off. Every kernel wrapper's
+on and off. B1's and B2's cluster wavefronts likewise, each shape
+launched REPEAT times and the worst held by check_f64 (on 170k-cell rows
+the float32 plain version itself lies above 1e-5 from its float64
+evaluation): 41 whole tiles and a ragged one (T >= 2C) for B1 at K = 1,
+4, 8 and B2 BE at K = 5 and CN at K = 16, a row below one tile for B1 at
+K = 3 and B2 BE/CN at K = 1 and 3, 10 tiles for B2-CN at K = 1 (one
+block a row, sending to itself); both boundaries, both half modes. Every
+kernel wrapper's
 launch count is zeroed before a path's phases and read after them: each
 kernel of a path must have launched on it (B1-B3 on phases 4-5, B4-B5 on
 phase 6, B6-B7 on phase 7, B14-B15 on phase 8, B9-B10 on phase 9,
@@ -150,11 +159,14 @@ against the single-device CLI (see ranks_check).
 Then each kernel is timed against its plain version at its full-size shape,
 beside its bound (the larger of the bytes it must move over 3.35 TB/s and
 the operations it must do over 67 TFLOP/s f32, the H100 SXM data-sheet
-peaks), and the redesigned kernels' shape choices are timed: B6 at the df
-bench at K = 1, 2, 4 with 512 and 256 threads a block, at gray_s8 with at
-most 16 and 8 blocks a row; B8 at the gray shard with 32-512 threads.
-The last lines are the kernels JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}.
+peaks), and the redesigned kernels' shape choices are timed: B1 at the
+bench at K = 1, 4, 8 and B2-CN there at K = 8, 16, each at the blocks a
+row the geometry picks and at half as many; B6 at the df bench at K = 1,
+2, 4 with 512 and 256 threads a block, at gray_s8 with at most 16 and 8
+blocks a row; B8 at the gray shard with 32-512 threads.
+A line splits each kernel's launches on its path's phases into those at
+the shape it is timed at and the rest. The last lines are the kernels
+JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -184,13 +196,15 @@ DRIFT_TOL = 5e-5
 # f64-grade engine drift ~1e-13 a step from float64).
 DF_TOL = 1e-11
 DF_CLI_TOL = 1e-10
-# Launches of each redesigned kernel (B6's wavefront, B8's look-back) per
-# new parity shape: a race shows intermittently, so the worst is held.
+# Launches of each redesigned kernel (B1's, B2's and B6's wavefronts, B8's
+# look-back) per new parity shape: a race shows intermittently, so the
+# worst is held.
 REPEAT = 5
-# The rates (updates/s) these paths ran at while B6 and B8 still walked each
-# row on one thread block, measured on one H100 80GB HBM3 at 700 W (PERF.md
-# sections 5-6), printed beside this run's.
-WALK_RATES = {"df bench": 7.97936e9, "df gray_s8 DFCudaEngine": 2.24642e9,
+# The rates (updates/s) these paths ran at while B1, B6 and B8 still walked
+# each row on one thread block, measured on one H100 80GB HBM3 at 700 W
+# (PERF.md sections 5-6), printed beside this run's.
+WALK_RATES = {"bench": 3.56799e10, "gray_s8 CudaSweepEngine": 9.08025e9,
+              "df bench": 7.97936e9, "df gray_s8 DFCudaEngine": 2.24642e9,
              "df gray_s8 DFHaloCudaEngine": 3.59772e9,
              "gray rung CudaSweepEngine": 3.54150e10,
              "gray rung HaloCudaEngine": 9.69710e10,
@@ -221,6 +235,24 @@ REPLACES = {
         "radiative_transfer_tpu/ops/pallas_sweep.py:289",
     "fused_step_launch":
         "radiative_transfer_tpu/parallel/fused_exchange.py:149",
+}
+# The C entry point each kernel wrapper launches through. The script logs
+# each launch's shape (the entry point's integer and float arguments) to
+# split a path's launches into those at the shape its kernel is timed at
+# and the rest.
+ENTRY = {
+    "bdf2_launch": "rt_sweep_bdf2", "multistep_launch": "rt_sweep_multistep",
+    "substep_launch": "rt_sweep_substep",
+    "halo_bdf2_launch": "rt_sweep_halo_bdf2",
+    "halo_multistep_launch": "rt_sweep_halo_multistep",
+    "df_bdf2_launch": "rt_df_bdf2", "df_multistep_launch": "rt_df_multistep",
+    "df_halo_bdf2_launch": "rt_df_halo_bdf2",
+    "df_halo_multistep_launch": "rt_df_halo_multistep",
+    "fwd_record_launch": "rt_adj_fwd_record", "bwd_launch": "rt_adj_bwd",
+    "fwd_record_k_launch": "rt_adj_fwd_record_k",
+    "bwd_k_launch": "rt_adj_bwd_k",
+    "sharded_substep_launch": "rt_sharded_substep",
+    "fused_step_launch": "rt_fused_step",
 }
 # The kernels each path must launch.
 PATH_PLAIN = ("bdf2_launch", "multistep_launch", "substep_launch")
@@ -729,11 +761,13 @@ def main() -> int:
             (base * (0.5 + torch.rand(base.shape, generator=g, device=dev)))
             .contiguous() for _ in range(6)])
 
-    def bdf2_plain(eng, st, K):
-        """The plain B1 launch, as the engine's FlatState."""
+    def bdf2_plain(eng, st, K, f64=False):
+        """The plain B1 launch, as the engine's FlatState (evaluated in
+        float64 where f64)."""
+        d = (lambda t: t.double()) if f64 else (lambda t: t)
         e0, e1, h0, h1, p0, p1 = cs.bdf2_launch_ref(
-            eng.coef[BE], eng.coef[CN], eng.coef[BDF], eng.bc,
-            eng.flip, st.e0, st.e1, K=K, s_be=eng.kcs[BE].s,
+            d(eng.coef[BE]), d(eng.coef[CN]), d(eng.coef[BDF]), d(eng.bc),
+            eng.flip, d(st.e0), d(st.e1), K=K, s_be=eng.kcs[BE].s,
             s_cn=eng.kcs[CN].s, s_bdf=eng.kcs[BDF].s,
             reflective=eng.reflective,
             symmetric_half=eng.cfg.bdf2_symmetric_half, blk=eng.block,
@@ -741,11 +775,12 @@ def main() -> int:
             npass_bdf=eng.scan_npass[BDF])
         return FlatState(e0, e1, p0, p1, h0, h1)
 
-    def multistep_plain(eng, st, K):
+    def multistep_plain(eng, st, K, f64=False):
         kind = BE if eng.cfg.ts_method == 1 else CN
+        d = (lambda t: t.double()) if f64 else (lambda t: t)
         return cs.multistep_launch_ref(
-            kind, eng.coef[kind], eng.bc, eng.flip, st.e0, st.e1,
-            K=K, s=eng.kcs[kind].s, reflective=eng.reflective,
+            kind, d(eng.coef[kind]), d(eng.bc), eng.flip, d(st.e0),
+            d(st.e1), K=K, s=eng.kcs[kind].s, reflective=eng.reflective,
             blk=eng.block, npass=eng.scan_npass[kind])
 
     def substep_planes(kind, st):
@@ -858,6 +893,42 @@ def main() -> int:
         st = rand_state(e, 20 + K)
         check("bdf2_launch", f"B1-K{K}-{label}", e.multi_step(st, K),
               bdf2_plain(e, st, K))
+    # B1's and B2's cluster wavefronts on their own shapes, each launched
+    # REPEAT times against one plain launch, the largest error held: a race
+    # between the cluster's blocks shows intermittently. N_wave is 41 whole
+    # 4096-cell tiles and a ragged 2048-cell one (T >= 2C for every C the
+    # geometry picks; plain versions: 83 blocks of 2048); N = 1000 is a row
+    # below one tile (128 threads, one ragged 1024-cell tile); 9 tiles and a
+    # ragged 512 at K = 1 (B2: 1 slot, C = 1, the block sends to itself).
+    # Held by check_f64: on 170k-cell rows (a up to 0.998) the float32 plain
+    # version itself lies up to ~4e-5 from its float64 evaluation (measured
+    # on an H100; the kernel, scanning exactly, lies closer).
+    N_wave = 41 * 4096 + 2048
+    wave_cases = [(3, 4, True, False, N_wave), (3, 1, False, True, N_wave),
+                  (3, 8, False, False, N_wave), (3, 3, True, True, 1000),
+                  (1, 5, True, False, N_wave), (2, 16, False, False, N_wave),
+                  (2, 1, True, False, 9 * 4096 + 512),
+                  (1, 1, False, False, 1000), (2, 3, True, False, 1000)]
+    for ts_method, K, refl, sym, Nw in wave_cases:
+        e = engine(load_config(deck, M=8, G=4, N=Nw, ts_method=ts_method,
+                               bc_left_indicator=2 if refl else 1,
+                               bdf2_symmetric_half=sym))
+        threads, C, T = cs.sweep_geometry(Nw, K, e.Bh if refl else 2 * e.Bh,
+                                          4 if ts_method == 3 else 1)
+        st = rand_state(e, 80 + K)
+        name, plain = (("bdf2_launch", bdf2_plain) if ts_method == 3 else
+                       ("multistep_launch", multistep_plain))
+        ref, ref64 = plain(e, st, K), plain(e, st, K, f64=True)
+        worst, worst_err = None, -1.0
+        for _ in range(REPEAT):
+            got = e.multi_step(st, K)
+            err = max(nerr(g, r) for g, r in zip(got, ref64))
+            if err > worst_err:
+                worst, worst_err = got, err
+        tag = (f"{ {1: 'B2-BE', 2: 'B2-CN', 3: 'B1'}[ts_method]}-wave-K{K}-"
+               f"{'refl' if refl else 'src'}-{'sym' if sym else 'asym'}-"
+               f"N{Nw}-C{C}T{T}")
+        check_f64(name, tag, worst, ref, ref64)
 
     # B4/B5 on packed rows (2*Bh, 12800). Blocks of 1280 cells: reset 3
     # restarts the chains at cell 3840, inside the first 4096-cell kernel
@@ -1020,12 +1091,31 @@ def main() -> int:
                        cf if name in PATH_FUSED else
                        cd if name.startswith("df_") else cs, name)
 
+    # Each launch's shape since its wrapper's count was last zeroed: a shim
+    # around each C entry point of the loaded library that logs the
+    # arguments and calls it unchanged (the counts stay the wrappers').
+    shape_log = {name: [] for name in ENTRY}
+    path_shapes = {}
+
+    def log_shapes(lib):
+        for name, entry in ENTRY.items():
+            def shim(*args, _fn=getattr(lib, entry), _name=name):
+                if wrapper(_name).launches == 0:
+                    shape_log[_name].clear()
+                shape_log[_name].append(
+                    tuple(a for a in args if isinstance(a, (int, float))))
+                return _fn(*args)
+            setattr(lib, entry, shim)
+
+    log_shapes(_cuda_build.load())
+
     def read_counts(path, label):
         counts = {name: wrapper(name).launches for name in path}
         missing = [name for name, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels not launched on {label}: "
                                  f"{missing} ({counts})")
+        path_shapes.update({name: list(shape_log[name]) for name in path})
         return counts
 
     gray_deck = os.path.join(ROOT, "prm", "single_group.prm")
@@ -1119,13 +1209,25 @@ def main() -> int:
     launches = read_counts(PATH_PLAIN, "the main path (phases 4-5)")
 
     plain_ms, _ = timed(lambda: bdf2_plain(big, st, K), 1)
+    # B1's and B2-CN's launch shapes at the bench: a cluster of C > 1
+    # blocks a row.
+    cn_eng = engine(gray_cfg(M, N, 2))
+    Kcn = cn_eng.max_steps_per_launch()
+    wave_grids = {}
+    for tag, Kx, spp in (("B1", K, 4), ("B2-CN", Kcn, 1)):
+        threads, C, T = cs.sweep_geometry(N, Kx, big.Bh, spp)
+        wave_grids[tag] = (f"K={Kx}: {big.Bh} rows x {C} blocks of "
+                           f"{threads} threads a launch, {T} tiles a row")
+        if C < 2:
+            raise AssertionError(f"{tag} at the bench runs {C} block a row")
     print(f"phase 5 full size: gray S_32 N=2^20 BDF2 K={K} block "
           f"{big.block}: {steps} steps in {seconds:.4f} s (median of "
           f"{fmt_windows(windows)}) = {rate:.6g} "
-          f"updates/s; plain version {plain_ms:.1f} ms per K-step launch; "
-          f"peak device memory {peak_gib:.3f} GiB above the phase's start; "
-          f"max|x| ok; card: {card}",
-          flush=True)
+          f"updates/s (row walk: {WALK_RATES['bench']:.6g}); plain version "
+          f"{plain_ms:.1f} ms per K-step launch; peak device memory "
+          f"{peak_gib:.3f} GiB above the phase's start; max|x| ok; grids: "
+          + "; ".join(f"{k} {v}" for k, v in wave_grids.items())
+          + f"; card: {card}", flush=True)
 
     # -- 6. tiny-batch auto route ------------------------------------------------
     from radiative_transfer_tpu_torch.parallel import make_multichip_engine
@@ -1200,7 +1302,9 @@ def main() -> int:
           f"{h_peak:.3f} GiB above the run's start, main launch {main_ms:.3f} ms, fixup launch "
           f"{fix_ms:.3f} ms; CudaSweepEngine K={K8}: 64 steps in "
           f"{p_seconds:.4f} s (median of {fmt_windows(p_windows)}) = "
-          f"{ups / p_seconds:.6g} updates/s, peak {p_peak:.3f} GiB; halo/plain "
+          f"{ups / p_seconds:.6g} updates/s (row walk: "
+          f"{WALK_RATES['gray_s8 CudaSweepEngine']:.6g}), peak "
+          f"{p_peak:.3f} GiB; halo/plain "
           f"{p_seconds / h_seconds:.3f}x; card: {card}", flush=True)
 
     # -- 7. f64-grade path -----------------------------------------------------
@@ -1304,26 +1408,27 @@ def main() -> int:
             return sh, (sh * (torch.rand(sh.shape, generator=g, device=dev)
                               - 0.5) * 2.0 ** -24).contiguous()
 
+        # (Kr, not K: the kernel table below times B1 at phase 5's K.)
         for reset in (0, 3):
-            for K, sym in ((1, False), (2, True)):
+            for Kr, sym in ((1, False), (2, True)):
                 args = (*(coef[k] for k in (BE, CN, BDF)),
                         *(dcoef[k] for k in (BE, CN, BDF)),
-                        *df_seeds(4 * K), reset, *ins)
-                kw = dict(K=K, symmetric_half=sym, use_corr=True, blk=hblk,
+                        *df_seeds(4 * Kr), reset, *ins)
+                kw = dict(K=Kr, symmetric_half=sym, use_corr=True, blk=hblk,
                           npass=npass, npass_c=npass_c)
                 df_check("df_halo_bdf2_launch",
-                         f"B14-rows{rows}-r{reset}-K{K}-"
+                         f"B14-rows{rows}-r{reset}-K{Kr}-"
                          f"{'sym' if sym else 'asym'}",
                          cd.df_halo_bdf2_launch(*args, **kw),
                          cd.df_halo_bdf2_launch_ref(*args, **kw))
             for kind, label in ((BE, "BE"), (CN, "CN")):
-                for K in (1, 3):
-                    args = (kind, coef[kind], dcoef[kind], *df_seeds(K),
+                for Kr in (1, 3):
+                    args = (kind, coef[kind], dcoef[kind], *df_seeds(Kr),
                             reset, *ins)
-                    kw = dict(K=K, use_corr=True, blk=hblk,
+                    kw = dict(K=Kr, use_corr=True, blk=hblk,
                               npass=npass[kind], npass_c=npass_c[kind])
                     df_check("df_halo_multistep_launch",
-                             f"B15-{label}-rows{rows}-r{reset}-K{K}",
+                             f"B15-{label}-rows{rows}-r{reset}-K{Kr}",
                              cd.df_halo_multistep_launch(*args, **kw),
                              cd.df_halo_multistep_launch_ref(*args, **kw))
     halo_checks = checks[n_checks:]
@@ -2069,8 +2174,6 @@ def main() -> int:
     # kernel only passes between its own launches is not counted; the halo
     # kernels read seeds and write a record of the same shape).
     table = []
-    cn_eng = engine(gray_cfg(M, N, 2))
-    Kcn = cn_eng.max_steps_per_launch()
     rs = rand_state(big, 99)
     rcn = rand_state(cn_eng, 98)
     consts = (big.coef[BE], big.coef[CN], big.coef[BDF], big.bc, big.flip)
@@ -2266,6 +2369,7 @@ def main() -> int:
          b13_bytes, b13_args[4].numel() * B13_FLOPS_PER_CELL,
          (abs_err, f32_err, TOL, FUSED_CU)),
     ]
+    split = []
     for name, kernel_fn, plain_fn, reps, nb, flops, kind in jobs:
         abs_fn, norm_fn, tol, source = kind
         ms, got = timed(kernel_fn, reps)
@@ -2276,6 +2380,12 @@ def main() -> int:
             raise AssertionError(f"{name} full size: normalised error "
                                  f"{norm:.3e} > {tol}")
         bound_ms, bound_by = bound(nb, flops)
+        # The path's launches at the shape just timed, and the rest.
+        at = sum(1 for key in path_shapes[name] if key == shape_log[name][-1])
+        logged = len(path_shapes[name])
+        split.append(f"{name} {at} + {logged - at}"
+                     + ("" if logged == launches[name] else
+                        f" (count {launches[name]})"))
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": REPLACES[name],
                       "launches": launches[name], "max_abs_err": err,
@@ -2286,7 +2396,8 @@ def main() -> int:
                       # transpose).
                       "library_ms": None})
     # The redesigned kernels' shape choices, timed as the table times (not
-    # counted above): B6 at the df bench at K = 1, 2 and 4 with 512 and 256
+    # counted above): B1 and B2-CN at the bench (below), B6 at the df bench
+    # at K = 1, 2 and 4 with 512 and 256
     # threads a block, B6 at gray_s8 (the engine's K) with at most 16 and 8
     # blocks a row, B8 (BDF) at the gray rung's shard with 32-512 threads.
     shape_ms = []
@@ -2299,6 +2410,17 @@ def main() -> int:
         finally:
             setattr(mod, attr, old)
 
+    # B1 at the bench at K = 1, 4, 8 and B2-CN there at K = 8, 16, each at
+    # the C the geometry picks and at half of it.
+    for tag, eng_, Kxs, spp, x in (("B1", big, (1, 4, 8), 4, rs),
+                                   ("B2-CN", cn_eng, (8, 16), 1, rcn)):
+        for Kx in Kxs:
+            C = cs.sweep_geometry(N, Kx, eng_.Bh, spp)[1]
+            for mc in (cs.SWEEP_MAX_CLUSTER, max(1, C // 2)):
+                ms = shaped(cs, "SWEEP_MAX_CLUSTER", mc,
+                            lambda: eng_.multi_step(x, Kx), 3)
+                Cx = min(C, mc)
+                shape_ms.append(f"{tag} bench K={Kx} C={Cx} {ms:.3f} ms")
     for thr in (512, 256):
         for Kx in (1, 2, 4):
             ms = shaped(cd, "DF_BDF2_THREADS", thr,
@@ -2316,6 +2438,8 @@ def main() -> int:
         shape_ms.append(f"B8 gray shard BDF {thr} threads {ms:.4f} ms")
     print("redesign shapes (one H100 launch each, CUDA events): "
           + "; ".join(shape_ms) + f"; card: {card}", flush=True)
+    print("path launches at the timed shape + elsewhere: " + ", ".join(split),
+          flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,8 @@
 // of _df_substep), and the row-tile machinery of tiles.cuh (block-wide scan,
 // upwind exchange, cell loads and stores); B7, B14 and B15 share their tile
 // loops (df_bdf2_segment, df_multistep_segment), B6 runs the same tiles as
-// a cluster wavefront.
+// a cluster wavefront on cluster.cuh's mailboxes (which sweep.cu's B1 and
+// B2 share).
 //
 // What is computed. A value is an unevaluated sum hi + lo of two float32
 // numbers; the planes come in (hi, lo) pairs. Each sub-step of each row is
@@ -102,7 +103,7 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "tiles.cuh"
+#include "cluster.cuh"
 
 namespace {
 
@@ -111,7 +112,6 @@ constexpr int kCells = 4;          // consecutive cells per thread
 constexpr int kMaxThreads = 512;
 constexpr int kMaxSlots = 256;     // 4*K phase slots, K <= 64
 constexpr int kMaxSteps = kMaxSlots / 4;
-constexpr int kMaxCluster = 16;    // B6: blocks a row (above 8 non-portable)
 
 // Rounded float32 operations that nvcc never contracts into an FMA.
 __device__ __forceinline__ float mul(float a, float b) {
@@ -639,83 +639,34 @@ __device__ __forceinline__ void df_multistep_segment(const Planes& g,
 // block (t+1) mod C through the cluster's shared window and arrives on that
 // block's barrier (release, cluster scope).
 //
-// No "mailbox free" signal is needed. Block b = t mod C reads its mailbox
-// for slot s once per tile, before running slot s of tile t. The next write
-// to it carries tile t+C's input and comes from tile t+C-1, after tile
-// t+C-1 finished slot s, which needed tile t+C-2's slot s message, and so
-// on back to tile t+1, which needed tile t's slot s message, sent after
-// tile t ran slot s, after it read its mailbox. Each link is a release
-// (the sender's arrive) and an acquire (the receiver's wait) at cluster
-// scope, so the read happens before the overwrite. The same chain keeps an
-// mbarrier at most one phase ahead of its waiter: the arrival for tile t+C
-// comes after tile t's wait completed. Every tile a block waits for waits
-// on all 4K barriers once, so one parity bit a block serves every slot.
+// Why no "mailbox free" signal is needed and one parity bit a block serves
+// every slot: cluster.cuh (the argument holds for any mail and any number
+// of slots a tile).
 
-struct Mail {
-  float carry, ccarry, oth;    // base carry, correction carry, o1 edge
-  float th, tl;                // slot 4k: p1 edge; slot 4k+1: h1 edge
-};
-
-struct Mailbox {
-  Mail mail[kMaxSlots];
-  alignas(8) uint64_t bar[kMaxSlots];
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The address of the same shared variable in cluster block `rank`.
-__device__ __forceinline__ uint32_t cluster_addr(const void* p,
-                                                 uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out)
-               : "r"(smem_addr(p)), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(const uint64_t* bar,
-                                              uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-      "%2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done;
-}
+// B6's mail per slot: the base carry, the correction carry, the upwind base
+// o1 edge, and the tail the slot carries (slot 4k: step k's p1 edge; slot
+// 4k+1: its h1 edge; (hi, lo) each).
+constexpr int kCarry = 0, kCCarry = 1, kOth = 2, kTh = 3, kTl = 4;
+using DFMailbox = Mailbox<5, kMaxSlots>;
 
 // Tile t > 0 takes slot s's state from its mailbox: thread 0 waits, then
 // copies. No barrier follows here: every other thread first reads the
 // slot's state after the next block barrier (upwind_pair's before slots 4k
 // and 4k+2, the base scan's first inside df_substep otherwise), and the
 // copy overwrites state last read C tiles ago.
-__device__ __forceinline__ void receive(Shared& sm, Mailbox& mb, int s,
+__device__ __forceinline__ void receive(Shared& sm, DFMailbox& mb, int s,
                                         uint32_t parity) {
   if (threadIdx.x == 0) {
-    while (!mbar_try_wait(&mb.bar[s], parity)) {
-    }
-    const Mail& m = mb.mail[s];
-    sm.carry[s] = m.carry;
-    sm.ccarry[s] = m.ccarry;
-    sm.oth[s] = m.oth;
+    const float* m = wait_mail(mb, s, parity);
+    sm.carry[s] = m[kCarry];
+    sm.ccarry[s] = m[kCCarry];
+    sm.oth[s] = m[kOth];
     if (s % 4 == 0) {
-      sm.eth[s / 4] = m.th;
-      sm.etl[s / 4] = m.tl;
+      sm.eth[s / 4] = m[kTh];
+      sm.etl[s / 4] = m[kTl];
     } else if (s % 4 == 1) {
-      sm.hth[s / 4] = m.th;
-      sm.htl[s / 4] = m.tl;
+      sm.hth[s / 4] = m[kTh];
+      sm.htl[s / 4] = m[kTl];
     }
   }
 }
@@ -723,19 +674,10 @@ __device__ __forceinline__ void receive(Shared& sm, Mailbox& mb, int s,
 // Slot s's new state, by the thread that wrote it in df_substep (the owner
 // of the full tile's last cell), into block `next`'s mailbox; (th, tl) is
 // the tail the slot carries (0 where it carries none).
-__device__ __forceinline__ void send(const Shared& sm, Mailbox& mb, int s,
+__device__ __forceinline__ void send(const Shared& sm, DFMailbox& mb, int s,
                                      uint32_t next, float th, float tl) {
-  const uint32_t m = cluster_addr(&mb.mail[s], next);
-  auto at = [m](size_t off) { return m + static_cast<uint32_t>(off); };
-  st_cluster(at(offsetof(Mail, carry)), sm.carry[s]);
-  st_cluster(at(offsetof(Mail, ccarry)), sm.ccarry[s]);
-  st_cluster(at(offsetof(Mail, oth)), sm.oth[s]);
-  st_cluster(at(offsetof(Mail, th)), th);
-  st_cluster(at(offsetof(Mail, tl)), tl);
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
-          cluster_addr(&mb.bar[s], next))
-      : "memory");
+  const float m[5] = {sm.carry[s], sm.ccarry[s], sm.oth[s], th, tl};
+  send_mail(mb, s, next, m);
 }
 
 // B6, replaces _make_df_bdf2_kernel (df_sweep.py:372): K whole double-float
@@ -751,9 +693,9 @@ __global__ void __launch_bounds__(kMaxThreads)
                    int N, int K, int symmetric, int reflective, int use_corr,
                    int half0) {
   __shared__ Shared sm;
-  __shared__ Mailbox mb;
-  namespace cg = cooperative_groups;
-  const cg::cluster_group cluster = cg::this_cluster();
+  __shared__ DFMailbox mb;
+  const cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int cr = blockIdx.x / C;
@@ -761,16 +703,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int h = half0 + cr / Bh;
   const int hr = h * Bh + row;
   const int slots = 4 * K;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < slots; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                       smem_addr(&mb.bar[s])),
-                   "r"(1)
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  // Every block's barriers exist before any block arrives on them.
-  cluster.sync();
+  open_mailboxes(mb, slots);
   // Kinds and tails on every block; the slots' inflow serves tile 0 only.
   init_row(sm, slots, K, 3, pk, bc, bcl, flip, rec, h, row, hr, reflective);
   // The half snapshot is the CN output for mu<0 and the phase-0 BE output
@@ -830,54 +763,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   // The block that ran the row's last tile holds the outflow slots.
   if (rank == (T - 1) % C) record_row(sm, slots, rec, h, row, reflective);
-  // No block leaves while a cluster peer may still address its mailboxes.
-  cluster.sync();
-}
-
-// How many clusters of c blocks of `threads` threads the card holds at
-// once (cudaOccupancyMaxActiveClusters), cached per device.
-int active_clusters(int c, int threads) {
-  constexpr int kDevices = 16;
-  static int cache[kDevices][kMaxThreads / 32 + 1][kMaxCluster + 1] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kDevices) return 0;
-  int& n = cache[dev][threads / 32][c];
-  if (n == 0) {
-    if (c > 8)
-      cudaFuncSetAttribute(df_bdf2_kernel,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = c;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(c);
-    cfg.blockDim = dim3(threads);
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int got = 0;
-    if (cudaOccupancyMaxActiveClusters(&got, df_bdf2_kernel, &cfg) !=
-        cudaSuccess)
-      got = 0;
-    cudaGetLastError();  // a size the card refuses only counts 0 clusters
-    n = got > 0 ? got : -1;
-  }
-  return n;
-}
-
-// B6's blocks a row. At most 4K tiles of a row are active at once (one a
-// slot), so C = min(max_cluster, 4K, tiles); then C shrinks until the
-// launch's `clusters` rows fit on the card at once: a cluster that waits
-// for a free GPC doubles the launch (8 blocks a row at the df bench's 16
-// rows leave one cluster for a second wave on an H100), while one block
-// fewer a row costs at most a 4K/C share of each tile's handoff slack.
-int df_bdf2_cluster(int tiles, int K, int threads, int max_cluster,
-                    int clusters) {
-  int c = 4 * K < max_cluster ? 4 * K : max_cluster;
-  if (tiles < c) c = tiles;
-  while (c > 1 && active_clusters(c, threads) < clusters) --c;
-  return c;
+  close_mailboxes();
 }
 
 // B7, replaces _make_df_multistep_kernel (df_sweep.py:475): K whole
@@ -975,7 +861,8 @@ int rt_df_bdf2_geometry(int N, int K, int max_threads, int max_cluster,
   const int threads = pick_threads(N, kCells, max_threads);
   const int tiles = (N + threads * kCells - 1) / (threads * kCells);
   out[0] = threads;
-  out[1] = df_bdf2_cluster(tiles, K, threads, max_cluster, clusters);
+  out[1] = wave_cluster(tiles, 4 * K, threads, max_cluster, clusters,
+                        {reinterpret_cast<const void*>(&df_bdf2_kernel)});
   out[2] = tiles;
   return 0;
 }
@@ -996,33 +883,14 @@ int rt_df_bdf2(const float* cbe, const float* ccn, const float* cbdf,
   rt_df_bdf2_geometry(N, K, max_threads, max_cluster,
                       reflective ? Bh : 2 * Bh, geo);
   const int threads = geo[0], C = geo[1];
-  if (C > 8) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        df_bdf2_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // A refused cluster launch returns its error here; launch_halves then
-  // reads it from cudaGetLastError() too, and skips the second half.
-  cudaError_t err = cudaSuccess;
-  const int rc = launch_halves(Bh, reflective, [&](int grid, int half0) {
-    if (err != cudaSuccess) return;
-    cfg.gridDim = dim3(grid * C);
-    err = cudaLaunchKernelEx(&cfg, df_bdf2_kernel, pk, bc, bcl, flip, rec, g,
-                             Bh, N, K, symmetric, reflective, use_corr,
-                             half0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // A refused cluster launch returns its error, and the second half is
+  // not launched.
+  return launch_halves_ex(Bh, reflective, [&](int grid, int half0) {
+    return launch_clusters(df_bdf2_kernel, grid, C, threads, st, pk, bc, bcl,
+                           flip, rec, g, Bh, N, K, symmetric, reflective,
+                           use_corr, half0);
   });
-  return err != cudaSuccess ? static_cast<int>(err) : rc;
 }
 
 int rt_df_multistep(int kind, const float* coef, const float* dcoef,

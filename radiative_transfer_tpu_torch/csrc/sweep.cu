@@ -13,10 +13,12 @@
 // of _substep_block, in tiles.cuh, which the adjoint kernels of adjoint.cu
 // share), and one block-wide scan of affine maps (the counterpart of
 // _hillis_steele, in tiles.cuh, which the double-float kernels of
-// df_sweep.cu share too); the K-step kernels share their tile loops
-// (bdf2_segment, in segments.cuh, which the K-fused adjoint forward of
-// adjoint.cu runs too, and multistep_segment); B3 runs substep_segment (in
-// segments.cuh), which the mesh engine's B8 (sharded.cu) runs too.
+// df_sweep.cu share too). B1 and B2 walk each row as a cluster wavefront
+// (cluster.cuh, which df_sweep.cu's B6 shares); B4 and B5 keep the
+// one-block tile loops (bdf2_segment, in segments.cuh, which the K-fused
+// adjoint forward of adjoint.cu runs too, and multistep_segment); B3 runs
+// substep_segment (in segments.cuh), which the mesh engine's B8
+// (sharded.cu) runs too.
 //
 // What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
 // planes and per sub-step: the right-hand sides r0, r1 of every cell, the
@@ -26,11 +28,33 @@
 // Design.
 // * The Pallas grid (half, block) runs in order on the TPU, so the carries,
 //   the upwind tails and the reflective coupling live in VMEM scratch across
-//   grid steps. CUDA blocks run in no order. Here ONE thread block owns ONE
-//   row and walks N in tiles of blockDim*kCells cells with a loop inside the
-//   block. Per tile it runs all K steps (times 4 phases for BDF2): step k at
-//   tile i needs only step k at tiles < i (its carry and tails, in shared
-//   memory) and step k-1 at tile i (in registers). K is a runtime argument.
+//   grid steps. CUDA blocks run in no order. Every kernel here cuts a row of
+//   N cells into tiles of blockDim*kCells cells (kCells = 8 a thread, at most
+//   512 threads) and runs all K steps (times 4 phases for BDF2) of a tile
+//   before it leaves the tile: step k at tile t needs only step k at tile
+//   t-1 (its carry and upwind tails) and step k-1 at tile t (in registers).
+//   K is a runtime argument. Each (step, phase) is a slot, 4K of them for
+//   BDF2 and K for BE or CN.
+// * B1 and B2 run a row's tiles as a wavefront over (tile, slot) on a
+//   thread block cluster of C blocks (bdf2_kernel, multistep_kernel): slot
+//   s of tile t needs only slot s of tile t-1 and slot s-1 of tile t, so
+//   block rank r of the row's cluster runs tiles r, r + C, ..., and tile t
+//   runs slot s while tile t+1 runs slot s-1. Per slot the mail to the next
+//   tile's block is the carry leaving the tile, plus the tail the slot
+//   carries: B1 hands step k's upwind p1 edge on with slot 4k and its h1
+//   edge with slot 4k+1, B2-CN step k's p1 edge with slot k, B2-BE nothing
+//   more. The mail goes into the next block's mailbox in distributed shared
+//   memory, one mbarrier a slot (cluster.cuh: the protocol and why it needs
+//   no "free" signal). Only the row's last tile may be ragged, and it sends
+//   nothing; the block that runs it writes the reflective outflow record.
+//   C = min(16, slots, tiles), shrunk until every row's cluster of the
+//   launch is resident on the card (rt_sweep_geometry). The tiles, slots
+//   and arithmetic are those of the one-block walk, so the planes are the
+//   same to the bit.
+// * B3, B4 and B5 keep the one-block walk: ONE thread block owns ONE row and
+//   loops over its tiles (bdf2_segment in segments.cuh, which the K-fused
+//   adjoint forward of adjoint.cu runs too; multistep_segment;
+//   substep_segment), the carries and tails of every slot in shared memory.
 // * Each thread holds kCells consecutive cells in registers. A tile's scan is
 //   a serial scan over the thread's cells, a warp-shuffle scan of the
 //   per-thread affine maps (a^kCells, local total), one cross-warp pass in
@@ -61,18 +85,30 @@
 //   engine's splice of the fixup launch over the first H cells leaves an
 //   error of order a^H beyond H (a < 1 the carry multiplier), not zero.
 //
-// What bounds it on this card: the serial carry chain of each row. A row's
-// tiles are visited one after another, each (step, phase) costing three block
-// barriers and ten shuffle rounds, and only 2*Bh blocks exist (Bh at a time
-// for a reflective boundary): 16 busy SMs of 132 at the gray S_32 bench
-// shape. The halo kernels run all 2*Bh rows at once (8 SMs at gray S_8,
-// against the plain kernels' 4 at a time there). Device-memory traffic is
-// small beside that: 2 planes read and 6
-// written per K-step BDF2 launch (4 for BE/CN), as on the TPU. Splitting a
-// row over several blocks (a chained scan across blocks) is later work.
+// What bounds it on this card: latency, not bytes. A tile-phase costs three
+// block barriers and ten shuffle rounds (~1.8 us on an H100 at 512 threads),
+// and device-memory traffic is small beside it: 2 planes read and 6 written
+// per K-step BDF2 launch (4 for BE/CN), as on the TPU. In the one-block walk
+// a row's T tiles x slots tile-phases run one after another on one SM, and
+// only 2*Bh blocks exist (Bh at a time for a reflective boundary): 16 busy
+// SMs of 132 at the gray S_32 bench shape, which made B1's launch 42x its
+// byte bound. The wavefront puts C blocks on each row: a row's critical
+// path becomes ~T handoffs (a tile-phase plus the mail's latency each) plus
+// the last tile's slots, and the T x slots tile-phases spread over C SMs,
+// so a launch is bound by the larger of T*slots/C tile-phases and the
+// handoff chain. On an H100 at the bench shape (T = 256, C = 6) B1 takes
+// 3.6 ms at K = 4, ~7 us a tile on the chain and 11x its byte bound; at
+// K = 8 the tile-phases bind at ~1.8 us each (PERF.md). The mu>0 half of a
+// reflective slab still waits for the whole mu<0 half. The halo kernels run all 2*Bh rows at once (8 SMs at
+// gray S_8, against the plain kernels' 4 at a time there).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstdint>
+
+#include "cluster.cuh"
 #include "segments.cuh"
 
 namespace {
@@ -133,7 +169,51 @@ __device__ __forceinline__ void multistep_segment(
   }
 }
 
-// B1, replaces _make_bdf2_kernel (pallas_sweep.py:444): K whole BDF2 steps.
+// -- B1's and B2's wavefront: a row's tiles across a thread block cluster ---
+//
+// Per slot the mail is the carry leaving the tile (field 0) and, where the
+// slot carries one, a tail (field 1): B1's slot 4k step k's upwind p1 edge
+// (etail[k]), its slot 4k+1 step k's h1 edge (htail[k]); B2-CN's slot k
+// step k's p1 edge. B2-BE's mail is the carry alone.
+
+// Tile t > 0 takes slot s's carry, and where `tail` is given the tail the
+// slot carries, from its mailbox: thread 0 waits, then copies. No barrier
+// follows: the other threads first read the carry inside the slot's scan,
+// after its first barrier, and only thread 0 reads a tail (upwind_value,
+// after the next barrier); the copy overwrites state last read C tiles ago.
+template <int F, int S>
+__device__ __forceinline__ void take(Shared& sm, Mailbox<F, S>& mb, int s,
+                                     float* tail, uint32_t parity) {
+  if (threadIdx.x == 0) {
+    const float* m = wait_mail(mb, s, parity);
+    sm.carry[s] = m[0];
+    if constexpr (F > 1) {
+      if (tail) *tail = m[1];
+    }
+  }
+}
+
+// Slot s's carry, by the thread that wrote it in substep_tile (the owner of
+// the full tile's last cell, which also holds the tile's last cell of every
+// plane), and the tail if the slot carries one, into block `next`'s
+// mailbox.
+template <int F, int S>
+__device__ __forceinline__ void give(const Shared& sm, Mailbox<F, S>& mb,
+                                     int s, uint32_t next, float tail,
+                                     bool has_tail) {
+  float m[F];
+  m[0] = sm.carry[s];
+  if constexpr (F > 1) m[1] = tail;
+  send_mail(mb, s, next, m, has_tail ? F : 1);
+}
+
+// B1, replaces _make_bdf2_kernel (pallas_sweep.py:444): K whole BDF2 steps,
+// each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector, as a wavefront
+// over (tile, slot): the cluster of C blocks at blockIdx.x / C owns one row,
+// block rank r its tiles r, r + C, ... The tiles, slots and arithmetic are
+// bdf2_segment's (which B4 and B11 keep); only who runs a tile and how a
+// slot's state reaches the next tile differ, so the planes are
+// bdf2_segment's to the bit.
 __global__ void __launch_bounds__(kMaxThreads)
     bdf2_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
                 const float* __restrict__ cbdf, const float* __restrict__ bc,
@@ -145,21 +225,91 @@ __global__ void __launch_bounds__(kMaxThreads)
                 int N, int K, float s_be, float s_cn, float s_bdf,
                 int symmetric, int reflective, int half0) {
   __shared__ Shared sm;
-  const int row = blockIdx.x % Bh;
-  const int h = half0 + blockIdx.x / Bh;
+  __shared__ Mailbox<2, kMaxSlots> mb;
+  const cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cr = blockIdx.x / C;
+  const int row = cr % Bh;
+  const int h = half0 + cr / Bh;
   const int hr = h * Bh + row;
   const float s_of[4] = {s_be, s_cn, s_be, s_bdf};
   const int slots = 4 * K;
+  open_mailboxes(mb, slots);
+  // Tails on every block; the slots' inflow serves tile 0 only.
   init_row(sm, slots, K, s_of, 4, bc, flip, rec, h, row, hr, reflective);
+  const Coef kbe = load_coef(cbe + hr * kNCoef);
+  const Coef kcn = load_coef(ccn + hr * kNCoef);
+  const Coef kbdf = load_coef(cbdf + hr * kNCoef);
   // The half snapshot is the CN output for mu<0 and the phase-0 BE output
   // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
+  const bool snap_cn = symmetric || h == 0;
   const size_t base = static_cast<size_t>(hr) * N;
+  const int tile = blockDim.x * kCells;
+  const int T = (N + tile - 1) / tile;
+  const uint32_t next = (rank + 1) % C;
   int buf = 0;
-  bdf2_segment(load_coef(cbe + hr * kNCoef), load_coef(ccn + hr * kNCoef),
-               load_coef(cbdf + hr * kNCoef), symmetric || h == 0, e0g + base,
-               e1g + base, o0g + base, o1g + base, oh0g + base, oh1g + base,
-               op0g + base, op1g + base, 0, N, K, sm, buf);
-  record_row(sm, slots, rec, h, row, reflective);
+  uint32_t parity = 0;
+  for (int t = rank; t < T; t += C) {
+    const int t0 = t * tile;
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, N, kCells);
+    const bool first = t == 0;
+    const bool sender = t + 1 < T && owner >= 0;
+    float x0[kCells], x1[kCells], hs0[kCells], hs1[kCells];
+    load_cells(x0, e0g + base, j0, N);
+    load_cells(x1, e1g + base, j0, N);
+    for (int k = 0; k < K; ++k) {
+      const int s = 4 * k;
+      float* cs = sm.carry + s;
+      if (!first) take(sm, mb, s, &sm.etail[k], parity);
+      // prev = the step's input ends; its upwind edge feeds CN and BDF.
+      const float x1_up =
+          upwind_value(x1[kCells - 1], &sm.etail[k], sm.edge_p);
+      float b0[kCells], b1[kCells];
+      substep_tile<kBE>(kbe, x0, x1, x0, x1, x0, x1, 0.f, 0.f, cs + 0, owner,
+                        sm, buf, b0, b1);
+      if (sender) give(sm, mb, s, next, x1[kCells - 1], true);
+      if (!first) take(sm, mb, s + 1, &sm.htail[k], parity);
+      float c0[kCells], c1[kCells];
+      substep_tile<kCN>(kcn, b0, b1, x0, x1, x0, x1, x1_up, 0.f, cs + 1,
+                        owner, sm, buf, c0, c1);
+#pragma unroll
+      for (int c = 0; c < kCells; ++c) {
+        hs0[c] = snap_cn ? c0[c] : b0[c];
+        hs1[c] = snap_cn ? c1[c] : b1[c];
+      }
+      if (sender) give(sm, mb, s + 1, next, hs1[kCells - 1], true);
+      if (!first) take(sm, mb, s + 2, nullptr, parity);
+      const float hs1_up =
+          upwind_value(hs1[kCells - 1], &sm.htail[k], sm.edge_h);
+      float d0[kCells], d1[kCells];
+      substep_tile<kBE>(kbe, c0, c1, x0, x1, hs0, hs1, 0.f, 0.f, cs + 2,
+                        owner, sm, buf, d0, d1);
+      if (sender) give(sm, mb, s + 2, next, 0.f, false);
+      if (!first) take(sm, mb, s + 3, nullptr, parity);
+      float f0[kCells], f1[kCells];
+      substep_tile<kBDF>(kbdf, d0, d1, x0, x1, hs0, hs1, x1_up, hs1_up,
+                         cs + 3, owner, sm, buf, f0, f1);
+      if (sender) give(sm, mb, s + 3, next, 0.f, false);
+      if (k == K - 1) {
+        // prev of the final state = the LAST step's input.
+        store_cells(op0g + base, j0, N, x0);
+        store_cells(op1g + base, j0, N, x1);
+      }
+      copy_cells(x0, f0);
+      copy_cells(x1, f1);
+    }
+    store_cells(o0g + base, j0, N, x0);
+    store_cells(o1g + base, j0, N, x1);
+    store_cells(oh0g + base, j0, N, hs0);
+    store_cells(oh1g + base, j0, N, hs1);
+    if (!first) parity ^= 1u;
+  }
+  // The block that ran the row's last tile holds the outflow carries.
+  if (rank == (T - 1) % C) record_row(sm, slots, rec, h, row, reflective);
+  close_mailboxes();
 }
 
 // B4, replaces _make_halo_bdf2_kernel (pallas_sweep.py:638): K whole seeded
@@ -197,7 +347,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // B2, replaces _make_multistep_kernel (pallas_sweep.py:387): K whole BE or
-// CN steps; prev = each step's input.
+// CN steps, prev = each step's input, as a wavefront over (tile, slot) as in
+// bdf2_kernel, one slot a step; the tiles, slots and arithmetic are
+// multistep_segment's (which B5 keeps).
 template <int KIND>
 __global__ void __launch_bounds__(kMaxThreads)
     multistep_kernel(const float* __restrict__ coef,
@@ -208,18 +360,58 @@ __global__ void __launch_bounds__(kMaxThreads)
                      float* __restrict__ o1g, float* __restrict__ op0g,
                      float* __restrict__ op1g, int Bh, int N, int K, float s,
                      int reflective, int half0) {
+  constexpr bool kTail = KIND == kCN;
   __shared__ Shared sm;
-  const int row = blockIdx.x % Bh;
-  const int h = half0 + blockIdx.x / Bh;
+  __shared__ Mailbox<kTail ? 2 : 1, kMaxSteps> mb;
+  const cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cr = blockIdx.x / C;
+  const int row = cr % Bh;
+  const int h = half0 + cr / Bh;
   const int hr = h * Bh + row;
   const float s_of[1] = {s};
+  open_mailboxes(mb, K);
   init_row(sm, K, K, s_of, 1, bc, flip, rec, h, row, hr, reflective);
+  const Coef kc = load_coef(coef + hr * kNCoef);
   const size_t base = static_cast<size_t>(hr) * N;
+  const int tile = blockDim.x * kCells;
+  const int T = (N + tile - 1) / tile;
+  const uint32_t next = (rank + 1) % C;
   int buf = 0;
-  multistep_segment<KIND>(load_coef(coef + hr * kNCoef), e0g + base,
-                          e1g + base, o0g + base, o1g + base, op0g + base,
-                          op1g + base, 0, N, K, sm, buf);
-  record_row(sm, K, rec, h, row, reflective);
+  uint32_t parity = 0;
+  for (int t = rank; t < T; t += C) {
+    const int t0 = t * tile;
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, N, kCells);
+    const bool first = t == 0;
+    const bool sender = t + 1 < T && owner >= 0;
+    float x0[kCells], x1[kCells];
+    load_cells(x0, e0g + base, j0, N);
+    load_cells(x1, e1g + base, j0, N);
+    for (int k = 0; k < K; ++k) {
+      if (!first) take(sm, mb, k, kTail ? &sm.etail[k] : nullptr, parity);
+      float x1_up = 0.f;
+      if constexpr (kTail)
+        x1_up = upwind_value(x1[kCells - 1], &sm.etail[k], sm.edge_p);
+      float f0[kCells], f1[kCells];
+      substep_tile<KIND>(kc, x0, x1, x0, x1, x0, x1, x1_up, 0.f,
+                         sm.carry + k, owner, sm, buf, f0, f1);
+      if (sender) give(sm, mb, k, next, x1[kCells - 1], kTail);
+      if (k == K - 1) {
+        store_cells(op0g + base, j0, N, x0);
+        store_cells(op1g + base, j0, N, x1);
+      }
+      copy_cells(x0, f0);
+      copy_cells(x1, f1);
+    }
+    store_cells(o0g + base, j0, N, x0);
+    store_cells(o1g + base, j0, N, x1);
+    if (!first) parity ^= 1u;
+  }
+  if (rank == (T - 1) % C) record_row(sm, K, rec, h, row, reflective);
+  close_mailboxes();
 }
 
 // B5, replaces _make_halo_multistep_kernel (pallas_sweep.py:568): K whole
@@ -302,24 +494,56 @@ __global__ void __launch_bounds__(kMaxThreads)
 extern "C" {
 
 // Each entry point launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 on success). Planes are contiguous (2, Bh, N)
+// the launch's error (0 on success). Planes are contiguous (2, Bh, N)
 // float32, coefficients (2, Bh, 10) float32, bc (2, Bh, 1) float32, flip
 // (Bh,) int32, rec a (Bh, slots) float32 scratch record.
+
+// B1's and B2's launch shape for rows of N cells at K steps of
+// slots_per_step slots each (4: B1; 1: B2, both kinds), at most max_threads
+// threads a block and max_cluster blocks a row, `rows` rows a launch (Bh for
+// a reflective boundary, else 2*Bh): out = (threads a block, blocks a row
+// (the cluster), tiles a row).
+int rt_sweep_geometry(int N, int K, int slots_per_step, int max_threads,
+                      int max_cluster, int rows, int* out) {
+  if (N < 1 || K < 1 || K > kMaxSteps ||
+      (slots_per_step != 4 && slots_per_step != 1) || max_threads < 32 ||
+      max_threads > kMaxThreads || max_threads % 32 || max_cluster < 1 ||
+      max_cluster > kMaxCluster || rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = pick_threads(N, kCells, max_threads);
+  const int tiles = (N + threads * kCells - 1) / (threads * kCells);
+  out[0] = threads;
+  out[1] = slots_per_step == 4
+               ? wave_cluster(tiles, 4 * K, threads, max_cluster, rows,
+                              {reinterpret_cast<const void*>(&bdf2_kernel)})
+               : wave_cluster(
+                     tiles, K, threads, max_cluster, rows,
+                     {reinterpret_cast<const void*>(&multistep_kernel<kBE>),
+                      reinterpret_cast<const void*>(&multistep_kernel<kCN>)});
+  out[2] = tiles;
+  return 0;
+}
 
 int rt_sweep_bdf2(const float* cbe, const float* ccn, const float* cbdf,
                   const float* bc, const int* flip, float* rec,
                   const float* e0, const float* e1, float* o0, float* o1,
                   float* oh0, float* oh1, float* op0, float* op1, int Bh,
                   int N, int K, float s_be, float s_cn, float s_bdf,
-                  int symmetric, int reflective, void* stream) {
-  if (K < 1 || K > kMaxSteps || Bh < 1 || N < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+                  int symmetric, int reflective, int max_threads,
+                  int max_cluster, void* stream) {
+  if (Bh < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int geo[3];
+  const int bad = rt_sweep_geometry(N, K, 4, max_threads, max_cluster,
+                                    reflective ? Bh : 2 * Bh, geo);
+  if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = pick_threads(N, kCells, kMaxThreads);
-  return launch_halves(Bh, reflective, [&](int grid, int half0) {
-    bdf2_kernel<<<grid, threads, 0, st>>>(
-        cbe, ccn, cbdf, bc, flip, rec, e0, e1, o0, o1, oh0, oh1, op0, op1, Bh,
-        N, K, s_be, s_cn, s_bdf, symmetric, reflective, half0);
+  // A refused cluster launch returns its error, and the second half is not
+  // launched.
+  return launch_halves_ex(Bh, reflective, [&](int grid, int half0) {
+    return launch_clusters(bdf2_kernel, grid, geo[1], geo[0], st, cbe, ccn,
+                           cbdf, bc, flip, rec, e0, e1, o0, o1, oh0, oh1,
+                           op0, op1, Bh, N, K, s_be, s_cn, s_bdf, symmetric,
+                           reflective, half0);
   });
 }
 
@@ -327,21 +551,20 @@ int rt_sweep_multistep(int kind, const float* coef, const float* bc,
                        const int* flip, float* rec, const float* e0,
                        const float* e1, float* o0, float* o1, float* op0,
                        float* op1, int Bh, int N, int K, float s,
-                       int reflective, void* stream) {
-  if (K < 1 || K > kMaxSteps || Bh < 1 || N < 1 ||
-      (kind != kBE && kind != kCN))
+                       int reflective, int max_threads, int max_cluster,
+                       void* stream) {
+  if (Bh < 1 || (kind != kBE && kind != kCN))
     return static_cast<int>(cudaErrorInvalidValue);
+  int geo[3];
+  const int bad = rt_sweep_geometry(N, K, 1, max_threads, max_cluster,
+                                    reflective ? Bh : 2 * Bh, geo);
+  if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = pick_threads(N, kCells, kMaxThreads);
-  return launch_halves(Bh, reflective, [&](int grid, int half0) {
-    if (kind == kBE)
-      multistep_kernel<kBE><<<grid, threads, 0, st>>>(
-          coef, bc, flip, rec, e0, e1, o0, o1, op0, op1, Bh, N, K, s,
-          reflective, half0);
-    else
-      multistep_kernel<kCN><<<grid, threads, 0, st>>>(
-          coef, bc, flip, rec, e0, e1, o0, o1, op0, op1, Bh, N, K, s,
-          reflective, half0);
+  return launch_halves_ex(Bh, reflective, [&](int grid, int half0) {
+    return launch_clusters(
+        kind == kBE ? &multistep_kernel<kBE> : &multistep_kernel<kCN>, grid,
+        geo[1], geo[0], st, coef, bc, flip, rec, e0, e1, o0, o1, op0, op1,
+        Bh, N, K, s, reflective, half0);
   });
 }
 

@@ -38,8 +38,10 @@ _PP = ctypes.POINTER(ctypes.c_void_p)     # an array of plane pointers
 # csrc/adjoint.cu, csrc/sharded.cu and csrc/fused.cu (pointers and the
 # stream as c_void_p, so ctypes never cuts a 64-bit address).
 _SIGNATURES = {
-    "rt_sweep_bdf2": [_P] * 14 + [_I, _I, _I, _F, _F, _F, _I, _I, _P],
-    "rt_sweep_multistep": [_I] + [_P] * 10 + [_I, _I, _I, _F, _I, _P],
+    "rt_sweep_bdf2": [_P] * 14 + [_I, _I, _I, _F, _F, _F] + [_I] * 4 + [_P],
+    "rt_sweep_multistep": [_I] + [_P] * 10 + [_I, _I, _I, _F] + [_I] * 3
+    + [_P],
+    "rt_sweep_geometry": [_I] * 6 + [_P],
     "rt_sweep_substep": [_I] + [_P] * 12 + [_I, _I, _F, _I, _P],
     "rt_sweep_halo_bdf2": [_P] * 13 + [_I] * 5 + [_P],
     "rt_sweep_halo_multistep": [_I] + [_P] * 9 + [_I] * 4 + [_P],

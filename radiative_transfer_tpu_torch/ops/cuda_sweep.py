@@ -23,7 +23,9 @@ One carries the per-sub-step mesh engine (parallel/sharded_cuda.py):
   ``_make_sharded_packed_kernel``; csrc/sharded.cu).
 
 Each wrapper launches its kernel in csrc/sweep.cu (B8: csrc/sharded.cu)
-for a CUDA tensor and raises if it cannot; for a CPU tensor it runs its plain PyTorch version
+for a CUDA tensor and raises if it cannot (B1 and B2 walk each row as a
+wavefront over a thread block cluster, ``sweep_geometry``; a refused
+cluster launch raises too); for a CPU tensor it runs its plain PyTorch version
 (``*_launch_ref``), which keeps the JAX kernel's blocked algorithm: the
 same (half, block) visit order, the same truncated Hillis-Steele scan
 (_scan_npass passes) and the same operation order, so on the CPU it
@@ -509,13 +511,36 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+# B1's and B2's launch shape: at most this many threads a block (a tile is
+# 8 cells a thread; 512 keeps the tiles of B4's and B11's one-block walk,
+# so B11 stays bit-equal to B1) and blocks a row (a cluster; above 8 a
+# non-portable size). The kernel takes fewer blocks a row where the card
+# cannot hold every row's cluster at once.
+SWEEP_THREADS = 512
+SWEEP_MAX_CLUSTER = 16
+
+
+def sweep_geometry(N: int, K: int, rows: int,
+                   slots_per_step: int = 4) -> Tuple[int, int, int]:
+    """B1's (slots_per_step = 4) or B2's (1) launch shape for `rows` rows a
+    launch (Bh for a reflective boundary, else 2*Bh) of N cells at K
+    steps: (threads a block, blocks a row, i.e. the cluster size, tiles a
+    row)."""
+    out = (ctypes.c_int * 3)()
+    _raise_on("sweep_geometry", load_kernels().rt_sweep_geometry(
+        N, K, slots_per_step, SWEEP_THREADS, SWEEP_MAX_CLUSTER, rows, out))
+    return tuple(out)
+
+
 def bdf2_launch(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int, s_be: float,
                 s_cn: float, s_bdf: float, reflective: bool,
                 symmetric_half: bool, blk: int, npass_be: int,
                 npass_cn: int, npass_bdf: int):
     """B1: K whole BDF2 steps in one launch. Returns (ends0, ends1,
     half0, half1, prev0, prev1). `blk`/`npass_*` shape the plain
-    version's blocked scan; the kernel scans its own tiles exactly."""
+    version's blocked scan; the kernel scans its own tiles exactly, each
+    row's tiles as a wavefront over a cluster of blocks
+    (``sweep_geometry``)."""
     if e0.device.type == "cpu":
         return bdf2_launch_ref(
             cbe, ccn, cbdf, bc, flip, e0, e1, K=K, s_be=s_be, s_cn=s_cn,
@@ -532,7 +557,8 @@ def bdf2_launch(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int, s_be: float,
         rc = lib.rt_sweep_bdf2(
             *map(_ptr, (cbe, ccn, cbdf, bc, flip, rec, e0, e1, *outs)),
             Bh, N, K, s_be, s_cn, s_bdf, int(symmetric_half),
-            int(reflective), _stream(e0.device))
+            int(reflective), SWEEP_THREADS, SWEEP_MAX_CLUSTER,
+            _stream(e0.device))
     _raise_on(name, rc)
     bdf2_launch.launches += 1
     return tuple(outs)
@@ -540,7 +566,9 @@ def bdf2_launch(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int, s_be: float,
 
 def multistep_launch(kind: int, coef, bc, flip, e0, e1, *, K: int,
                      s: float, reflective: bool, blk: int, npass: int):
-    """B2: K whole BE or CN steps in one launch. Returns (e0, e1, p0, p1)."""
+    """B2: K whole BE or CN steps in one launch, each row's tiles as a
+    wavefront over a cluster of blocks (``sweep_geometry`` with one slot a
+    step). Returns (e0, e1, p0, p1)."""
     if e0.device.type == "cpu":
         return multistep_launch_ref(kind, coef, bc, flip, e0, e1, K=K, s=s,
                                     reflective=reflective, blk=blk,
@@ -556,7 +584,8 @@ def multistep_launch(kind: int, coef, bc, flip, e0, e1, *, K: int,
     with torch.cuda.device(e0.device):
         rc = lib.rt_sweep_multistep(
             kind, *map(_ptr, (coef, bc, flip, rec, e0, e1, *outs)),
-            Bh, N, K, s, int(reflective), _stream(e0.device))
+            Bh, N, K, s, int(reflective), SWEEP_THREADS, SWEEP_MAX_CLUSTER,
+            _stream(e0.device))
     _raise_on(name, rc)
     multistep_launch.launches += 1
     return tuple(outs)

@@ -15,19 +15,33 @@ two designs' arithmetic and protocol in plain PyTorch and Python:
   row below one tile and a row of whole tiles; nonzero pending corrections
   and halo tails; an optically thin slab (a ~ 0.995-0.9994), so that carries
   cross many tiles.
-* (b) B6's cluster wavefront (csrc/df_sweep.cu): C blocks over (tile,
+* (b, c) The cluster wavefront of B6 (csrc/df_sweep.cu), B1 and B2
+  (csrc/sweep.cu), on csrc/cluster.cuh's mailboxes: C blocks over (tile,
   slot), tile t on block t mod C, one mailbox entry and one mbarrier (one
   arrival a phase) per slot and block, each block's single parity bit
   flipped after every tile that waited, run under seeded random
   interleavings of the blocks. Every read gets what tile t-1 wrote for
-  that slot; step k's upwind p1 edge arrives by slot 4k and its h1 edge by
-  slot 4k+1; no write lands on an unread entry; no barrier runs two phases
-  ahead of its waiter (a parity wait could not tell them apart); every
-  block finishes.
+  that slot; the tails arrive with their slots (B6 and B1: step k's upwind
+  p1 edge by slot 4k and its h1 edge by slot 4k+1; B2-CN: step k's p1 edge
+  by slot k; B2-BE: none) and are those of tile t-1 where they are read;
+  no write lands on an unread entry; no barrier runs two phases ahead of
+  its waiter (a parity wait could not tell them apart); every block
+  finishes.
+* (d) B1's and B2's wavefront walk in plain PyTorch: each (tile, slot) a
+  unit, the tile's sub-step with an exact scan from the carry the mail
+  brings, run in a seeded random order that C blocks could take (tile t on
+  block t mod C, each block's units in order, a unit ready when tile t-1's
+  mail for its slot is in the mailbox), carries and tails passed through a
+  mailbox dict. Held bit for bit against the same model in serial order
+  (one block), and against ``bdf2_launch_ref`` / ``multistep_launch_ref``
+  evaluated in float64 with npass = log2(blk), so that their block scan is
+  exact, within 1e-12; reflective and source left boundaries, both half
+  modes, a ragged last tile, whole tiles, a row below one tile.
 
 No JAX program is compiled here.
 """
 
+import functools
 import os
 import random
 
@@ -194,17 +208,28 @@ def test_b8_lookback_model_matches_plain(engine, kind, dtype):
     assert max(errs) <= bar, errs
 
 
-# -- (b) B6's mailbox protocol ----------------------------------------------
+# -- (b, c) the wavefront's mailbox protocol ---------------------------------
+
+# Per kernel: slots a step and, per tail, (the slot phase that carries it,
+# the slot phase before whose sub-step the receiving tile reads it).
+WAVES = {
+    "B6": (4, {"e": (0, 0), "h": (1, 2)}),
+    "B1": (4, {"e": (0, 0), "h": (1, 2)}),
+    "B2-CN": (1, {"e": (0, 0)}),
+    "B2-BE": (1, {}),
+}
+
 
 class _Block:
-    """One cluster block of B6's wavefront, as csrc/df_sweep.cu runs it:
-    tiles rank, rank + C, ...; per tile and step k the slots 4k .. 4k+3,
-    each (for t > 0) a wait on the slot's barrier with the block's parity
-    and a copy of its mailbox, the sub-step, and (when a tile follows) a
-    send to block (t+1) mod C; the parity flips after a tile that waited."""
+    """One cluster block of the wavefront, as csrc/df_sweep.cu (B6) and
+    csrc/sweep.cu (B1, B2) run it: tiles rank, rank + C, ...; per tile and
+    step k the slots k*spp .. k*spp + spp - 1, each (for t > 0) a wait on
+    the slot's barrier with the block's parity and a copy of its mailbox,
+    the sub-step, and (when a tile follows) a send to block (t+1) mod C;
+    the parity flips after a tile that waited."""
 
-    def __init__(self, rank, C, T, K):
-        self.rank, self.C, self.T, self.K = rank, C, T, K
+    def __init__(self, rank, C, T, K, spp):
+        self.rank, self.C, self.T, self.K, self.spp = rank, C, T, K, spp
         self.parity = 0
         self.ops = self._ops()
         self.pending = next(self.ops, None)
@@ -212,8 +237,8 @@ class _Block:
     def _ops(self):
         for t in range(self.rank, self.T, self.C):
             for k in range(self.K):
-                for p in range(4):
-                    s = 4 * k + p
+                for p in range(self.spp):
+                    s = self.spp * k + p
                     if t > 0:
                         yield ("wait", t, s, k, p)
                     yield ("run", t, s, k, p)
@@ -223,22 +248,24 @@ class _Block:
                 yield ("flip", t, 0, 0, 0)
 
 
-def _run_wavefront(C: int, T: int, K: int, seed: int):
-    """Runs the protocol under one seeded random interleaving; returns the
-    number of steps taken. Asserts every property on the way."""
-    S = 4 * K
+def _run_wavefront(C: int, T: int, K: int, seed: int, wave: str = "B6"):
+    """Runs the protocol of `wave` under one seeded random interleaving;
+    returns the number of steps taken. Asserts every property on the
+    way."""
+    spp, tails = WAVES[wave]
+    S = spp * K
     rng = random.Random(seed)
-    blocks = [_Block(r, C, T, K) for r in range(C)]
+    blocks = [_Block(r, C, T, K, spp) for r in range(C)]
     # Per (block, slot): the mailbox (message, read?), the barrier's
     # completed phases and the waits that passed.
     mail = [[None] * S for _ in range(C)]
     unread = [[False] * S for _ in range(C)]
     phases = [[0] * S for _ in range(C)]
     waited = [[0] * S for _ in range(C)]
-    # What each block's shared state holds: the slot's state and the tails.
+    # What each block's shared state holds: the slot's state and, per tail,
+    # each step's tail.
     state = [[None] * S for _ in range(C)]
-    eth = [[None] * K for _ in range(C)]
-    hth = [[None] * K for _ in range(C)]
+    held = {x: [[None] * K for _ in range(C)] for x in tails}
     steps = 0
     while True:
         live = [b for b in blocks if b.pending is not None]
@@ -249,7 +276,7 @@ def _run_wavefront(C: int, T: int, K: int, seed: int):
             op, t, s, k, p = b.pending
             if op != "wait" or phases[b.rank][s] % 2 != b.parity:
                 runnable.append(b)
-        assert runnable, f"deadlock: C={C} T={T} K={K}"
+        assert runnable, f"deadlock: {wave} C={C} T={T} K={K}"
         b = rng.choice(runnable)
         r = b.rank
         op, t, s, k, p = b.pending
@@ -262,26 +289,25 @@ def _run_wavefront(C: int, T: int, K: int, seed: int):
             assert unread[r][s] and msg[:2] == (t - 1, s), (msg, t, s)
             unread[r][s] = False
             state[r][s] = msg
-            if p == 0:
-                eth[r][k] = msg[2]
-            elif p == 1:
-                hth[r][k] = msg[2]
+            for x, (sent_p, _) in tails.items():
+                if p == sent_p:
+                    held[x][r][k] = msg[2]
         elif op == "run":
             if t > 0:
                 assert state[r][s][:2] == (t - 1, s)
-                # upwind_pair reads step k's p1 edge before slot 4k and
-                # its h1 edge before slot 4k+2 (both after their slots'
-                # waits): each must be tile t-1's for step k.
-                if p == 0:
-                    assert eth[r][k] == ("e", t - 1, k)
-                if p == 2:
-                    assert hth[r][k] == ("h", t - 1, k)
+                # Each tail is read (thread 0's upwind exchange) before the
+                # sub-step of its reading phase, after its slot's wait: it
+                # must be tile t-1's for step k.
+                for x, (_, read_p) in tails.items():
+                    if p == read_p:
+                        assert held[x][r][k] == (x, t - 1, k), (wave, t, s)
             state[r][s] = (t, s)
         elif op == "send":
             nxt = (r + 1) % C
             assert state[r][s] == (t, s)
             assert not unread[nxt][s], (C, T, K, t, s)   # no lost message
-            tail = ("e", t, k) if p == 0 else ("h", t, k) if p == 1 else None
+            tail = next(((x, t, k) for x, (sent_p, _) in tails.items()
+                         if p == sent_p), None)
             mail[nxt][s] = (t, s, tail)
             unread[nxt][s] = True
             phases[nxt][s] += 1
@@ -309,3 +335,251 @@ def test_b6_mailbox_protocol(C, T, K):
         sends = (T - 1) * 4 * K
         waits = (T - 1) * 4 * K
         assert steps == T * 4 * K + sends + waits + (T - 1)
+
+
+def _b1_b2_wave_cases():
+    """(wave, C, T, K): B1 at C up to 16 (its 4K slots allow it from K =
+    4), B2 at C up to its K slots; T below C, at C, one above, and with
+    a ragged rest (3C + 2)."""
+    for wave, Ks in (("B1", (1, 4)), ("B2-CN", (1, 5, 16)),
+                     ("B2-BE", (1, 5, 16))):
+        spp = WAVES[wave][0]
+        for K in Ks:
+            for C in sorted({1, min(3, spp * K), min(16, spp * K)}):
+                for T in sorted({1, C - 1, C, C + 1, 3 * C + 2} - {0}):
+                    yield pytest.param(wave, C, T, K,
+                                       id=f"{wave}-C{C}-T{T}-K{K}")
+
+
+@pytest.mark.parametrize("wave,C,T,K", list(_b1_b2_wave_cases()))
+def test_b1_b2_mailbox_protocol(wave, C, T, K):
+    S = WAVES[wave][0] * K
+    for seed in range(3):
+        steps = _run_wavefront(C, T, K, seed=7000 * C + 10 * T + K + seed,
+                               wave=wave)
+        assert steps == T * S + 2 * (T - 1) * S + (T - 1)
+
+
+# -- (d) B1's and B2's wavefront walk in plain PyTorch ------------------------
+
+MBLK = 32                # the plain version's block
+MN = 96                  # cells a row: three plain blocks
+# The model's tiles: a ragged last one (40, 40, 16), whole tiles (4 of 24),
+# a row below one tile.
+MTILES = {"ragged": 40, "whole": 24, "below-one-tile": 128}
+
+
+def _tile_substep(kind, kc, e0, e1, p0, p1, h0, h1, p1_up, h1_up, carry):
+    """substep_tile (csrc/tiles.cuh) over one tile's (rows, n) cells: the
+    right-hand sides with the upwind p1/h1 values (rows, 1), the exact scan
+    of carry_j = a*carry_{j-1} + b_j from the carry entering the tile, the
+    2x2 reconstruction. Returns (o0, o1, the carry leaving the tile)."""
+    def shift(x, up):
+        return torch.cat([up, x[:, :-1]], 1)
+
+    S = kc.Sb + kc.c1 * (0.5 * (e0 + e1)) + kc.c0
+    if kind == BE:
+        r0, r1 = S + kc.kee * e0, S + kc.kee * e1
+    elif kind == CN:
+        r0 = S + kc.kee * e0 - kc.q * e1 + kc.w * shift(p1, p1_up)
+        r1 = S + kc.q * e0 + kc.kee * e1
+    else:
+        r0 = (S + kc.kee * h0 - 2.0 * kc.w * h1 - kc.kp * p0 - kc.q * p1
+              + kc.w * (4.0 * shift(h1, h1_up) + shift(p1, p1_up)))
+        r1 = S + 2.0 * kc.w * h0 + kc.kee * h1 + kc.q * p0 - kc.kp * p1
+    b = (kc.q * r0 + kc.T0 * r1) * kc.idet
+    cin = torch.empty_like(b)
+    cur = carry
+    for j in range(b.shape[1]):
+        cin[:, j:j + 1] = cur
+        cur = kc.a * cur + b[:, j:j + 1]
+    u = r0 + kc.w * cin
+    return ((kc.T0 * u - kc.q * r1) * kc.idet,
+            (kc.q * u + kc.T0 * r1) * kc.idet, cur)
+
+
+class _WaveTile:
+    """One tile of one half's rows as the wavefront kernels run it, one
+    (step, phase) slot at a time: B1 (bdf2_kernel: BE, CN, BE, BDF a step,
+    the half snapshot, step k's p1 edge sent with slot 4k and its h1 edge
+    with slot 4k+1) or B2 (multistep_kernel of `kind`: one slot a step, CN
+    sending step k's p1 edge with slot k). run(s, mail) takes tile t-1's
+    mail (carry, tail) for slot s (None for the row's first tile: the
+    carries start from `inflow` and the tails at 0) and returns this
+    tile's mail."""
+
+    def __init__(self, wave, kcs, x0, x1, snap_cn, inflow):
+        self.wave, self.kcs, self.snap_cn = wave, kcs, snap_cn
+        self.x0, self.x1 = x0, x1
+        self.inflow = inflow
+        self.zt = torch.zeros_like(x0[:, :1])
+        self.tails = {}
+
+    def run(self, s, mail):
+        carry, tail = mail if mail is not None else (self.inflow[s],
+                                                     self.zt)
+        if self.wave == "B1":
+            return self._bdf2(s, carry, tail)
+        kind = BE if self.wave == "B2-BE" else CN
+        x0, x1 = self.x0, self.x1
+        out0, out1, c = _tile_substep(kind, self.kcs[kind], x0, x1, x0, x1,
+                                      x0, x1, tail, self.zt, carry)
+        self.p0, self.p1 = x0, x1
+        self.x0, self.x1 = out0, out1
+        return c, (x1[:, -1:] if kind == CN else None)
+
+    def _bdf2(self, s, carry, tail):
+        k, ph = divmod(s, 4)
+        kbe, kcn, kbdf = (self.kcs[x] for x in (BE, CN, BDF))
+        x0, x1, z = self.x0, self.x1, self.zt
+        if ph == 0:
+            self.tails["e", k] = tail
+            self.b = _tile_substep(BE, kbe, x0, x1, x0, x1, x0, x1, z, z,
+                                   carry)
+            return self.b[2], x1[:, -1:]
+        if ph == 1:
+            self.tails["h", k] = tail
+            self.c = _tile_substep(CN, kcn, *self.b[:2], x0, x1, x0, x1,
+                                   self.tails["e", k], z, carry)
+            pick = self.c if self.snap_cn else self.b
+            self.hs = pick[:2]
+            return self.c[2], self.hs[1][:, -1:]
+        if ph == 2:
+            self.d = _tile_substep(BE, kbe, *self.c[:2], x0, x1, *self.hs,
+                                   z, z, carry)
+            return self.d[2], None
+        f = _tile_substep(BDF, kbdf, *self.d[:2], x0, x1, *self.hs,
+                          self.tails["e", k], self.tails["h", k], carry)
+        self.p0, self.p1 = x0, x1
+        self.x0, self.x1 = f[:2]
+        return f[2], None
+
+    def outputs(self):
+        if self.wave == "B1":
+            return (self.x0, self.x1, *self.hs, self.p0, self.p1)
+        return self.x0, self.x1, self.p0, self.p1
+
+
+def _wave_half(wave, kcs, x0, x1, K, inflow, tile, snap_cn, C, rng):
+    """One half's rows through the wavefront walk on C blocks, units in an
+    order drawn from `rng` (serial, tile after tile, for C = 1). Returns
+    (the half's output planes, the carries leaving the row per slot)."""
+    N = x0.shape[1]
+    T = -(-N // tile)
+    S = (4 if wave == "B1" else 1) * K
+    tiles = [_WaveTile(wave, kcs, x0[:, t * tile:(t + 1) * tile],
+                       x1[:, t * tile:(t + 1) * tile], snap_cn, inflow)
+             for t in range(T)]
+    # Each block's units in its order: tiles rank, rank + C, ..., all slots.
+    queues = [[(t, s) for t in range(r, T, C) for s in range(S)]
+              for r in range(C)]
+    mailbox = {}
+    record = [None] * S
+    while any(queues):
+        ready = [q for q in queues
+                 if q and (q[0][0] == 0 or (q[0][0] - 1, q[0][1]) in mailbox)]
+        assert ready, f"deadlock: {wave} C={C} T={T} K={K}"
+        q = rng.choice(ready)
+        t, s = q.pop(0)
+        carry, tail = tiles[t].run(s, mailbox.pop((t - 1, s), None))
+        if t + 1 < T:
+            assert (t, s) not in mailbox
+            mailbox[t, s] = (carry, tail if tail is not None else
+                             tiles[t].zt)
+        else:
+            record[s] = carry
+    assert not mailbox
+    outs = [torch.cat(p, 1) for p in zip(*(x.outputs() for x in tiles))]
+    return outs, record
+
+
+def _wave_launch(wave, eng, x0, x1, K, tile, C, seed):
+    """A whole launch of B1 or B2 on (2, Bh, N) planes: the mu<0 half, then
+    the mu>0 half from the boundary or, on a reflective slab, from the
+    flipped mu<0 record, each through the wavefront walk."""
+    rng = random.Random(seed)
+    kinds = (BE, CN, BDF) if wave == "B1" else (
+        (BE,) if wave == "B2-BE" else (CN,))
+    s_of = ([eng.kcs[k].s for _ in range(K) for k in (BE, CN, BE, BDF)]
+            if wave == "B1" else [eng.kcs[kinds[0]].s] * K)
+    coef = {k: eng.coef[k].to(x0.dtype) for k in kinds}
+    bc = eng.bc.to(x0.dtype)
+    outs, record = [], None
+    for h in (0, 1):
+        if h == 1 and eng.reflective:
+            inflow = [s * c[eng.flip.long()] for s, c in zip(s_of, record)]
+        else:
+            inflow = [s * bc[h] for s in s_of]
+        kcs = {k: cs._unpack_coef(coef[k][h]) for k in kinds}
+        snap_cn = bool(eng.cfg.bdf2_symmetric_half) or h == 0
+        got, record = _wave_half(wave, kcs, x0[h], x1[h], K, inflow, tile,
+                                 snap_cn, C, rng)
+        outs.append(got)
+    return tuple(torch.stack(p) for p in zip(*outs))
+
+
+@functools.cache
+def _model_engine(ts_method: int, reflective: bool, symmetric: bool):
+    """The gray deck at M = 4 (Bh = 2), N = MN, optically thin (X =
+    0.002, so carries cross tiles), on CudaSweepEngine on the CPU."""
+    cfg = port.load_config(
+        GRAY, M=4, N=MN, X=0.002, ts_method=ts_method,
+        bc_left_indicator=2 if reflective else 1,
+        bdf2_symmetric_half=symmetric,
+        psi_source=tuple((6.0,) for _ in range(4)))
+    tables, _, _ = port_transport.build_tables(cfg)
+    return cs.CudaSweepEngine(cfg, tables, block=MBLK, device="cpu")
+
+
+def _model_cases():
+    for wave in ("B1", "B2-BE", "B2-CN"):
+        for refl in (True, False):
+            for tname in MTILES:
+                yield pytest.param(wave, refl, False, tname,
+                                   id=f"{wave}-{'refl' if refl else 'src'}"
+                                   f"-{tname}")
+    for refl in (True, False):
+        yield pytest.param("B1", refl, True, "ragged",
+                           id=f"B1-{'refl' if refl else 'src'}-sym-ragged")
+
+
+@pytest.mark.parametrize("wave,refl,sym,tname", list(_model_cases()))
+def test_b1_b2_wavefront_model_matches_plain(wave, refl, sym, tname):
+    ts_method = {"B1": 3, "B2-BE": 1, "B2-CN": 2}[wave]
+    eng = _model_engine(ts_method, refl, sym)
+    tile = MTILES[tname]
+    T = -(-MN // tile)
+    K = 3 if wave == "B1" else 5
+    S = (4 if wave == "B1" else 1) * K
+    rng = np.random.default_rng(ts_method * 100 + tile + 10 * refl + sym)
+    B = float(np.asarray(eng.tables.B)[0])
+    x0, x1 = (torch.as_tensor(B * rng.uniform(0.5, 1.5, (2, eng.Bh, MN)))
+              for _ in range(2))
+    if T > 1:
+        # The mail matters: a carry crosses a whole tile.
+        kc = next(iter(eng.coef.values()))
+        a = cs._unpack_coef(kc.double().reshape(-1, 10)).a
+        assert float((a ** tile).max()) > 1e-2
+    serial = _wave_launch(wave, eng, x0, x1, K, tile, C=1, seed=0)
+    for C in sorted({2, min(S, T, 16)}):
+        for seed in range(2):
+            got = _wave_launch(wave, eng, x0, x1, K, tile, C=C, seed=seed)
+            assert all(torch.equal(g, r) for g, r in zip(got, serial)), (
+                C, seed)
+    npass = int(np.log2(MBLK))
+    coef = {k: c.double() for k, c in eng.coef.items()}
+    if wave == "B1":
+        ref = cs.bdf2_launch_ref(
+            coef[BE], coef[CN], coef[BDF], eng.bc.double(), eng.flip, x0, x1,
+            K=K, s_be=eng.kcs[BE].s, s_cn=eng.kcs[CN].s,
+            s_bdf=eng.kcs[BDF].s, reflective=eng.reflective,
+            symmetric_half=sym, blk=MBLK, npass_be=npass, npass_cn=npass,
+            npass_bdf=npass)
+    else:
+        kind = BE if wave == "B2-BE" else CN
+        ref = cs.multistep_launch_ref(
+            kind, coef[kind], eng.bc.double(), eng.flip, x0, x1, K=K,
+            s=eng.kcs[kind].s, reflective=eng.reflective, blk=MBLK,
+            npass=npass)
+    errs = [_nerr(g, r) for g, r in zip(serial, ref)]
+    assert max(errs) <= 1e-12, errs
