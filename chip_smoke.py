@@ -60,8 +60,16 @@ Phases, one line each; any failure exits nonzero before the result line:
    B10 against their plain versions (planes and cbc <= 1e-5, gradient packs
    <= 1e-4 of their largest magnitude) for BE, CN and BDF2, reflective and
    source left, rows of 4 B9 tiles (13 B10 sub-tiles) and a ragged single
-   tile; B9's step against B1's (B2's for BE/CN) at K = 1 (B1's tiles and
-   arithmetic: held to 1e-6, bit-equality reported); a transposition check
+   tile; B10's cluster wavefront on its own shapes, each launched REPEAT =
+   5 times, the worst held as check_f64 holds phase 3's wavefront shapes
+   (both against the plain version evaluated in float64, the kernel within
+   the float32 plain version's distance plus those bars) and the launches
+   bit-identical
+   (one record tile of fewer sub-tiles than blocks a row, C + 1 sub-tiles,
+   a ragged last sub-tile at N = 52736, BE and CN at one block a row; both
+   boundaries, both half modes); B9's step against B1's (B2's for BE/CN)
+   at K = 1 (B1's tiles and arithmetic: held to 1e-6, bit-equality
+   reported); a transposition check
    independent of the plain versions (with Sb = c0 = 0 and bc = 0 the step
    is a linear map A of the state: <c, A d> = <B10(c), d> within 1e-5, for
    random d and c = A d); make_diff_solve_cuda(steps_per_launch=1)
@@ -71,13 +79,19 @@ Phases, one line each; any failure exits nonzero before the result line:
    shape (gray S_32, N = 2^17, BDF2, 96 steps): value_and_grad of
    sum(ends^2) * 1e-3 through make_diff_solve_cuda at K = 1 against the
    same 96 steps forward on CudaSweepEngine at its K, three CUDA-event
-   windows each, the grad/forward ratio and peak device memory;
+   windows each, the grad/forward ratio (beside the row walk's) and peak
+   device memory, and B10's grid there (rows x blocks a row x sub-tiles;
+   more than one block a row);
 10. the K-fused adjoint (B11 K-step forward with records, B12 transposed
    K-step launch): B11 and B12 against their plain versions (the
    intermediate inputs with the planes; bars as phase 9) at K = 2, 3 and 4,
    reflective and source left, both half modes, a 13-tile row with a ragged
    last tile (N = 52736), 4-tile rows (N = 12800, one at K = 2), N = 5000
-   and N = 100; B11 against B1 at the same K (all six planes bit-equal),
+   and N = 100; B12's cluster wavefront on its own shapes as B10's in
+   phase 9 (one record tile at K = 4, C + 1 sub-tiles at K = 1 and 2, N =
+   52736 at K = 3 and 4, and K = 16 on Bh = 4 rows, where the blocks a row
+   reach their cap of 16), the REPEAT launches bit-identical, packs
+   included; B11 against B1 at the same K (all six planes bit-equal),
    B11's records and intermediate inputs against K chained B9 launches
    (reported); the transposition check <c, A d> = <B12(c), d> within 1e-5;
    K-fused against K = 1 gradients on the card within 1e-4 (JAX's
@@ -86,7 +100,8 @@ Phases, one line each; any failure exits nonzero before the result line:
    K-fused default at phase 9's bars; the adjoint bench in turns: the
    forward, value_and_grad at K = 1 and at the K-fused default (K = 4),
    printed as fwd_seconds, grad_k1_seconds, grad_kfused_seconds and both
-   ratios to the forward, with the K-fused step's peak memory; and 3
+   ratios to the forward (beside the row walk's), with the K-fused step's
+   peak memory and B12's grid there (more than one block a row); and 3
    fit_params(solver="pallas") iterations at that shape on the K-fused
    default (the off-equilibrium boundary source from 20% above it, the
    loss scaled to 1 at the start), every loss finite.
@@ -163,7 +178,9 @@ peaks), and the redesigned kernels' shape choices are timed: B1 at the
 bench at K = 1, 4, 8 and B2-CN there at K = 8, 16, each at the blocks a
 row the geometry picks and at half as many; B6 at the df bench at K = 1,
 2, 4 with 512 and 256 threads a block, at gray_s8 with at most 16 and 8
-blocks a row; B8 at the gray shard with 32-512 threads.
+blocks a row; B8 at the gray shard with 32-512 threads; B10 and B12 (K = 4)
+at the adjoint bench with 256 and 128 threads a block, each at the blocks a
+row the geometry picks and at half as many.
 A line splits each kernel's launches on its path's phases into those at
 the shape it is timed at and the rest. The last lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -196,9 +213,9 @@ DRIFT_TOL = 5e-5
 # f64-grade engine drift ~1e-13 a step from float64).
 DF_TOL = 1e-11
 DF_CLI_TOL = 1e-10
-# Launches of each redesigned kernel (B1's, B2's and B6's wavefronts, B8's
-# look-back) per new parity shape: a race shows intermittently, so the
-# worst is held.
+# Launches of each redesigned kernel (B1's, B2's, B6's, B10's and B12's
+# wavefronts, B8's look-back) per new parity shape: a race shows
+# intermittently, so the worst is held.
 REPEAT = 5
 # The rates (updates/s) these paths ran at while B1, B6 and B8 still walked
 # each row on one thread block, measured on one H100 80GB HBM3 at 700 W
@@ -210,6 +227,11 @@ WALK_RATES = {"bench": 3.56799e10, "gray_s8 CudaSweepEngine": 9.08025e9,
              "gray rung HaloCudaEngine": 9.69710e10,
              "gray rung FusedExchangeCudaEngine": 3.01069e10,
              "gray rung ShardedCudaEngine": 1.62029e10}
+# The adjoint bench's grad/forward ratios while B10 and B12 still walked each
+# row on one thread block (the forward already on B1's wavefront), measured
+# on one H100 80GB HBM3 at 700 W (PERF.md section 5), printed beside this
+# run's.
+WALK_GRAD_RATIOS = {"grad_k1_vs_fwd": 21.72, "grad_kfused_vs_fwd": 19.37}
 SWEEP_CU = "radiative_transfer_tpu_torch/csrc/sweep.cu"
 DF_CU = "radiative_transfer_tpu_torch/csrc/df_sweep.cu"
 ADJ_CU = "radiative_transfer_tpu_torch/csrc/adjoint.cu"
@@ -1613,6 +1635,113 @@ def main() -> int:
         transposition(label, d, Ad, tb[:2], b10_transposed)
     adj_checks = checks[n_checks:]
 
+    def bwd_wave_check(tag, e, K, readings):
+        """B10 (K None) or B12 (K steps) on engine e's shape, launched
+        REPEAT times against one plain launch, the largest error held (a
+        race between the cluster's blocks shows intermittently), and the
+        REPEAT launches bit-identical, packs included (the cluster adds its
+        blocks' partials in rank order). Held as check_f64 holds phase 3's
+        wavefront shapes: over 16 steps of a 52736-cell row the float32
+        plain version itself lies above TOL from its float64 evaluation,
+        so the kernel and the plain version are both measured against the
+        plain version evaluated in float64 on the same inputs (records from
+        the float64 forward) and the kernel held to the float32 plain
+        version's distance plus TOL (packs ADJ_PACK_TOL), which is TOL
+        against the plain version wherever that one is accurate."""
+        geo, co = ca.step_geometry(e), adj_coefs(e)
+        base = e.init_state().e0
+        Nx, ts = base.shape[-1], e.cfg.ts_method
+        g = torch.Generator(device=dev).manual_seed(400 + len(readings))
+
+        def rnd(centred=False):
+            r = torch.rand(base.shape, generator=g, device=dev)
+            return (r - 0.5 if centred else base * (0.5 + r)).contiguous()
+
+        e0, e1 = rnd(), rnd()
+        _, C, subs = ca.bwd_geometry(Nx, K or 1, e.Bh if e.reflective
+                                     else 2 * e.Bh, 4 if ts == 3 else 1)
+        if K is None:
+            name = "bwd_launch"
+            fk = ca.fwd_record_launch(*co, e.bc, e.flip, e0, e1, **geo)
+            fr = ca.fwd_record_launch_ref(*co, e.bc, e.flip, e0, e1, **geo)
+            cots = [rnd(centred=True) for _ in range(4)]
+            if ts != 3:
+                cots[2] = cots[3] = torch.zeros_like(cots[0])
+            outs = [ca.bwd_launch(*co, e.flip, e0, e1, *cots, *fk[4:], **geo)
+                    for _ in range(REPEAT)]
+            ref = ca.bwd_launch_ref(*co, e.flip, e0, e1, *cots, *fr[4:],
+                                    **geo)
+            fr64 = ca.fwd_record_launch_ref(*f64(co), e.bc.double(), e.flip,
+                                            *f64((e0, e1)), **geo)
+            ref64 = ca.bwd_launch_ref(*f64(co), e.flip, *f64((e0, e1)),
+                                      *f64(cots), *fr64[4:], **geo)
+        else:
+            name = "bwd_k_launch"
+            fk = ca.fwd_record_k_launch(*co, e.bc, e.flip, e0, e1, K=K,
+                                        **geo)
+            fr = ca.fwd_record_k_launch_ref(*co, e.bc, e.flip, e0, e1, K=K,
+                                            **geo)
+            cots = [rnd(centred=True) for _ in range(6)]
+            outs = [ca.bwd_k_launch(*co, e.flip, e0, e1, *fk[9:], *cots,
+                                    *fk[6:9], K=K, **geo)
+                    for _ in range(REPEAT)]
+            ref = ca.bwd_k_launch_ref(*co, e.flip, e0, e1, *fr[9:], *cots,
+                                      *fr[6:9], K=K, **geo)
+            fr64 = ca.fwd_record_k_launch_ref(*f64(co), e.bc.double(),
+                                              e.flip, *f64((e0, e1)), K=K,
+                                              **geo)
+            ref64 = ca.bwd_k_launch_ref(*f64(co), e.flip, *f64((e0, e1)),
+                                        *fr64[9:], *f64(cots), *fr64[6:9],
+                                        K=K, **geo)
+        err_k = max(adj_err(o, ref64) for o in outs)
+        err_p = adj_err(ref, ref64)
+        err_kp = max(adj_err(o, ref) for o in outs)
+        label = f"{tag}-N{Nx}-Bh{e.Bh}-C{C}G{subs}"
+        readings.append(f"{label}={err_kp:.1e} (vs float64: kernel "
+                        f"{err_k:.1e}, plain {err_p:.1e})")
+        if not err_k <= err_p + TOL:
+            raise AssertionError(f"{name} {label}: normalised error from "
+                                 f"the float64 plain version {err_k:.3e} > "
+                                 f"the float32 plain version's {err_p:.3e} "
+                                 f"+ {TOL} (packs {ADJ_PACK_TOL}; worst of "
+                                 f"{REPEAT} launches)")
+        if not all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(o, outs[0])):
+            raise AssertionError(f"{name} {label}: {REPEAT} launches on the "
+                                 f"same inputs are not bit-identical")
+        return C
+
+    def wave_engine(ts_method, refl, sym, Nx, Mx=8):
+        """The mg deck at G = 4 and M = Mx (Bh = 16 at M = 8, 4 at 2)."""
+        return engine(load_config(deck, M=Mx, G=4, N=Nx, ts_method=ts_method,
+                                  bc_left_indicator=2 if refl else 1,
+                                  bdf2_symmetric_half=sym))
+
+    def c_plus_one(K, spp, refl):
+        """N of C + 1 whole 1024-cell sub-tiles at Bh = 16: C the blocks a
+        row the geometry picks for the launch's rows on long rows."""
+        return (ca.bwd_geometry(1 << 20, K, 16 if refl else 32, spp)[1]
+                + 1) * 1024
+
+    # B10's wavefront on its own shapes: one record tile of 3 sub-tiles
+    # (fewer than the 4 blocks a row BDF2 allows); C + 1 sub-tiles; 51
+    # whole sub-tiles and a ragged 512-cell one (N = 52736); BE and CN (one
+    # slot: C = 1, the block mails itself); both boundaries, both half
+    # modes.
+    b10_wave = []
+    for ts_method, refl, sym, Nx, what in (
+            (3, True, False, 300, "one-record-tile"),
+            (3, False, True, c_plus_one(1, 4, False), "C+1"),
+            (3, True, True, c_plus_one(1, 4, True), "C+1"),
+            (3, True, True, 52736, "ragged"),
+            (3, False, False, 52736, "ragged"),
+            (1, True, False, 52736, "ragged"),
+            (2, False, False, 5120, "five-sub-tiles")):
+        kname = {1: "BE", 2: "CN", 3: "BDF2"}[ts_method]
+        bwd_wave_check(f"B10-{kname}-{what}-{'refl' if refl else 'src'}-"
+                       f"{'sym' if sym else 'asym'}",
+                       wave_engine(ts_method, refl, sym, Nx), None, b10_wave)
+
     # make_diff_solve_cuda on the card against the same call on the CPU.
     def gray_src(Mx, Nx, steps, refl=False, src=2.0):
         """The gray workload off equilibrium (an O(1) kappa sensitivity)."""
@@ -1700,8 +1829,15 @@ def main() -> int:
         lambda: fwd_eng.solve(fwd_eng.init_state(), num_steps=na,
                               steps_per_launch=Ka))
     f_peak = peak()
+    # B10's launch shape at the bench: a cluster of C > 1 blocks a row.
+    b10_geo = ca.bwd_geometry(Na, 1, fwd_eng.Bh, 4)
+    if b10_geo[1] < 2:
+        raise AssertionError(f"B10 at the adjoint bench: {b10_geo[1]} block "
+                             f"a row")
     print(f"phase 9 adjoint path: ok; kernel parity max normalised error "
-          + ", ".join(adj_checks) + "; B9 vs B1/B2 at K = 1: "
+          + ", ".join(adj_checks) + "; B10 wavefront shapes (worst of "
+          f"{REPEAT} launches, bit-identical): " + ", ".join(b10_wave)
+          + "; B9 vs B1/B2 at K = 1: "
           + ", ".join(b1_parity) + "; transposition <c,A d> vs <B10 c,d>: "
           + ", ".join(b10_transposed) + f"; make_diff_solve_cuda card vs CPU "
           f"(gray M=4 N=4096 8 steps): value {v_err:.1e}, kappa {k_err:.1e}, "
@@ -1710,8 +1846,11 @@ def main() -> int:
           f"of {fmt_windows(g_windows)}), peak device memory {g_peak:.3f} GiB "
           f"above its start; forward on CudaSweepEngine K={Ka} in "
           f"{f_seconds:.4f} s (median of {fmt_windows(f_windows)}), peak "
-          f"{f_peak:.3f} GiB; grad/forward {g_seconds / f_seconds:.3f}; "
-          f"card: {card}", flush=True)
+          f"{f_peak:.3f} GiB; grad/forward {g_seconds / f_seconds:.3f} (row "
+          f"walk: {WALK_GRAD_RATIOS['grad_k1_vs_fwd']}); B10 grid: "
+          f"{fwd_eng.Bh} rows x {b10_geo[1]} blocks of {b10_geo[0]} threads "
+          f"a launch, {b10_geo[2]} sub-tiles a row; card: {card}",
+          flush=True)
 
     # -- 10. the K-fused adjoint ---------------------------------------------
     # B11/B12 against their plain versions, B11 against B1 at the same K (bit
@@ -1785,6 +1924,25 @@ def main() -> int:
                              K=Kk, **geo)
         transposition(label, d, out[:6], tb[:2], k_transposition)
     kf_checks = checks[n_checks:]
+
+    # B12's wavefront on its own shapes: one record tile of 4 sub-tiles
+    # (fewer than the 16 blocks a row K = 4 allows); C + 1 sub-tiles at K =
+    # 1 and 2; N = 52736 (a ragged last sub-tile) at K = 3 and 4; and at K
+    # = 16 on Bh = 4 rows, where C reaches its cap; both boundaries, both
+    # half modes.
+    b12_wave, b12_c16 = [], None
+    for Kk, refl, sym, Nx, Mx, what in (
+            (4, True, False, 3000, 8, "one-record-tile"),
+            (1, False, True, c_plus_one(1, 4, False), 8, "C+1"),
+            (2, True, True, c_plus_one(2, 4, True), 8, "C+1"),
+            (3, False, False, 52736, 8, "ragged"),
+            (4, True, False, 52736, 8, "ragged"),
+            (16, True, True, 52736, 2, "ragged")):
+        C = bwd_wave_check(f"B12-K{Kk}-{what}-{'refl' if refl else 'src'}-"
+                           f"{'sym' if sym else 'asym'}",
+                           wave_engine(3, refl, sym, Nx, Mx), Kk, b12_wave)
+        if Kk == 16:
+            b12_c16 = C
 
     # K-fused against K = 1 gradients on the card (JAX's
     # test_kfused_gradients_match_k1 at N = 4096: 9 = 2 x 4 + 1 steps,
@@ -1875,13 +2033,21 @@ def main() -> int:
     if not all(np.isfinite(fit_hist)):
         raise AssertionError(f"fit_params losses not finite: {fit_hist}")
     launches.update(read_counts(PATH_ADJ_K, "the K-fused adjoint (phase 10)"))
+    # B12's launch shape at the bench: a cluster of C > 1 blocks a row.
+    b12_geo = ca.bwd_geometry(Na, Ka, fwd_eng.Bh, 4)
+    if b12_geo[1] < 2:
+        raise AssertionError(f"B12 at the adjoint bench: {b12_geo[1]} block "
+                             f"a row")
     bench = {"fwd_seconds": f2_seconds, "grad_k1_seconds": g1_seconds,
              "grad_kfused_seconds": gk_seconds,
              "grad_k1_vs_fwd": g1_seconds / f2_seconds,
              "grad_kfused_vs_fwd": gk_seconds / f2_seconds,
              "grad_kfused_peak_gib": gk_peak}
     print(f"phase 10 K-fused adjoint: ok; kernel parity max normalised error "
-          + ", ".join(kf_checks) + "; B11 vs B1 at the same K: "
+          + ", ".join(kf_checks) + f"; B12 wavefront shapes (worst of "
+          f"{REPEAT} launches, bit-identical, packs included): "
+          + ", ".join(b12_wave) + f" (K = 16: {b12_c16} blocks a row, at "
+          f"most {ca.ADJ_BWD_MAX_CLUSTER}); B11 vs B1 at the same K: "
           + ", ".join(b1k_parity) + "; B11 records vs K chained B9: "
           + ", ".join(b9k_records) + "; transposition <c,A d> vs "
           "<B12 c,d>: " + ", ".join(k_transposition) + f"; K-fused vs K = 1 "
@@ -1890,7 +2056,11 @@ def main() -> int:
           f"CPU at the K-fused default: value {kv_err:.1e}, kappa "
           f"{kk_err:.1e}, psi_source {ks_err:.1e}; adjoint bench (gray S_32, "
           f"N=2^17, BDF2, {na} steps) " + json.dumps(bench) + " (K-fused "
-          f"windows {fmt_windows(gk_windows)}); fit_params 3 iterations on "
+          f"windows {fmt_windows(gk_windows)}; row walk: "
+          + ", ".join(f"{k} {v}" for k, v in WALK_GRAD_RATIOS.items())
+          + f"); B12 grid at K = {Ka}: {fwd_eng.Bh} rows x {b12_geo[1]} "
+          f"blocks of {b12_geo[0]} threads a launch, {b12_geo[2]} sub-tiles "
+          f"a row; fit_params 3 iterations on "
           f"the K-fused default, losses "
           + ", ".join(f"{x:.6g}" for x in fit_hist)
           + f" (x {float(loss_0):.6g}), mu<0 source 2.4 -> "
@@ -2436,6 +2606,23 @@ def main() -> int:
         ms = shaped(cs, "SHARDED_THREADS", thr,
                     lambda: cs.sharded_substep_launch(*b8_args, **b8_kw), 20)
         shape_ms.append(f"B8 gray shard BDF {thr} threads {ms:.4f} ms")
+    # B10 and B12 (K = Ka) at the adjoint bench with 256 and 128 threads a
+    # block (1024- and 512-cell sub-tiles), each at the blocks a row the
+    # geometry picks and at half as many.
+    for tag, Kx, fn in (
+            ("B10", 1, lambda: ca.bwd_launch(*b10_in, *a_recs, **ageo)),
+            ("B12", Ka, lambda: ca.bwd_k_launch(*b12_in, K=Ka, **ageo))):
+        for thr in (ca.ADJ_BWD_THREADS, 128):
+            old_thr = ca.ADJ_BWD_THREADS
+            ca.ADJ_BWD_THREADS = thr
+            try:
+                C = ca.bwd_geometry(Na, Kx, fwd_eng.Bh, 4)[1]
+                for mc in sorted({C, max(1, C // 2)}, reverse=True):
+                    ms = shaped(ca, "ADJ_BWD_MAX_CLUSTER", mc, fn, 5)
+                    shape_ms.append(f"{tag} adjoint bench K={Kx} {thr} "
+                                    f"threads C={mc} {ms:.3f} ms")
+            finally:
+                ca.ADJ_BWD_THREADS = old_thr
     print("redesign shapes (one H100 launch each, CUDA events): "
           + "; ".join(shape_ms) + f"; card: {card}", flush=True)
     print("path launches at the timed shape + elsewhere: " + ", ".join(split),

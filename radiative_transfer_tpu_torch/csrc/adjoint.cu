@@ -31,11 +31,11 @@
 // values, which B10/B12 recompute per tile from each step's input plane and
 // the records.
 //
-// Design. All follow B1 (sweep.cu): ONE thread block owns ONE row and walks
-// it in tiles with a loop inside the block; each phase's scan is exact
-// (serial over a thread's cells, a warp-shuffle scan of affine maps, one
-// cross-warp pass: tiles.cuh).
-// * B9 tiles a row as B1 does (8 cells a thread, at most 512 threads, so
+// Design. Each phase's scan is exact (serial over a thread's cells, a
+// warp-shuffle scan of affine maps, one cross-warp pass: tiles.cuh).
+// * B9 and B11 follow B1's one-block walk (segments.cuh): ONE thread block
+//   owns ONE row and walks it in tiles with a loop inside the block. B9
+//   tiles a row as B1 does (8 cells a thread, at most 512 threads, so
 //   4096-cell tiles) and runs B1's own sub-step routine (tiles.cuh
 //   substep_tile), so its step is B1's at K = 1; it skips the prev planes
 //   (the inputs by definition) and, for BE/CN, the half planes. Thread 0
@@ -44,38 +44,64 @@
 // * B11 is B1's K-step row walk itself (segments.cuh bdf2_segment) with a
 //   record hook, so its six planes are B1's at the same K to the bit and its
 //   records are those of K chained B9 launches.
-// * B10 and B12 share one row walk (bwd_row; K = 1 at compile time for B10).
-//   Each row's record tiles are visited last to first, each in two passes
-//   over sub-tiles of blockDim*4 cells (half B1's cells a thread, at most
-//   256 threads: 1024-cell sub-tiles, four to a 4096-cell record tile).
-//   Pass 1 runs every step's forward over the sub-tiles in order from the
-//   step's input plane and the tile's records and keeps each sub-tile's
-//   entering carries and hs1 edges in shared memory. Pass 2 visits the
-//   sub-tiles last to first and there the steps newest to oldest: it loads
-//   step k's input, recomputes its forward phases from the kept values,
-//   then runs the adjoint phases in reverse order (phase_adj); step k's
-//   input cotangent, kept in registers, is step k-1's output cotangent. The
-//   adjoint of the carry scan is the same scan of maps lambda -> a*lambda + x
-//   run right to left (block_exclusive_scan_rev: __shfl_down_sync and a
-//   mirrored cross-warp pass); each (step, phase) lambda enters from the
-//   downstream sub-tile, visited before, through its own shared slot. The
-//   cotangents of the CN/BDF upwind shifts flow one cell upstream
-//   (downwind_value); at a sub-tile's last cell they come from the
-//   downstream sub-tile's first cell, kept in shared memory per step and
-//   double-buffered by visit parity. So B10/B12 run the forward twice and
-//   the adjoint once; the recomputed primals round as 1024-cell tiles do,
-//   which moves only the coefficient gradients, at f32 roundoff.
-// * Coefficient gradients: each thread sums its cells' terms over all its
+// * B10 and B12 share one row body (bwd_row; K = 1 at compile time for B10)
+//   and run each row on the C blocks of a thread block cluster
+//   (cluster.cuh), in sub-tiles of blockDim*4 cells (half B1's cells a
+//   thread, at most 256 threads: 1024-cell sub-tiles, four to a 4096-cell
+//   record tile of B9/B11):
+//   - A prologue (bwd_prologue): block rank r takes the record tiles r,
+//     r + C, ... and runs every step's forward over each tile's sub-tiles
+//     in order, from the step's input plane and the tile's records; it
+//     writes each sub-tile's entering carries (one a (step, phase) slot)
+//     and hs1 edges (one a step) to a device scratch the wrapper allocates
+//     (2, Bh, sub-tiles, slots + K). A cluster barrier with release and
+//     acquire at cluster scope ends it.
+//   - A wavefront over (sub-tile, slot) from the row's end (bwd_wave): the
+//     u-th sub-tile from the row's end runs on block u mod C. There the
+//     steps run newest to oldest: step k's input is loaded, its forward
+//     phases are recomputed from the scratch's carries and edges, then its
+//     adjoint phases run in reverse order (phase_adj); step k's input
+//     cotangent, kept in registers, is step k-1's output cotangent. The
+//     adjoint of the carry scan is the same scan of maps lambda -> a*lambda
+//     + x run right to left (block_exclusive_scan_rev: __shfl_down_sync and
+//     a mirrored cross-warp pass). Each (step, phase) slot, in the
+//     backward's order (step K-1 down to 0, phases 3, 2, 1, 0), takes its
+//     lambda from the downstream sub-tile's block just before its phase and
+//     hands the lambda entering the sub-tile to the upstream sub-tile's
+//     block just after: a mailbox and an mbarrier a slot in distributed
+//     shared memory, one mailbox read and one parity bit a block (as B1,
+//     cluster.cuh). The cotangents of the CN/BDF upwind shifts flow one
+//     cell upstream (downwind_value); at a sub-tile's last cell they come
+//     from the downstream sub-tile's first cell, with the mail: step k's
+//     hs1-shift cotangent with slot (k, 3), complete after the BDF phase,
+//     and its e1-shift cotangent with slot (k, 1) (BDF2; CN: slot k),
+//     complete after the CN phase. Thread 0 runs every wait and send.
+//   So B10/B12 run the forward twice and the adjoint once. The sub-tiles,
+//   scans, carries and arithmetic are those of one block walking the row's
+//   record tiles last to first (a forward pass over a tile's sub-tiles,
+//   then the sub-tiles last to first), so the state cotangents equal that
+//   walk's to the bit; only who runs a sub-tile and how its slots' state
+//   arrives differ. The recomputed primals round as 1024-cell tiles do,
+//   which moves only the coefficient gradients, at f32 roundoff (and the
+//   packs sum in another order than such a walk's). C = min(16, slots,
+//   sub-tiles), shrunk until every row's cluster of the launch is resident
+//   (rt_adj_bwd_geometry): at most one sub-tile a slot is in flight.
+// * Coefficient gradients: each thread sums its cells' terms over its
 //   sub-tiles and steps in registers (BE phases 0 and 2, CN phase 1, BDF
-//   phase 3); at the row's end a warp-shuffle and shared-memory reduction
-//   writes each column once. This sums in another order than Pallas's
+//   phase 3); at the row's end each block reduces them (warp shuffles,
+//   then per warp in shared memory) to one partial a column and, after a
+//   cluster barrier, rank 0 adds the C partials in rank order through
+//   distributed shared memory and writes each column once: no atomics, the
+//   same sums launch to launch. This sums in another order than Pallas's
 //   per-block sums.
 // * Reflective left boundary: forward, the mu<0 launch records its outflow
 //   carries and the mu>0 launch reads them through `flip` (B1's scheme).
 //   Backward, the order is reversed: the mu>0 launch records each slot's
 //   inflow cotangent and the mu<0 launch starts its lambdas from s_p times
 //   that record, gathered through `flip`; only the mu<0 half's cotangent
-//   goes to bc. With a source boundary both halves share one launch.
+//   goes to bc. The block that ran the row's first sub-tile holds those
+//   lambdas and writes the record or bc. With a source boundary both halves
+//   share one launch.
 // * Registers: B10/B12 hold the step input, the three phase outputs they
 //   need and four phases' entering carries for 4 cells a thread (48 values),
 //   plus the cotangents and 27 gradient sums; coefficients sit in shared
@@ -85,16 +111,23 @@
 //   their cotangents are forced to 0, so the cotangents chained from step to
 //   step stay 0 there.
 //
-// What bounds it on this card: the serial carry chain of each row, as for B1
-// (sweep.cu header): per 4096 cells and step B9/B11 run 4 scans (BDF2) and
-// B10/B12 48 (four sub-tiles of 8 forward and 4 reversed) and 16 neighbour
-// exchanges, each with block barriers, on 2*Bh blocks (Bh at a time for a
-// reflective slab). Device-memory traffic is small beside that: B9 reads 2
-// planes and writes 4, B10 reads 6 and writes 2; a K-step B11 reads 2 and
-// writes 6 + 2(K-1), B12 reads 8 + 2(K-1) and writes 2.
+// What bounds it on this card: the serial carry chain of each row. B9/B11
+// run 4 scans (BDF2) per 4096 cells and step, one block a row, on 2*Bh
+// blocks (Bh at a time for a reflective slab). B10/B12 run 48 (four
+// sub-tiles of 8 forward and 4 reversed) and 16 neighbour exchanges, each
+// with block barriers, spread over C blocks a row: a launch is bound by the
+// larger of the row's sub-tile-phases over C and its handoff chain (one
+// adjoint phase and a mail's latency a sub-tile), plus the prologue's
+// quarter of the forward work. Device-memory traffic is small beside that:
+// B9 reads 2 planes and writes 4, B10 reads 6 and writes 2; a K-step B11
+// reads 2 and writes 6 + 2(K-1), B12 reads 8 + 2(K-1) and writes 2.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "cluster.cuh"
 #include "segments.cuh"
 
 namespace {
@@ -109,7 +142,6 @@ constexpr int kFwdThreads = kSegThreads;
 constexpr int kCells = 4;
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kMaxSub = 4;         // sub-tiles of a record tile
 constexpr int kNGrad = 9;          // w T0 q idet a S(=Sb=c0) c1 kee kp
 
 // Per-slot arrays hold one entry per (step, phase) slot (4 a BDF2 step, K <=
@@ -119,18 +151,23 @@ struct Shared {
   Coef kc[3];                  // BE, CN, BDF coefficients of this row
   float carry[kMaxSlots];      // B9: each phase's carry entering the tile;
                                // B10/B12: each slot's lambda from downstream
-  float fcarry[kMaxSlots];     // B10/B12: the forward carries of pass 1
-  float sub_carry[kMaxSub][kMaxSlots];  // each sub-tile's entering carries
-  float sub_ht[kMaxSub][kMaxSteps];     // the hs1 edge upwind of each
-  float htail[kMaxSteps];      // hs1 of the previous (sub-)tile's last cell
-  float cet[2][kMaxSteps];     // B10/B12: each step's shift cotangents from
-  float cht[2][kMaxSteps];     // downstream, double-buffered by visit parity
+  float fcarry[kMaxSlots];     // B10/B12: the forward carries entering the
+                               // sub-tile (the prologue's chain, then the
+                               // wavefront's copy of the scratch)
+  float htail[kMaxSteps];      // the hs1 edge upwind of the (sub-)tile
+  float cet[kMaxSteps];        // B10/B12: each step's shift cotangents from
+  float cht[kMaxSteps];        // the downstream sub-tile (its mail)
   float scanA[2][32];          // cross-warp scan, double-buffered
   float scanB[2][32];
   float edge_p[32], edge_h[32];    // upwind exchanges
   float edge_dp[32], edge_dh[32];  // downwind exchanges
   float red[3 * kNGrad][kMaxWarps];  // row-end gradient reduction
+  float part[3 * kNGrad];      // B10/B12: the block's gradient partials
 };
+
+// B10's and B12's mail a slot: the lambda entering the sub-tile and, with
+// slot (k, 3) and (k, 1) of BDF2 (slot k of CN), a shift cotangent.
+using BwdMail = Mailbox<2, kMaxSlots>;
 
 // Inclusive scan over a warp, right to left, of the maps x -> A*x + B:
 // lane i ends with f_i o f_{i+1} o ... o f_31 (f_31 applied first).
@@ -544,85 +581,85 @@ struct Fwd {
   }
 };
 
-// B10 and B12, replacing _make_bwd_kernel (pallas_adjoint.py:374) and
-// _make_bwd_kernel_bdf2_k (:687): one row of the transposed launch of K
-// steps (K = 1 for B10). The record tiles (rtile cells) of B9/B11 are
-// visited last to first; each in two passes over its sub-tiles of
-// blockDim*kCells cells. Pass 1, in order: every step's forward from its own
-// input plane (the launch's for step 0, B11's record of it otherwise) and
-// the tile's records, keeping each sub-tile's entering carries and hs1 edges
-// in shared memory. Pass 2, last to first: for k = K-1 down to 0, step k's
-// forward recomputed from those and its adjoint phases in reverse order;
-// step k's input cotangent, in registers for the same cells, is step k-1's
-// output cotangent. The external cotangents enter at step K-1 (JAX's
-// order): co (ends) and coh (half) as its outputs', cop (prev, which is
-// step K-1's input) added to its input's; the half cotangent of the steps
-// before is zero. Each (step, phase) slot keeps its own lambda and each
-// step its own shift cotangents, so step k-1 at a sub-tile reads step k's
-// input cotangent complete, its last cell's share from the downstream
-// sub-tile included. g holds this thread's gradient sums over all steps,
-// kNGrad per kind (BE, CN, BDF for BDF2; the one kind otherwise).
+// One row of a B10/B12 launch: its planes, records, outputs and prologue
+// scratch, and the row's geometry. Planes are the launch's (the row's
+// offset `base` applied on access), records and scratch the row's own.
+struct BwdRow {
+  const float* e0;     // step 0's input
+  const float* e1;
+  const float* ri0;    // step k's input at (k - 1) * plane (k >= 1)
+  const float* ri1;
+  const float* co0;    // cotangents of the ends, the half snapshot and
+  const float* co1;    // (B12) prev
+  const float* coh0;
+  const float* coh1;
+  const float* cop0;
+  const float* cop1;
+  const float* rc;     // the row's records: slot or step i at tile t is
+  const float* ret;    // [i * stride + t]
+  const float* rht;
+  float* ce0;
+  float* ce1;
+  float* scr;          // the row's scratch: (sub-tiles, slots + K)
+  size_t base, plane, stride;
+  int N, K, slots, ntiles, rtile, sub, G;  // G: sub-tiles a row
+
+  __device__ __forceinline__ const float* in0(int k) const {
+    return (k ? ri0 + (k - 1) * plane : e0) + base;
+  }
+  __device__ __forceinline__ const float* in1(int k) const {
+    return (k ? ri1 + (k - 1) * plane : e1) + base;
+  }
+  // Step k's e1 edge upwind of the sub-tile at s0: the record for a record
+  // tile's first, an input value otherwise.
+  __device__ __forceinline__ float et(int k, int s0) const {
+    const int t = s0 / rtile;
+    return s0 == t * rtile ? ret[k * stride + t] : in1(k)[s0 - 1];
+  }
+  // The scratch entries of the sub-tile at s0.
+  __device__ __forceinline__ float* sub_scratch(int s0) const {
+    return scr + static_cast<size_t>(s0 / sub) * (slots + K);
+  }
+};
+
+// B10's and B12's prologue: block `rank` of the row's C runs every step's
+// forward over the sub-tiles of its record tiles (rank, rank + C, ...) in
+// order, from each step's input plane and the tile's records, and writes
+// each sub-tile's entering carries (slot nph*k + p) and hs1 edges (entry
+// slots + k) to the scratch (thread 0). The tiles are independent given
+// their records.
 template <int TS, bool SNAP>
-__device__ __forceinline__ void bwd_row(
-    Shared& sm, int h, int row, int Bh, int N, int K, int ntiles, int rtile,
-    const float* __restrict__ e0g, const float* __restrict__ e1g,
-    const float* __restrict__ ri0g, const float* __restrict__ ri1g,
-    const float* __restrict__ co0g, const float* __restrict__ co1g,
-    const float* __restrict__ coh0g, const float* __restrict__ coh1g,
-    const float* __restrict__ cop0g, const float* __restrict__ cop1g,
-    const float* __restrict__ rc, const float* __restrict__ ret,
-    const float* __restrict__ rht, float* __restrict__ ce0g,
-    float* __restrict__ ce1g, float (&g)[3][kNGrad]) {
+__device__ __forceinline__ void bwd_prologue(Shared& sm, int& buf,
+                                             const BwdRow& w, int rank,
+                                             int C) {
   constexpr int nph = TS == 3 ? 4 : 1;
-  const int slots = nph * K;
-  const int sub = blockDim.x * kCells;
-  const int nsub = (rtile + sub - 1) / sub;  // <= kMaxSub; a record tile
-  // longer than one sub-tile is a whole 4096-cell tile, split exactly
   const bool tail_thread = threadIdx.x == blockDim.x - 1;
-  const size_t base = static_cast<size_t>(h * Bh + row) * N;
-  const size_t plane = static_cast<size_t>(2) * Bh * N;
-  // The row's records: slot or step i at tile t is [i * stride + t].
-  const size_t stride = static_cast<size_t>(Bh) * ntiles;
-  const float* rcr = rc + static_cast<size_t>(h) * slots * stride + row * ntiles;
-  const float* retr = ret + static_cast<size_t>(h) * K * stride + row * ntiles;
-  const float* rhtr = rht + static_cast<size_t>(h) * K * stride + row * ntiles;
-  auto in0 = [&](int k) { return (k ? ri0g + (k - 1) * plane : e0g) + base; };
-  auto in1 = [&](int k) { return (k ? ri1g + (k - 1) * plane : e1g) + base; };
-  int buf = 0;
-  int par = 0;  // sub-tile visits of pass 2 alternate the cet/cht buffers
-  float scratch[kCells];  // unused outputs
-  for (int t = ntiles - 1; t >= 0; --t) {
-    const int t0 = t * rtile;
-    // Step k's e1 and hs1 edges upwind of sub-tile s0: the records for the
-    // tile's first; e1 is an input value, hs1 comes from the first pass.
-    auto et_of = [&](int k, int s0) {
-      return s0 == t0 ? retr[k * stride + t] : in1(k)[s0 - 1];
-    };
-    // Pass 1 (the previous tile's last reads of these slots precede the
-    // first barrier).
+  for (int t = rank; t < w.ntiles; t += C) {
+    const int t0 = t * w.rtile;
+    const int t1 = min(t0 + w.rtile, w.N);
+    // The previous tile's last reads of these slots precede the first
+    // barrier.
     __syncthreads();
-    for (int i = threadIdx.x; i < slots; i += blockDim.x)
-      sm.fcarry[i] = rcr[i * stride + t];
-    for (int k = threadIdx.x; k < K; k += blockDim.x)
-      sm.htail[k] = TS == 3 ? rhtr[k * stride + t] : 0.f;
+    for (int i = threadIdx.x; i < w.slots; i += blockDim.x)
+      sm.fcarry[i] = w.rc[i * w.stride + t];
+    for (int k = threadIdx.x; k < w.K; k += blockDim.x)
+      sm.htail[k] = TS == 3 ? w.rht[k * w.stride + t] : 0.f;
     __syncthreads();
-    for (int s = 0; s < nsub; ++s) {
-      const int s0 = t0 + s * sub;
-      if (s0 >= N) break;
+    for (int s0 = t0; s0 < t1; s0 += w.sub) {
       const int j0 = s0 + threadIdx.x * kCells;
-      const int owner = tile_owner(s0, j0, sub, N, kCells);
-      for (int k = 0; k < K; ++k) {
+      const int owner = tile_owner(s0, j0, w.sub, w.N, kCells);
+      float* out = w.sub_scratch(s0);
+      for (int k = 0; k < w.K; ++k) {
         float x0[kCells], x1[kCells];
-        load_cells(x0, in0(k), j0, N);
-        load_cells(x1, in1(k), j0, N);
-        const float et = threadIdx.x == 0 ? et_of(k, s0) : 0.f;
+        load_cells(x0, w.in0(k), j0, w.N);
+        load_cells(x1, w.in1(k), j0, w.N);
+        const float et = threadIdx.x == 0 ? w.et(k, s0) : 0.f;
         Fwd<TS, SNAP> f;
         f.run(sm, buf, x0, x1, sm.fcarry + nph * k, owner, &et,
               &sm.htail[k]);
         if (threadIdx.x == 0) {
-          for (int p = 0; p < nph; ++p)
-            sm.sub_carry[s][nph * k + p] = f.c_in[p];
-          sm.sub_ht[s][k] = f.hs1_up;
+          for (int p = 0; p < nph; ++p) out[nph * k + p] = f.c_in[p];
+          out[w.slots + k] = TS == 3 ? f.hs1_up : 0.f;
         }
         if constexpr (TS == 3) {
           if (tail_thread)
@@ -630,137 +667,217 @@ __device__ __forceinline__ void bwd_row(
         }
       }
     }
-    // Pass 2.
-    for (int s = nsub - 1; s >= 0; --s) {
-      const int s0 = t0 + s * sub;
-      if (s0 >= N) continue;
-      const int j0 = s0 + threadIdx.x * kCells;
-      // Step k's output cotangent: the launch's ends' for k = K-1 (loaded
-      // after the recompute, as B10 always did), then step k+1's input
-      // cotangent.
-      float oc0[kCells], oc1[kCells];
-      for (int k = K - 1; k >= 0; --k) {
-        float x0[kCells], x1[kCells];
-        load_cells(x0, in0(k), j0, N);
-        load_cells(x1, in1(k), j0, N);
-        const float et = threadIdx.x == 0 ? et_of(k, s0) : 0.f;
-        Fwd<TS, SNAP> f;
-        f.run(sm, buf, x0, x1, sm.sub_carry[s] + nph * k, -1, &et,
-              &sm.sub_ht[s][k]);
-        if (k == K - 1) {
-          load_cells(oc0, co0g + base, j0, N);
-          load_cells(oc1, co1g + base, j0, N);
-        }
-        float* lam = sm.carry + nph * k;
-        float x0c[kCells], x1c[kCells], pshift[kCells];
+  }
+}
+
+// Sub-tile u > 0 takes slot s's lambda (into sm.carry[s]) and, where `tail`
+// is given, the shift cotangent the slot carries, from its mailbox: thread
+// 0 waits, then copies. No barrier follows: the other threads first read
+// the lambda inside the slot's reversed scan, after its first barrier, and
+// a tail is read in a downwind exchange after later barriers; the copies
+// overwrite state this block last read C sub-tiles ago, before barriers
+// thread 0 has passed.
+__device__ __forceinline__ void take(Shared& sm, BwdMail& mb, int s,
+                                     float* tail, uint32_t parity) {
+  if (threadIdx.x == 0) {
+    const float* m = wait_mail(mb, s, parity);
+    sm.carry[s] = m[0];
+    if (tail) *tail = m[1];
+  }
+}
+
+// Thread 0 (`sender`: not the row's first sub-tile) hands slot s's lambda
+// entering the sub-tile, which phase_adj left in sm.carry[s], and where
+// has_tail a shift cotangent of the sub-tile's first cell, to block `next`,
+// which runs the next sub-tile upstream.
+__device__ __forceinline__ void give(const Shared& sm, BwdMail& mb, int s,
+                                     uint32_t next, float tail,
+                                     bool has_tail) {
+  const float m[2] = {sm.carry[s], tail};
+  send_mail(mb, s, next, m, has_tail ? 2 : 1);
+}
+
+// B10's and B12's wavefront: block `rank` of the row's C runs the sub-tiles
+// rank, rank + C, ... counted from the row's end. At each, for k = K-1 down
+// to 0, step k's forward is recomputed from its input plane and the
+// scratch's carries and edges, then its adjoint phases run in reverse
+// order, each slot's lambda taken from the downstream sub-tile's block and
+// handed on upstream. The external cotangents enter at step K-1 (JAX's
+// order): co (ends) and coh (half) as its outputs', cop (prev, which is
+// step K-1's input) added to its input's; the half cotangent of the steps
+// before is zero. Step k-1 at a sub-tile reads step k's input cotangent
+// complete, its last cell's share from the downstream sub-tile (the mail
+// of slots (k, 1) and (k, 3)) included. g holds this thread's gradient
+// sums, kNGrad per kind (BE, CN, BDF for BDF2; the one kind otherwise).
+template <int TS, bool SNAP>
+__device__ __forceinline__ void bwd_wave(Shared& sm, BwdMail& mb, int& buf,
+                                         const BwdRow& w, int rank, int C,
+                                         float (&g)[3][kNGrad]) {
+  constexpr int nph = TS == 3 ? 4 : 1;
+  const int G = w.G;
+  const uint32_t next = (rank + 1) % C;
+  uint32_t parity = 0;
+  float scratch[kCells];  // unused outputs
+  for (int u = rank; u < G; u += C) {
+    const int s0 = (G - 1 - u) * w.sub;
+    const int j0 = s0 + threadIdx.x * kCells;
+    const bool first = u == 0;  // the row's last sub-tile: no mail comes in
+    const bool sender = s0 > 0 && threadIdx.x == 0;
+    // The sub-tile's entering carries and hs1 edges: read inside the
+    // recompute's scans and thread 0's upwind exchange, after barriers; the
+    // previous sub-tile's reads preceded its adjoint phases' barriers.
+    const float* in = w.sub_scratch(s0);
+    for (int i = threadIdx.x; i < w.slots + w.K; i += blockDim.x) {
+      if (i < w.slots)
+        sm.fcarry[i] = in[i];
+      else
+        sm.htail[i - w.slots] = in[i];
+    }
+    // Step k's output cotangent: the launch's ends' for k = K-1 (loaded
+    // after the recompute), then step k+1's input cotangent.
+    float oc0[kCells], oc1[kCells];
+    for (int k = w.K - 1; k >= 0; --k) {
+      const int sl = nph * k;
+      float x0[kCells], x1[kCells];
+      load_cells(x0, w.in0(k), j0, w.N);
+      load_cells(x1, w.in1(k), j0, w.N);
+      const float et = threadIdx.x == 0 ? w.et(k, s0) : 0.f;
+      Fwd<TS, SNAP> f;
+      f.run(sm, buf, x0, x1, sm.fcarry + sl, -1, &et, &sm.htail[k]);
+      if (k == w.K - 1) {
+        load_cells(oc0, w.co0 + w.base, j0, w.N);
+        load_cells(oc1, w.co1 + w.base, j0, w.N);
+      }
+      float* lam = sm.carry + sl;
+      float x0c[kCells], x1c[kCells], pshift[kCells];
 #pragma unroll
-        for (int c = 0; c < kCells; ++c) x0c[c] = x1c[c] = pshift[c] = 0.f;
-        if constexpr (TS == 3) {
-          const auto& hs0 = SNAP ? f.c0 : f.b0;
-          const auto& hs1 = SNAP ? f.c1 : f.b1;
-          float hs0c[kCells], hs1c[kCells], hshift[kCells];
-          if (k == K - 1) {
-            load_cells(hs0c, coh0g + base, j0, N);
-            load_cells(hs1c, coh1g + base, j0, N);
-          } else {
-#pragma unroll
-            for (int c = 0; c < kCells; ++c) hs0c[c] = hs1c[c] = 0.f;
-          }
-#pragma unroll
-          for (int c = 0; c < kCells; ++c) hshift[c] = 0.f;
-          float dc0[kCells], dc1[kCells];
-          phase_adj<kBDF>(sm.kc[2], f.d0, f.d1, x0, x1, hs0, hs1, f.x1_up,
-                          f.hs1_up, f.cin[3], oc0, oc1, lam + 3, j0, N, sm,
-                          buf, dc0, dc1, x0c, x1c, hs0c, hs1c, pshift,
-                          hshift, g[2]);
-          float cc0[kCells], cc1[kCells];
-          phase_adj<kBE>(sm.kc[0], f.c0, f.c1, x0, x1, hs0, hs1, 0.f, 0.f,
-                         f.cin[2], dc0, dc1, lam + 2, j0, N, sm, buf, cc0,
-                         cc1, scratch, scratch, scratch, scratch, scratch,
-                         scratch, g[0]);
-          // hs1 feeds the BDF phase one cell downstream too.
-          const float hnext =
-              downwind_value(hshift[0], &sm.cht[par][k], sm.edge_dh);
-#pragma unroll
-          for (int c = 0; c < kCells; ++c)
-            hs1c[c] += c < kCells - 1 ? hshift[c + 1] : hnext;
-          if (threadIdx.x == 0) sm.cht[par ^ 1][k] = hshift[0];
-          float bc0[kCells], bc1[kCells];
-#pragma unroll
-          for (int c = 0; c < kCells; ++c) {
-            if constexpr (SNAP) {  // hs = the CN output
-              cc0[c] += hs0c[c];
-              cc1[c] += hs1c[c];
-              bc0[c] = bc1[c] = 0.f;
-            } else {               // hs = the phase-0 BE output
-              bc0[c] = hs0c[c];
-              bc1[c] = hs1c[c];
-            }
-          }
-          float e0c[kCells], e1c[kCells];
-          phase_adj<kCN>(sm.kc[1], f.b0, f.b1, x0, x1, x0, x1, f.x1_up, 0.f,
-                         f.cin[1], cc0, cc1, lam + 1, j0, N, sm, buf, e0c,
-                         e1c, scratch, scratch, scratch, scratch, pshift,
-                         scratch, g[1]);
-#pragma unroll
-          for (int c = 0; c < kCells; ++c) {
-            bc0[c] += e0c[c];
-            bc1[c] += e1c[c];
-          }
-          phase_adj<kBE>(sm.kc[0], x0, x1, x0, x1, x0, x1, 0.f, 0.f,
-                         f.cin[0], bc0, bc1, lam, j0, N, sm, buf, e0c, e1c,
-                         scratch, scratch, scratch, scratch, scratch,
-                         scratch, g[0]);
-#pragma unroll
-          for (int c = 0; c < kCells; ++c) {
-            x0c[c] += e0c[c];
-            x1c[c] += e1c[c];
-          }
+      for (int c = 0; c < kCells; ++c) x0c[c] = x1c[c] = pshift[c] = 0.f;
+      if constexpr (TS == 3) {
+        const auto& hs0 = SNAP ? f.c0 : f.b0;
+        const auto& hs1 = SNAP ? f.c1 : f.b1;
+        float hs0c[kCells], hs1c[kCells], hshift[kCells];
+        if (k == w.K - 1) {
+          load_cells(hs0c, w.coh0 + w.base, j0, w.N);
+          load_cells(hs1c, w.coh1 + w.base, j0, w.N);
         } else {
-          constexpr int KIND = TS == 1 ? kBE : kCN;
-          float e0c[kCells], e1c[kCells];
-          phase_adj<KIND>(sm.kc[KIND - 1], x0, x1, x0, x1, x0, x1, f.x1_up,
-                          0.f, f.cin[0], oc0, oc1, lam, j0, N, sm, buf, e0c,
-                          e1c, scratch, scratch, scratch, scratch, pshift,
-                          scratch, g[0]);
 #pragma unroll
-          for (int c = 0; c < kCells; ++c) {
-            x0c[c] += e0c[c];
-            x1c[c] += e1c[c];
-          }
+          for (int c = 0; c < kCells; ++c) hs0c[c] = hs1c[c] = 0.f;
         }
-        if constexpr (TS != 1) {
-          // The e1 plane (the prev history of CN and BDF) feeds the cell
-          // downstream: its cotangent flows one cell upstream.
-          const float pnext =
-              downwind_value(pshift[0], &sm.cet[par][k], sm.edge_dp);
 #pragma unroll
-          for (int c = 0; c < kCells; ++c)
-            x1c[c] += c < kCells - 1 ? pshift[c + 1] : pnext;
-          if (threadIdx.x == 0) sm.cet[par ^ 1][k] = pshift[0];
-        }
-        if (k == K - 1 && cop0g) {
-          // The launch's prev output is step K-1's input.
-          float q0[kCells], q1[kCells];
-          load_cells(q0, cop0g + base, j0, N);
-          load_cells(q1, cop1g + base, j0, N);
+        for (int c = 0; c < kCells; ++c) hshift[c] = 0.f;
+        float dc0[kCells], dc1[kCells];
+        if (!first) take(sm, mb, sl + 3, &sm.cht[k], parity);
+        phase_adj<kBDF>(sm.kc[2], f.d0, f.d1, x0, x1, hs0, hs1, f.x1_up,
+                        f.hs1_up, f.cin[3], oc0, oc1, lam + 3, j0, w.N, sm,
+                        buf, dc0, dc1, x0c, x1c, hs0c, hs1c, pshift, hshift,
+                        g[2]);
+        if (sender) give(sm, mb, sl + 3, next, hshift[0], true);
+        float cc0[kCells], cc1[kCells];
+        if (!first) take(sm, mb, sl + 2, nullptr, parity);
+        phase_adj<kBE>(sm.kc[0], f.c0, f.c1, x0, x1, hs0, hs1, 0.f, 0.f,
+                       f.cin[2], dc0, dc1, lam + 2, j0, w.N, sm, buf, cc0,
+                       cc1, scratch, scratch, scratch, scratch, scratch,
+                       scratch, g[0]);
+        if (sender) give(sm, mb, sl + 2, next, 0.f, false);
+        // hs1 feeds the BDF phase one cell downstream too.
+        const float hnext = downwind_value(hshift[0], &sm.cht[k], sm.edge_dh);
 #pragma unroll
-          for (int c = 0; c < kCells; ++c) {
-            x0c[c] += q0[c];
-            x1c[c] += q1[c];
-          }
-        }
+        for (int c = 0; c < kCells; ++c)
+          hs1c[c] += c < kCells - 1 ? hshift[c + 1] : hnext;
+        float bc0[kCells], bc1[kCells];
 #pragma unroll
         for (int c = 0; c < kCells; ++c) {
-          oc0[c] = x0c[c];
-          oc1[c] = x1c[c];
+          if constexpr (SNAP) {  // hs = the CN output
+            cc0[c] += hs0c[c];
+            cc1[c] += hs1c[c];
+            bc0[c] = bc1[c] = 0.f;
+          } else {               // hs = the phase-0 BE output
+            bc0[c] = hs0c[c];
+            bc1[c] = hs1c[c];
+          }
+        }
+        float e0c[kCells], e1c[kCells];
+        if (!first) take(sm, mb, sl + 1, &sm.cet[k], parity);
+        phase_adj<kCN>(sm.kc[1], f.b0, f.b1, x0, x1, x0, x1, f.x1_up, 0.f,
+                       f.cin[1], cc0, cc1, lam + 1, j0, w.N, sm, buf, e0c,
+                       e1c, scratch, scratch, scratch, scratch, pshift,
+                       scratch, g[1]);
+        if (sender) give(sm, mb, sl + 1, next, pshift[0], true);
+#pragma unroll
+        for (int c = 0; c < kCells; ++c) {
+          bc0[c] += e0c[c];
+          bc1[c] += e1c[c];
+        }
+        if (!first) take(sm, mb, sl, nullptr, parity);
+        phase_adj<kBE>(sm.kc[0], x0, x1, x0, x1, x0, x1, 0.f, 0.f, f.cin[0],
+                       bc0, bc1, lam, j0, w.N, sm, buf, e0c, e1c, scratch,
+                       scratch, scratch, scratch, scratch, scratch, g[0]);
+        if (sender) give(sm, mb, sl, next, 0.f, false);
+#pragma unroll
+        for (int c = 0; c < kCells; ++c) {
+          x0c[c] += e0c[c];
+          x1c[c] += e1c[c];
+        }
+      } else {
+        constexpr int KIND = TS == 1 ? kBE : kCN;
+        float e0c[kCells], e1c[kCells];
+        if (!first)
+          take(sm, mb, sl, KIND == kCN ? &sm.cet[k] : nullptr, parity);
+        phase_adj<KIND>(sm.kc[KIND - 1], x0, x1, x0, x1, x0, x1, f.x1_up,
+                        0.f, f.cin[0], oc0, oc1, lam, j0, w.N, sm, buf, e0c,
+                        e1c, scratch, scratch, scratch, scratch, pshift,
+                        scratch, g[0]);
+        if (sender) give(sm, mb, sl, next, pshift[0], KIND == kCN);
+#pragma unroll
+        for (int c = 0; c < kCells; ++c) {
+          x0c[c] += e0c[c];
+          x1c[c] += e1c[c];
         }
       }
-      par ^= 1;
-      store_cells(ce0g + base, j0, N, oc0);
-      store_cells(ce1g + base, j0, N, oc1);
+      if constexpr (TS != 1) {
+        // The e1 plane (the prev history of CN and BDF) feeds the cell
+        // downstream: its cotangent flows one cell upstream.
+        const float pnext =
+            downwind_value(pshift[0], &sm.cet[k], sm.edge_dp);
+#pragma unroll
+        for (int c = 0; c < kCells; ++c)
+          x1c[c] += c < kCells - 1 ? pshift[c + 1] : pnext;
+      }
+      if (k == w.K - 1 && w.cop0) {
+        // The launch's prev output is step K-1's input.
+        float q0[kCells], q1[kCells];
+        load_cells(q0, w.cop0 + w.base, j0, w.N);
+        load_cells(q1, w.cop1 + w.base, j0, w.N);
+#pragma unroll
+        for (int c = 0; c < kCells; ++c) {
+          x0c[c] += q0[c];
+          x1c[c] += q1[c];
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kCells; ++c) {
+        oc0[c] = x0c[c];
+        oc1[c] = x1c[c];
+      }
     }
+    store_cells(w.ce0 + w.base, j0, w.N, oc0);
+    store_cells(w.ce1 + w.base, j0, w.N, oc1);
+    if (!first) parity ^= 1u;
   }
+}
+
+// B10 and B12, replacing _make_bwd_kernel (pallas_adjoint.py:374) and
+// _make_bwd_kernel_bdf2_k (:687): one row of the transposed launch of K
+// steps (K = 1 for B10) on the cluster's C blocks, the prologue, then the
+// wavefront.
+template <int TS, bool SNAP>
+__device__ __forceinline__ void bwd_row(Shared& sm, BwdMail& mb,
+                                        const BwdRow& w, int rank, int C,
+                                        float (&g)[3][kNGrad]) {
+  int buf = 0;
+  bwd_prologue<TS, SNAP>(sm, buf, w, rank, C);
+  cluster_barrier();
+  bwd_wave<TS, SNAP>(sm, mb, buf, w, rank, C, g);
 }
 
 // Sums column `col` of every thread's gradient sums over the block into
@@ -771,59 +888,76 @@ __device__ __forceinline__ void warp_sum_to(Shared& sm, int col, float v) {
   if ((threadIdx.x & 31) == 0) sm.red[col][threadIdx.x >> 5] = v;
 }
 
-// The whole of a B10/B12 row block: the lambdas entering the row, bwd_row,
-// the boundary cotangent and the row's gradient packs.
+// The whole of a B10/B12 cluster block: the row's lambdas and shift
+// cotangents entering its last sub-tile, the mailboxes, bwd_row, the
+// boundary cotangent and the row's gradient packs. The cluster of C blocks
+// at blockIdx.x / C owns one row.
 template <int TS>
 __device__ __forceinline__ void bwd_block(
-    Shared& sm, const float* __restrict__ cbe, const float* __restrict__ ccn,
-    const float* __restrict__ cbdf, const int* __restrict__ flip, float* rec,
-    const float* __restrict__ e0g, const float* __restrict__ e1g,
-    const float* __restrict__ ri0g, const float* __restrict__ ri1g,
-    const float* __restrict__ co0g, const float* __restrict__ co1g,
-    const float* __restrict__ coh0g, const float* __restrict__ coh1g,
-    const float* __restrict__ cop0g, const float* __restrict__ cop1g,
-    const float* __restrict__ rc, const float* __restrict__ ret,
-    const float* __restrict__ rht, float* __restrict__ ce0g,
-    float* __restrict__ ce1g, float* __restrict__ cbc,
+    Shared& sm, BwdMail& mb, const float* __restrict__ cbe,
+    const float* __restrict__ ccn, const float* __restrict__ cbdf,
+    const int* __restrict__ flip, float* rec, const float* e0g,
+    const float* e1g, const float* ri0g, const float* ri1g,
+    const float* co0g, const float* co1g, const float* coh0g,
+    const float* coh1g, const float* cop0g, const float* cop1g,
+    const float* rc, const float* ret, const float* rht, float* ce0g,
+    float* ce1g, float* scr, float* __restrict__ cbc,
     float* __restrict__ gbe, float* __restrict__ gcn,
     float* __restrict__ gbdf, int Bh, int N, int K, int ntiles, int rtile,
     float s_be, float s_cn, float s_bdf, int symmetric, int reflective,
     int half0) {
   constexpr int nph = TS == 3 ? 4 : 1;
   constexpr int nkinds = TS == 3 ? 3 : 1;
-  const int slots = nph * K;
-  const int row = blockIdx.x % Bh;
-  const int h = half0 + blockIdx.x / Bh;
+  const cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cr = blockIdx.x / C;
+  const int row = cr % Bh;
+  const int h = half0 + cr / Bh;
   const int hr = h * Bh + row;
+  const int slots = nph * K;
+  const int sub = blockDim.x * kCells;
+  const int G = (N + sub - 1) / sub;
   load_row_coefs(sm, cbe, ccn, cbdf, hr);
-  // Lambdas entering the row's last tile: 0, or for the mu<0 half of a
-  // reflective slab s_p * the flipped row's mu>0 inflow cotangent.
+  // Lambdas entering the row's last sub-tile: 0, or for the mu<0 half of a
+  // reflective slab s_p * the flipped row's mu>0 inflow cotangent; shift
+  // cotangents 0. The mailboxes' cluster-wide sync orders these before
+  // every read.
   for (int i = threadIdx.x; i < slots; i += blockDim.x)
     sm.carry[i] = (h == 0 && reflective)
                       ? phase_s<TS>(i % nph, s_be, s_cn, s_bdf) *
                             rec[flip[row] * slots + i]
                       : 0.f;
   for (int k = threadIdx.x; k < K; k += blockDim.x)
-    sm.cet[0][k] = sm.cet[1][k] = sm.cht[0][k] = sm.cht[1][k] = 0.f;
-  __syncthreads();
+    sm.cet[k] = sm.cht[k] = 0.f;
+  open_mailboxes(mb, slots);
+  const size_t stride = static_cast<size_t>(Bh) * ntiles;
+  const BwdRow w{e0g, e1g, ri0g, ri1g, co0g, co1g, coh0g, coh1g, cop0g,
+                 cop1g,
+                 rc + static_cast<size_t>(h) * slots * stride + row * ntiles,
+                 ret + static_cast<size_t>(h) * K * stride + row * ntiles,
+                 rht + static_cast<size_t>(h) * K * stride + row * ntiles,
+                 ce0g, ce1g,
+                 scr + static_cast<size_t>(hr) * G * (slots + K),
+                 static_cast<size_t>(hr) * N,
+                 static_cast<size_t>(2) * Bh * N, stride, N, K, slots,
+                 ntiles, rtile, sub, G};
   float g[3][kNGrad];
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
     for (int i = 0; i < kNGrad; ++i) g[k][i] = 0.f;
   if (TS == 3 && !(symmetric || h == 0))
-    bwd_row<TS, false>(sm, h, row, Bh, N, K, ntiles, rtile, e0g, e1g, ri0g,
-                       ri1g, co0g, co1g, coh0g, coh1g, cop0g, cop1g, rc, ret,
-                       rht, ce0g, ce1g, g);
+    bwd_row<TS, false>(sm, mb, w, rank, C, g);
   else
-    bwd_row<TS, true>(sm, h, row, Bh, N, K, ntiles, rtile, e0g, e1g, ri0g,
-                      ri1g, co0g, co1g, coh0g, coh1g, cop0g, cop1g, rc, ret,
-                      rht, ce0g, ce1g, g);
+    bwd_row<TS, true>(sm, mb, w, rank, C, g);
 
-  // The row's start reached: thread 0 holds (wrote) every slot's inflow
-  // cotangent. They fold into bc with each phase's s; for a reflective slab
-  // bc feeds the mu<0 half only and the mu>0 ones go to the record.
-  if (threadIdx.x == 0) {
+  // The row's start reached: thread 0 of the block that ran the first
+  // sub-tile holds (wrote) every slot's inflow cotangent. They fold into bc
+  // with each phase's s; for a reflective slab bc feeds the mu<0 half only
+  // and the mu>0 ones go to the record.
+  if (rank == (G - 1) % C && threadIdx.x == 0) {
     if (h == 1 && reflective) {
       for (int i = 0; i < slots; ++i) rec[row * slots + i] = sm.carry[i];
     } else {
@@ -833,14 +967,23 @@ __device__ __forceinline__ void bwd_block(
       cbc[hr] = acc;
     }
   }
+  // The packs: each block's partials, then rank 0 adds them in rank order.
   for (int k = 0; k < nkinds; ++k)
 #pragma unroll
     for (int i = 0; i < kNGrad; ++i) warp_sum_to(sm, k * kNGrad + i, g[k][i]);
   __syncthreads();
   if (threadIdx.x < nkinds * kNGrad) {
+    float v = 0.f;
+    for (int wp = 0; wp < (int)(blockDim.x >> 5); ++wp)
+      v += sm.red[threadIdx.x][wp];
+    sm.part[threadIdx.x] = v;
+  }
+  cluster_barrier();
+  if (rank == 0 && threadIdx.x < nkinds * kNGrad) {
     const int k = threadIdx.x / kNGrad, i = threadIdx.x % kNGrad;
     float v = 0.f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v += sm.red[threadIdx.x][w];
+    for (int r = 0; r < C; ++r)
+      v += *cluster.map_shared_rank(&sm.part[threadIdx.x], r);
     float* out = TS == 3 ? (k == 0 ? gbe : (k == 1 ? gcn : gbdf))
                          : (TS == 1 ? gbe : gcn);
     out += hr * kNCoef;
@@ -848,6 +991,9 @@ __device__ __forceinline__ void bwd_block(
     out[i < 7 ? i : i + 1] = v;
     if (i == 5) out[7] = v;
   }
+  // No block leaves while rank 0 reads its partials or a peer may still
+  // address its mailboxes.
+  close_mailboxes();
 }
 
 // B10: one BE, CN or BDF2 step (K = 1 at compile time).
@@ -855,81 +1001,73 @@ template <int TS>
 __global__ void __launch_bounds__(kMaxThreads)
     bwd_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
                const float* __restrict__ cbdf, const int* __restrict__ flip,
-               float* rec, const float* __restrict__ e0g,
-               const float* __restrict__ e1g,
-               const float* __restrict__ co0g,
-               const float* __restrict__ co1g,
-               const float* __restrict__ coh0g,
-               const float* __restrict__ coh1g,
-               const float* __restrict__ rc, const float* __restrict__ ret,
-               const float* __restrict__ rht, float* __restrict__ ce0g,
-               float* __restrict__ ce1g, float* __restrict__ cbc,
-               float* __restrict__ gbe, float* __restrict__ gcn,
-               float* __restrict__ gbdf, int Bh, int N, int ntiles,
-               int rtile, float s_be, float s_cn, float s_bdf, int symmetric,
-               int reflective, int half0) {
+               float* rec, const float* e0g, const float* e1g,
+               const float* co0g, const float* co1g, const float* coh0g,
+               const float* coh1g, const float* rc, const float* ret,
+               const float* rht, float* ce0g, float* ce1g, float* scr,
+               float* __restrict__ cbc, float* __restrict__ gbe,
+               float* __restrict__ gcn, float* __restrict__ gbdf, int Bh,
+               int N, int ntiles, int rtile, float s_be, float s_cn,
+               float s_bdf, int symmetric, int reflective, int half0) {
   __shared__ Shared sm;
-  bwd_block<TS>(sm, cbe, ccn, cbdf, flip, rec, e0g, e1g, nullptr, nullptr,
-                co0g, co1g, coh0g, coh1g, nullptr, nullptr, rc, ret, rht,
-                ce0g, ce1g, cbc, gbe, gcn, gbdf, Bh, N, 1, ntiles, rtile,
-                s_be, s_cn, s_bdf, symmetric, reflective, half0);
+  __shared__ BwdMail mb;
+  bwd_block<TS>(sm, mb, cbe, ccn, cbdf, flip, rec, e0g, e1g, nullptr,
+                nullptr, co0g, co1g, coh0g, coh1g, nullptr, nullptr, rc, ret,
+                rht, ce0g, ce1g, scr, cbc, gbe, gcn, gbdf, Bh, N, 1, ntiles,
+                rtile, s_be, s_cn, s_bdf, symmetric, reflective, half0);
 }
 
 // B12: K BDF2 steps, newest to oldest at every sub-tile, in ONE launch.
 __global__ void __launch_bounds__(kMaxThreads)
     bwd_k_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
                  const float* __restrict__ cbdf, const int* __restrict__ flip,
-                 float* rec, const float* __restrict__ e0g,
-                 const float* __restrict__ e1g,
-                 const float* __restrict__ ri0g,
-                 const float* __restrict__ ri1g,
-                 const float* __restrict__ co0g,
-                 const float* __restrict__ co1g,
-                 const float* __restrict__ coh0g,
-                 const float* __restrict__ coh1g,
-                 const float* __restrict__ cop0g,
-                 const float* __restrict__ cop1g,
-                 const float* __restrict__ rc, const float* __restrict__ ret,
-                 const float* __restrict__ rht, float* __restrict__ ce0g,
-                 float* __restrict__ ce1g, float* __restrict__ cbc,
+                 float* rec, const float* e0g, const float* e1g,
+                 const float* ri0g, const float* ri1g, const float* co0g,
+                 const float* co1g, const float* coh0g, const float* coh1g,
+                 const float* cop0g, const float* cop1g, const float* rc,
+                 const float* ret, const float* rht, float* ce0g,
+                 float* ce1g, float* scr, float* __restrict__ cbc,
                  float* __restrict__ gbe, float* __restrict__ gcn,
                  float* __restrict__ gbdf, int Bh, int N, int K, int ntiles,
                  int rtile, float s_be, float s_cn, float s_bdf,
                  int symmetric, int reflective, int half0) {
   __shared__ Shared sm;
-  bwd_block<3>(sm, cbe, ccn, cbdf, flip, rec, e0g, e1g, ri0g, ri1g, co0g,
+  __shared__ BwdMail mb;
+  bwd_block<3>(sm, mb, cbe, ccn, cbdf, flip, rec, e0g, e1g, ri0g, ri1g, co0g,
                co1g, coh0g, coh1g, cop0g, cop1g, rc, ret, rht, ce0g, ce1g,
-               cbc, gbe, gcn, gbdf, Bh, N, K, ntiles, rtile, s_be, s_cn,
+               scr, cbc, gbe, gcn, gbdf, Bh, N, K, ntiles, rtile, s_be, s_cn,
                s_bdf, symmetric, reflective, half0);
 }
 
-// B9's and B11's threads a row block (B1's), B10's and B12's (half of them
-// rounded up to a warp: 256 sub-tiles of 1024 cells split a 4096-cell
-// record tile exactly; a row of fewer cells is one record tile of at most 4
-// sub-tiles), and whether ntiles is B9's tile count for N.
+// B9's and B11's threads a row block (B1's), and whether ntiles is B9's
+// tile count for N.
 inline int fwd_threads(int N) {
   return pick_threads(N, kFwdCells, kFwdThreads);
 }
-inline int bwd_threads(int N) { return 32 * ((fwd_threads(N) + 63) / 64); }
 inline bool tiles_ok(int N, int ntiles) {
   const int tile = fwd_threads(N) * kFwdCells;
   return ntiles == (N + tile - 1) / tile;
 }
 
-// tiles.cuh launch_halves in the backward's reversed order: the mu>0 half
-// records its inflow cotangents, which the mu<0 half's outflow lambdas
-// start from.
+// B10's and B12's threads a block: half of B9's rounded up to a warp (256
+// for a row of several record tiles: 1024-cell sub-tiles split a 4096-cell
+// record tile exactly; a row of fewer cells is one record tile), at most
+// max_threads, a power of two, so that the sub-tiles still split a record
+// tile.
+inline int bwd_threads(int N, int max_threads) {
+  const int t = 32 * ((fwd_threads(N) + 63) / 64);
+  return t < max_threads ? t : max_threads;
+}
+
+// launch_halves_ex (cluster.cuh) in the backward's reversed order: the mu>0
+// half records its inflow cotangents, which the mu<0 half's lambdas start
+// from. A refused first half skips the second and its error is returned.
 template <typename Launch>
 int launch_halves_rev(int Bh, int reflective, Launch launch) {
-  if (!reflective) {
-    launch(2 * Bh, 0);
-    return static_cast<int>(cudaGetLastError());
-  }
-  launch(Bh, 1);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch(Bh, 0);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = reflective ? launch(Bh, 1) : launch(2 * Bh, 0);
+  if (err == cudaSuccess && reflective) err = launch(Bh, 0);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
@@ -975,39 +1113,69 @@ int rt_adj_fwd_record(int ts_method, const float* cbe, const float* ccn,
   });
 }
 
+// B10's and B12's launch shape for rows of N cells at K steps of
+// slots_per_step slots each (4: BDF2, B10 at K = 1 or B12; 1: B10 at BE or
+// CN, K = 1), at most max_threads threads a block (a power of two from 32
+// to 256) and max_cluster blocks a row, `rows` rows a launch (Bh for a
+// reflective boundary, else 2*Bh): out = (threads a block, blocks a row
+// (the cluster), sub-tiles a row). The wrapper's scratch is (2, Bh,
+// sub-tiles, slots + K) floats.
+int rt_adj_bwd_geometry(int N, int K, int slots_per_step, int max_threads,
+                        int max_cluster, int rows, int* out) {
+  if (N < 1 || K < 1 || K > kMaxSteps ||
+      (slots_per_step != 4 && slots_per_step != 1) ||
+      (slots_per_step == 1 && K != 1) || max_threads < 32 ||
+      max_threads > kMaxThreads || (max_threads & (max_threads - 1)) ||
+      max_cluster < 1 || max_cluster > kMaxCluster || rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = bwd_threads(N, max_threads);
+  const int subs = (N + threads * kCells - 1) / (threads * kCells);
+  out[0] = threads;
+  out[1] = slots_per_step == 4
+               ? wave_cluster(subs, 4 * K, threads, max_cluster, rows,
+                              {reinterpret_cast<const void*>(&bwd_kernel<3>),
+                               reinterpret_cast<const void*>(&bwd_k_kernel)})
+               : wave_cluster(subs, 1, threads, max_cluster, rows,
+                              {reinterpret_cast<const void*>(&bwd_kernel<1>),
+                               reinterpret_cast<const void*>(&bwd_kernel<2>)});
+  out[2] = subs;
+  return 0;
+}
+
+// scr: the (2, Bh, sub-tiles, slots + K) float32 prologue scratch of
+// rt_adj_bwd_geometry's shape; max_threads and max_cluster as there.
 int rt_adj_bwd(int ts_method, const float* cbe, const float* ccn,
                const float* cbdf, const int* flip, float* rec,
                const float* e0, const float* e1, const float* co0,
                const float* co1, const float* coh0, const float* coh1,
                const float* rc, const float* ret, const float* rht,
-               float* ce0, float* ce1, float* cbc, float* gbe, float* gcn,
-               float* gbdf, int Bh, int N, int ntiles, float s_be,
-               float s_cn, float s_bdf, int symmetric, int reflective,
+               float* scr, float* ce0, float* ce1, float* cbc, float* gbe,
+               float* gcn, float* gbdf, int Bh, int N, int ntiles,
+               float s_be, float s_cn, float s_bdf, int symmetric,
+               int reflective, int max_threads, int max_cluster,
                void* stream) {
   if (Bh < 1 || N < 1 || ts_method < 1 || ts_method > 3 ||
-      !tiles_ok(N, ntiles) || (ts_method == 3 && (!coh0 || !coh1)))
+      !tiles_ok(N, ntiles) || (ts_method == 3 && (!coh0 || !coh1)) || !scr)
     return static_cast<int>(cudaErrorInvalidValue);
+  int geo[3];
+  const int bad = rt_adj_bwd_geometry(N, 1, ts_method == 3 ? 4 : 1,
+                                      max_threads, max_cluster,
+                                      reflective ? Bh : 2 * Bh, geo);
+  if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = bwd_threads(N);
   const int rtile = fwd_threads(N) * kFwdCells;
-  auto launch = [&](int grid, int half0) {
-    if (ts_method == 1)
-      bwd_kernel<1><<<grid, threads, 0, st>>>(
-          cbe, ccn, cbdf, flip, rec, e0, e1, co0, co1, coh0, coh1, rc, ret,
-          rht, ce0, ce1, cbc, gbe, gcn, gbdf, Bh, N, ntiles, rtile, s_be,
-          s_cn, s_bdf, symmetric, reflective, half0);
-    else if (ts_method == 2)
-      bwd_kernel<2><<<grid, threads, 0, st>>>(
-          cbe, ccn, cbdf, flip, rec, e0, e1, co0, co1, coh0, coh1, rc, ret,
-          rht, ce0, ce1, cbc, gbe, gcn, gbdf, Bh, N, ntiles, rtile, s_be,
-          s_cn, s_bdf, symmetric, reflective, half0);
-    else
-      bwd_kernel<3><<<grid, threads, 0, st>>>(
-          cbe, ccn, cbdf, flip, rec, e0, e1, co0, co1, coh0, coh1, rc, ret,
-          rht, ce0, ce1, cbc, gbe, gcn, gbdf, Bh, N, ntiles, rtile, s_be,
-          s_cn, s_bdf, symmetric, reflective, half0);
-  };
-  return launch_halves_rev(Bh, reflective, launch);
+  auto* kernel = ts_method == 1   ? &bwd_kernel<1>
+                 : ts_method == 2 ? &bwd_kernel<2>
+                                  : &bwd_kernel<3>;
+  // A refused cluster launch returns its error, and the second half is not
+  // launched.
+  return launch_halves_rev(Bh, reflective, [&](int rows, int half0) {
+    return launch_clusters(kernel, rows, geo[1], geo[0], st, cbe, ccn, cbdf,
+                           flip, rec, e0, e1, co0, co1, coh0, coh1, rc, ret,
+                           rht, ce0, ce1, scr, cbc, gbe, gcn, gbdf, Bh, N,
+                           ntiles, rtile, s_be, s_cn, s_bdf, symmetric,
+                           reflective, half0);
+  });
 }
 
 // The K-fused pair (B11, B12): BDF2 only, 1 <= K <= kMaxSteps; rc is
@@ -1043,23 +1211,27 @@ int rt_adj_bwd_k(const float* cbe, const float* ccn, const float* cbdf,
                  const float* co0, const float* co1, const float* coh0,
                  const float* coh1, const float* cop0, const float* cop1,
                  const float* rc, const float* ret, const float* rht,
-                 float* ce0, float* ce1, float* cbc, float* gbe, float* gcn,
-                 float* gbdf, int Bh, int N, int K, int ntiles, float s_be,
-                 float s_cn, float s_bdf, int symmetric, int reflective,
+                 float* scr, float* ce0, float* ce1, float* cbc, float* gbe,
+                 float* gcn, float* gbdf, int Bh, int N, int K, int ntiles,
+                 float s_be, float s_cn, float s_bdf, int symmetric,
+                 int reflective, int max_threads, int max_cluster,
                  void* stream) {
   if (Bh < 1 || N < 1 || K < 1 || K > kMaxSteps || !tiles_ok(N, ntiles) ||
-      (K > 1 && (!ri0 || !ri1)) || !coh0 || !coh1 || !cop0 || !cop1)
+      (K > 1 && (!ri0 || !ri1)) || !coh0 || !coh1 || !cop0 || !cop1 || !scr)
     return static_cast<int>(cudaErrorInvalidValue);
+  int geo[3];
+  const int bad = rt_adj_bwd_geometry(N, K, 4, max_threads, max_cluster,
+                                      reflective ? Bh : 2 * Bh, geo);
+  if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = bwd_threads(N);
   const int rtile = fwd_threads(N) * kFwdCells;
-  auto launch = [&](int grid, int half0) {
-    bwd_k_kernel<<<grid, threads, 0, st>>>(
-        cbe, ccn, cbdf, flip, rec, e0, e1, ri0, ri1, co0, co1, coh0, coh1,
-        cop0, cop1, rc, ret, rht, ce0, ce1, cbc, gbe, gcn, gbdf, Bh, N, K,
-        ntiles, rtile, s_be, s_cn, s_bdf, symmetric, reflective, half0);
-  };
-  return launch_halves_rev(Bh, reflective, launch);
+  return launch_halves_rev(Bh, reflective, [&](int rows, int half0) {
+    return launch_clusters(bwd_k_kernel, rows, geo[1], geo[0], st, cbe, ccn,
+                           cbdf, flip, rec, e0, e1, ri0, ri1, co0, co1, coh0,
+                           coh1, cop0, cop1, rc, ret, rht, ce0, ce1, scr, cbc,
+                           gbe, gcn, gbdf, Bh, N, K, ntiles, rtile, s_be,
+                           s_cn, s_bdf, symmetric, reflective, half0);
+  });
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 // The thread block cluster machinery of the wavefront kernels (df_sweep.cu:
-// B6 df_bdf2_kernel; sweep.cu: B1 bdf2_kernel and B2 multistep_kernel),
-// which run one row's tiles on the C blocks of a cluster, tile t on block
-// t mod C, and hand each (step, phase) slot's state from tile t to tile t+1
-// through distributed shared memory:
+// B6 df_bdf2_kernel; sweep.cu: B1 bdf2_kernel and B2 multistep_kernel;
+// adjoint.cu: B10 bwd_kernel and B12 bwd_k_kernel), which run one row's
+// tiles on the C blocks of a cluster, tile t on block t mod C, and hand each
+// (step, phase) slot's state from tile t to tile t+1 through distributed
+// shared memory (B10 and B12 count their sub-tiles from the row's end and
+// hand each slot's state upstream):
 // * a per-slot mailbox of F floats and an mbarrier of one arrival a phase
 //   (Mailbox), opened by every block before any block sends;
 // * the send: `mapa` to the next block's copy of the slot's mailbox,
@@ -107,6 +109,16 @@ __device__ __forceinline__ void open_mailboxes(Mailbox<F, S>& mb,
 // No block leaves while a cluster peer may still address its mailboxes.
 __device__ __forceinline__ void close_mailboxes() {
   cooperative_groups::this_cluster().sync();
+}
+
+// Every thread of the cluster: the global and shared writes before it are
+// visible to every block of the cluster after it (release and acquire at
+// cluster scope). B10's and B12's prologue scratch and gradient partials
+// cross blocks this way.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // Thread 0 only: waits for slot s's mail of the phase `parity` (acquire at

@@ -35,7 +35,11 @@ K-step kernels are their exact composition). The records follow the visit
 unit: the plain versions record per JAX block, (2, nph, Bh, N // blk), the
 kernels per CUDA tile, (2, nph, Bh, record_tiles(N)); each backward refuses
 the other's. The kernels scan exactly, so on the card the backward is the
-exact adjoint of the card's own forward. Each wrapper counts its launches.
+exact adjoint of the card's own forward. On the card B10 and B12 run each
+row as a wavefront over (1024-cell sub-tile, slot) from the row's end on a
+cluster of blocks (``bwd_geometry``), after a prologue that recomputes
+each sub-tile's entering forward carries into a scratch the wrapper
+allocates. Each wrapper counts its launches.
 
 ``DiffCudaStep`` and ``DiffCudaStepK`` (the counterparts of
 ``DiffPallasStep`` and ``DiffPallasStepK``) are the
@@ -48,8 +52,9 @@ adjoint.traced_tables -> fast_sweep.build_kind_coeffs_traced ->
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +72,14 @@ from .fast_sweep import BDF, BE, CN, FlatState
 # B9's tile (csrc/adjoint.cu, as B1's in csrc/sweep.cu): kFwdCells cells a
 # thread, at most kFwdThreads threads a row block.
 _K_CELLS, _MAX_THREADS = 8, 512
+
+# B10's and B12's launch shape: at most this many threads a block (a power
+# of two; a sub-tile is 4 cells a thread, 256 keeps four 1024-cell
+# sub-tiles a 4096-cell record tile) and blocks a row (a cluster; above 8 a
+# non-portable size). The kernels take fewer blocks a row where the card
+# cannot hold every row's cluster at once.
+ADJ_BWD_THREADS = 256
+ADJ_BWD_MAX_CLUSTER = 16
 
 
 def record_tiles(N: int) -> int:
@@ -605,7 +618,9 @@ def bwd_launch(cbe, ccn, cbdf, flip, e0, e1, co0, co1, coh0, coh1, rc, ret,
                s_bdf: float, reflective: bool, symmetric_half: bool,
                blk: int, npass: dict):
     """B10: the transposed step (see bwd_launch_ref). On the card it takes
-    fwd_record_launch's per-tile records and refuses any other shape."""
+    fwd_record_launch's per-tile records and refuses any other shape; each
+    row's sub-tiles run as a wavefront from the row's end over a cluster of
+    blocks (``bwd_geometry``)."""
     if e0.device.type == "cpu":
         return bwd_launch_ref(
             cbe, ccn, cbdf, flip, e0, e1, co0, co1, coh0, coh1, rc, ret, rht,
@@ -630,12 +645,14 @@ def bwd_launch(cbe, ccn, cbdf, flip, e0, e1, co0, co1, coh0, coh1, rc, ret,
     inflow = torch.empty((Bh, nph), dtype=torch.float32, device=e0.device)
     hc = (coh0, coh1) if bdf2 else (None, None)
     with torch.cuda.device(e0.device):
+        scr = _bwd_scratch(N, 1, Bh, nph, reflective, e0.device)
         rc_ = lib.rt_adj_bwd(
             ts_method, *map(_ptr, (cbe, ccn, cbdf, flip, inflow, e0, e1, co0,
-                                   co1, *hc, rc, ret, rht, ce0, ce1, cbc,
+                                   co1, *hc, rc, ret, rht, scr, ce0, ce1, cbc,
                                    *gpack)),
             Bh, N, nt, s_be, s_cn, s_bdf, int(symmetric_half),
-            int(reflective), cs._stream(e0.device))
+            int(reflective), ADJ_BWD_THREADS, ADJ_BWD_MAX_CLUSTER,
+            cs._stream(e0.device))
     cs._raise_on(name, rc_)
     bwd_launch.launches += 1
     return (ce0, ce1, cbc, *gpack)
@@ -686,7 +703,8 @@ def bwd_k_launch(cbe, ccn, cbdf, flip, e0, e1, ri0, ri1, co0, co1, coh0,
                  symmetric_half: bool, blk: int, npass: dict):
     """B12: the transposed K steps in one launch (see bwd_k_launch_ref). On
     the card it takes fwd_record_k_launch's per-tile records and refuses
-    any other shape."""
+    any other shape; each row's sub-tiles run as a wavefront from the
+    row's end over a cluster of blocks (``bwd_geometry``)."""
     name = "bwd_k_launch"
     _bdf2_only(name, ts_method)
     cs._check_K(name, K)
@@ -710,15 +728,41 @@ def bwd_k_launch(cbe, ccn, cbdf, flip, e0, e1, ri0, ri1, co0, co1, coh0,
     inflow = torch.empty((Bh, 4 * K), dtype=torch.float32, device=e0.device)
     ri = (ri0, ri1) if K > 1 else (None, None)
     with torch.cuda.device(e0.device):
+        scr = _bwd_scratch(N, K, Bh, 4, reflective, e0.device)
         rc_ = lib.rt_adj_bwd_k(
             *map(_ptr, (cbe, ccn, cbdf, flip, inflow, e0, e1, *ri, co0, co1,
-                        coh0, coh1, cop0, cop1, rc, ret, rht, ce0, ce1, cbc,
-                        *gpack)),
+                        coh0, coh1, cop0, cop1, rc, ret, rht, scr, ce0, ce1,
+                        cbc, *gpack)),
             Bh, N, K, nt, s_be, s_cn, s_bdf, int(symmetric_half),
-            int(reflective), cs._stream(e0.device))
+            int(reflective), ADJ_BWD_THREADS, ADJ_BWD_MAX_CLUSTER,
+            cs._stream(e0.device))
     cs._raise_on(name, rc_)
     bwd_k_launch.launches += 1
     return (ce0, ce1, cbc, *gpack)
+
+
+def bwd_geometry(N: int, K: int, rows: int,
+                 slots_per_step: int = 4) -> Tuple[int, int, int]:
+    """B10's and B12's launch shape for `rows` rows a launch (Bh for a
+    reflective boundary, else 2*Bh) of N cells at K steps of
+    `slots_per_step` slots (4: BDF2, B12 or B10; 1: B10 at BE or CN, K =
+    1): (threads a block, blocks a row, i.e. the cluster size, sub-tiles a
+    row)."""
+    out = (ctypes.c_int * 3)()
+    cs._raise_on("bwd_geometry", load_kernels().rt_adj_bwd_geometry(
+        N, K, slots_per_step, ADJ_BWD_THREADS, ADJ_BWD_MAX_CLUSTER, rows,
+        out))
+    return tuple(out)
+
+
+def _bwd_scratch(N: int, K: int, Bh: int, slots_per_step: int,
+                 reflective: bool, device) -> torch.Tensor:
+    """The prologue scratch of B10/B12: each sub-tile's entering forward
+    carries and hs1 edges, (2, Bh, sub-tiles, slots + K) float32."""
+    subs = bwd_geometry(N, K, Bh if reflective else 2 * Bh,
+                        slots_per_step)[2]
+    return torch.empty((2, Bh, subs, slots_per_step * K + K),
+                       dtype=torch.float32, device=device)
 
 
 def _ptr(t) -> "object":
