@@ -47,12 +47,20 @@ Phases, one line each; any failure exits nonzero before the result line:
    B15): B14 and B15 against their plain versions to DF_TOL in hi + lo
    (packed rows 2 and 32, a segment and a reset cell off the kernel's
    2048-cell tile, reset 0 and > 0, K 1 and 2 for BDF2 in both half modes,
-   K 1 and 3 for BE and CN); then the path: the CLI with --engine auto at
+   K 1 and 3 for BE and CN); B14's cluster wavefront (one cluster a chain)
+   on its own shapes, each launched REPEAT = 5 times, the worst held to
+   DF_TOL and the launches bit-identical (a reset cell off the tile with a
+   ragged halo chain, reset 0, a seeded chain of C + 1 tiles behind a halo
+   chain shorter than C, K 1, 2 and 4, both half modes, use_correction on
+   and off, and gray_s8's main launch), and B14's grid at gray_s8's main
+   and fixup launches (clusters x blocks a chain x tiles a chain; more than
+   one block a chain); then the path: the CLI with --engine auto at
    the default float64 on a tiny-batch deck thick enough for the creep bound
    (single_group.prm at N = 2048, X = 20.48), which must print JAX's df halo
    line, within DF_CLI_TOL of its CPU run; DFHaloCudaEngine against
    DFCudaEngine at gray_s8 for BDF2, BE and CN, 64 steps, ends, prev and
-   half within DF_TOL in hi + lo (and whether every plane is bit-equal);
+   half within DF_TOL in hi + lo (and whether every plane is bit-equal,
+   printed);
    then gray_s8 BDF2 through make_multichip_engine(engine="df"), which must
    pick DFHaloCudaEngine, timed as in phase 5, and on DFCudaEngine, beside
    the row walk's rates;
@@ -91,9 +99,14 @@ Phases, one line each; any failure exits nonzero before the result line:
    phase 9 (one record tile at K = 4, C + 1 sub-tiles at K = 1 and 2, N =
    52736 at K = 3 and 4, and K = 16 on Bh = 4 rows, where the blocks a row
    reach their cap of 16), the REPEAT launches bit-identical, packs
-   included; B11 against B1 at the same K (all six planes bit-equal),
-   B11's records and intermediate inputs against K chained B9 launches
-   (reported); the transposition check <c, A d> = <B12(c), d> within 1e-5;
+   included; B11's cluster wavefront on its own shapes (T = C + 1 tiles at
+   K = 2 and 4, a 13-tile row with a ragged last tile at K = 3, a row below
+   one tile, K = 16 on Bh = 4 rows), each launched REPEAT times, the
+   launches bit-identical and the worst held by check_f64; B11 against B1
+   at the same K (all six planes bit-equal) and B11's records and
+   intermediate inputs against K chained B9 launches (bit-equal), both
+   held on every B11 shape; the transposition check <c, A d> = <B12(c), d>
+   within 1e-5;
    K-fused against K = 1 gradients on the card within 1e-4 (JAX's
    test_kfused_gradients_match_k1 at N = 4096) and remat groups of K-step
    launches against none within 1e-4; card against CPU gradients at the
@@ -101,7 +114,8 @@ Phases, one line each; any failure exits nonzero before the result line:
    forward, value_and_grad at K = 1 and at the K-fused default (K = 4),
    printed as fwd_seconds, grad_k1_seconds, grad_kfused_seconds and both
    ratios to the forward (beside the row walk's), with the K-fused step's
-   peak memory and B12's grid there (more than one block a row); and 3
+   peak memory and B11's and B12's grids there (more than one block a
+   row); and 3
    fit_params(solver="pallas") iterations at that shape on the K-fused
    default (the off-equilibrium boundary source from 20% above it, the
    loss scaled to 1 at the start), every loss finite.
@@ -178,9 +192,13 @@ peaks), and the redesigned kernels' shape choices are timed: B1 at the
 bench at K = 1, 4, 8 and B2-CN there at K = 8, 16, each at the blocks a
 row the geometry picks and at half as many; B6 at the df bench at K = 1,
 2, 4 with 512 and 256 threads a block, at gray_s8 with at most 16 and 8
-blocks a row; B8 at the gray shard with 32-512 threads; B10 and B12 (K = 4)
-at the adjoint bench with 256 and 128 threads a block, each at the blocks a
-row the geometry picks and at half as many.
+blocks a row; B14 at gray_s8 with at most 16 and 8 blocks a chain, and
+its seeded and halo chains as two launches would run them; B11 at
+the adjoint bench at the blocks a row the geometry picks and at half as
+many; B8 at the gray shard with 32-512 threads; B10 and B12 (K = 4) at the
+adjoint bench with 256 and 128 threads a block, each at the blocks a row
+the geometry picks and at half as many.
+A line sets B11's and B14's times against their one-block row walks'.
 A line splits each kernel's launches on its path's phases into those at
 the shape it is timed at and the rest. The last lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -213,8 +231,8 @@ DRIFT_TOL = 5e-5
 # f64-grade engine drift ~1e-13 a step from float64).
 DF_TOL = 1e-11
 DF_CLI_TOL = 1e-10
-# Launches of each redesigned kernel (B1's, B2's, B6's, B10's and B12's
-# wavefronts, B8's look-back) per new parity shape: a race shows
+# Launches of each redesigned kernel (B1's, B2's, B6's, B10's, B11's, B12's
+# and B14's wavefronts, B8's look-back) per new parity shape: a race shows
 # intermittently, so the worst is held.
 REPEAT = 5
 # The rates (updates/s) these paths ran at while B1, B6 and B8 still walked
@@ -232,6 +250,14 @@ WALK_RATES = {"bench": 3.56799e10, "gray_s8 CudaSweepEngine": 9.08025e9,
 # on one H100 80GB HBM3 at 700 W (PERF.md section 5), printed beside this
 # run's.
 WALK_GRAD_RATIOS = {"grad_k1_vs_fwd": 21.72, "grad_kfused_vs_fwd": 19.37}
+# B11's and B14's one-launch times (the adjoint bench at K = 4, gray_s8's df
+# halo main launch) and the figures of their paths while both still walked
+# each row on one thread block (B1, B6, B10 and B12 already wavefronts),
+# measured on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit (PERF.md
+# sections 5-6), printed beside this run's.
+B11_B14_WALK = {"fwd_record_k_launch ms": 2.832,
+                "df_halo_bdf2_launch ms": 4.364, "grad_kfused_vs_fwd": 8.965,
+                "df gray_s8 DFHaloCudaEngine": 3.63691e9}
 SWEEP_CU = "radiative_transfer_tpu_torch/csrc/sweep.cu"
 DF_CU = "radiative_transfer_tpu_torch/csrc/df_sweep.cu"
 ADJ_CU = "radiative_transfer_tpu_torch/csrc/adjoint.cu"
@@ -1410,25 +1436,35 @@ def main() -> int:
     # segment (4 tiles and a ragged 768) whose first tile is mid-row: the
     # K = 1 cases run one sub-step a tile there, where a slot read before
     # its barrier would show.
-    n_checks = len(checks)
-    for Mr, Gr in ((2, 1), (8, 4)):
-        e = df_engine(load_config(deck, M=Mr, G=Gr, N=12800, ts_method=3))
+    def packed_df(Mr, Gr, X, blk, seed=0, **over):
+        """The mg deck's packed-rows double-float inputs at M = Mr, G = Gr,
+        N = X: (rows, coef, dcoef, npass and npass_c at plain blocks of blk
+        cells, the 4 input planes, seeds(C): (hi, lo) seeds of C columns,
+        the row's scale times [0.5, 6.5), lo within an ulp)."""
+        e = df_engine(load_config(deck, M=Mr, G=Gr, N=X, ts_method=3,
+                                  **over))
         rows = 2 * e.Bh
         coef = {k: c.reshape(rows, -1) for k, c in e.coef.items()}
         dcoef = {k: c.reshape(rows, -1) for k, c in e.dcoef.items()}
-        npass = {k: cs._scan_npass(float(np.max(e.kcs[k].a)), hblk, 1e-10)
+        npass = {k: cs._scan_npass(float(np.max(e.kcs[k].a)), blk, 1e-10)
                  for k in e.kcs}
-        npass_c = {k: cs._scan_npass(float(np.max(e.kcs[k].a)), hblk,
+        npass_c = {k: cs._scan_npass(float(np.max(e.kcs[k].a)), blk,
                                      cd.CORR_SCAN_TOL) for k in e.kcs}
-        g = torch.Generator(device=dev).manual_seed(100 + rows)
-        ins = [p.reshape(rows, -1) for p in df_rand(e, 60 + rows)]
+        g = torch.Generator(device=dev).manual_seed(100 + seed + rows)
+        ins = [p.reshape(rows, -1) for p in df_rand(e, 60 + seed + rows)]
 
-        def df_seeds(C):
-            # (hi, lo): the row's scale times [0.5, 6.5), lo within an ulp.
+        def seeds(C):
             sh = (ins[0][:, :1] * (0.5 + 6 * torch.rand(
                 (rows, C), generator=g, device=dev))).contiguous()
             return sh, (sh * (torch.rand(sh.shape, generator=g, device=dev)
                               - 0.5) * 2.0 ** -24).contiguous()
+
+        return rows, coef, dcoef, npass, npass_c, ins, seeds
+
+    n_checks = len(checks)
+    for Mr, Gr in ((2, 1), (8, 4)):
+        rows, coef, dcoef, npass, npass_c, ins, df_seeds = packed_df(
+            Mr, Gr, 12800, hblk)
 
         # (Kr, not K: the kernel table below times B1 at phase 5's K.)
         for reset in (0, 3):
@@ -1453,6 +1489,54 @@ def main() -> int:
                              f"B15-{label}-rows{rows}-r{reset}-K{Kr}",
                              cd.df_halo_multistep_launch(*args, **kw),
                              cd.df_halo_multistep_launch_ref(*args, **kw))
+    # B14's wavefront on its own shapes (one cluster a chain, C blocks a
+    # chain as df_halo_bdf2_geometry picks them for the launch's clusters),
+    # each launched REPEAT times against one plain launch, the worst held to
+    # DF_TOL and the launches bit-identical: a race between the cluster's
+    # blocks shows intermittently. Packed rows 2 and 32: reset 3 blocks of
+    # 1280 (cell 3840, off the 2048-cell tile: a ragged 2-tile halo chain
+    # and a 5-tile seeded chain, its last tile ragged); reset 0 (one 7-tile
+    # chain); a seeded chain of C + 1 tiles behind a 768-cell halo chain (one
+    # tile, fewer than C); K 1, 2 and 4 (B6's largest at the df bench), both
+    # half modes, use_correction on and off. gray_s8's main launch follows
+    # once the engine stands.
+    def b14_hold(label, args, kw, rows, X, reset_cell):
+        threads, C, tm, th = cd.df_halo_bdf2_geometry(X, kw["K"], reset_cell,
+                                                      rows)
+        outs = [cd.df_halo_bdf2_launch(*args, **kw) for _ in range(REPEAT)]
+        ref = cd.df_halo_bdf2_launch_ref(*args, **kw)
+        err = max(df_err(o, ref) for o in outs)
+        tag = (f"B14-{label}-rows{rows}-X{X}-reset{reset_cell}-K{kw['K']}-"
+               f"{'sym' if kw['symmetric_half'] else 'asym'}-corr"
+               f"{int(kw['use_corr'])}-C{C}-tiles{tm}+{th}")
+        b14_waves.append(f"{tag}={err:.1e}")
+        if not err <= DF_TOL:
+            raise AssertionError(f"df_halo_bdf2_launch {tag}: hi+lo "
+                                 f"normalised error {err:.3e} > {DF_TOL} "
+                                 f"(worst of {REPEAT} launches)")
+        if not all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(o, outs[0])):
+            raise AssertionError(f"df_halo_bdf2_launch {tag}: {REPEAT} "
+                                 f"launches on the same inputs are not "
+                                 f"bit-identical")
+
+    b14_waves = []
+    c2 = cd.df_halo_bdf2_geometry(1 << 20, 2, 768, 2)[1]
+    for label, Mr, Gr, X, blk, reset, Kw, sym, corr in (
+            ("ragged-halo", 2, 1, 12800, 1280, 3, 2, False, True),
+            ("ragged-halo", 8, 4, 12800, 1280, 3, 1, True, False),
+            ("reset0", 8, 4, 12800, 1280, 0, 2, True, True),
+            ("reset0", 2, 1, 12800, 1280, 0, 4, False, False),
+            ("seeded-C+1", 2, 1, 768 + (c2 + 1) * 2048, 256, 3, 2, False,
+             True),
+            ("ragged-halo", 2, 1, 12800, 1280, 3, 4, True, True)):
+        rows, coef, dcoef, npass, npass_c, ins, seeds = packed_df(
+            Mr, Gr, X, blk, 400 + len(b14_waves), use_correction=corr)
+        b14_hold(label, (*(coef[k] for k in (BE, CN, BDF)),
+                         *(dcoef[k] for k in (BE, CN, BDF)), *seeds(4 * Kw),
+                         reset, *ins),
+                 dict(K=Kw, symmetric_half=sym, use_corr=corr, blk=blk,
+                      npass=npass, npass_c=npass_c), rows, X, reset * blk)
     halo_checks = checks[n_checks:]
 
     cd.reset_launch_counts()
@@ -1528,8 +1612,37 @@ def main() -> int:
                for p in (dhst.hi.e0, dhst.lo.e0, dhst.hi.e1, dhst.lo.e1)]
     dfix_ms, _ = timed(lambda: dhalo._launch(Kdh, dfix_seeds, 0, dfix_in),
                        50)
+    # B14 at gray_s8's main launch (the engine's K, random planes) held as
+    # its own shapes above, and its grids there and at the fixup: more than
+    # one block a chain.
+    g8 = torch.Generator(device=dev).manual_seed(520)
+    d8in = [(x.reshape(dhalo.rows, -1) * (0.5 + torch.rand(
+        (dhalo.rows, x.shape[-1]), generator=g8, device=dev))).contiguous()
+        for x in dxe]
+    b14_hold("gray_s8-main", (*(dhalo.coef[k] for k in (BE, CN, BDF)),
+                              *(dhalo.dcoef[k] for k in (BE, CN, BDF)),
+                              *dseeds, dhalo.hb, *d8in),
+             dict(K=Kdh, symmetric_half=bool(dhalo.cfg.bdf2_symmetric_half),
+                  use_corr=bool(dhalo.cfg.use_correction), blk=dhalo.block,
+                  npass=dhalo.scan_npass, npass_c=dhalo.corr_npass),
+             dhalo.rows, dhalo.H + Ns, dhalo.H)
+    b14_grids = {}
+    for tag, Xg, rc_ in (("main", dhalo.H + Ns, dhalo.H),
+                         ("fixup", dhalo.H, 0)):
+        threads, C, tm, th = cd.df_halo_bdf2_geometry(Xg, Kdh, rc_,
+                                                      dhalo.rows)
+        if C < 2:
+            raise AssertionError(f"B14 at gray_s8 {tag}: {C} block a chain")
+        b14_grids[tag] = (f"{dhalo.rows * (2 if th else 1)} clusters x {C} "
+                          f"blocks of {threads} threads, tiles a chain "
+                          f"{tm}" + (f" (seeded) and {th} (halo)" if th
+                                     else ""))
     print(f"phase 8 f64 tiny-batch route: ok; kernel parity max hi+lo error "
-          + ", ".join(halo_checks) + f"; {dh_cli} (prints '{halo_line}'); "
+          + ", ".join(halo_checks) + f"; B14 wavefront shapes (worst of "
+          f"{REPEAT} launches, bit-identical): " + ", ".join(b14_waves)
+          + "; B14 grid at gray_s8 K="
+          f"{Kdh}: " + "; ".join(f"{k} {v}" for k, v in b14_grids.items())
+          + f"; {dh_cli} (prints '{halo_line}'); "
           f"gray_s8 DFHaloCudaEngine vs DFCudaEngine 64 steps: "
           f"{'; '.join(dpairs)}; gray_s8 BDF2 via engine='df' = "
           f"DFHaloCudaEngine K={Kdh} H={dhalo.H}: 64 steps in "
@@ -1542,8 +1655,12 @@ def main() -> int:
           f"peak {dp_peak:.3f} GiB; halo/plain "
           f"{dp_seconds / dh_seconds:.3f}x (row walk: DFHaloCudaEngine "
           f"{WALK_RATES['df gray_s8 DFHaloCudaEngine']:.6g}, DFCudaEngine "
-          f"{WALK_RATES['df gray_s8 DFCudaEngine']:.6g} updates/s); card: "
-          f"{card}", flush=True)
+          f"{WALK_RATES['df gray_s8 DFCudaEngine']:.6g} updates/s; B14 on "
+          f"the row walk: DFHaloCudaEngine "
+          f"{B11_B14_WALK['df gray_s8 DFHaloCudaEngine']:.6g} updates/s, "
+          f"main launch {B11_B14_WALK['df_halo_bdf2_launch ms']} ms); "
+          f"DFHaloCudaEngine vs DFCudaEngine bit-equal at every gray_s8 "
+          f"kind: {all_equal}; card: {card}", flush=True)
 
     # -- 9. the adjoint path -------------------------------------------------
     def adj_coefs(eng):
@@ -1853,8 +1970,9 @@ def main() -> int:
           flush=True)
 
     # -- 10. the K-fused adjoint ---------------------------------------------
-    # B11/B12 against their plain versions, B11 against B1 at the same K (bit
-    # for bit) and its records against K chained B9 launches (reported), and
+    # B11/B12 against their plain versions, B11 against B1 at the same K and
+    # its records and intermediate inputs against K chained B9 launches (both
+    # bit for bit: B11 runs B1's wavefront on B9's tiles and arithmetic), and
     # the transposition check of the pair. M = 8 x G = 4 (Bh = 16); N =
     # 52736 is 13 B11 tiles (the last ragged, 3584 cells) and 52 B12
     # sub-tiles (plain versions: 103 blocks of 512); N = 12800 4 tiles and 13
@@ -1864,6 +1982,34 @@ def main() -> int:
                 (True, True, 4, 12800), (False, False, 4, 5000),
                 (True, False, 2, 100)]
     b1k_parity, b9k_records, k_transposition = [], [], []
+
+    def b11_bits(label, e, co, geo, e0, e1, Kk, fk):
+        """Holds B11's outputs fk: its six planes bit-equal to B1's at the
+        same K, its records and intermediate inputs bit-equal to K chained
+        B9 launches."""
+        one = e.multi_step(FlatState(e0, e1, e0, e1, e0, e1), Kk)
+        if not all(torch.equal(g, r) for g, r in zip(
+                fk[:6], (one.e0, one.e1, one.h0, one.h1, one.p0, one.p1))):
+            raise AssertionError(f"B11 {label}: not bit-equal to B1 at "
+                                 f"K = {Kk}")
+        b1k_parity.append(f"{label} bit-equal")
+        ins, recs = [(e0, e1)], []
+        for _ in range(Kk):
+            o = ca.fwd_record_launch(*co, e.bc, e.flip, *ins[-1], **geo)
+            recs.append(o[4:])
+            ins.append(o[:2])
+        chained = (torch.cat([r[0] for r in recs], 1),
+                   torch.stack([r[1] for r in recs], 1),
+                   torch.stack([r[2] for r in recs], 1),
+                   *(torch.stack([x[i] for x in ins[1:Kk]]) for i in (0, 1)))
+        if not all(torch.equal(a, b) for a, b in zip(fk[6:], chained)):
+            diff = max(float((a - b).abs().max())
+                       for a, b in zip(fk[6:], chained))
+            raise AssertionError(f"B11 {label}: records and intermediate "
+                                 f"inputs not bit-equal to {Kk} chained B9 "
+                                 f"launches (max|diff| {diff:.3e})")
+        b9k_records.append(f"{label} bit-equal")
+
     for refl, sym, Kk, Nx in kf_cases:
         e = engine(load_config(deck, M=8, G=4, N=Nx, ts_method=3,
                                bc_left_indicator=2 if refl else 1,
@@ -1884,26 +2030,7 @@ def main() -> int:
                                         **geo)
         check("fwd_record_k_launch", f"B11-{label}", fk[:6] + fk[9:],
               fr[:6] + fr[9:])
-        one = e.multi_step(FlatState(e0, e1, e0, e1, e0, e1), Kk)
-        if not all(torch.equal(g, r) for g, r in zip(
-                fk[:6], (one.e0, one.e1, one.h0, one.h1, one.p0, one.p1))):
-            raise AssertionError(f"B11 {label}: not bit-equal to B1 at "
-                                 f"K = {Kk}")
-        b1k_parity.append(f"{label} bit-equal")
-        # K chained B9 launches: their records and intermediate inputs.
-        ins, recs = [(e0, e1)], []
-        for _ in range(Kk):
-            o = ca.fwd_record_launch(*co, e.bc, e.flip, *ins[-1], **geo)
-            recs.append(o[4:])
-            ins.append(o[:2])
-        chained = (torch.cat([r[0] for r in recs], 1),
-                   torch.stack([r[1] for r in recs], 1),
-                   torch.stack([r[2] for r in recs], 1),
-                   *(torch.stack([x[i] for x in ins[1:Kk]]) for i in (0, 1)))
-        diff = max(float((a - b).abs().max())
-                   for a, b in zip(fk[6:], chained))
-        b9k_records.append(f"{label} " + ("bit-equal" if diff == 0.0 else
-                                          f"max|diff| {diff:.1e}"))
+        b11_bits(label, e, co, geo, e0, e1, Kk, fk)
         cots = [rnd(centred=True) for _ in range(6)]
         bk = ca.bwd_k_launch(*co, e.flip, e0, e1, *fk[9:], *cots, *fk[6:9],
                              K=Kk, **geo)
@@ -1924,6 +2051,55 @@ def main() -> int:
                              K=Kk, **geo)
         transposition(label, d, out[:6], tb[:2], k_transposition)
     kf_checks = checks[n_checks:]
+
+    # B11's wavefront on its own shapes, each launched REPEAT times: the
+    # launches bit-identical, the worst held as check_f64 holds phase 3's
+    # wavefront shapes (over 16 steps of a 52736-cell row the float32 plain
+    # version itself lies near TOL from its float64 evaluation), and each
+    # held bit for bit against B1 and K chained B9 launches. T = C + 1
+    # record tiles at K = 2 and 4 (C the blocks a row fwd_k_geometry picks
+    # for the launch's rows on long rows); 12 whole tiles and a ragged 3584
+    # (N = 52736) at K = 3; a row below one tile (N = 1000, 128 threads)
+    # at K = 2; K = 16 on Bh = 4 rows, where C reaches its cap; both
+    # boundaries, both half modes.
+    b11_wave, b11_c16 = [], None
+    for Kk, refl, sym, Nx, Mx, what in (
+            (2, True, False, (ca.fwd_k_geometry(1 << 20, 2, 16)[1] + 1)
+             * 4096, 8, "C+1"),
+            (4, False, True, (ca.fwd_k_geometry(1 << 20, 4, 32)[1] + 1)
+             * 4096, 8, "C+1"),
+            (3, True, True, 52736, 8, "ragged"),
+            (2, False, False, 1000, 8, "below-one-tile"),
+            (16, True, False, 52736, 2, "ragged")):
+        e = wave_engine(3, refl, sym, Nx, Mx)
+        geo, co = ca.step_geometry(e), adj_coefs(e)
+        base = e.init_state().e0
+        g11 = torch.Generator(device=dev).manual_seed(600 + len(b11_wave))
+        e0, e1 = [(base * (0.5 + torch.rand(base.shape, generator=g11,
+                                            device=dev))).contiguous()
+                  for _ in range(2)]
+        _, C, T = ca.fwd_k_geometry(Nx, Kk, e.Bh if refl else 2 * e.Bh)
+        label = (f"K{Kk}-{what}-{'refl' if refl else 'src'}-"
+                 f"{'sym' if sym else 'asym'}-N{Nx}-Bh{e.Bh}-C{C}T{T}")
+        outs = [ca.fwd_record_k_launch(*co, e.bc, e.flip, e0, e1, K=Kk,
+                                       **geo) for _ in range(REPEAT)]
+        if not all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(o, outs[0])):
+            raise AssertionError(f"fwd_record_k_launch B11-{label}: "
+                                 f"{REPEAT} launches on the same inputs are "
+                                 f"not bit-identical")
+        ref = ca.fwd_record_k_launch_ref(*co, e.bc, e.flip, e0, e1, K=Kk,
+                                         **geo)
+        ref64 = ca.fwd_record_k_launch_ref(*f64(co), e.bc.double(), e.flip,
+                                           *f64((e0, e1)), K=Kk, **geo)
+        n_before = len(checks)
+        check_f64("fwd_record_k_launch", f"B11-wave-{label}",
+                  outs[0][:6] + outs[0][9:], ref[:6] + ref[9:],
+                  ref64[:6] + ref64[9:])
+        b11_wave.append(checks.pop(n_before))
+        b11_bits(f"wave-{label}", e, co, geo, e0, e1, Kk, outs[0])
+        if Kk == 16:
+            b11_c16 = C
 
     # B12's wavefront on its own shapes: one record tile of 4 sub-tiles
     # (fewer than the 16 blocks a row K = 4 allows); C + 1 sub-tiles at K =
@@ -2033,18 +2209,24 @@ def main() -> int:
     if not all(np.isfinite(fit_hist)):
         raise AssertionError(f"fit_params losses not finite: {fit_hist}")
     launches.update(read_counts(PATH_ADJ_K, "the K-fused adjoint (phase 10)"))
-    # B12's launch shape at the bench: a cluster of C > 1 blocks a row.
+    # B11's and B12's launch shapes at the bench: clusters of C > 1 blocks a
+    # row.
+    b11_geo = ca.fwd_k_geometry(Na, Ka, fwd_eng.Bh)
     b12_geo = ca.bwd_geometry(Na, Ka, fwd_eng.Bh, 4)
-    if b12_geo[1] < 2:
-        raise AssertionError(f"B12 at the adjoint bench: {b12_geo[1]} block "
-                             f"a row")
+    for tag, geo_ in (("B11", b11_geo), ("B12", b12_geo)):
+        if geo_[1] < 2:
+            raise AssertionError(f"{tag} at the adjoint bench: {geo_[1]} "
+                                 f"block a row")
     bench = {"fwd_seconds": f2_seconds, "grad_k1_seconds": g1_seconds,
              "grad_kfused_seconds": gk_seconds,
              "grad_k1_vs_fwd": g1_seconds / f2_seconds,
              "grad_kfused_vs_fwd": gk_seconds / f2_seconds,
              "grad_kfused_peak_gib": gk_peak}
     print(f"phase 10 K-fused adjoint: ok; kernel parity max normalised error "
-          + ", ".join(kf_checks) + f"; B12 wavefront shapes (worst of "
+          + ", ".join(kf_checks) + f"; B11 wavefront shapes (worst of "
+          f"{REPEAT} launches, bit-identical): " + ", ".join(b11_wave)
+          + f" (K = 16: {b11_c16} blocks a row, at most "
+          f"{cs.SWEEP_MAX_CLUSTER}); B12 wavefront shapes (worst of "
           f"{REPEAT} launches, bit-identical, packs included): "
           + ", ".join(b12_wave) + f" (K = 16: {b12_c16} blocks a row, at "
           f"most {ca.ADJ_BWD_MAX_CLUSTER}); B11 vs B1 at the same K: "
@@ -2058,7 +2240,11 @@ def main() -> int:
           f"N=2^17, BDF2, {na} steps) " + json.dumps(bench) + " (K-fused "
           f"windows {fmt_windows(gk_windows)}; row walk: "
           + ", ".join(f"{k} {v}" for k, v in WALK_GRAD_RATIOS.items())
-          + f"); B12 grid at K = {Ka}: {fwd_eng.Bh} rows x {b12_geo[1]} "
+          + f"; B11 on the row walk: grad_kfused_vs_fwd "
+          f"{B11_B14_WALK['grad_kfused_vs_fwd']}); B11 grid at K = {Ka}: "
+          f"{fwd_eng.Bh} rows x {b11_geo[1]} blocks of {b11_geo[0]} threads "
+          f"a launch, {b11_geo[2]} tiles a row; B12 grid at K = {Ka}: "
+          f"{fwd_eng.Bh} rows x {b12_geo[1]} "
           f"blocks of {b12_geo[0]} threads a launch, {b12_geo[2]} sub-tiles "
           f"a row; fit_params 3 iterations on "
           f"the K-fused default, losses "
@@ -2602,6 +2788,30 @@ def main() -> int:
                     lambda: df_launch(d8, rd8, Kd8), 5)
         shape_ms.append(f"B6 gray_s8 K={Kd8} at most {mc} blocks a row "
                         f"{ms:.3f} ms")
+    # B14 at gray_s8's main launch with at most 16 and 8 blocks a chain; B11
+    # at the adjoint bench (K = Ka) at the blocks a row the geometry picks
+    # and at half as many.
+    for mc in (16, 8):
+        ms = shaped(cd, "DF_BDF2_MAX_CLUSTER", mc,
+                    lambda: cd.df_halo_bdf2_launch(*b14_args, **b14_kw), 5)
+        shape_ms.append(f"B14 gray_s8 K={Kdh} at most {mc} blocks a chain "
+                        f"{ms:.3f} ms")
+    # B14's other option at gray_s8, two launches: the seeded chains alone
+    # (rows clusters over [H, H + N)) and the halo chains alone (over [0,
+    # H)), each from the same planes as one launch's, at the blocks a chain
+    # the geometry picks for rows clusters.
+    for tag, lo, hi in (("seeded chains alone", dhalo.H, dhalo.H + Ns),
+                        ("halo chains alone", 0, dhalo.H)):
+        part = [p[:, lo:hi].contiguous() for p in b14_args[9:]]
+        ms = timed(lambda: cd.df_halo_bdf2_launch(*b14_args[:8], 0, *part,
+                                                  **b14_kw), 5)[0]
+        C = cd.df_halo_bdf2_geometry(hi - lo, Kdh, 0, dhalo.rows)[1]
+        shape_ms.append(f"B14 gray_s8 K={Kdh} {tag} C={C} {ms:.3f} ms")
+    C11 = ca.fwd_k_geometry(Na, Ka, fwd_eng.Bh)[1]
+    for mc in sorted({C11, max(1, C11 // 2)}, reverse=True):
+        ms = shaped(cs, "SWEEP_MAX_CLUSTER", mc,
+                    lambda: ca.fwd_record_k_launch(*b9_in, K=Ka, **ageo), 5)
+        shape_ms.append(f"B11 adjoint bench K={Ka} C={mc} {ms:.3f} ms")
     for thr in (32, 64, 128, 512):
         ms = shaped(cs, "SHARDED_THREADS", thr,
                     lambda: cs.sharded_substep_launch(*b8_args, **b8_kw), 20)
@@ -2626,6 +2836,14 @@ def main() -> int:
     print("redesign shapes (one H100 launch each, CUDA events): "
           + "; ".join(shape_ms) + f"; card: {card}", flush=True)
     print("path launches at the timed shape + elsewhere: " + ", ".join(split),
+          flush=True)
+    row_ms = {row["name"]: row["ms"] for row in table}
+    print("B11 and B14, one launch, this run against the row walk (one block "
+          "a row, NVIDIA H100 80GB HBM3 at 700.00 W): fwd_record_k_launch "
+          f"{row_ms['fwd_record_k_launch']:.4f} ms (row walk "
+          f"{B11_B14_WALK['fwd_record_k_launch ms']}), df_halo_bdf2_launch "
+          f"{row_ms['df_halo_bdf2_launch']:.4f} ms (row walk "
+          f"{B11_B14_WALK['df_halo_bdf2_launch ms']}); card: {card}",
           flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

@@ -33,17 +33,22 @@
 //
 // Design. Each phase's scan is exact (serial over a thread's cells, a
 // warp-shuffle scan of affine maps, one cross-warp pass: tiles.cuh).
-// * B9 and B11 follow B1's one-block walk (segments.cuh): ONE thread block
-//   owns ONE row and walks it in tiles with a loop inside the block. B9
-//   tiles a row as B1 does (8 cells a thread, at most 512 threads, so
-//   4096-cell tiles) and runs B1's own sub-step routine (tiles.cuh
-//   substep_tile), so its step is B1's at K = 1; it skips the prev planes
-//   (the inputs by definition) and, for BE/CN, the half planes. Thread 0
-//   writes each record as it reads it: the carry entering the tile in each
-//   phase's scan, the upwind edges in the exchanges.
-// * B11 is B1's K-step row walk itself (segments.cuh bdf2_segment) with a
-//   record hook, so its six planes are B1's at the same K to the bit and its
-//   records are those of K chained B9 launches.
+// * B9 follows the one-block walk (segments.cuh): ONE thread block owns ONE
+//   row and walks it in tiles with a loop inside the block. B9 tiles a row
+//   as B1 does (8 cells a thread, at most 512 threads, so 4096-cell tiles)
+//   and runs B1's own sub-step routine (tiles.cuh substep_tile), so its
+//   step is B1's at K = 1; it skips the prev planes (the inputs by
+//   definition) and, for BE/CN, the half planes. Thread 0 writes each
+//   record as it reads it: the carry entering the tile in each phase's
+//   scan, the upwind edges in the exchanges.
+// * B11 is B1's K-step wavefront itself (wave.cuh bdf2_wave: a row's tiles
+//   on the C blocks of a thread block cluster, each (step, phase) slot's
+//   carry and tails mailed from tile t to tile t+1, cluster.cuh) with a
+//   record hook, on B1's tiles, which are the record tiles: its six planes
+//   are B1's at the same K to the bit and its records those of K chained
+//   B9 launches, which B9's thread 0 writes the same way. C = min(16, 4K,
+//   tiles), shrunk until every row's cluster of the launch is resident
+//   (rt_adj_fwd_record_k_geometry).
 // * B10 and B12 share one row body (bwd_row; K = 1 at compile time for B10)
 //   and run each row on the C blocks of a thread block cluster
 //   (cluster.cuh), in sub-tiles of blockDim*4 cells (half B1's cells a
@@ -111,9 +116,12 @@
 //   their cotangents are forced to 0, so the cotangents chained from step to
 //   step stay 0 there.
 //
-// What bounds it on this card: the serial carry chain of each row. B9/B11
-// run 4 scans (BDF2) per 4096 cells and step, one block a row, on 2*Bh
-// blocks (Bh at a time for a reflective slab). B10/B12 run 48 (four
+// What bounds it on this card: the serial carry chain of each row. B9 runs
+// 4 scans (BDF2) per 4096 cells and step, one block a row, on 2*Bh blocks
+// (Bh at a time for a reflective slab); B11 spreads a row's T tiles x 4K
+// slots of such scans over C blocks, so a launch is bound by the larger of
+// T*4K/C tile-phases and the handoff chain (~T hops of a tile-phase and a
+// mail's latency) plus the last tile's slots, as B1. B10/B12 run 48 (four
 // sub-tiles of 8 forward and 4 reversed) and 16 neighbour exchanges, each
 // with block barriers, spread over C blocks a row: a launch is bound by the
 // larger of the row's sub-tile-phases over C and its handoff chain (one
@@ -129,6 +137,7 @@
 
 #include "cluster.cuh"
 #include "segments.cuh"
+#include "wave.cuh"
 
 namespace {
 
@@ -463,7 +472,7 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
-// B11's records (bdf2_segment's hook), pointers at the row's first entry:
+// B11's records (bdf2_wave's hook), pointers at the row's first entry:
 // rc[slot * stride + t], ret/rht[k * stride + t] (stride = Bh * ntiles),
 // and step k's input planes ri0/ri1 at (k - 1) * plane (plane = 2 * Bh * N).
 struct KRecords {
@@ -493,11 +502,13 @@ struct KRecords {
 };
 
 // B11, replaces _make_fwd_record_kernel_bdf2_k (pallas_adjoint.py:571): K
-// whole BDF2 steps in ONE launch, B1's bdf2_kernel with records: the row
-// walk is bdf2_segment itself, its hook writing each (step, phase) slot's
-// carry and each step's upwind e1/hs1 edges at tile entry (thread 0, the
-// values it read between the scans' and exchanges' barriers) and the input
-// planes of steps 1..K-1 (every thread, its own cells).
+// whole BDF2 steps in ONE launch, B1's bdf2_kernel with records: the
+// wavefront over (tile, slot) is wave.cuh bdf2_wave itself, on B1's tiles
+// (the record tiles), its hook writing each (step, phase) slot's carry and
+// each step's upwind e1/hs1 edges at tile entry (thread 0, the values it
+// read between the scans' and exchanges' barriers: the carry and tails
+// that init_row set for tile 0, that the slot's mail brought for a later
+// tile) and the input planes of steps 1..K-1 (every thread, its own cells).
 __global__ void __launch_bounds__(kFwdThreads)
     fwd_record_k_kernel(const float* __restrict__ cbe,
                         const float* __restrict__ ccn,
@@ -514,25 +525,27 @@ __global__ void __launch_bounds__(kFwdThreads)
                         float s_be, float s_cn, float s_bdf, int symmetric,
                         int reflective, int half0) {
   __shared__ SegShared sm;
-  const int row = blockIdx.x % Bh;
-  const int h = half0 + blockIdx.x / Bh;
-  const int hr = h * Bh + row;
+  __shared__ WaveMail mb;
+  const WaveRow w = wave_row(Bh, half0);
   const float s_of[4] = {s_be, s_cn, s_be, s_bdf};
   const int slots = 4 * K;
-  init_row(sm, slots, K, s_of, 4, bc, flip, rec, h, row, hr, reflective);
-  const size_t base = static_cast<size_t>(hr) * N;
+  open_mailboxes(mb, slots);
+  init_row(sm, slots, K, s_of, 4, bc, flip, rec, w.h, w.row, w.hr,
+           reflective);
+  const size_t base = static_cast<size_t>(w.hr) * N;
   const size_t stride = static_cast<size_t>(Bh) * ntiles;
-  const KRecords r{rc + static_cast<size_t>(h) * slots * stride + row * ntiles,
-                   ret + static_cast<size_t>(h) * K * stride + row * ntiles,
-                   rht + static_cast<size_t>(h) * K * stride + row * ntiles,
+  const size_t rrow = static_cast<size_t>(w.row) * ntiles;
+  const KRecords r{rc + static_cast<size_t>(w.h) * slots * stride + rrow,
+                   ret + static_cast<size_t>(w.h) * K * stride + rrow,
+                   rht + static_cast<size_t>(w.h) * K * stride + rrow,
                    ri0 + base, ri1 + base, stride,
                    static_cast<size_t>(2) * Bh * N};
-  int buf = 0;
-  bdf2_segment(load_coef(cbe + hr * kNCoef), load_coef(ccn + hr * kNCoef),
-               load_coef(cbdf + hr * kNCoef), symmetric || h == 0, e0g + base,
-               e1g + base, o0g + base, o1g + base, oh0g + base, oh1g + base,
-               op0g + base, op1g + base, 0, N, K, sm, buf, r);
-  record_row(sm, slots, rec, h, row, reflective);
+  bdf2_wave(load_coef(cbe + w.hr * kNCoef), load_coef(ccn + w.hr * kNCoef),
+            load_coef(cbdf + w.hr * kNCoef), symmetric || w.h == 0,
+            e0g + base, e1g + base, o0g + base, o1g + base, oh0g + base,
+            oh1g + base, op0g + base, op1g + base, N, K, sm, mb, w.C, w.rank,
+            w.h == 0 && reflective ? rec + w.row * slots : nullptr, r);
+  close_mailboxes();
 }
 
 // One forward pass of the BDF2 step (TS 3) or the BE/CN sub-step over this
@@ -1184,6 +1197,25 @@ int rt_adj_bwd(int ts_method, const float* cbe, const float* ccn,
 // B11 also writes op0/op1, the last step's input; B12 takes its cotangent
 // cop0/cop1 beside those of the ends (co) and the half snapshot (coh).
 
+// B11's launch shape for rows of N cells at K steps, at most max_cluster
+// blocks a row, `rows` rows a launch (Bh for a reflective boundary, else
+// 2*Bh): out = (threads a block, blocks a row (the cluster), tiles a row).
+// The tiles are B9's record tiles (B1's at 512 threads at most).
+int rt_adj_fwd_record_k_geometry(int N, int K, int max_cluster, int rows,
+                                 int* out) {
+  if (N < 1 || K < 1 || K > kMaxSteps || max_cluster < 1 ||
+      max_cluster > kMaxCluster || rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = fwd_threads(N);
+  const int tiles = (N + threads * kFwdCells - 1) / (threads * kFwdCells);
+  out[0] = threads;
+  out[1] = wave_cluster(tiles, 4 * K, threads, max_cluster, rows,
+                        {reinterpret_cast<const void*>(&fwd_record_k_kernel)});
+  out[2] = tiles;
+  return 0;
+}
+
+// max_cluster as rt_adj_fwd_record_k_geometry's.
 int rt_adj_fwd_record_k(const float* cbe, const float* ccn, const float* cbdf,
                         const float* bc, const int* flip, float* rec,
                         const float* e0, const float* e1, float* o0,
@@ -1191,17 +1223,22 @@ int rt_adj_fwd_record_k(const float* cbe, const float* ccn, const float* cbdf,
                         float* op1, float* rc, float* ret, float* rht,
                         float* ri0, float* ri1, int Bh, int N, int K,
                         int ntiles, float s_be, float s_cn, float s_bdf,
-                        int symmetric, int reflective, void* stream) {
-  if (Bh < 1 || N < 1 || K < 1 || K > kMaxSteps || !tiles_ok(N, ntiles) ||
-      (K > 1 && (!ri0 || !ri1)))
+                        int symmetric, int reflective, int max_cluster,
+                        void* stream) {
+  if (Bh < 1 || !tiles_ok(N, ntiles) || (K > 1 && (!ri0 || !ri1)))
     return static_cast<int>(cudaErrorInvalidValue);
+  int geo[3];
+  const int bad = rt_adj_fwd_record_k_geometry(
+      N, K, max_cluster, reflective ? Bh : 2 * Bh, geo);
+  if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = fwd_threads(N);
-  return launch_halves(Bh, reflective, [&](int grid, int half0) {
-    fwd_record_k_kernel<<<grid, threads, 0, st>>>(
-        cbe, ccn, cbdf, bc, flip, rec, e0, e1, o0, o1, oh0, oh1, op0, op1,
-        rc, ret, rht, ri0, ri1, Bh, N, K, ntiles, s_be, s_cn, s_bdf,
-        symmetric, reflective, half0);
+  // A refused cluster launch returns its error, and the second half is not
+  // launched.
+  return launch_halves_ex(Bh, reflective, [&](int grid, int half0) {
+    return launch_clusters(fwd_record_k_kernel, grid, geo[1], geo[0], st, cbe,
+                           ccn, cbdf, bc, flip, rec, e0, e1, o0, o1, oh0, oh1,
+                           op0, op1, rc, ret, rht, ri0, ri1, Bh, N, K, ntiles,
+                           s_be, s_cn, s_bdf, symmetric, reflective, half0);
   });
 }
 

@@ -1,10 +1,11 @@
 // The thread block cluster machinery of the wavefront kernels (df_sweep.cu:
-// B6 df_bdf2_kernel; sweep.cu: B1 bdf2_kernel and B2 multistep_kernel;
-// adjoint.cu: B10 bwd_kernel and B12 bwd_k_kernel), which run one row's
-// tiles on the C blocks of a cluster, tile t on block t mod C, and hand each
-// (step, phase) slot's state from tile t to tile t+1 through distributed
-// shared memory (B10 and B12 count their sub-tiles from the row's end and
-// hand each slot's state upstream):
+// B6 df_bdf2_kernel and B14 df_halo_bdf2_kernel; sweep.cu: B1 bdf2_kernel
+// and B2 multistep_kernel; adjoint.cu: B11 fwd_record_k_kernel, B10
+// bwd_kernel and B12 bwd_k_kernel), which run one row's tiles (B14: one
+// chain's) on the C blocks of a cluster, tile t on block t mod C, and hand
+// each (step, phase) slot's state from tile t to tile t+1 through
+// distributed shared memory (B10 and B12 count their sub-tiles from the
+// row's end and hand each slot's state upstream):
 // * a per-slot mailbox of F floats and an mbarrier of one arrival a phase
 //   (Mailbox), opened by every block before any block sends;
 // * the send: `mapa` to the next block's copy of the slot's mailbox,
@@ -30,7 +31,11 @@
 // chain also orders a slot's shared state: the read of it that a block's
 // sender makes for tile t precedes (in that thread's order) its release,
 // so it precedes the write of the same slot that thread 0 makes when the
-// block receives tile t+C's mail.
+// block receives tile t+C's mail. All of it needs the chain unbroken: a
+// tile that waits on no mail (a chain's first) may only be tile 0 of its
+// cluster, or it could run ahead and overwrite a mailbox its successor's
+// block has not read yet (B14 runs each of a row's two chains on a cluster
+// of its own for this).
 
 #pragma once
 

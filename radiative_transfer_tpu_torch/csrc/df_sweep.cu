@@ -13,10 +13,10 @@
 //                                                 BE or CN, packed rows; B15)
 // All run on one __device__ sub-step routine, df_substep (the counterpart
 // of _df_substep), and the row-tile machinery of tiles.cuh (block-wide scan,
-// upwind exchange, cell loads and stores); B7, B14 and B15 share their tile
-// loops (df_bdf2_segment, df_multistep_segment), B6 runs the same tiles as
-// a cluster wavefront on cluster.cuh's mailboxes (which sweep.cu's B1 and
-// B2 share).
+// upwind exchange, cell loads and stores); B7 and B15 share their tile loop
+// (df_multistep_segment), B6 and B14 run the same tiles as a cluster
+// wavefront (df_bdf2_wave) on cluster.cuh's mailboxes (which sweep.cu's B1
+// and B2 and adjoint.cu's B10-B12 share).
 //
 // What is computed. A value is an unevaluated sum hi + lo of two float32
 // numbers; the planes come in (hi, lo) pairs. Each sub-step of each row is
@@ -33,12 +33,12 @@
 // error-free transforms and two float32 scans. No double is used.
 //
 // Design.
-// * B7, B14 and B15: one thread block owns one row and walks N in tiles of
+// * B7 and B15: one thread block owns one row and walks N in tiles of
 //   blockDim*kCells cells, all K steps (times 4 phases for BDF2) per tile,
-//   as csrc/sweep.cu does. B6 runs the same tiles and slots as a wavefront
-//   over a thread block cluster (df_bdf2_kernel below): tile t of a row on
-//   block t mod C, each slot's state handed to the next tile's block
-//   through distributed shared memory. Shared memory carries, per (step,
+//   as csrc/sweep.cu does. B6 and B14 run the same tiles and slots as a
+//   wavefront over a thread block cluster (df_bdf2_wave below): tile t of a
+//   chain on block t mod C, each slot's state handed to the next tile's
+//   block through distributed shared memory. Shared memory carries, per (step,
 //   phase) slot, the base carry, the correction carry and the upwind base
 //   o1 edge (the residual's coupling to the upwind tile), plus the inflow's
 //   lo part for the first tile; per step, the upwind (hi, lo) edges of the
@@ -72,10 +72,12 @@
 //   and upwind o1 edge at the seed's hi part, the inflow's lo part at its lo
 //   part, a zero correction carry and zero history tails (no s-multiplier
 //   fold: the residual corrects the base's plain inflow). Each segment is
-//   tiled from its own start, so `first` is the segment's first tile, and
-//   the barriers of seed_row order the new seeds after every access of the
-//   previous chain's slots and before any read of them. Every row records
-//   its corrected outflow two_sum(base o1 edge, correction carry) per slot.
+//   tiled from its own start, so `first` is the segment's first tile. B15
+//   walks both chains on one block, the barriers of seed_row ordering the
+//   new seeds after every access of the previous chain's slots and before
+//   any read of them; B14 runs each chain on a cluster of its own. Every row
+//   records its corrected outflow two_sum(base o1 edge, correction carry)
+//   per slot.
 //   The scans are exact, so a zero seed's error past the halo decays as
 //   a^H instead of stopping at the JAX engine's creep bound.
 // * Registers: each thread holds kCells = 4 cells (sweep.cu holds 8): the
@@ -86,16 +88,18 @@
 // What bounds it on this card: the arithmetic of each row's serial tile
 // walk. A BDF2 cell-step is ~1016 float32 operations here against the
 // float32 kernel's 124 (capture, residual, second scan; counted in
-// chip_smoke.py), most of them __f*_rn that cannot fuse. B7, B14 and B15
-// run 2*Bh blocks (Bh at a time for a reflective boundary; all 2*Bh at once
-// for the halo kernels, which also run the H halo cells), each walking its
-// row's T tiles x slots in order on one SM. On an H100 at the bench shape a
+// chip_smoke.py), most of them __f*_rn that cannot fuse. B7 and B15 run
+// 2*Bh blocks (Bh at a time for a reflective boundary; all 2*Bh at once
+// for B15, which also runs the H halo cells), each walking its row's T
+// tiles x slots in order on one SM. On an H100 at the bench shape a
 // 2048-cell tile-phase took ~4.1 us; its ~254 operations a cell need ~2.1
 // us of the SM's 128 float32 lanes at 1.98 GHz, and the rest is barriers
-// and latency. B6's wavefront puts C blocks on each row, so a row's
-// critical path is ~T handoffs of one tile-phase each plus the 4K - 1
-// slots of the last tile, not T * 4K tile-phases. Device-memory traffic is
-// 4 planes read and 12 (B6, B14) or 8 (B7, B15) written per K-step launch.
+// and latency. B6's and B14's wavefront puts C blocks on each chain, so a
+// chain's critical path is ~T handoffs of one tile-phase each plus the
+// 4K - 1 slots of the last tile, not T * 4K tile-phases; B14's longest
+// chain (the seeded one past the halo) binds its launch. Device-memory
+// traffic is 4 planes read and 12 (B6, B14) or 8 (B7, B15) written per
+// K-step launch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -535,60 +539,9 @@ __device__ __forceinline__ void record_row(const Shared& sm, int slots,
   write_record(sm, slots, r, r + slots);
 }
 
-// K whole double-float BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and
-// the BDF corrector, over the cells [s0, s1) of the row at plane offset
-// `base`, in tiles aligned to s0. Starts from the slots and tails in shared
-// memory and leaves them there. The half snapshot is the CN output where
-// snap_cn, else the phase-0 BE output.
-__device__ __forceinline__ void df_bdf2_segment(const Planes& g, size_t base,
-                                                int s0, int s1, int K,
-                                                bool snap_cn, bool use_corr,
-                                                Shared& sm, int& buf) {
-  const bool tail_thread = threadIdx.x == blockDim.x - 1;
-  const int tile = blockDim.x * kCells;
-  for (int t0 = s0; t0 < s1; t0 += tile) {
-    const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, s1, kCells);
-    const bool first = t0 == s0;
-    Pair4 x, hs;
-    load_pair(x, g, base, j0, s1);
-    for (int k = 0; k < K; ++k) {
-      const int s = 4 * k;
-      // prev = the step's input; its upwind p1 edge feeds CN and BDF.
-      float xu_h, xu_l;
-      upwind_pair(x.h1[kCells - 1], x.l1[kCells - 1], &sm.eth[k], &sm.etl[k],
-                  sm, xu_h, xu_l);
-      Pair4 b, c;
-      df_substep<kBE>(sm.kc[0], use_corr, x, x, x, 0.f, 0.f, 0.f, 0.f, s,
-                      first, owner, sm, buf, b);
-      df_substep<kCN>(sm.kc[1], use_corr, b, x, x, xu_h, xu_l, 0.f, 0.f,
-                      s + 1, first, owner, sm, buf, c);
-      hs = snap_cn ? c : b;
-      float hu_h, hu_l;
-      upwind_pair(hs.h1[kCells - 1], hs.l1[kCells - 1], &sm.hth[k],
-                  &sm.htl[k], sm, hu_h, hu_l);
-      Pair4 d, f;
-      df_substep<kBE>(sm.kc[0], use_corr, c, x, x, 0.f, 0.f, 0.f, 0.f, s + 2,
-                      first, owner, sm, buf, d);
-      df_substep<kBDF>(sm.kc[2], use_corr, d, x, hs, xu_h, xu_l, hu_h, hu_l,
-                       s + 3, first, owner, sm, buf, f);
-      if (tail_thread) {
-        sm.eth[k] = x.h1[kCells - 1];
-        sm.etl[k] = x.l1[kCells - 1];
-        sm.hth[k] = hs.h1[kCells - 1];
-        sm.htl[k] = hs.l1[kCells - 1];
-      }
-      // prev of the final state = the LAST step's input.
-      if (k == K - 1) store_pair(g, 8, base, j0, s1, x);
-      x = f;
-    }
-    store_pair(g, 0, base, j0, s1, x);
-    store_pair(g, 4, base, j0, s1, hs);
-  }
-}
-
-// K whole double-float BE or CN steps over the cells [s0, s1) of one row,
-// as df_bdf2_segment; prev = each step's input.
+// K whole double-float BE or CN steps over the cells [s0, s1) of the row at
+// plane offset `base`, in tiles aligned to s0. Starts from the slots and
+// tails in shared memory and leaves them there; prev = each step's input.
 template <int KIND>
 __device__ __forceinline__ void df_multistep_segment(const Planes& g,
                                                      size_t base, int s0,
@@ -622,22 +575,23 @@ __device__ __forceinline__ void df_multistep_segment(const Planes& g,
   }
 }
 
-// -- B6's wavefront: a row's tiles across a thread block cluster -----------
+// -- B6's and B14's wavefront: a chain's tiles across a thread block cluster
 //
 // Slot s of tile t needs only slot s of tile t-1 (the base carry, the
 // correction carry and the upwind base o1 edge that df_substep reads and
 // rewrites; with slot 4k step k's upwind p1 edge, with slot 4k+1 its upwind
-// h1 edge) and slot s-1 of tile t itself. So the C blocks of a row's
-// cluster run tiles t = rank, rank + C, ... through all 4K slots each, and
+// h1 edge) and slot s-1 of tile t itself. So the C blocks of a chain's
+// cluster (B6: a row; B14: one of a packed row's two chains) run tiles
+// t = rank, rank + C, ... through all 4K slots each, and
 // tile t can run slot s while tile t+1 runs slot s-1. Each block holds, per
 // slot, a mailbox and an mbarrier (one arrival a phase). Before slot s of
 // tile t > 0 thread 0 waits on the barrier (acquire, cluster scope) and
 // copies the mailbox into the slot's shared state, and the block runs
-// df_substep unchanged. After it, the thread that owns the
-// tile's last cell (the tile is full: only the row's last tile is ragged,
-// and it sends nothing) writes the slot's new state into the mailbox of
-// block (t+1) mod C through the cluster's shared window and arrives on that
-// block's barrier (release, cluster scope).
+// df_substep unchanged. After it, the thread that owns the tile's last cell
+// (the tile is full: only the chain's last tile is ragged, and it sends
+// nothing) writes the slot's new state into the mailbox of block (t+1) mod
+// C through the cluster's shared window and arrives on that block's barrier
+// (release, cluster scope).
 //
 // Why no "mailbox free" signal is needed and one parity bit a block serves
 // every slot: cluster.cuh (the argument holds for any mail and any number
@@ -680,49 +634,34 @@ __device__ __forceinline__ void send(const Shared& sm, DFMailbox& mb, int s,
   send_mail(mb, s, next, m);
 }
 
-// B6, replaces _make_df_bdf2_kernel (df_sweep.py:372): K whole double-float
-// BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector, as a
-// wavefront over (tile, slot): the cluster of C blocks at blockIdx.x / C
-// owns one row, block rank r its tiles r, r + C, ... The tiles, slots and
-// arithmetic are df_bdf2_segment's; only who runs a tile and how a slot's
-// state reaches the next tile differ.
-__global__ void __launch_bounds__(kMaxThreads)
-    df_bdf2_kernel(Packs pk, const float* __restrict__ bc,
-                   const float* __restrict__ bcl,
-                   const int* __restrict__ flip, float* rec, Planes g, int Bh,
-                   int N, int K, int symmetric, int reflective, int use_corr,
-                   int half0) {
-  __shared__ Shared sm;
-  __shared__ DFMailbox mb;
-  const cooperative_groups::cluster_group cluster =
-      cooperative_groups::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int cr = blockIdx.x / C;
-  const int row = cr % Bh;
-  const int h = half0 + cr / Bh;
-  const int hr = h * Bh + row;
-  const int slots = 4 * K;
-  open_mailboxes(mb, slots);
-  // Kinds and tails on every block; the slots' inflow serves tile 0 only.
-  init_row(sm, slots, K, 3, pk, bc, bcl, flip, rec, h, row, hr, reflective);
-  // The half snapshot is the CN output for mu<0 and the phase-0 BE output
-  // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
-  const bool snap_cn = symmetric || h == 0;
-  const size_t base = static_cast<size_t>(hr) * N;
+// K whole double-float BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and
+// the BDF corrector, over the cells [s0, s1) of the row at plane offset
+// `base` (one chain), as this block's share of the chain's wavefront over
+// (tile, slot): the chain's tiles from s0 on the C blocks of the cluster,
+// tile t on block `rank` = t mod C. The slots and tails in shared memory
+// start as init_row or seed_row left them (they serve the chain's first
+// tile; the mailboxes, opened before, bring every later tile's). The half
+// snapshot is the CN output where snap_cn, else the phase-0 BE output.
+// Returns whether this block ran the chain's last tile, whose slots then
+// hold the chain's outflow (a block of no tile runs nothing).
+__device__ __forceinline__ bool df_bdf2_wave(const Planes& g, size_t base,
+                                             int s0, int s1, int K,
+                                             bool snap_cn, bool use_corr,
+                                             Shared& sm, DFMailbox& mb,
+                                             int C, int rank) {
   const int tile = blockDim.x * kCells;
-  const int T = (N + tile - 1) / tile;
+  const int T = (s1 - s0 + tile - 1) / tile;
   const uint32_t next = (rank + 1) % C;
   int buf = 0;
   uint32_t parity = 0;
   for (int t = rank; t < T; t += C) {
-    const int t0 = t * tile;
+    const int t0 = s0 + t * tile;
     const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, N, kCells);
+    const int owner = tile_owner(t0, j0, tile, s1, kCells);
     const bool first = t == 0;
     const bool sender = t + 1 < T && owner >= 0;
     Pair4 x, hs;
-    load_pair(x, g, base, j0, N);
+    load_pair(x, g, base, j0, s1);
     for (int k = 0; k < K; ++k) {
       const int s = 4 * k;
       if (!first) receive(sm, mb, s, parity);
@@ -754,15 +693,48 @@ __global__ void __launch_bounds__(kMaxThreads)
                        s + 3, first, owner, sm, buf, f);
       if (sender) send(sm, mb, s + 3, next, 0.f, 0.f);
       // prev of the final state = the LAST step's input.
-      if (k == K - 1) store_pair(g, 8, base, j0, N, x);
+      if (k == K - 1) store_pair(g, 8, base, j0, s1, x);
       x = f;
     }
-    store_pair(g, 0, base, j0, N, x);
-    store_pair(g, 4, base, j0, N, hs);
+    store_pair(g, 0, base, j0, s1, x);
+    store_pair(g, 4, base, j0, s1, hs);
     if (!first) parity ^= 1u;
   }
+  return T > 0 && rank == (T - 1) % C;
+}
+
+// B6, replaces _make_df_bdf2_kernel (df_sweep.py:372): K whole double-float
+// BDF2 steps as a wavefront over (tile, slot) (df_bdf2_wave, which B14
+// shares): the cluster of C blocks at blockIdx.x / C owns one row, block
+// rank r its tiles r, r + C, ... The tiles, slots and arithmetic are those
+// of one block walking the row; only who runs a tile and how a slot's state
+// reaches the next tile differ.
+__global__ void __launch_bounds__(kMaxThreads)
+    df_bdf2_kernel(Packs pk, const float* __restrict__ bc,
+                   const float* __restrict__ bcl,
+                   const int* __restrict__ flip, float* rec, Planes g, int Bh,
+                   int N, int K, int symmetric, int reflective, int use_corr,
+                   int half0) {
+  __shared__ Shared sm;
+  __shared__ DFMailbox mb;
+  const cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cr = blockIdx.x / C;
+  const int row = cr % Bh;
+  const int h = half0 + cr / Bh;
+  const int hr = h * Bh + row;
+  const int slots = 4 * K;
+  open_mailboxes(mb, slots);
+  // Kinds and tails on every block; the slots' inflow serves tile 0 only.
+  init_row(sm, slots, K, 3, pk, bc, bcl, flip, rec, h, row, hr, reflective);
+  // The half snapshot is the CN output for mu<0 and the phase-0 BE output
+  // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
   // The block that ran the row's last tile holds the outflow slots.
-  if (rank == (T - 1) % C) record_row(sm, slots, rec, h, row, reflective);
+  if (df_bdf2_wave(g, static_cast<size_t>(hr) * N, 0, N, K,
+                   symmetric || h == 0, use_corr, sm, mb, C, rank))
+    record_row(sm, slots, rec, h, row, reflective);
   close_mailboxes();
 }
 
@@ -787,29 +759,45 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // B14, replaces _make_df_halo_bdf2_kernel (df_sweep.py:640): K whole seeded
-// double-float BDF2 steps over packed rows (mu<0 rows first), one thread
-// block a row. Seeds and the record are (rows, 4K); rec holds the hi parts,
-// then the lo parts.
+// double-float BDF2 steps over packed rows (mu<0 rows first), each row's two
+// chains as wavefronts (df_bdf2_wave, B6's), one cluster a chain: clusters
+// [0, rows) run the seeded chains [reset_cell, X), which end the rows and
+// record their outflow; clusters [rows, 2*rows), present when reset_cell >
+// 0, the chains [0, reset_cell) from zero slots. A chain never hands state
+// to the other, so each cluster's mail runs along one unbroken chain of
+// tiles, which cluster.cuh's protocol needs (a seeded tile mid-chain waits
+// on no mail and could overwrite its successor's unread mailbox). Blocks
+// beyond a short chain's tiles open and close their mailboxes only. Seeds
+// and the record are (rows, 4K); rec holds the hi parts, then the lo parts.
 __global__ void __launch_bounds__(kMaxThreads)
     df_halo_bdf2_kernel(Packs pk, const float* __restrict__ seeds_h,
                         const float* __restrict__ seeds_l, float* rec,
                         Planes g, int rows, int X, int K, int reset_cell,
                         int symmetric, int use_corr) {
   __shared__ Shared sm;
-  const int row = blockIdx.x;
+  __shared__ DFMailbox mb;
+  const cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cr = blockIdx.x / C;
+  const bool seeded = cr < rows;
+  const int row = seeded ? cr : cr - rows;
   const int slots = 4 * K;
-  const size_t base = static_cast<size_t>(row) * X;
   const size_t sd = static_cast<size_t>(row) * slots;
-  // The per-row blend of the half snapshot: both halves share the launch.
-  const bool snap_cn = symmetric || row < rows / 2;
+  open_mailboxes(mb, slots);
   load_kinds(sm, 3, pk, row);
-  int buf = 0;
-  seed_row(sm, slots, K, nullptr, nullptr);
-  df_bdf2_segment(g, base, 0, reset_cell, K, snap_cn, use_corr, sm, buf);
-  seed_row(sm, slots, K, seeds_h + sd, seeds_l + sd);
-  df_bdf2_segment(g, base, reset_cell, X, K, snap_cn, use_corr, sm, buf);
-  write_record(sm, slots, rec + sd,
-               rec + static_cast<size_t>(rows) * slots + sd);
+  seed_row(sm, slots, K, seeded ? seeds_h + sd : nullptr,
+           seeded ? seeds_l + sd : nullptr);
+  // The per-row blend of the half snapshot: both halves share the launch.
+  const bool last = df_bdf2_wave(
+      g, static_cast<size_t>(row) * X, seeded ? reset_cell : 0,
+      seeded ? X : reset_cell, K, symmetric || row < rows / 2, use_corr, sm,
+      mb, C, rank);
+  if (seeded && last)
+    write_record(sm, slots, rec + sd,
+                 rec + static_cast<size_t>(rows) * slots + sd);
+  close_mailboxes();
 }
 
 // B15, replaces _make_df_halo_multistep_kernel (df_sweep.py:541): K whole
@@ -919,21 +907,51 @@ int rt_df_multistep(int kind, const float* coef, const float* dcoef,
 // slots), rec a (2, rows, slots) record (hi parts, then lo parts), and the
 // cell reset_cell in [0, X) where the seeded chain starts.
 
+// B14's launch shape for packed rows of X cells at K steps with the seeded
+// chains from reset_cell, at most max_threads threads a block and
+// max_cluster blocks a chain, `rows` packed rows: out = (threads a block,
+// blocks a chain (the cluster), tiles of the seeded chain, tiles of the
+// chain from zero (0 where reset_cell is 0)). The launch runs one cluster a
+// chain: rows clusters, or 2*rows where reset_cell > 0.
+int rt_df_halo_bdf2_geometry(int X, int K, int reset_cell, int max_threads,
+                             int max_cluster, int rows, int* out) {
+  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
+      reset_cell < 0 || reset_cell >= X || max_threads < 32 ||
+      max_threads > kMaxThreads || max_threads % 32 || max_cluster < 1 ||
+      max_cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = pick_threads(X, kCells, max_threads);
+  const int tile = threads * kCells;
+  const int main_tiles = (X - reset_cell + tile - 1) / tile;
+  const int halo_tiles = (reset_cell + tile - 1) / tile;
+  out[0] = threads;
+  out[1] = wave_cluster(
+      main_tiles > halo_tiles ? main_tiles : halo_tiles, 4 * K, threads,
+      max_cluster, reset_cell > 0 ? 2 * rows : rows,
+      {reinterpret_cast<const void*>(&df_halo_bdf2_kernel)});
+  out[2] = main_tiles;
+  out[3] = halo_tiles;
+  return 0;
+}
+
+// max_threads and max_cluster as rt_df_halo_bdf2_geometry's.
 int rt_df_halo_bdf2(const float* cbe, const float* ccn, const float* cbdf,
                     const float* dbe, const float* dcn, const float* dbdf,
                     const float* seeds_h, const float* seeds_l, float* rec,
                     void* const* planes, int rows, int X, int K,
                     int reset_cell, int symmetric, int use_corr,
-                    void* stream) {
-  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
-      reset_cell < 0 || reset_cell >= X)
-    return static_cast<int>(cudaErrorInvalidValue);
+                    int max_threads, int max_cluster, void* stream) {
+  int geo[4];
+  const int bad = rt_df_halo_bdf2_geometry(X, K, reset_cell, max_threads,
+                                           max_cluster, rows, geo);
+  if (bad) return bad;
   const Packs pk{{cbe, ccn, cbdf}, {dbe, dcn, dbdf}};
-  df_halo_bdf2_kernel<<<rows, pick_threads(X, kCells, kMaxThreads), 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      pk, seeds_h, seeds_l, rec, unpack_planes(planes, 12), rows, X, K,
-      reset_cell, symmetric, use_corr);
-  return static_cast<int>(cudaGetLastError());
+  // A refused cluster launch returns its error.
+  return static_cast<int>(launch_clusters(
+      df_halo_bdf2_kernel, reset_cell > 0 ? 2 * rows : rows, geo[1], geo[0],
+      static_cast<cudaStream_t>(stream), pk, seeds_h, seeds_l, rec,
+      unpack_planes(planes, 12), rows, X, K, reset_cell, symmetric,
+      use_corr));
 }
 
 int rt_df_halo_multistep(int kind, const float* coef, const float* dcoef,

@@ -1,13 +1,12 @@
-// The K-step BDF2 row walk shared by the sweep kernels (sweep.cu: B1
-// bdf2_kernel, B4 halo_bdf2_kernel) and the K-fused adjoint forward
-// (adjoint.cu: B11 fwd_record_k_kernel): B1's tile shape, its shared-memory
-// carries and tails per (step, phase) slot, the row's inflow and outflow
-// records, and one tile loop (bdf2_segment) with a hook for the records the
-// adjoint keeps. B11 runs the very loop B1 runs, so its six planes are B1's
-// to the bit; with the default hook (NoRecords) the loop is B1's as it was.
-// Also the one-sub-step row walk (substep_segment) with a load hook, which
-// B3 (sweep.cu substep_kernel) and B8 (sharded.cu, the corrections of the
-// mesh engine applied on load) share.
+// The one-block row walks: one thread block owns one row and loops over its
+// tiles. The K-step BDF2 walk (bdf2_segment) of the halo kernel B4 (sweep.cu
+// halo_bdf2_kernel), with B1's tile shape and its shared-memory carries and
+// tails per (step, phase) slot, which B1 and B11 share as a cluster
+// wavefront (wave.cuh: the same tiles, slots and arithmetic); the row's
+// inflow and outflow records; and the one-sub-step row walk
+// (substep_segment) with a load hook, which B3 (sweep.cu substep_kernel)
+// and B8 (sharded.cu, the corrections of the mesh engine applied on load)
+// share.
 
 #pragma once
 
@@ -73,36 +72,21 @@ __device__ __forceinline__ void record_row(const SegShared& sm, int slots,
   if (h == 0 && reflective) write_record(sm, slots, rec + row * slots);
 }
 
-// bdf2_segment's record hook for the sweep kernels: nothing is kept.
-struct NoRecords {
-  __device__ __forceinline__ void input(int, int, int,
-                                        const float (&)[kSegCells],
-                                        const float (&)[kSegCells]) const {}
-  __device__ __forceinline__ void carry(int, int, float) const {}
-  __device__ __forceinline__ void edges(int, int, float, float) const {}
-};
-
 // K whole BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF
 // corrector, over the cells [s0, s1) of one row (pointers are the row's),
 // in tiles aligned to s0. Starts from the carries and tails in shared
 // memory and leaves them there. The half snapshot is the CN output where
-// snap_cn, else the phase-0 BE output. At tile t (counted from s0) it hands
-// `rec` step k's input cells (k >= 1: input(k, j0, s1, x0, x1), every
-// thread), each (step, phase) slot's carry entering the tile (carry(t,
-// slot, c), every thread, the same value) and step k's upwind e1 and hs1
-// edges (edges(t, k, e1, hs1), every thread; thread 0's are the values
-// upwind of the tile).
-template <class Rec = NoRecords>
+// snap_cn, else the phase-0 BE output.
 __device__ __forceinline__ void bdf2_segment(
     const Coef& kbe, const Coef& kcn, const Coef& kbdf, bool snap_cn,
     const float* __restrict__ e0g, const float* __restrict__ e1g,
     float* __restrict__ o0g, float* __restrict__ o1g,
     float* __restrict__ oh0g, float* __restrict__ oh1g,
     float* __restrict__ op0g, float* __restrict__ op1g, int s0, int s1,
-    int K, SegShared& sm, int& buf, const Rec& rec = Rec()) {
+    int K, SegShared& sm, int& buf) {
   const bool tail_thread = threadIdx.x == blockDim.x - 1;
   const int tile = blockDim.x * kSegCells;
-  for (int t = 0, t0 = s0; t0 < s1; ++t, t0 += tile) {
+  for (int t0 = s0; t0 < s1; t0 += tile) {
     const int j0 = t0 + threadIdx.x * kSegCells;
     const int owner = tile_owner(t0, j0, tile, s1, kSegCells);
     float x0[kSegCells], x1[kSegCells], hs0[kSegCells], hs1[kSegCells];
@@ -110,18 +94,15 @@ __device__ __forceinline__ void bdf2_segment(
     load_cells(x1, e1g, j0, s1);
     for (int k = 0; k < K; ++k) {
       float* cs = sm.carry + 4 * k;
-      if (k > 0) rec.input(k, j0, s1, x0, x1);
       // prev = the step's input ends; its upwind edge feeds CN and BDF.
       const float x1_up =
           upwind_value(x1[kSegCells - 1], &sm.etail[k], sm.edge_p);
       float b0[kSegCells], b1[kSegCells];
-      rec.carry(t, 4 * k,
-                substep_tile<kBE>(kbe, x0, x1, x0, x1, x0, x1, 0.f, 0.f,
-                                  cs + 0, owner, sm, buf, b0, b1));
+      substep_tile<kBE>(kbe, x0, x1, x0, x1, x0, x1, 0.f, 0.f, cs + 0, owner,
+                        sm, buf, b0, b1);
       float c0[kSegCells], c1[kSegCells];
-      rec.carry(t, 4 * k + 1,
-                substep_tile<kCN>(kcn, b0, b1, x0, x1, x0, x1, x1_up, 0.f,
-                                  cs + 1, owner, sm, buf, c0, c1));
+      substep_tile<kCN>(kcn, b0, b1, x0, x1, x0, x1, x1_up, 0.f, cs + 1,
+                        owner, sm, buf, c0, c1);
 #pragma unroll
       for (int c = 0; c < kSegCells; ++c) {
         hs0[c] = snap_cn ? c0[c] : b0[c];
@@ -129,15 +110,12 @@ __device__ __forceinline__ void bdf2_segment(
       }
       const float hs1_up =
           upwind_value(hs1[kSegCells - 1], &sm.htail[k], sm.edge_h);
-      rec.edges(t, k, x1_up, hs1_up);
       float d0[kSegCells], d1[kSegCells];
-      rec.carry(t, 4 * k + 2,
-                substep_tile<kBE>(kbe, c0, c1, x0, x1, hs0, hs1, 0.f, 0.f,
-                                  cs + 2, owner, sm, buf, d0, d1));
+      substep_tile<kBE>(kbe, c0, c1, x0, x1, hs0, hs1, 0.f, 0.f, cs + 2,
+                        owner, sm, buf, d0, d1);
       float f0[kSegCells], f1[kSegCells];
-      rec.carry(t, 4 * k + 3,
-                substep_tile<kBDF>(kbdf, d0, d1, x0, x1, hs0, hs1, x1_up,
-                                   hs1_up, cs + 3, owner, sm, buf, f0, f1));
+      substep_tile<kBDF>(kbdf, d0, d1, x0, x1, hs0, hs1, x1_up, hs1_up,
+                         cs + 3, owner, sm, buf, f0, f1);
       if (tail_thread) {
         sm.etail[k] = x1[kSegCells - 1];
         sm.htail[k] = hs1[kSegCells - 1];

@@ -14,11 +14,11 @@
 // share), and one block-wide scan of affine maps (the counterpart of
 // _hillis_steele, in tiles.cuh, which the double-float kernels of
 // df_sweep.cu share too). B1 and B2 walk each row as a cluster wavefront
-// (cluster.cuh, which df_sweep.cu's B6 shares); B4 and B5 keep the
-// one-block tile loops (bdf2_segment, in segments.cuh, which the K-fused
-// adjoint forward of adjoint.cu runs too, and multistep_segment); B3 runs
-// substep_segment (in segments.cuh), which the mesh engine's B8
-// (sharded.cu) runs too.
+// (cluster.cuh, which df_sweep.cu's B6 and B14 share; B1's walk is
+// wave.cuh bdf2_wave, which the K-fused adjoint forward B11 of adjoint.cu
+// runs too); B4 and B5 keep the one-block tile loops (bdf2_segment, in
+// segments.cuh, and multistep_segment); B3 runs substep_segment (in
+// segments.cuh), which the mesh engine's B8 (sharded.cu) runs too.
 //
 // What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
 // planes and per sub-step: the right-hand sides r0, r1 of every cell, the
@@ -52,8 +52,7 @@
 //   and arithmetic are those of the one-block walk, so the planes are the
 //   same to the bit.
 // * B3, B4 and B5 keep the one-block walk: ONE thread block owns ONE row and
-//   loops over its tiles (bdf2_segment in segments.cuh, which the K-fused
-//   adjoint forward of adjoint.cu runs too; multistep_segment;
+//   loops over its tiles (bdf2_segment in segments.cuh; multistep_segment;
 //   substep_segment), the carries and tails of every slot in shared memory.
 // * Each thread holds kCells consecutive cells in registers. A tile's scan is
 //   a serial scan over the thread's cells, a warp-shuffle scan of the
@@ -110,6 +109,7 @@
 
 #include "cluster.cuh"
 #include "segments.cuh"
+#include "wave.cuh"
 
 namespace {
 
@@ -171,49 +171,18 @@ __device__ __forceinline__ void multistep_segment(
 
 // -- B1's and B2's wavefront: a row's tiles across a thread block cluster ---
 //
-// Per slot the mail is the carry leaving the tile (field 0) and, where the
-// slot carries one, a tail (field 1): B1's slot 4k step k's upwind p1 edge
-// (etail[k]), its slot 4k+1 step k's h1 edge (htail[k]); B2-CN's slot k
-// step k's p1 edge. B2-BE's mail is the carry alone.
-
-// Tile t > 0 takes slot s's carry, and where `tail` is given the tail the
-// slot carries, from its mailbox: thread 0 waits, then copies. No barrier
-// follows: the other threads first read the carry inside the slot's scan,
-// after its first barrier, and only thread 0 reads a tail (upwind_value,
-// after the next barrier); the copy overwrites state last read C tiles ago.
-template <int F, int S>
-__device__ __forceinline__ void take(Shared& sm, Mailbox<F, S>& mb, int s,
-                                     float* tail, uint32_t parity) {
-  if (threadIdx.x == 0) {
-    const float* m = wait_mail(mb, s, parity);
-    sm.carry[s] = m[0];
-    if constexpr (F > 1) {
-      if (tail) *tail = m[1];
-    }
-  }
-}
-
-// Slot s's carry, by the thread that wrote it in substep_tile (the owner of
-// the full tile's last cell, which also holds the tile's last cell of every
-// plane), and the tail if the slot carries one, into block `next`'s
-// mailbox.
-template <int F, int S>
-__device__ __forceinline__ void give(const Shared& sm, Mailbox<F, S>& mb,
-                                     int s, uint32_t next, float tail,
-                                     bool has_tail) {
-  float m[F];
-  m[0] = sm.carry[s];
-  if constexpr (F > 1) m[1] = tail;
-  send_mail(mb, s, next, m, has_tail ? F : 1);
-}
+// Per slot the mail is the carry leaving the tile and, where the slot
+// carries one, a tail: B1's slot 4k step k's upwind p1 edge (etail[k]), its
+// slot 4k+1 step k's h1 edge (htail[k]); B2-CN's slot k step k's p1 edge.
+// B2-BE's mail is the carry alone (wave.cuh: take, give).
 
 // B1, replaces _make_bdf2_kernel (pallas_sweep.py:444): K whole BDF2 steps,
 // each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector, as a wavefront
-// over (tile, slot): the cluster of C blocks at blockIdx.x / C owns one row,
-// block rank r its tiles r, r + C, ... The tiles, slots and arithmetic are
-// bdf2_segment's (which B4 and B11 keep); only who runs a tile and how a
-// slot's state reaches the next tile differ, so the planes are
-// bdf2_segment's to the bit.
+// over (tile, slot) (wave.cuh bdf2_wave, which B11 runs with its records):
+// the cluster of C blocks at blockIdx.x / C owns one row, block rank r its
+// tiles r, r + C, ... The tiles, slots and arithmetic are bdf2_segment's
+// (which B4 keeps); only who runs a tile and how a slot's state reaches the
+// next tile differ, so the planes are bdf2_segment's to the bit.
 __global__ void __launch_bounds__(kMaxThreads)
     bdf2_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
                 const float* __restrict__ cbdf, const float* __restrict__ bc,
@@ -225,90 +194,23 @@ __global__ void __launch_bounds__(kMaxThreads)
                 int N, int K, float s_be, float s_cn, float s_bdf,
                 int symmetric, int reflective, int half0) {
   __shared__ Shared sm;
-  __shared__ Mailbox<2, kMaxSlots> mb;
-  const cooperative_groups::cluster_group cluster =
-      cooperative_groups::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int cr = blockIdx.x / C;
-  const int row = cr % Bh;
-  const int h = half0 + cr / Bh;
-  const int hr = h * Bh + row;
+  __shared__ WaveMail mb;
+  const WaveRow w = wave_row(Bh, half0);
   const float s_of[4] = {s_be, s_cn, s_be, s_bdf};
   const int slots = 4 * K;
   open_mailboxes(mb, slots);
   // Tails on every block; the slots' inflow serves tile 0 only.
-  init_row(sm, slots, K, s_of, 4, bc, flip, rec, h, row, hr, reflective);
-  const Coef kbe = load_coef(cbe + hr * kNCoef);
-  const Coef kcn = load_coef(ccn + hr * kNCoef);
-  const Coef kbdf = load_coef(cbdf + hr * kNCoef);
+  init_row(sm, slots, K, s_of, 4, bc, flip, rec, w.h, w.row, w.hr,
+           reflective);
+  const size_t base = static_cast<size_t>(w.hr) * N;
   // The half snapshot is the CN output for mu<0 and the phase-0 BE output
-  // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric.
-  const bool snap_cn = symmetric || h == 0;
-  const size_t base = static_cast<size_t>(hr) * N;
-  const int tile = blockDim.x * kCells;
-  const int T = (N + tile - 1) / tile;
-  const uint32_t next = (rank + 1) % C;
-  int buf = 0;
-  uint32_t parity = 0;
-  for (int t = rank; t < T; t += C) {
-    const int t0 = t * tile;
-    const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, N, kCells);
-    const bool first = t == 0;
-    const bool sender = t + 1 < T && owner >= 0;
-    float x0[kCells], x1[kCells], hs0[kCells], hs1[kCells];
-    load_cells(x0, e0g + base, j0, N);
-    load_cells(x1, e1g + base, j0, N);
-    for (int k = 0; k < K; ++k) {
-      const int s = 4 * k;
-      float* cs = sm.carry + s;
-      if (!first) take(sm, mb, s, &sm.etail[k], parity);
-      // prev = the step's input ends; its upwind edge feeds CN and BDF.
-      const float x1_up =
-          upwind_value(x1[kCells - 1], &sm.etail[k], sm.edge_p);
-      float b0[kCells], b1[kCells];
-      substep_tile<kBE>(kbe, x0, x1, x0, x1, x0, x1, 0.f, 0.f, cs + 0, owner,
-                        sm, buf, b0, b1);
-      if (sender) give(sm, mb, s, next, x1[kCells - 1], true);
-      if (!first) take(sm, mb, s + 1, &sm.htail[k], parity);
-      float c0[kCells], c1[kCells];
-      substep_tile<kCN>(kcn, b0, b1, x0, x1, x0, x1, x1_up, 0.f, cs + 1,
-                        owner, sm, buf, c0, c1);
-#pragma unroll
-      for (int c = 0; c < kCells; ++c) {
-        hs0[c] = snap_cn ? c0[c] : b0[c];
-        hs1[c] = snap_cn ? c1[c] : b1[c];
-      }
-      if (sender) give(sm, mb, s + 1, next, hs1[kCells - 1], true);
-      if (!first) take(sm, mb, s + 2, nullptr, parity);
-      const float hs1_up =
-          upwind_value(hs1[kCells - 1], &sm.htail[k], sm.edge_h);
-      float d0[kCells], d1[kCells];
-      substep_tile<kBE>(kbe, c0, c1, x0, x1, hs0, hs1, 0.f, 0.f, cs + 2,
-                        owner, sm, buf, d0, d1);
-      if (sender) give(sm, mb, s + 2, next, 0.f, false);
-      if (!first) take(sm, mb, s + 3, nullptr, parity);
-      float f0[kCells], f1[kCells];
-      substep_tile<kBDF>(kbdf, d0, d1, x0, x1, hs0, hs1, x1_up, hs1_up,
-                         cs + 3, owner, sm, buf, f0, f1);
-      if (sender) give(sm, mb, s + 3, next, 0.f, false);
-      if (k == K - 1) {
-        // prev of the final state = the LAST step's input.
-        store_cells(op0g + base, j0, N, x0);
-        store_cells(op1g + base, j0, N, x1);
-      }
-      copy_cells(x0, f0);
-      copy_cells(x1, f1);
-    }
-    store_cells(o0g + base, j0, N, x0);
-    store_cells(o1g + base, j0, N, x1);
-    store_cells(oh0g + base, j0, N, hs0);
-    store_cells(oh1g + base, j0, N, hs1);
-    if (!first) parity ^= 1u;
-  }
-  // The block that ran the row's last tile holds the outflow carries.
-  if (rank == (T - 1) % C) record_row(sm, slots, rec, h, row, reflective);
+  // for mu>0 (reference quirk, solver.cpp:733 vs 784-787) unless symmetric;
+  // the mu<0 half of a reflective slab records its outflow carries.
+  bdf2_wave(load_coef(cbe + w.hr * kNCoef), load_coef(ccn + w.hr * kNCoef),
+            load_coef(cbdf + w.hr * kNCoef), symmetric || w.h == 0,
+            e0g + base, e1g + base, o0g + base, o1g + base, oh0g + base,
+            oh1g + base, op0g + base, op1g + base, N, K, sm, mb, w.C, w.rank,
+            w.h == 0 && reflective ? rec + w.row * slots : nullptr);
   close_mailboxes();
 }
 
@@ -363,19 +265,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   constexpr bool kTail = KIND == kCN;
   __shared__ Shared sm;
   __shared__ Mailbox<kTail ? 2 : 1, kMaxSteps> mb;
-  const cooperative_groups::cluster_group cluster =
-      cooperative_groups::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int cr = blockIdx.x / C;
-  const int row = cr % Bh;
-  const int h = half0 + cr / Bh;
-  const int hr = h * Bh + row;
+  const WaveRow w = wave_row(Bh, half0);
+  const int C = w.C, rank = w.rank;
   const float s_of[1] = {s};
   open_mailboxes(mb, K);
-  init_row(sm, K, K, s_of, 1, bc, flip, rec, h, row, hr, reflective);
-  const Coef kc = load_coef(coef + hr * kNCoef);
-  const size_t base = static_cast<size_t>(hr) * N;
+  init_row(sm, K, K, s_of, 1, bc, flip, rec, w.h, w.row, w.hr, reflective);
+  const Coef kc = load_coef(coef + w.hr * kNCoef);
+  const size_t base = static_cast<size_t>(w.hr) * N;
   const int tile = blockDim.x * kCells;
   const int T = (N + tile - 1) / tile;
   const uint32_t next = (rank + 1) % C;
@@ -410,7 +306,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     store_cells(o1g + base, j0, N, x1);
     if (!first) parity ^= 1u;
   }
-  if (rank == (T - 1) % C) record_row(sm, K, rec, h, row, reflective);
+  if (rank == (T - 1) % C) record_row(sm, K, rec, w.h, w.row, reflective);
   close_mailboxes();
 }
 

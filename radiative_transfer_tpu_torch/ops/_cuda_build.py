@@ -48,13 +48,15 @@ _SIGNATURES = {
     "rt_df_bdf2": [_P] * 10 + [_PP] + [_I] * 8 + [_P],
     "rt_df_bdf2_geometry": [_I] * 5 + [_P],
     "rt_df_multistep": [_I] + [_P] * 6 + [_PP] + [_I] * 5 + [_P],
-    "rt_df_halo_bdf2": [_P] * 9 + [_PP] + [_I] * 6 + [_P],
+    "rt_df_halo_bdf2": [_P] * 9 + [_PP] + [_I] * 8 + [_P],
+    "rt_df_halo_bdf2_geometry": [_I] * 6 + [_P],
     "rt_df_halo_multistep": [_I] + [_P] * 5 + [_PP] + [_I] * 5 + [_P],
     "rt_adj_fwd_record": [_I] + [_P] * 15 + [_I] * 3 + [_F] * 3 + [_I] * 2
     + [_P],
     "rt_adj_bwd": [_I] + [_P] * 21 + [_I] * 3 + [_F] * 3 + [_I] * 4 + [_P],
     "rt_adj_bwd_geometry": [_I] * 6 + [_P],
-    "rt_adj_fwd_record_k": [_P] * 19 + [_I] * 4 + [_F] * 3 + [_I] * 2 + [_P],
+    "rt_adj_fwd_record_k": [_P] * 19 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
+    "rt_adj_fwd_record_k_geometry": [_I] * 4 + [_P],
     "rt_adj_bwd_k": [_P] * 25 + [_I] * 4 + [_F] * 3 + [_I] * 4 + [_P],
     "rt_sharded_substep": [_I] + [_P] * 15 + [_I] * 3 + [_P],
     "rt_sharded_geometry": [_I, _I, _P],

@@ -39,7 +39,8 @@ exact adjoint of the card's own forward. On the card B10 and B12 run each
 row as a wavefront over (1024-cell sub-tile, slot) from the row's end on a
 cluster of blocks (``bwd_geometry``), after a prologue that recomputes
 each sub-tile's entering forward carries into a scratch the wrapper
-allocates. Each wrapper counts its launches.
+allocates; B11 runs each row as B1's wavefront over (tile, slot) on a
+cluster (``fwd_k_geometry``). Each wrapper counts its launches.
 
 ``DiffCudaStep`` and ``DiffCudaStepK`` (the counterparts of
 ``DiffPallasStep`` and ``DiffPallasStepK``) are the
@@ -665,7 +666,8 @@ def fwd_record_k_launch(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int,
     """B11: K whole BDF2 steps in one launch with their records (see
     fwd_record_k_launch_ref). On the card the records are per kernel tile,
     rc (2, 4K, Bh, record_tiles(N)), ret/rht (2, K, Bh, record_tiles(N));
-    `blk`/`npass` shape the plain version only."""
+    each row's tiles run as B1's wavefront over a cluster of blocks
+    (``fwd_k_geometry``); `blk`/`npass` shape the plain version only."""
     name = "fwd_record_k_launch"
     _bdf2_only(name, ts_method)
     cs._check_K(name, K)
@@ -691,7 +693,7 @@ def fwd_record_k_launch(cbe, ccn, cbdf, bc, flip, e0, e1, *, K: int,
             *map(_ptr, (cbe, ccn, cbdf, bc, flip, outflow, e0, e1, *outs, rc,
                         ret, rht, *ri)),
             Bh, N, K, nt, s_be, s_cn, s_bdf, int(symmetric_half),
-            int(reflective), cs._stream(e0.device))
+            int(reflective), cs.SWEEP_MAX_CLUSTER, cs._stream(e0.device))
     cs._raise_on(name, rc_)
     fwd_record_k_launch.launches += 1
     return (*outs, rc, ret, rht, ri0, ri1)
@@ -739,6 +741,19 @@ def bwd_k_launch(cbe, ccn, cbdf, flip, e0, e1, ri0, ri1, co0, co1, coh0,
     cs._raise_on(name, rc_)
     bwd_k_launch.launches += 1
     return (ce0, ce1, cbc, *gpack)
+
+
+def fwd_k_geometry(N: int, K: int, rows: int) -> Tuple[int, int, int]:
+    """B11's launch shape for `rows` rows a launch (Bh for a reflective
+    boundary, else 2*Bh) of N cells at K steps: (threads a block, blocks a
+    row, i.e. the cluster size, tiles a row). The tiles are the record
+    tiles (``record_tiles``), B1's at cuda_sweep.SWEEP_THREADS; at most
+    cuda_sweep.SWEEP_MAX_CLUSTER blocks a row, as B1."""
+    out = (ctypes.c_int * 3)()
+    lib = load_kernels()
+    cs._raise_on("fwd_k_geometry", lib.rt_adj_fwd_record_k_geometry(
+        N, K, cs.SWEEP_MAX_CLUSTER, rows, out))
+    return tuple(out)
 
 
 def bwd_geometry(N: int, K: int, rows: int,

@@ -566,6 +566,21 @@ def df_bdf2_geometry(N: int, K: int, rows: int) -> Tuple[int, int, int]:
     return tuple(out)
 
 
+def df_halo_bdf2_geometry(X: int, K: int, reset_cell: int,
+                          rows: int) -> Tuple[int, int, int, int]:
+    """B14's launch shape for `rows` packed rows of X cells at K steps with
+    the seeded chains from cell reset_cell: (threads a block, blocks a
+    chain, i.e. the cluster size, tiles of the seeded chain [reset_cell,
+    X), tiles of the chain [0, reset_cell) from zero). B6's tiles and caps;
+    one cluster a chain."""
+    out = (ctypes.c_int * 4)()
+    cs._raise_on("df_halo_bdf2_geometry",
+                 load_kernels().rt_df_halo_bdf2_geometry(
+                     X, K, reset_cell, DF_BDF2_THREADS, DF_BDF2_MAX_CLUSTER,
+                     rows, out))
+    return tuple(out)
+
+
 def df_bdf2_launch(cbe, ccn, cbdf, dbe, dcn, dbdf, bc, bcl, flip, e0h, e0l,
                    e1h, e1l, *, K: int, reflective: bool,
                    symmetric_half: bool, use_corr: bool, blk: int,
@@ -651,8 +666,10 @@ def df_halo_bdf2_launch(cbe, ccn, cbdf, dbe, dcn, dbdf, seeds_h, seeds_l,
                         npass: dict, npass_c: dict):
     """B14: K whole seeded double-float BDF2 steps over packed (rows, X)
     planes in one launch (see ``df_halo_bdf2_launch_ref``). The kernel
-    restarts the chains at cell reset*blk and scans exactly. Returns the
-    12 planes and the record's hi and lo."""
+    restarts the chains at cell reset*blk and scans exactly, each chain a
+    wavefront over a cluster of blocks on B6's tiles
+    (``df_halo_bdf2_geometry``). Returns the 12 planes and the record's hi
+    and lo."""
     if e0h.device.type == "cpu":
         return df_halo_bdf2_launch_ref(
             cbe, ccn, cbdf, dbe, dcn, dbdf, seeds_h, seeds_l, reset, e0h,
@@ -673,7 +690,8 @@ def df_halo_bdf2_launch(cbe, ccn, cbdf, dbe, dcn, dbdf, seeds_h, seeds_l,
             *map(cs._ptr, (cbe, ccn, cbdf, dbe, dcn, dbdf, seeds_h, seeds_l,
                            rec)),
             planes, rows, X, K, reset * blk, int(symmetric_half),
-            int(use_corr), cs._stream(e0h.device))
+            int(use_corr), DF_BDF2_THREADS, DF_BDF2_MAX_CLUSTER,
+            cs._stream(e0h.device))
     cs._raise_on(name, rc)
     df_halo_bdf2_launch.launches += 1
     return (*outs, rec[0], rec[1])
