@@ -33,20 +33,28 @@
 //
 // Design. Each phase's scan is exact (serial over a thread's cells, a
 // warp-shuffle scan of affine maps, one cross-warp pass: tiles.cuh).
-// * B9 follows the one-block walk (segments.cuh): ONE thread block owns ONE
-//   row and walks it in tiles with a loop inside the block. B9 tiles a row
-//   as B1 does (8 cells a thread, at most 512 threads, so 4096-cell tiles)
-//   and runs B1's own sub-step routine (tiles.cuh substep_tile), so its
-//   step is B1's at K = 1; it skips the prev planes (the inputs by
-//   definition) and, for BE/CN, the half planes. Thread 0 writes each
-//   record as it reads it: the carry entering the tile in each phase's
-//   scan, the upwind edges in the exchanges.
+// * B9 is a multi-slot look-back scan (lookback.cuh): one thread block a
+//   tile of blockDim*8 cells (ADJ_FWD_THREADS threads at most, a power of
+//   two, so a tile divides B1's 4096-cell record tile), the step's phases
+//   its slots, each slot's carries chained across the row's tiles by
+//   decoupled look-back (status words, a ticket counter). Each slot runs
+//   B1's sub-step arithmetic (tiles.cuh substep_rhs/substep_out) on the
+//   tile's cells, which stay in registers across the slots. The CN phase's
+//   upwind e1 is an input value; the BDF phase's upwind hs1 is the
+//   predecessor tile's, read from its edge word. Both halves run in one
+//   launch: for a reflective boundary every mu<0 ticket comes first and a
+//   mu>0 row's first tile takes s_p times the flipped mu<0 row's last
+//   INCLUSIVE word (its outflow) per slot, so the halves overlap.
+//   Records stay per record tile: the block whose tile starts one writes
+//   each phase's carry entering it, the upwind e1 and the hs1 edge it read.
 // * B11 is B1's K-step wavefront itself (wave.cuh bdf2_wave: a row's tiles
 //   on the C blocks of a thread block cluster, each (step, phase) slot's
 //   carry and tails mailed from tile t to tile t+1, cluster.cuh) with a
 //   record hook, on B1's tiles, which are the record tiles: its six planes
-//   are B1's at the same K to the bit and its records those of K chained
-//   B9 launches, which B9's thread 0 writes the same way. C = min(16, 4K,
+//   are B1's at the same K to the bit and its records, the carries and
+//   edges entering each record tile, those of K chained B9 launches up to
+//   rounding (B9 composes the same tiles' carries by its look-back). C =
+//   min(16, 4K,
 //   tiles), shrunk until every row's cluster of the launch is resident
 //   (rt_adj_fwd_record_k_geometry).
 // * B10 and B12 share one row body (bwd_row; K = 1 at compile time for B10)
@@ -99,8 +107,9 @@
 //   distributed shared memory and writes each column once: no atomics, the
 //   same sums launch to launch. This sums in another order than Pallas's
 //   per-block sums.
-// * Reflective left boundary: forward, the mu<0 launch records its outflow
-//   carries and the mu>0 launch reads them through `flip` (B1's scheme).
+// * Reflective left boundary: forward, B11's mu<0 launch records its outflow
+//   carries and the mu>0 launch reads them through `flip` (B1's scheme;
+//   B9 reads them from the mu<0 rows' last INCLUSIVE words, above).
 //   Backward, the order is reversed: the mu>0 launch records each slot's
 //   inflow cotangent and the mu<0 launch starts its lambdas from s_p times
 //   that record, gathered through `flip`; only the mu<0 half's cotangent
@@ -116,19 +125,22 @@
 //   their cotangents are forced to 0, so the cotangents chained from step to
 //   step stay 0 there.
 //
-// What bounds it on this card: the serial carry chain of each row. B9 runs
-// 4 scans (BDF2) per 4096 cells and step, one block a row, on 2*Bh blocks
-// (Bh at a time for a reflective slab); B11 spreads a row's T tiles x 4K
-// slots of such scans over C blocks, so a launch is bound by the larger of
-// T*4K/C tile-phases and the handoff chain (~T hops of a tile-phase and a
-// mail's latency) plus the last tile's slots, as B1. B10/B12 run 48 (four
-// sub-tiles of 8 forward and 4 reversed) and 16 neighbour exchanges, each
-// with block barriers, spread over C blocks a row: a launch is bound by the
-// larger of the row's sub-tile-phases over C and its handoff chain (one
-// adjoint phase and a mail's latency a sub-tile), plus the prologue's
-// quarter of the forward work. Device-memory traffic is small beside that:
-// B9 reads 2 planes and writes 4, B10 reads 6 and writes 2; a K-step B11
-// reads 2 and writes 6 + 2(K-1), B12 reads 8 + 2(K-1) and writes 2.
+// What bounds it on this card: the serial carry chain of each row. B9's
+// chain is its slots: each slot of a tile waits on one look-back (a few
+// L2 round trips) and two block barriers, so a launch is about (the tiles
+// over the blocks in flight) x (4 slots x that latency), the blocks in
+// flight bounded by the registers a thread holds (the tile's cells across
+// the slots). B11 spreads a row's T tiles x 4K slots of scans over C
+// blocks, so a launch is bound by the larger of T*4K/C tile-phases and the
+// handoff chain (~T hops of a tile-phase and a mail's latency) plus the
+// last tile's slots, as B1. B10/B12 run 48 (four sub-tiles of 8 forward
+// and 4 reversed) and 16 neighbour exchanges, each with block barriers,
+// spread over C blocks a row: a launch is bound by the larger of the row's
+// sub-tile-phases over C and its handoff chain (one adjoint phase and a
+// mail's latency a sub-tile), plus the prologue's quarter of the forward
+// work. Device-memory traffic is small beside that: B9 reads 2 planes and
+// writes 4, B10 reads 6 and writes 2; a K-step B11 reads 2 and writes 6 +
+// 2(K-1), B12 reads 8 + 2(K-1) and writes 2.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -136,16 +148,18 @@
 #include <cstdint>
 
 #include "cluster.cuh"
+#include "lookback.cuh"
 #include "segments.cuh"
 #include "wave.cuh"
 
 namespace {
 
-// B9 and B11 tile a row as B1 does (segments.cuh): kFwdCells consecutive
-// cells a thread, at most kFwdThreads threads; their records are per such
-// tile. B10 and B12 walk each record tile as sub-tiles of blockDim*kCells
-// cells, with half B9's threads (at least a warp) and half its cells a
-// thread.
+// B11 tiles a row as B1 does (segments.cuh): kFwdCells consecutive cells a
+// thread, at most kFwdThreads threads; the records (B9's and B11's) are per
+// such tile. B9's look-back tiles split it (kFwdCells cells a thread, fewer
+// threads). B10 and B12 walk each record tile as sub-tiles of
+// blockDim*kCells cells, with half B11's threads (at least a warp) and half
+// its cells a thread.
 constexpr int kFwdCells = kSegCells;
 constexpr int kFwdThreads = kSegThreads;
 constexpr int kCells = 4;
@@ -154,12 +168,11 @@ constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kNGrad = 9;          // w T0 q idet a S(=Sb=c0) c1 kee kp
 
 // Per-slot arrays hold one entry per (step, phase) slot (4 a BDF2 step, K <=
-// kMaxSteps steps: B12), per-step arrays one per step; B9 and B10 use the
-// first nph slots and step 0.
+// kMaxSteps steps: B12), per-step arrays one per step; B10 uses the first
+// nph slots and step 0.
 struct Shared {
   Coef kc[3];                  // BE, CN, BDF coefficients of this row
-  float carry[kMaxSlots];      // B9: each phase's carry entering the tile;
-                               // B10/B12: each slot's lambda from downstream
+  float carry[kMaxSlots];      // each slot's lambda from downstream
   float fcarry[kMaxSlots];     // B10/B12: the forward carries entering the
                                // sub-tile (the prologue's chain, then the
                                // wavefront's copy of the scratch)
@@ -362,72 +375,105 @@ __device__ __forceinline__ void load_row_coefs(Shared& sm,
   }
 }
 
-// B9, replaces _make_fwd_record_kernel (pallas_adjoint.py:266): one row in
-// B1's tiles. TS is the step (1 BE, 2 CN, 3 BDF2), SNAP whether the half
-// snapshot is the CN output (mu<0, or symmetric) rather than the phase-0
-// BE output.
+// B9, replaces _make_fwd_record_kernel (pallas_adjoint.py:266): one whole
+// step (TS: 1 BE, 2 CN, 3 BDF2) as a multi-slot look-back scan
+// (lookback.cuh), one thread block a tile of blockDim*kFwdCells cells, the
+// step's phases its slots. SNAP: whether the half snapshot is the CN output
+// (mu<0, or symmetric) rather than the phase-0 BE output. `status` holds
+// the slots' words (nph, 2*Bh, T), for BDF2 the hs1 edge words (2*Bh, T),
+// then the tile counter, all zeroed; records are per record tile of rtile
+// cells (B1's tile), which the look-back tile divides (or the row is one
+// record tile), and the block whose tile starts one writes its records.
 template <int TS, bool SNAP>
-__device__ __forceinline__ void fwd_record_row(
-    Shared& sm, int h, int row, int Bh, int N, int ntiles,
-    const float* __restrict__ e0g, const float* __restrict__ e1g,
-    float* __restrict__ o0g, float* __restrict__ o1g,
-    float* __restrict__ oh0g, float* __restrict__ oh1g, float* rc,
-    float* ret, float* rht) {
+__device__ __forceinline__ void fwd_record_tile(
+    LookbackShared& sm, const Coef (&kc)[3], int h, int row, int t, int Bh,
+    int N, int T, int rtile, int ntiles, const float* __restrict__ bc,
+    const int* __restrict__ flip, const float* __restrict__ e0g,
+    const float* __restrict__ e1g, float* __restrict__ o0g,
+    float* __restrict__ o1g, float* __restrict__ oh0g,
+    float* __restrict__ oh1g, float* rc, float* ret, float* rht, float s_be,
+    float s_cn, float s_bdf, int reflective, unsigned long long* status) {
   constexpr int nph = TS == 3 ? 4 : 1;
-  const bool tail_thread = threadIdx.x == blockDim.x - 1;
-  const int tile = blockDim.x * kFwdCells;
-  const size_t base = static_cast<size_t>(h * Bh + row) * N;
-  // Record index of (phase p, tile t) and of the edge records.
+  constexpr int C = kFwdCells;
+  const int hr = h * Bh + row;
+  const int tile = blockDim.x * C;
+  const int t0 = t * tile;
+  const int j0 = t0 + threadIdx.x * C;
+  const int owner = tile_owner(t0, j0, tile, N, C);
+  const size_t base = static_cast<size_t>(hr) * N;
+  const bool lead = threadIdx.x == 0;
+  const bool sender = threadIdx.x == blockDim.x - 1 && t + 1 < T;
+  // The block that starts a record tile writes its records.
+  const bool recorder = lead && t0 % rtile == 0;
+  const int rt = t0 / rtile;
   const size_t rbase = (static_cast<size_t>(h) * nph * Bh + row) * ntiles;
-  const size_t ebase = (static_cast<size_t>(h) * Bh + row) * ntiles;
-  int buf = 0;
-  for (int t = 0, t0 = 0; t0 < N; ++t, t0 += tile) {
-    const int j0 = t0 + threadIdx.x * kFwdCells;
-    const int owner = tile_owner(t0, j0, tile, N, kFwdCells);
-    float x0[kFwdCells], x1[kFwdCells], o0[kFwdCells], o1[kFwdCells];
-    load_cells(x0, e0g + base, j0, N);
-    load_cells(x1, e1g + base, j0, N);
-    // The e1 edge upwind of the tile: an input value.
-    const float et = (threadIdx.x == 0 && t0 > 0) ? e1g[base + t0 - 1] : 0.f;
-    const bool lead = threadIdx.x == 0;
-    if (lead) ret[ebase + t] = et;
-    auto record = [&](int p, float c_in) {
-      if (lead) rc[rbase + static_cast<size_t>(p) * Bh * ntiles + t] = c_in;
-    };
-    if constexpr (TS == 3) {
-      const float x1_up = upwind_value(x1[kFwdCells - 1], &et, sm.edge_p);
-      float b0[kFwdCells], b1[kFwdCells], c0[kFwdCells], c1[kFwdCells];
-      record(0, substep_tile<kBE>(sm.kc[0], x0, x1, x0, x1, x0, x1, 0.f, 0.f,
-                                  &sm.carry[0], owner, sm, buf, b0, b1));
-      record(1, substep_tile<kCN>(sm.kc[1], b0, b1, x0, x1, x0, x1, x1_up,
-                                  0.f, &sm.carry[1], owner, sm, buf, c0, c1));
-      const auto& hs0 = SNAP ? c0 : b0;
-      const auto& hs1 = SNAP ? c1 : b1;
-      const float hs1_up = upwind_value(hs1[kFwdCells - 1], sm.htail,
-                                        sm.edge_h);
-      if (lead) rht[ebase + t] = hs1_up;
-      float d0[kFwdCells], d1[kFwdCells];
-      record(2, substep_tile<kBE>(sm.kc[0], c0, c1, x0, x1, hs0, hs1, 0.f,
-                                  0.f, &sm.carry[2], owner, sm, buf, d0, d1));
-      record(3, substep_tile<kBDF>(sm.kc[2], d0, d1, x0, x1, hs0, hs1, x1_up,
-                                   hs1_up, &sm.carry[3], owner, sm, buf, o0,
-                                   o1));
-      if (tail_thread) sm.htail[0] = hs1[kFwdCells - 1];
-      store_cells(oh0g + base, j0, N, hs0);
-      store_cells(oh1g + base, j0, N, hs1);
-    } else {
-      constexpr int KIND = TS == 1 ? kBE : kCN;
-      float x1_up = 0.f;
-      if constexpr (KIND == kCN)
-        x1_up = upwind_value(x1[kFwdCells - 1], &et, sm.edge_p);
-      if (lead) rht[ebase + t] = 0.f;
-      record(0, substep_tile<KIND>(sm.kc[KIND - 1], x0, x1, x0, x1, x0, x1,
-                                   x1_up, 0.f, &sm.carry[0], owner, sm, buf,
-                                   o0, o1));
-    }
-    store_cells(o0g + base, j0, N, o0);
-    store_cells(o1g + base, j0, N, o1);
+  const size_t ebase = static_cast<size_t>(hr) * ntiles;
+  const size_t words = static_cast<size_t>(2 * Bh) * T;
+  unsigned long long* edges = status + nph * words + hr * T;
+  float x0[C], x1[C], o0[C], o1[C];
+  load_cells(x0, e0g + base, j0, N);
+  load_cells(x1, e1g + base, j0, N);
+  // The e1 edge upwind of the tile: an input value.
+  if (lead) {
+    sm.ptail = t0 ? e1g[base + t0 - 1] : 0.f;
+    if (recorder) ret[ebase + rt] = sm.ptail;
   }
+  float c_out;
+  auto slot = [&](int p) { return status + p * words + hr * T; };
+  // Tile 0's carry in: s_p * the boundary value, or for the mu>0 half of a
+  // reflective slab s_p * the mu<0 outflow of the flipped row, the
+  // INCLUSIVE word of that row's last tile (its tickets all came first).
+  auto inflow = [&](int p) {
+    return [=] {
+      const float in =
+          (h == 1 && reflective)
+              ? lb_wait_inclusive(status + p * words + flip[row] * T + T - 1)
+              : bc[hr];
+      return phase_s<TS>(p, s_be, s_cn, s_bdf) * in;
+    };
+  };
+  auto record = [&](int p, float c_in) {
+    if (recorder) rc[rbase + static_cast<size_t>(p) * Bh * ntiles + rt] = c_in;
+  };
+  int buf = 0;
+  if constexpr (TS == 3) {
+    const float x1_up = upwind_value(x1[C - 1], &sm.ptail, sm.edge_p);
+    float b0[C], b1[C], c0[C], c1[C], d0[C], d1[C];
+    record(0, lb_substep<kBE>(kc[0], x0, x1, x0, x1, x0, x1, 0.f, 0.f, t,
+                              T, owner, slot(0), inflow(0), sm, buf, b0, b1,
+                              c_out));
+    record(1, lb_substep<kCN>(kc[1], b0, b1, x0, x1, x0, x1, x1_up, 0.f, t,
+                              T, owner, slot(1), inflow(1), sm, buf, c0, c1,
+                              c_out));
+    const auto& hs0 = SNAP ? c0 : b0;
+    const auto& hs1 = SNAP ? c1 : b1;
+    if (sender) lb_publish_edge(edges + t, hs1[C - 1]);
+    record(2, lb_substep<kBE>(kc[0], c0, c1, x0, x1, hs0, hs1, 0.f, 0.f, t,
+                              T, owner, slot(2), inflow(2), sm, buf, d0, d1,
+                              c_out));
+    // The hs1 edge upwind of the tile: the predecessor's, by its edge word.
+    if (lead) {
+      sm.htail = t ? lb_wait_edge(edges + t - 1) : 0.f;
+      if (recorder) rht[ebase + rt] = sm.htail;
+    }
+    const float hs1_up = upwind_value(hs1[C - 1], &sm.htail, sm.edge_h);
+    record(3, lb_substep<kBDF>(kc[2], d0, d1, x0, x1, hs0, hs1, x1_up,
+                               hs1_up, t, T, owner, slot(3), inflow(3), sm,
+                               buf, o0, o1, c_out));
+    store_cells(oh0g + base, j0, N, hs0);
+    store_cells(oh1g + base, j0, N, hs1);
+  } else {
+    constexpr int KIND = TS == 1 ? kBE : kCN;
+    float x1_up = 0.f;
+    if constexpr (KIND == kCN)
+      x1_up = upwind_value(x1[C - 1], &sm.ptail, sm.edge_p);
+    if (recorder) rht[ebase + rt] = 0.f;
+    record(0, lb_substep<KIND>(kc[KIND - 1], x0, x1, x0, x1, x0, x1, x1_up,
+                               0.f, t, T, owner, slot(0), inflow(0), sm,
+                               buf, o0, o1, c_out));
+  }
+  store_cells(o0g + base, j0, N, o0);
+  store_cells(o1g + base, j0, N, o1);
 }
 
 template <int TS>
@@ -436,40 +482,45 @@ __global__ void __launch_bounds__(kFwdThreads)
                       const float* __restrict__ ccn,
                       const float* __restrict__ cbdf,
                       const float* __restrict__ bc,
-                      const int* __restrict__ flip, float* rec,
+                      const int* __restrict__ flip,
                       const float* __restrict__ e0g,
                       const float* __restrict__ e1g, float* __restrict__ o0g,
                       float* __restrict__ o1g, float* __restrict__ oh0g,
                       float* __restrict__ oh1g, float* rc, float* ret,
-                      float* rht, int Bh, int N, int ntiles, float s_be,
-                      float s_cn, float s_bdf, int symmetric, int reflective,
-                      int half0) {
-  __shared__ Shared sm;
+                      float* rht, int Bh, int N, int T, int rtile,
+                      int ntiles, float s_be, float s_cn, float s_bdf,
+                      int symmetric, int reflective,
+                      unsigned long long* status) {
+  __shared__ LookbackShared sm;
+  __shared__ Coef kc[3];
   constexpr int nph = TS == 3 ? 4 : 1;
-  const int row = blockIdx.x % Bh;
-  const int h = half0 + blockIdx.x / Bh;
-  const int hr = h * Bh + row;
-  load_row_coefs(sm, cbe, ccn, cbdf, hr);
-  // Carries entering the row: s_p * the boundary value, or for the mu>0
-  // half of a reflective slab s_p * the mu<0 outflow of the flipped row.
-  if (threadIdx.x < nph) {
-    const int p = threadIdx.x;
-    const float in =
-        (h == 1 && reflective) ? rec[flip[row] * nph + p] : bc[hr];
-    sm.carry[p] = phase_s<TS>(p, s_be, s_cn, s_bdf) * in;
+  constexpr int nedge = TS == 3 ? 1 : 0;
+  lb_ticket(sm, status + static_cast<size_t>(nph + nedge) * 2 * Bh * T);
+  __syncthreads();
+  // Tickets run tile-major across the rows of a group: both halves' rows
+  // for a source boundary, else the mu<0 half's rows first, then the mu>0
+  // half's (whose row starts wait on the mu<0 outflow).
+  const int group = reflective ? Bh : 2 * Bh;
+  const int per = group * T;
+  const int g = sm.ticket / per, rem = sm.ticket - g * per;
+  const int t = rem / group;
+  const int hr = g * group + rem - t * group;
+  const int h = hr / Bh, row = hr - h * Bh;
+  if (threadIdx.x == 0) {
+    kc[0] = load_coef(cbe + hr * kNCoef);
+    kc[1] = load_coef(ccn + hr * kNCoef);
+    kc[2] = load_coef(cbdf + hr * kNCoef);
   }
-  if (threadIdx.x == 0) sm.htail[0] = 0.f;
   __syncthreads();
   if (TS == 3 && !(symmetric || h == 0))
-    fwd_record_row<TS, false>(sm, h, row, Bh, N, ntiles, e0g, e1g, o0g, o1g,
-                              oh0g, oh1g, rc, ret, rht);
+    fwd_record_tile<TS, false>(sm, kc, h, row, t, Bh, N, T, rtile, ntiles,
+                               bc, flip, e0g, e1g, o0g, o1g, oh0g, oh1g, rc,
+                               ret, rht, s_be, s_cn, s_bdf, reflective,
+                               status);
   else
-    fwd_record_row<TS, true>(sm, h, row, Bh, N, ntiles, e0g, e1g, o0g, o1g,
-                             oh0g, oh1g, rc, ret, rht);
-  if (h == 0 && reflective) {  // the mu<0 outflow, for the mu>0 launch
-    __syncthreads();
-    if (threadIdx.x < nph) rec[row * nph + threadIdx.x] = sm.carry[threadIdx.x];
-  }
+    fwd_record_tile<TS, true>(sm, kc, h, row, t, Bh, N, T, rtile, ntiles, bc,
+                              flip, e0g, e1g, o0g, o1g, oh0g, oh1g, rc, ret,
+                              rht, s_be, s_cn, s_bdf, reflective, status);
 }
 
 // B11's records (bdf2_wave's hook), pointers at the row's first entry:
@@ -1052,8 +1103,8 @@ __global__ void __launch_bounds__(kMaxThreads)
                s_bdf, symmetric, reflective, half0);
 }
 
-// B9's and B11's threads a row block (B1's), and whether ntiles is B9's
-// tile count for N.
+// B11's threads a row block (B1's), and whether ntiles is the record tile
+// count for N.
 inline int fwd_threads(int N) {
   return pick_threads(N, kFwdCells, kFwdThreads);
 }
@@ -1093,37 +1144,60 @@ extern "C" {
 // Planes are contiguous (2, Bh, N) float32 (the h planes and their
 // cotangents only for BDF2, else null), coefficients (2, Bh, 10), bc
 // (2, Bh, 1), flip (Bh,) int32, rc (2, nph, Bh, ntiles), ret/rht
-// (2, Bh, ntiles), rec a (Bh, nph) scratch record, nph = 4 for BDF2 else 1.
+// (2, Bh, ntiles), rec (B10 and B11) a (Bh, slots) scratch record, nph = 4
+// for BDF2 else 1.
 
+// B9's launch shape for rows of N cells at most max_threads threads a block
+// (a power of two from 32 to 512): out = (threads a block, look-back tiles
+// a row, blocks of the BDF2 kernel a multiprocessor holds at once); the
+// scratch the wrapper passes holds (nph + nedge) * 2 * Bh * tiles + 1
+// words, nph = 4 and nedge = 1 for BDF2, else 1 and 0.
+int rt_adj_fwd_geometry(int N, int max_threads, int* out) {
+  if (!lb_shape_ok(N, max_threads, kFwdThreads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  lb_geometry(N, kFwdCells, max_threads, out);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 2, fwd_record_kernel<3>, out[0], 0));
+}
+
+// status: the look-back scratch of rt_adj_fwd_geometry's size at the same
+// max_threads, zeroed here before the launch. Both halves run in one
+// launch, the mu<0 half's tiles first for a reflective boundary.
 int rt_adj_fwd_record(int ts_method, const float* cbe, const float* ccn,
                       const float* cbdf, const float* bc, const int* flip,
-                      float* rec, const float* e0, const float* e1, float* o0,
-                      float* o1, float* oh0, float* oh1, float* rc,
-                      float* ret, float* rht, int Bh, int N, int ntiles,
-                      float s_be, float s_cn, float s_bdf, int symmetric,
-                      int reflective, void* stream) {
-  if (Bh < 1 || N < 1 || ts_method < 1 || ts_method > 3 ||
-      !tiles_ok(N, ntiles) || (ts_method == 3 && (!oh0 || !oh1)))
+                      const float* e0, const float* e1, float* o0, float* o1,
+                      float* oh0, float* oh1, float* rc, float* ret,
+                      float* rht, unsigned long long* status, int Bh, int N,
+                      int ntiles, float s_be, float s_cn, float s_bdf,
+                      int symmetric, int reflective, int max_threads,
+                      void* stream) {
+  int geo[2];
+  if (Bh < 1 || ts_method < 1 || ts_method > 3 ||
+      !lb_shape_ok(N, max_threads, kFwdThreads) || !tiles_ok(N, ntiles) ||
+      (ts_method == 3 && (!oh0 || !oh1)))
     return static_cast<int>(cudaErrorInvalidValue);
+  lb_geometry(N, kFwdCells, max_threads, geo);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = fwd_threads(N);
-  return launch_halves(Bh, reflective, [&](int grid, int half0) {
-    if (ts_method == 1)
-      fwd_record_kernel<1><<<grid, threads, 0, st>>>(
-          cbe, ccn, cbdf, bc, flip, rec, e0, e1, o0, o1, oh0, oh1, rc, ret,
-          rht, Bh, N, ntiles, s_be, s_cn, s_bdf, symmetric, reflective,
-          half0);
-    else if (ts_method == 2)
-      fwd_record_kernel<2><<<grid, threads, 0, st>>>(
-          cbe, ccn, cbdf, bc, flip, rec, e0, e1, o0, o1, oh0, oh1, rc, ret,
-          rht, Bh, N, ntiles, s_be, s_cn, s_bdf, symmetric, reflective,
-          half0);
-    else
-      fwd_record_kernel<3><<<grid, threads, 0, st>>>(
-          cbe, ccn, cbdf, bc, flip, rec, e0, e1, o0, o1, oh0, oh1, rc, ret,
-          rht, Bh, N, ntiles, s_be, s_cn, s_bdf, symmetric, reflective,
-          half0);
-  });
+  const int threads = geo[0], T = geo[1];
+  const int rtile = fwd_threads(N) * kFwdCells;
+  const int words = (ts_method == 3 ? 5 : 1) * 2 * Bh * T;
+  const cudaError_t err = cudaMemsetAsync(
+      status, 0, (static_cast<size_t>(words) + 1) * sizeof(*status), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = 2 * Bh * T;
+  if (ts_method == 1)
+    fwd_record_kernel<1><<<grid, threads, 0, st>>>(
+        cbe, ccn, cbdf, bc, flip, e0, e1, o0, o1, oh0, oh1, rc, ret, rht, Bh,
+        N, T, rtile, ntiles, s_be, s_cn, s_bdf, symmetric, reflective, status);
+  else if (ts_method == 2)
+    fwd_record_kernel<2><<<grid, threads, 0, st>>>(
+        cbe, ccn, cbdf, bc, flip, e0, e1, o0, o1, oh0, oh1, rc, ret, rht, Bh,
+        N, T, rtile, ntiles, s_be, s_cn, s_bdf, symmetric, reflective, status);
+  else
+    fwd_record_kernel<3><<<grid, threads, 0, st>>>(
+        cbe, ccn, cbdf, bc, flip, e0, e1, o0, o1, oh0, oh1, rc, ret, rht, Bh,
+        N, T, rtile, ntiles, s_be, s_cn, s_bdf, symmetric, reflective, status);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B10's and B12's launch shape for rows of N cells at K steps of

@@ -51,8 +51,9 @@ _SIGNATURES = {
     "rt_df_halo_bdf2": [_P] * 9 + [_PP] + [_I] * 8 + [_P],
     "rt_df_halo_bdf2_geometry": [_I] * 6 + [_P],
     "rt_df_halo_multistep": [_I] + [_P] * 5 + [_PP] + [_I] * 5 + [_P],
-    "rt_adj_fwd_record": [_I] + [_P] * 15 + [_I] * 3 + [_F] * 3 + [_I] * 2
+    "rt_adj_fwd_record": [_I] + [_P] * 15 + [_I] * 3 + [_F] * 3 + [_I] * 3
     + [_P],
+    "rt_adj_fwd_geometry": [_I, _I, _P],
     "rt_adj_bwd": [_I] + [_P] * 21 + [_I] * 3 + [_F] * 3 + [_I] * 4 + [_P],
     "rt_adj_bwd_geometry": [_I] * 6 + [_P],
     "rt_adj_fwd_record_k": [_P] * 19 + [_I] * 4 + [_F] * 3 + [_I] * 3 + [_P],
@@ -60,7 +61,8 @@ _SIGNATURES = {
     "rt_adj_bwd_k": [_P] * 25 + [_I] * 4 + [_F] * 3 + [_I] * 4 + [_P],
     "rt_sharded_substep": [_I] + [_P] * 15 + [_I] * 3 + [_P],
     "rt_sharded_geometry": [_I, _I, _P],
-    "rt_fused_step": [_P] * 11 + [_I] * 4 + [_P],
+    "rt_fused_step": [_P] * 12 + [_I] * 5 + [_P],
+    "rt_fused_geometry": [_I, _I, _P],
 }
 
 

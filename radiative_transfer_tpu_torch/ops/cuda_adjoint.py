@@ -40,7 +40,10 @@ row as a wavefront over (1024-cell sub-tile, slot) from the row's end on a
 cluster of blocks (``bwd_geometry``), after a prologue that recomputes
 each sub-tile's entering forward carries into a scratch the wrapper
 allocates; B11 runs each row as B1's wavefront over (tile, slot) on a
-cluster (``fwd_k_geometry``). Each wrapper counts its launches.
+cluster (``fwd_k_geometry``); B9 runs one block a tile of each row, the
+step's phases chained across the tiles by a multi-slot decoupled look-back
+(``fwd_geometry``), in a status scratch the wrapper allocates. Each wrapper
+counts its launches.
 
 ``DiffCudaStep`` and ``DiffCudaStepK`` (the counterparts of
 ``DiffPallasStep`` and ``DiffPallasStepK``) are the
@@ -54,6 +57,7 @@ adjoint.traced_tables -> fast_sweep.build_kind_coeffs_traced ->
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -70,9 +74,13 @@ from ._cuda_build import load as load_kernels
 from .cuda_sweep import _NCOEF, _Coef, _unpack_coef
 from .fast_sweep import BDF, BE, CN, FlatState
 
-# B9's tile (csrc/adjoint.cu, as B1's in csrc/sweep.cu): kFwdCells cells a
-# thread, at most kFwdThreads threads a row block.
+# B9's record tile (csrc/adjoint.cu, B1's tile in csrc/sweep.cu): kFwdCells
+# cells a thread, at most kFwdThreads threads a row block.
 _K_CELLS, _MAX_THREADS = 8, 512
+
+# B9's look-back tile: at most this many threads a block (a power of two;
+# 8 cells a thread, so the tile divides the 4096-cell record tile).
+ADJ_FWD_THREADS = 64
 
 # B10's and B12's launch shape: at most this many threads a block (a power
 # of two; a sub-tile is 4 cells a thread, 256 keeps four 1024-cell
@@ -576,12 +584,31 @@ def _check_records(name: str, device, N: int, *pairs) -> int:
     return nt
 
 
+def fwd_geometry(N: int) -> Tuple[int, int, int]:
+    """B9's launch shape for rows of N cells: (threads a block, look-back
+    tiles a row, blocks a multiprocessor holds at once); the kernel runs
+    one block a tile. Kept per (N, threads): the wrapper sizes its scratch
+    from it at every launch."""
+    return _fwd_geometry(N, ADJ_FWD_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_geometry(N: int, max_threads: int) -> Tuple[int, int, int]:
+    out = (ctypes.c_int * 3)()
+    cs._raise_on("fwd_geometry",
+                 load_kernels().rt_adj_fwd_geometry(N, max_threads, out))
+    return tuple(out)
+
+
 def fwd_record_launch(cbe, ccn, cbdf, bc, flip, e0, e1, *, ts_method: int,
                       s_be: float, s_cn: float, s_bdf: float,
                       reflective: bool, symmetric_half: bool, blk: int,
                       npass: dict):
     """B9: one whole step with its records (see fwd_record_launch_ref).
-    On the card the records are per kernel tile, (2, nph, Bh,
+    On the card the step's phases are the slots of a look-back scan over
+    tiles of ``fwd_geometry`` (one block a tile, both halves in one
+    launch, the mu<0 half's tiles first for a reflective boundary), and
+    the records are per record tile (B1's 4096-cell tile), (2, nph, Bh,
     record_tiles(N)); `blk`/`npass` shape the plain version only."""
     if e0.device.type == "cpu":
         return fwd_record_launch_ref(
@@ -601,14 +628,18 @@ def fwd_record_launch(cbe, ccn, cbdf, bc, flip, e0, e1, *, ts_method: int,
     rc = torch.empty((2, nph, Bh, nt), dtype=torch.float32, device=e0.device)
     ret = torch.empty((2, Bh, nt), dtype=torch.float32, device=e0.device)
     rht = torch.empty_like(ret)
-    outflow = torch.empty((Bh, nph), dtype=torch.float32, device=e0.device)
+    # The look-back's words, one a (slot or hs1 edge, row, tile), and the
+    # tile counter: the entry point zeroes them before the launch.
+    _, tiles, _ = fwd_geometry(N)
+    status = torch.empty((nph + bdf2) * 2 * Bh * tiles + 1, dtype=torch.int64,
+                         device=e0.device)
     hp = (h0, h1) if bdf2 else (None, None)
     with torch.cuda.device(e0.device):
         rc_ = lib.rt_adj_fwd_record(
-            ts_method, *map(_ptr, (cbe, ccn, cbdf, bc, flip, outflow, e0, e1,
-                                   o0, o1, *hp, rc, ret, rht)),
+            ts_method, *map(_ptr, (cbe, ccn, cbdf, bc, flip, e0, e1, o0, o1,
+                                   *hp, rc, ret, rht, status)),
             Bh, N, nt, s_be, s_cn, s_bdf, int(symmetric_half),
-            int(reflective), cs._stream(e0.device))
+            int(reflective), ADJ_FWD_THREADS, cs._stream(e0.device))
     cs._raise_on(name, rc_)
     fwd_record_launch.launches += 1
     return o0, o1, h0, h1, rc, ret, rht

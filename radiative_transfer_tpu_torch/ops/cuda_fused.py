@@ -3,7 +3,7 @@
 
 * ``fused_step_launch`` — B13, ``_make_fused_step_kernel``
   (radiative_transfer_tpu/parallel/fused_exchange.py:149): one whole BDF2
-  step a launch over packed (rows, N_loc) planes. Each block first runs
+  step a launch over packed (rows, N_loc) planes. Each row first runs
   the previous step's LINEAR correction cycle from its seven boundary
   unknowns ``v`` (zero sources, zero planes), adds it to the zero-boundary
   planes to materialise the step's true input ends, then runs this step's
@@ -13,7 +13,9 @@
   corrections instead (for ends() and prev_half_ends()).
 
 The wrapper launches csrc/fused.cu for a CUDA tensor and raises if it
-cannot; for a CPU tensor it runs the plain version ``fused_step_launch_ref``,
+cannot (one block a tile, the two cycles' eight sub-steps chained across a
+row's tiles by a multi-slot decoupled look-back, csrc/lookback.cuh, in a
+status scratch the wrapper allocates); for a CPU tensor it runs the plain version ``fused_step_launch_ref``,
 a transcription of the JAX kernel (``_corr_cycle_block`` and the step
 body, fused_exchange.py:105-249) on the port's ``_substep_block``: the same
 blocks, truncated scans and operation order. It counts its launches in
@@ -21,6 +23,10 @@ blocks, truncated scans and operation order. It counts its launches in
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
@@ -33,6 +39,13 @@ from .fast_sweep import BDF, BE, CN
 NV = 7
 V_BE1, V_CN, V_BE2, V_BDF, V_P1CN, V_P1BDF, V_FILLH = range(NV)
 NREC = 6
+# The edge words a tile of B13 publishes: the correction cycle's hs1, the
+# corrected input e1 and this step's hs1 at its last cell.
+NEDGE = 3
+
+# B13's tile: at most this many threads a block (a power of two from 32 to
+# 128, the kernel's launch bounds; 8 cells a thread).
+FUSED_THREADS = 128
 
 
 def _lin(kc: cs._Coef) -> cs._Coef:
@@ -114,12 +127,30 @@ def fused_step_launch_ref(cbe, ccn, cbdf, v, z0, z1, *,
     return (*outs, rec)
 
 
+def fused_geometry(N: int) -> Tuple[int, int, int]:
+    """B13's launch shape for rows of N cells: (threads a block, tiles a
+    row, blocks a multiprocessor holds at once); the kernel runs one block
+    a tile. Kept per (N, threads): the wrapper sizes its scratch from it
+    at every launch."""
+    return _fused_geometry(N, FUSED_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_geometry(N: int, max_threads: int) -> Tuple[int, int, int]:
+    out = (ctypes.c_int * 3)()
+    cs._raise_on("fused_geometry",
+                 load_kernels().rt_fused_geometry(N, max_threads, out))
+    return tuple(out)
+
+
 def fused_step_launch(cbe, ccn, cbdf, v, z0, z1, *, symmetric_half: bool,
                       blk: int, npass: dict, materialize_only: bool = False):
     """B13: one whole BDF2 step (or, with `materialize_only`, the
-    corrected planes) in one launch; see ``fused_step_launch_ref``. The
-    kernel scans its own tiles exactly; `blk`/`npass` shape the plain
-    version's truncated scans."""
+    corrected planes) in one launch; see ``fused_step_launch_ref``. On the
+    card the two cycles' eight sub-steps (four) are the slots of a
+    look-back scan over tiles of ``fused_geometry``, one block a tile, the
+    one-cell edges between tiles passed in edge words; each tile scans
+    exactly. `blk`/`npass` shape the plain version's truncated scans."""
     if z0.device.type == "cpu":
         return fused_step_launch_ref(cbe, ccn, cbdf, v, z0, z1,
                                      symmetric_half=symmetric_half, blk=blk,
@@ -134,11 +165,17 @@ def fused_step_launch(cbe, ccn, cbdf, v, z0, z1, *, symmetric_half: bool,
     outs = [torch.empty_like(z0) for _ in range(4)]
     rec = (outs[0] if materialize_only else
            torch.empty((rows, NREC), dtype=torch.float32, device=z0.device))
+    # The look-back's words, one a (slot or edge, row, tile), and the tile
+    # counter: the entry point zeroes them before the launch.
+    _, tiles, _ = fused_geometry(N)
+    slots = 4 if materialize_only else 8
+    status = torch.empty((slots + NEDGE) * rows * tiles + 1,
+                         dtype=torch.int64, device=z0.device)
     with torch.cuda.device(z0.device):
         rc = lib.rt_fused_step(
-            *map(cs._ptr, (cbe, ccn, cbdf, v, z0, z1, *outs, rec)), rows, N,
-            int(symmetric_half), int(materialize_only),
-            cs._stream(z0.device))
+            *map(cs._ptr, (cbe, ccn, cbdf, v, z0, z1, *outs, rec, status)),
+            rows, N, int(symmetric_half), int(materialize_only),
+            FUSED_THREADS, cs._stream(z0.device))
     cs._raise_on(name, rc)
     fused_step_launch.launches += 1
     return tuple(outs) if materialize_only else (*outs, rec)
