@@ -25,14 +25,26 @@ Phases, one line each; any failure exits nonzero before the result line:
    the peak device memory above what the phase started with, and B1's
    and B2-CN's launch shapes at that size (rows x blocks a row x tiles;
    more than one block a row);
-6. tiny-batch auto route (the packed-rows halo engine, B4 and B5): the CLI
+6. tiny-batch auto route (the packed-rows halo engine, B4 and B5): B4's
+   cluster wavefront (one cluster a packed row, the seeded chain's first
+   tile taking its mail before it reseeds) on its own shapes, each launched
+   REPEAT = 5 times, the launches bit-identical and within TOL of the plain
+   version (check_f64 where that one lies above TOL from float64): a reset
+   cell off the 4096-cell tile (a halo chain ending in a ragged tile that
+   sends), reset 0, a halo chain of one tile (shorter than C), one of 5
+   tiles at C = 4 (T_h >= C), a seeded chain of C + 1 tiles with a ragged
+   last tile, packed rows 2 and 32, K 1, 2 and 8, both half modes; the CLI
    with --engine auto --dtype float32 on prm/single_group.prm (routes to
    the plain engine) against its CPU run; HaloCudaEngine against
    CudaSweepEngine at the benchmarks/suite.py gray_s8 shape (S_8 gray,
    Bh = 4, N = 2^18, Courant 0.4, reflective left) for BDF2, BE and CN, 64
-   steps, ends, prev and half within DRIFT_TOL; then gray_s8 through
+   steps, ends, prev and half within DRIFT_TOL (and whether every plane is
+   bit-equal, printed); then gray_s8 through
    make_multichip_engine("auto"), which must pick HaloCudaEngine, timed as
-   in phase 5, and the same workload on CudaSweepEngine;
+   in phase 5 beside B4's row walk, and the same workload on
+   CudaSweepEngine; B4 at gray_s8's main launch held as its own shapes,
+   and its grids at the main and fixup launches (rows x blocks a row x
+   tiles; more than one block a row at the main launch);
 7. f64-grade path (the double-float engine, B6 and B7): the CLI with
    --engine df on prm/single_group.prm (200 steps) and its BE and CN
    variants, prm/multi_group_equilibrium.prm (200 steps) and
@@ -54,7 +66,12 @@ Phases, one line each; any failure exits nonzero before the result line:
    chain shorter than C, K 1, 2 and 4, both half modes, use_correction on
    and off, and gray_s8's main launch), and B14's grid at gray_s8's main
    and fixup launches (clusters x blocks a chain x tiles a chain; more than
-   one block a chain); then the path: the CLI with --engine auto at
+   one block a chain); B15's cluster wavefront (one cluster a packed row,
+   take-and-reseed) on its own shapes likewise (a ragged halo chain that
+   sends, reset 0, a halo chain of 4 tiles at C = 3, a seeded chain of
+   C + 1 tiles behind a one-tile halo chain, packed rows 2 and 32, BE and
+   CN at K 1, 3 and 8, use_correction on and off); then the path: the CLI
+   with --engine auto at
    the default float64 on a tiny-batch deck thick enough for the creep bound
    (single_group.prm at N = 2048, X = 20.48), which must print JAX's df halo
    line, within DF_CLI_TOL of its CPU run; DFHaloCudaEngine against
@@ -63,7 +80,10 @@ Phases, one line each; any failure exits nonzero before the result line:
    printed);
    then gray_s8 BDF2 through make_multichip_engine(engine="df"), which must
    pick DFHaloCudaEngine, timed as in phase 5, and on DFCudaEngine, beside
-   the row walk's rates;
+   the row walk's rates; gray_s8 at CN likewise on both engines (B15 and
+   B7 their kernels); B15 at gray_s8's CN main launch held as its own
+   shapes, and its grids at the main and fixup launches (more than one
+   block a row at the main launch);
 9. the adjoint path (B9 forward-with-records, B10 transposed step): B9 and
    B10 against their plain versions (planes and cbc <= 1e-5, gradient packs
    <= 1e-4 of their largest magnitude) for BE, CN and BDF2, reflective and
@@ -158,7 +178,8 @@ Phases, one line each; any failure exits nonzero before the result line:
    beside CudaSweepEngine: ends, prev and half within 1e-5 of
    CudaSweepEngine after 8 steps (gray) and the deck's own 2 steps (llnl);
    64 steps timed (updates/s, peak memory; the row walk's gray rates
-   beside them), the 64-step drift within 5e-5
+   beside them; B4's grid at the gray rung, more than one block a row),
+   the 64-step drift within 5e-5
    where the reference's 64-step state stays inside bench.py's guard
    (finite, max|x| < 1e3; llnl leaves it), recorded where it does not;
    then two processes sharing the card over gloo (a check of the exchanges
@@ -208,15 +229,17 @@ bench at K = 1, 4, 8 and B2-CN there at K = 8, 16, each at the blocks a
 row the geometry picks and at half as many; B6 at the df bench at K = 1,
 2, 4 with 512 and 256 threads a block, at gray_s8 with at most 16 and 8
 blocks a row; B14 at gray_s8 with at most 16 and 8 blocks a chain, and
-its seeded and halo chains as two launches would run them; B11 at
+its seeded and halo chains as two launches would run them; B4 at gray_s8's
+and the gray rung's main launches and B15 at gray_s8's CN main launch, each
+at the blocks a row the geometry picks and at half as many; B11 at
 the adjoint bench at the blocks a row the geometry picks and at half as
 many; B8 at the gray shard with 32-512 threads; B9 at the adjoint bench
 with 32-512 threads; B13 at the gray shard with 32-128 threads and its
 materialize_only variant; B10 and B12 (K = 4) at the
 adjoint bench with 256 and 128 threads a block, each at the blocks a row
 the geometry picks and at half as many.
-Lines set B9's, B11's, B13's and B14's times against their one-block row
-walks'.
+Lines set B4's, B9's, B11's, B13's, B14's and B15's times (and B4's
+HaloCudaEngine rates) against their one-block row walks'.
 A line splits each kernel's launches on its path's phases into those at
 the shape it is timed at and the rest. The last lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -249,9 +272,9 @@ DRIFT_TOL = 5e-5
 # f64-grade engine drift ~1e-13 a step from float64).
 DF_TOL = 1e-11
 DF_CLI_TOL = 1e-10
-# Launches of each redesigned kernel (B1's, B2's, B6's, B10's, B11's, B12's
-# and B14's wavefronts, B8's, B9's and B13's look-backs) per new parity
-# shape: a race shows intermittently, so the worst is held.
+# Launches of each redesigned kernel (B1's, B2's, B4's, B6's, B10's, B11's,
+# B12's, B14's and B15's wavefronts, B8's, B9's and B13's look-backs) per
+# new parity shape: a race shows intermittently, so the worst is held.
 REPEAT = 5
 # The rates (updates/s) these paths ran at while B1, B6 and B8 still walked
 # each row on one thread block, measured on one H100 80GB HBM3 at 700 W
@@ -283,6 +306,15 @@ B11_B14_WALK = {"fwd_record_k_launch ms": 2.832,
 B9_B13_WALK = {"fwd_record_launch ms": 0.9834, "fused_step_launch ms": 4.401,
                "grad_k1_vs_fwd": 13.06,
                "gray rung FusedExchangeCudaEngine": 2.99295e10}
+# B4's and B15's one-launch times (gray_s8's halo main launch, BDF2 K = 8
+# and CN K = 8) and HaloCudaEngine's rates on gray_s8 and on the gray rung
+# at one rank while both still walked each row on one thread block,
+# measured on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit (PERF.md
+# sections 5-6), printed beside this run's.
+B4_B15_WALK = {"halo_bdf2_launch ms": 2.721,
+               "df_halo_multistep_launch ms": 4.177,
+               "gray_s8 HaloCudaEngine": 2.38634e10,
+               "gray rung HaloCudaEngine": 9.92078e10}
 SWEEP_CU = "radiative_transfer_tpu_torch/csrc/sweep.cu"
 DF_CU = "radiative_transfer_tpu_torch/csrc/df_sweep.cu"
 ADJ_CU = "radiative_transfer_tpu_torch/csrc/adjoint.cu"
@@ -1306,6 +1338,77 @@ def main() -> int:
     from radiative_transfer_tpu_torch.parallel import make_multichip_engine
     from radiative_transfer_tpu_torch.parallel.halo_cuda import HaloCudaEngine
 
+    # B4's wavefront (one cluster a packed row, the seeded chain's first tile
+    # taking its mail before it reseeds) on its own shapes, each launched
+    # REPEAT times against one plain launch, the launches bit-identical (a
+    # race between the cluster's blocks shows intermittently) and within
+    # TOL of the plain version, or by check_f64 where that one lies above
+    # TOL from its float64 evaluation. Packed rows 2 and 32 of the mg deck,
+    # 4096-cell tiles: reset 3 or 5 blocks of 1280 (a halo chain of one or
+    # two tiles ending in a ragged one that sends, a seeded chain with a
+    # ragged last tile); reset 0 (one chain from the seeds); a halo chain of
+    # 5 tiles at C = 4 (T_h >= C); a seeded chain of C + 1 tiles, its last
+    # ragged, behind a one-tile halo chain (shorter than C); K 1, 2 and 8,
+    # both half modes. gray_s8's main launch follows once the engine stands.
+    def packed_f32(Mr, Gr, X, blk, seed):
+        """The mg deck's packed-rows f32 inputs at M = Mr, G = Gr, N = X:
+        (rows, coef, npass at plain blocks of blk cells, x0, x1, seeds(C):
+        C columns of the row's scale times [0.5, 6.5))."""
+        e = engine(load_config(deck, M=Mr, G=Gr, N=X, ts_method=3))
+        rows = 2 * e.Bh
+        coef = {k: c.reshape(rows, -1) for k, c in e.coef.items()}
+        npass = {k: cs._scan_npass(float(np.max(e.kcs[k].a)), blk, 1e-10)
+                 for k in e.kcs}
+        x0, x1 = (p.reshape(rows, -1) for p in rand_state(e, seed)[:2])
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def seeds(C):
+            return (x0[:, :1] * (0.5 + 6 * torch.rand(
+                (rows, C), generator=g, device=dev))).contiguous()
+
+        return rows, coef, npass, x0, x1, seeds
+
+    def b4_hold(label, args, kw, rows, X, reset_cell):
+        threads, C, tm, th = cs.halo_bdf2_geometry(X, kw["K"], reset_cell,
+                                                   rows)
+        tag = (f"B4-{label}-rows{rows}-X{X}-reset{reset_cell}-K{kw['K']}-"
+               f"{'sym' if kw['symmetric_half'] else 'asym'}-C{C}-tiles"
+               f"{th}+{tm}")
+        outs = [cs.halo_bdf2_launch(*args, **kw) for _ in range(REPEAT)]
+        if not all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(o, outs[0])):
+            raise AssertionError(f"halo_bdf2_launch {tag}: {REPEAT} launches "
+                                 f"on the same inputs are not bit-identical")
+        ref = cs.halo_bdf2_launch_ref(*args, **kw)
+        err = max(nerr(g, r) for g, r in zip(outs[0], ref))
+        if err <= TOL:
+            b4_waves.append(f"{tag}={err:.1e}")
+            return
+        ref64 = cs.halo_bdf2_launch_ref(
+            *(a.double() if torch.is_tensor(a) else a for a in args), **kw)
+        check_f64("halo_bdf2_launch", tag, outs[0], ref, ref64)
+        b4_waves.append(checks[-1])
+
+    b4_waves = []
+    c4 = {Kx: cs.halo_bdf2_geometry(1 << 20, Kx, 2048, 2)[1] for Kx in (2, 8)}
+    for label, Mr, Gr, X, blk, reset, Kw, sym in (
+            ("ragged-halo", 2, 1, 12800, 1280, 3, 2, False),
+            ("ragged-halo", 8, 4, 12800, 1280, 5, 1, True),
+            ("reset0", 8, 4, 12800, 1280, 0, 8, False),
+            ("reset0", 2, 1, 12800, 1280, 0, 1, True),
+            ("halo-ge-C", 2, 1, 16 * 4096 + 1024, 1024, 18, 1, False),
+            ("seeded-C+1", 2, 1, 2048 + c4[2] * 4096 + 2048, 2048, 1, 2,
+             True),
+            ("seeded-C+1", 2, 1, 2048 + c4[8] * 4096 + 2048, 2048, 1, 8,
+             False)):
+        rows, coef, npass, x0, x1, seeds = packed_f32(Mr, Gr, X, blk,
+                                                      300 + len(b4_waves))
+        b4_hold(label, (coef[BE], coef[CN], coef[BDF], seeds(4 * Kw), reset,
+                        x0, x1),
+                dict(K=Kw, symmetric_half=sym, blk=blk, npass_be=npass[BE],
+                     npass_cn=npass[CN], npass_bdf=npass[BDF]), rows, X,
+                reset * blk)
+
     cs.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cli_summary, out = cli_vs_cpu(
@@ -1336,8 +1439,9 @@ def main() -> int:
         if not max(errs) <= DRIFT_TOL:
             raise AssertionError(f"gray_s8 {label}: HaloCudaEngine vs "
                                  f"CudaSweepEngine ends/prev/half {errs}")
+        equal = all(torch.equal(a, b) for a, b in zip(hs, ps))
         pairs.append(f"{label} K={he.K_launch} H={he.H} block {he.block} "
-                     f"ends/prev/half {max(errs):.1e}")
+                     f"ends/prev/half {max(errs):.1e}, bit-equal {equal}")
 
     halo = auto_engine(gray_cfg(Ms, Ns, 3))
     Kh = halo.K_launch
@@ -1366,13 +1470,40 @@ def main() -> int:
     f0 = hst.e0[..., :halo.H].contiguous()
     f1 = hst.e1[..., :halo.H].contiguous()
     fix_ms, _ = timed(lambda: halo._launch(Kh, fix_seeds, 0, f0, f1), 100)
+    # B4 at gray_s8's main launch (the engine's K, random planes) held as its
+    # own shapes above, and its grids there and at the fixup: more than one
+    # block a row at the main launch.
+    g6 = torch.Generator(device=dev).manual_seed(620)
+    x6 = [(x.reshape(rows8, -1) * (0.5 + torch.rand(
+        (rows8, x.shape[-1]), generator=g6, device=dev))).contiguous()
+        for x in (x0, x1)]
+    b4_hold("gray_s8-main", (halo.coef[BE], halo.coef[CN], halo.coef[BDF],
+                             main_seeds, halo.hb, *x6),
+            dict(K=Kh, symmetric_half=bool(halo.cfg.bdf2_symmetric_half),
+                 blk=halo.block, npass_be=halo.scan_npass[BE],
+                 npass_cn=halo.scan_npass[CN],
+                 npass_bdf=halo.scan_npass[BDF]), rows8, halo.H + Ns, halo.H)
+    b4_grids = {}
+    for tag, Xg, rc_ in (("main", halo.H + Ns, halo.H), ("fixup", halo.H, 0)):
+        threads, C, tm, th = cs.halo_bdf2_geometry(Xg, Kh, rc_, rows8)
+        if tag == "main" and C < 2:
+            raise AssertionError(f"B4 at gray_s8 {tag}: {C} block a row")
+        b4_grids[tag] = (f"{rows8} rows x {C} blocks of {threads} threads, "
+                         f"tiles a row {th} (halo) + {tm} (seeded)")
     ups = 4 * Ms * Ns * 64
-    print(f"phase 6 auto route: ok; {cli_summary}; gray_s8 vs "
+    print(f"phase 6 auto route: ok; {cli_summary}; B4 wavefront shapes "
+          f"(worst of {REPEAT} launches, bit-identical): "
+          + ", ".join(b4_waves) + f"; B4 grid at gray_s8 K={Kh}: "
+          + "; ".join(f"{k} {v}" for k, v in b4_grids.items())
+          + f"; gray_s8 vs "
           f"CudaSweepEngine 64 steps: {'; '.join(pairs)}; gray_s8 BDF2 "
           f"(S_8, Bh=4, N=2^18) via auto = HaloCudaEngine K={Kh} H={halo.H}: "
           f"64 steps in {h_seconds:.4f} s (median of {fmt_windows(h_windows)})"
-          f" = {ups / h_seconds:.6g} updates/s, peak device memory "
-          f"{h_peak:.3f} GiB above the run's start, main launch {main_ms:.3f} ms, fixup launch "
+          f" = {ups / h_seconds:.6g} updates/s (B4 on the row walk: "
+          f"{B4_B15_WALK['gray_s8 HaloCudaEngine']:.6g}), peak device memory "
+          f"{h_peak:.3f} GiB above the run's start, main launch "
+          f"{main_ms:.3f} ms (row walk "
+          f"{B4_B15_WALK['halo_bdf2_launch ms']}), fixup launch "
           f"{fix_ms:.3f} ms; CudaSweepEngine K={K8}: 64 steps in "
           f"{p_seconds:.4f} s (median of {fmt_windows(p_windows)}) = "
           f"{ups / p_seconds:.6g} updates/s (row walk: "
@@ -1562,6 +1693,56 @@ def main() -> int:
                          reset, *ins),
                  dict(K=Kw, symmetric_half=sym, use_corr=corr, blk=blk,
                       npass=npass, npass_c=npass_c), rows, X, reset * blk)
+    # B15's wavefront (one cluster a packed row, the seeded chain's first
+    # tile taking its mail before it reseeds) on its own shapes, each
+    # launched REPEAT times against one plain launch, the worst held to
+    # DF_TOL and the launches bit-identical. 2048-cell df tiles: reset 3
+    # blocks of 1280 (a ragged 2-tile halo chain that sends, a 5-tile
+    # seeded chain with a ragged last tile); reset 0; a halo chain of 4
+    # tiles at C = 3 (T_h >= C); a seeded chain of C + 1 tiles, its last
+    # ragged, behind a one-tile halo chain (shorter than C); packed rows 2
+    # and 32; BE and CN at K 1, 3 and 8; use_correction on and off.
+    # gray_s8's CN main launch follows once the engine stands.
+    def b15_hold(label, args, kw, rows, X, reset_cell):
+        threads, C, tm, th = cd.df_halo_multistep_geometry(
+            X, kw["K"], reset_cell, rows)
+        outs = [cd.df_halo_multistep_launch(*args, **kw)
+                for _ in range(REPEAT)]
+        ref = cd.df_halo_multistep_launch_ref(*args, **kw)
+        err = max(df_err(o, ref) for o in outs)
+        tag = (f"B15-{label}-{'BE' if args[0] == BE else 'CN'}-rows{rows}-"
+               f"X{X}-reset{reset_cell}-K{kw['K']}-corr"
+               f"{int(kw['use_corr'])}-C{C}-tiles{th}+{tm}")
+        b15_waves.append(f"{tag}={err:.1e}")
+        if not err <= DF_TOL:
+            raise AssertionError(f"df_halo_multistep_launch {tag}: hi+lo "
+                                 f"normalised error {err:.3e} > {DF_TOL} "
+                                 f"(worst of {REPEAT} launches)")
+        if not all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(o, outs[0])):
+            raise AssertionError(f"df_halo_multistep_launch {tag}: {REPEAT} "
+                                 f"launches on the same inputs are not "
+                                 f"bit-identical")
+
+    b15_waves = []
+    c15 = cd.df_halo_multistep_geometry(1 << 20, 8, 1024, 2)[1]
+    for label, kind, Mr, Gr, X, blk, reset, Kw, corr in (
+            ("ragged-halo", CN, 2, 1, 12800, 1280, 3, 3, True),
+            ("ragged-halo", CN, 2, 1, 12800, 1280, 3, 1, False),
+            ("ragged-halo", BE, 8, 4, 12800, 1280, 3, 1, False),
+            ("reset0", CN, 8, 4, 12800, 1280, 0, 8, True),
+            ("reset0", BE, 2, 1, 12800, 1280, 0, 3, True),
+            ("halo-ge-C", CN, 2, 1, 12800, 1280, 5, 3, False),
+            ("seeded-C+1", BE, 2, 1, 1024 + c15 * 2048 + 1024, 1024, 1, 8,
+             True),
+            ("seeded-C+1", CN, 2, 1, 1024 + c15 * 2048 + 1024, 1024, 1, 8,
+             False)):
+        rows, coef, dcoef, npass, npass_c, ins, seeds = packed_df(
+            Mr, Gr, X, blk, 500 + len(b15_waves), use_correction=corr)
+        b15_hold(label, (kind, coef[kind], dcoef[kind], *seeds(Kw), reset,
+                         *ins),
+                 dict(K=Kw, use_corr=corr, blk=blk, npass=npass[kind],
+                      npass_c=npass_c[kind]), rows, X, reset * blk)
     halo_checks = checks[n_checks:]
 
     cd.reset_launch_counts()
@@ -1625,6 +1806,49 @@ def main() -> int:
     launches.update(read_counts(PATH_DF_HALO,
                                 "the f64 tiny-batch route (phase 8)"))
     _, Kp8, dp_seconds, dp_windows, dp_peak = df_timed(gray_cfg(Ms, Ns, 3))
+    # The same gray_s8 at CN on both engines: B15 carries DFHaloCudaEngine
+    # there (one main and one fixup launch a group of K steps), B7
+    # DFCudaEngine.
+    dhalo_cn = df_auto(gray_cfg(Ms, Ns, 2))
+    Kdc15 = dhalo_cn.K_launch
+    dhc_seconds, dhc_windows, _ = windows_of(
+        lambda s, n: dhalo_cn.solve(s, num_steps=n), dhalo_cn.init_state(),
+        2 * Kdc15)
+    _, Kpc8, dpc_seconds, dpc_windows, _ = df_timed(gray_cfg(Ms, Ns, 2))
+    ups_cn = Ms * Ns * 64
+
+    def df_packed(eng, seed):
+        """(e0 hi, e0 lo, e1 hi, e1 lo) packed (rows, H + N): hi planes
+        around the equilibrium value, lo parts within an ulp of them."""
+        g8 = torch.Generator(device=dev).manual_seed(seed)
+        shape = (eng.rows, eng.H + eng.N_loc)
+        his = [float(eng.tables.B[0]) * (0.5 + torch.rand(
+            shape, generator=g8, device=dev)) for _ in range(2)]
+        los = [h * (torch.rand(shape, generator=g8, device=dev) - 0.5)
+               * 2.0 ** -24 for h in his]
+        return his[0], los[0], his[1], los[1]
+
+    # B15 at gray_s8's CN main launch (the engine's K, random planes) held
+    # as its own shapes above, and its grids there and at the fixup: more
+    # than one block a row at the main launch.
+    b15_args = (CN, dhalo_cn.coef[CN], dhalo_cn.dcoef[CN],
+                *dhalo_cn._main_seeds(Kdc15), dhalo_cn.hb,
+                *df_packed(dhalo_cn, 93))
+    b15_kw = dict(K=Kdc15, use_corr=bool(dhalo_cn.cfg.use_correction),
+                  blk=dhalo_cn.block, npass=dhalo_cn.scan_npass[CN],
+                  npass_c=dhalo_cn.corr_npass[CN])
+    b15_hold("gray_s8-main", b15_args, b15_kw, dhalo_cn.rows,
+             dhalo_cn.H + Ns, dhalo_cn.H)
+    b15_grids = {}
+    for tag, Xg, rc_ in (("main", dhalo_cn.H + Ns, dhalo_cn.H),
+                         ("fixup", dhalo_cn.H, 0)):
+        threads, C, tm, th = cd.df_halo_multistep_geometry(
+            Xg, Kdc15, rc_, dhalo_cn.rows)
+        if tag == "main" and C < 2:
+            raise AssertionError(f"B15 at gray_s8 {tag}: {C} block a row")
+        b15_grids[tag] = (f"{dhalo_cn.rows} rows x {C} blocks of {threads} "
+                          f"threads, tiles a row {th} (halo) + {tm} "
+                          f"(seeded)")
 
     # One main and one fixup launch of the df halo engine, as it runs them.
     dxe = [torch.cat([p.new_zeros((2, dhalo.Bh, dhalo.H)), p], -1)
@@ -1667,6 +1891,10 @@ def main() -> int:
           f"{REPEAT} launches, bit-identical): " + ", ".join(b14_waves)
           + "; B14 grid at gray_s8 K="
           f"{Kdh}: " + "; ".join(f"{k} {v}" for k, v in b14_grids.items())
+          + f"; B15 wavefront shapes (worst of {REPEAT} launches, "
+          f"bit-identical): " + ", ".join(b15_waves)
+          + f"; B15 grid at gray_s8 CN K={Kdc15}: "
+          + "; ".join(f"{k} {v}" for k, v in b15_grids.items())
           + f"; {dh_cli} (prints '{halo_line}'); "
           f"gray_s8 DFHaloCudaEngine vs DFCudaEngine 64 steps: "
           f"{'; '.join(dpairs)}; gray_s8 BDF2 via engine='df' = "
@@ -1684,6 +1912,14 @@ def main() -> int:
           f"the row walk: DFHaloCudaEngine "
           f"{B11_B14_WALK['df gray_s8 DFHaloCudaEngine']:.6g} updates/s, "
           f"main launch {B11_B14_WALK['df_halo_bdf2_launch ms']} ms); "
+          f"gray_s8 CN via engine='df' = DFHaloCudaEngine K={Kdc15} "
+          f"H={dhalo_cn.H}: 64 steps in {dhc_seconds:.4f} s (median of "
+          f"{fmt_windows(dhc_windows)}) = {ups_cn / dhc_seconds:.6g} "
+          f"updates/s; DFCudaEngine K={Kpc8}: 64 steps in "
+          f"{dpc_seconds:.4f} s (median of {fmt_windows(dpc_windows)}) = "
+          f"{ups_cn / dpc_seconds:.6g} updates/s; halo/plain at CN "
+          f"{dpc_seconds / dhc_seconds:.3f}x (B15's main launch on the row "
+          f"walk: {B4_B15_WALK['df_halo_multistep_launch ms']} ms); "
           f"DFHaloCudaEngine vs DFCudaEngine bit-equal at every gray_s8 "
           f"kind: {all_equal}; card: {card}", flush=True)
 
@@ -2660,6 +2896,7 @@ def main() -> int:
     held = Held()
 
     rung_lines, fused_gray_rate = [], None
+    halo_gray_rate = halo_gray_grid = b4r = None
     for tag, cfg, steps0 in rung_cfgs(1):
         ups_rung = 4 * cfg.M * cfg.G * cfg.N * 64
         ref_e = engine(cfg)
@@ -2718,6 +2955,29 @@ def main() -> int:
                                          drift, ref64, DRIFT_TOL)}
             if (tag, engine_name) == ("gray", "fused"):
                 fused_gray_rate = ups_rung / secs
+            if (tag, engine_name) == ("gray", "halo"):
+                # B4's grid at the gray rung (one cluster a packed row: more
+                # than one block a row), and its main launch's arguments
+                # from the 64-step state, timed with the shapes below.
+                halo_gray_rate = ups_rung / secs
+                Kr, Xr = eng.K_launch, eng.H + eng.N_loc
+                threads, Cr, tm, th = cs.halo_bdf2_geometry(Xr, Kr, eng.H,
+                                                            eng.rows)
+                if Cr < 2:
+                    raise AssertionError(f"B4 at the gray rung: {Cr} block "
+                                         f"a row")
+                halo_gray_grid = (f"K={Kr} H={eng.H}: {eng.rows} rows x "
+                                  f"{Cr} blocks of {threads} threads, tiles "
+                                  f"a row {th} (halo) + {tm} (seeded)")
+                xr = [torch.cat([p.new_zeros((*p.shape[:-1], eng.H)), p], -1)
+                      .reshape(eng.rows, -1) for p in (st.e0, st.e1)]
+                b4r = (Cr, (eng.coef[BE], eng.coef[CN], eng.coef[BDF],
+                            eng._main_seeds(Kr), eng.hb, *xr),
+                       dict(K=Kr,
+                            symmetric_half=bool(cfg.bdf2_symmetric_half),
+                            blk=eng.block, npass_be=eng.scan_npass[BE],
+                            npass_cn=eng.scan_npass[CN],
+                            npass_bdf=eng.scan_npass[BDF]))
             del eng, st, got64
         rung_lines.append(f"{tag} (N={cfg.N}) " + json.dumps(row))
     launches.update(read_counts(PATH_SHARDED + PATH_FUSED,
@@ -2735,6 +2995,10 @@ def main() -> int:
           + f"; FusedExchangeCudaEngine gray rung {fused_gray_rate:.6g} "
           f"updates/s (B13 one block a row: "
           f"{B9_B13_WALK['gray rung FusedExchangeCudaEngine']:.6g})"
+          + f"; HaloCudaEngine gray rung {halo_gray_rate:.6g} updates/s "
+          f"(B4 on the row walk: "
+          f"{B4_B15_WALK['gray rung HaloCudaEngine']:.6g}), B4 grid there "
+          f"{halo_gray_grid}"
           + f"; two ranks sharing the card ({backend};"
           " a check of the exchanges on the real kernels, not a scaling "
           f"figure; {two_wall:.1f} s wall with start-up): "
@@ -2799,33 +3063,15 @@ def main() -> int:
         return max(nerr(g, r) for g, r in zip(got, ref))
 
     # B14 at gray_s8 BDF2 (the main launch timed above) and B15 at gray_s8
-    # CN, each over H + N packed cells on random double-float planes: 4
-    # planes in, 12 (B14) or 8 (B15) out, (hi, lo) seeds in, a record out.
-    def df_packed(eng, seed):
-        """(e0 hi, e0 lo, e1 hi, e1 lo) packed (rows, H + N): hi planes
-        around the equilibrium value, lo parts within an ulp of them."""
-        g8 = torch.Generator(device=dev).manual_seed(seed)
-        shape = (eng.rows, eng.H + eng.N_loc)
-        his = [float(eng.tables.B[0]) * (0.5 + torch.rand(
-            shape, generator=g8, device=dev)) for _ in range(2)]
-        los = [h * (torch.rand(shape, generator=g8, device=dev) - 0.5)
-               * 2.0 ** -24 for h in his]
-        return his[0], los[0], his[1], los[1]
-
+    # CN (phase 8's arguments), each over H + N packed cells on random
+    # double-float planes: 4 planes in, 12 (B14) or 8 (B15) out, (hi, lo)
+    # seeds in, a record out.
     b14_args = (*(dhalo.coef[k] for k in (BE, CN, BDF)),
                 *(dhalo.dcoef[k] for k in (BE, CN, BDF)), *dseeds, dhalo.hb,
                 *df_packed(dhalo, 94))
     b14_kw = dict(K=Kdh, symmetric_half=False, use_corr=use_corr,
                   blk=dhalo.block, npass=dhalo.scan_npass,
                   npass_c=dhalo.corr_npass)
-    dhalo_cn = df_auto(gray_cfg(Ms, Ns, 2))
-    Kdc15 = dhalo_cn.K_launch
-    b15_args = (CN, dhalo_cn.coef[CN], dhalo_cn.dcoef[CN],
-                *dhalo_cn._main_seeds(Kdc15), dhalo_cn.hb,
-                *df_packed(dhalo_cn, 93))
-    b15_kw = dict(K=Kdc15, use_corr=use_corr, blk=dhalo_cn.block,
-                  npass=dhalo_cn.scan_npass[CN],
-                  npass_c=dhalo_cn.corr_npass[CN])
 
     # B9 and B10 at the adjoint bench shape (gray S_32, N = 2^17, BDF2, a
     # reflective boundary), one step on a random state: B9 reads
@@ -3024,6 +3270,25 @@ def main() -> int:
                                                   **b14_kw), 5)[0]
         C = cd.df_halo_bdf2_geometry(hi - lo, Kdh, 0, dhalo.rows)[1]
         shape_ms.append(f"B14 gray_s8 K={Kdh} {tag} C={C} {ms:.3f} ms")
+    # B4 at gray_s8's main launch and at the gray rung's (one rank), B15 at
+    # gray_s8's CN main launch, each at the blocks a row the geometry picks
+    # and at half as many.
+    C4 = cs.halo_bdf2_geometry(Xh, Kh, halo.H, rows8)[1]
+    for Cx, fn, tag in (
+            (C4, lambda: cs.halo_bdf2_launch(*b4_args, **b4_kw),
+             f"B4 gray_s8 K={Kh}"),
+            (b4r[0], lambda: cs.halo_bdf2_launch(*b4r[1], **b4r[2]),
+             f"B4 gray rung K={b4r[2]['K']}")):
+        for mc in sorted({Cx, max(1, Cx // 2)}, reverse=True):
+            ms = shaped(cs, "SWEEP_MAX_CLUSTER", mc, fn, 5)
+            shape_ms.append(f"{tag} C={mc} {ms:.3f} ms")
+    C15 = cd.df_halo_multistep_geometry(dhalo_cn.H + Ns, Kdc15, dhalo_cn.H,
+                                        dhalo_cn.rows)[1]
+    for mc in sorted({C15, max(1, C15 // 2)}, reverse=True):
+        ms = shaped(cd, "DF_BDF2_MAX_CLUSTER", mc,
+                    lambda: cd.df_halo_multistep_launch(*b15_args, **b15_kw),
+                    5)
+        shape_ms.append(f"B15 gray_s8 CN K={Kdc15} C={mc} {ms:.3f} ms")
     C11 = ca.fwd_k_geometry(Na, Ka, fwd_eng.Bh)[1]
     for mc in sorted({C11, max(1, C11 // 2)}, reverse=True):
         ms = shaped(cs, "SWEEP_MAX_CLUSTER", mc,
@@ -3084,6 +3349,17 @@ def main() -> int:
           f"{B11_B14_WALK['fwd_record_k_launch ms']}), df_halo_bdf2_launch "
           f"{row_ms['df_halo_bdf2_launch']:.4f} ms (row walk "
           f"{B11_B14_WALK['df_halo_bdf2_launch ms']}); card: {card}",
+          flush=True)
+    print("B4 and B15, one launch, this run against the row walk (one block "
+          "a row, NVIDIA H100 80GB HBM3 at 700.00 W): halo_bdf2_launch "
+          f"{row_ms['halo_bdf2_launch']:.4f} ms (row walk "
+          f"{B4_B15_WALK['halo_bdf2_launch ms']}), df_halo_multistep_launch "
+          f"{row_ms['df_halo_multistep_launch']:.4f} ms (row walk "
+          f"{B4_B15_WALK['df_halo_multistep_launch ms']}); gray_s8 "
+          f"HaloCudaEngine {ups / h_seconds:.6g} updates/s (row walk "
+          f"{B4_B15_WALK['gray_s8 HaloCudaEngine']:.6g}), gray rung "
+          f"HaloCudaEngine {halo_gray_rate:.6g} (row walk "
+          f"{B4_B15_WALK['gray rung HaloCudaEngine']:.6g}); card: {card}",
           flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

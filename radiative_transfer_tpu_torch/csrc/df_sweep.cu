@@ -13,10 +13,11 @@
 //                                                 BE or CN, packed rows; B15)
 // All run on one __device__ sub-step routine, df_substep (the counterpart
 // of _df_substep), and the row-tile machinery of tiles.cuh (block-wide scan,
-// upwind exchange, cell loads and stores); B7 and B15 share their tile loop
-// (df_multistep_segment), B6 and B14 run the same tiles as a cluster
-// wavefront (df_bdf2_wave) on cluster.cuh's mailboxes (which sweep.cu's B1
-// and B2 and adjoint.cu's B10-B12 share).
+// upwind exchange, cell loads and stores). B7 walks each row on one block
+// (df_multistep_segment); B6 and B14 run the same tiles as a cluster
+// wavefront (df_bdf2_wave), and B15 runs B7's tiles and slots as one
+// (df_multistep_wave), on cluster.cuh's mailboxes (which sweep.cu's B1, B2
+// and B4 and adjoint.cu's B10-B12 share).
 //
 // What is computed. A value is an unevaluated sum hi + lo of two float32
 // numbers; the planes come in (hi, lo) pairs. Each sub-step of each row is
@@ -33,12 +34,13 @@
 // error-free transforms and two float32 scans. No double is used.
 //
 // Design.
-// * B7 and B15: one thread block owns one row and walks N in tiles of
-//   blockDim*kCells cells, all K steps (times 4 phases for BDF2) per tile,
-//   as csrc/sweep.cu does. B6 and B14 run the same tiles and slots as a
-//   wavefront over a thread block cluster (df_bdf2_wave below): tile t of a
-//   chain on block t mod C, each slot's state handed to the next tile's
-//   block through distributed shared memory. Shared memory carries, per (step,
+// * B7: one thread block owns one row and walks N in tiles of
+//   blockDim*kCells cells, all K steps per tile, as csrc/sweep.cu's B3 and
+//   B5 do. B6, B14 and B15 run the same tiles and slots (4K for BDF2, K for
+//   BE or CN) as a wavefront over a thread block cluster (df_bdf2_wave,
+//   df_multistep_wave below): tile t of a chain (B15: of a packed row) on
+//   block t mod C, each slot's state handed to the next tile's block
+//   through distributed shared memory. Shared memory carries, per (step,
 //   phase) slot, the base carry, the correction carry and the upwind base
 //   o1 edge (the residual's coupling to the upwind tile), plus the inflow's
 //   lo part for the first tile; per step, the upwind (hi, lo) edges of the
@@ -72,10 +74,10 @@
 //   and upwind o1 edge at the seed's hi part, the inflow's lo part at its lo
 //   part, a zero correction carry and zero history tails (no s-multiplier
 //   fold: the residual corrects the base's plain inflow). Each segment is
-//   tiled from its own start, so `first` is the segment's first tile. B15
-//   walks both chains on one block, the barriers of seed_row ordering the
-//   new seeds after every access of the previous chain's slots and before
-//   any read of them; B14 runs each chain on a cluster of its own. Every row
+//   tiled from its own start, so `first` is the segment's first tile. B14
+//   runs each chain on a cluster of its own; B15 runs both on the row's one
+//   cluster as one sequence of tiles (cluster.cuh HaloChains), the seeded
+//   chain's first tile taking its mail before it reseeds. Every row
 //   records its corrected outflow two_sum(base o1 edge, correction carry)
 //   per slot.
 //   The scans are exact, so a zero seed's error past the halo decays as
@@ -88,18 +90,18 @@
 // What bounds it on this card: the arithmetic of each row's serial tile
 // walk. A BDF2 cell-step is ~1016 float32 operations here against the
 // float32 kernel's 124 (capture, residual, second scan; counted in
-// chip_smoke.py), most of them __f*_rn that cannot fuse. B7 and B15 run
-// 2*Bh blocks (Bh at a time for a reflective boundary; all 2*Bh at once
-// for B15, which also runs the H halo cells), each walking its row's T
-// tiles x slots in order on one SM. On an H100 at the bench shape a
+// chip_smoke.py), most of them __f*_rn that cannot fuse. B7 runs 2*Bh
+// blocks (Bh at a time for a reflective boundary), each walking its row's
+// T tiles x slots in order on one SM. On an H100 at the bench shape a
 // 2048-cell tile-phase took ~4.1 us; its ~254 operations a cell need ~2.1
 // us of the SM's 128 float32 lanes at 1.98 GHz, and the rest is barriers
 // and latency. B6's and B14's wavefront puts C blocks on each chain, so a
 // chain's critical path is ~T handoffs of one tile-phase each plus the
 // 4K - 1 slots of the last tile, not T * 4K tile-phases; B14's longest
-// chain (the seeded one past the halo) binds its launch. Device-memory
-// traffic is 4 planes read and 12 (B6, B14) or 8 (B7, B15) written per
-// K-step launch.
+// chain (the seeded one past the halo) binds its launch. B15's puts C
+// blocks on each packed row: ~T_h + T_m handoffs plus the K - 1 slots of
+// the last tile. Device-memory traffic is 4 planes read and 12 (B6, B14)
+// or 8 (B7, B15) written per K-step launch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -205,7 +207,8 @@ struct Shared {
   float carry[kMaxSlots];      // per-(step, phase) base carry into the tile
   float ccarry[kMaxSlots];     // per-(step, phase) correction carry
   float oth[kMaxSlots];        // upwind base o1 edge (the inflow at row start)
-  float otl[kMaxSlots];        // the inflow's lo part, read in tile 0 only
+  float otl[kMaxSlots];        // the inflow's lo part, read in a chain's
+                               // first tile only
   float eth[kMaxSteps];        // per-step upwind p1 edge (hi, lo)
   float etl[kMaxSteps];
   float hth[kMaxSteps];        // per-step upwind h1 edge (hi, lo)
@@ -288,7 +291,8 @@ __device__ __forceinline__ void df_substep(
     bool first, int owner, Shared& sm, int& buf, Pair4& o) {
   // The slot's double-float inflow, read in the chain's first tile only,
   // where the last barrier of init_row or seed_row orders it after the slot's
-  // initialisation, and the owner's write of oth[s] in this sub-step follows
+  // initialisation (or, in B15's reseeding tile, thread 0 wrote it itself
+  // in take_step), and the owner's write of oth[s] in this sub-step follows
   // barriers that thread 0 reaches after this read. In a later tile no
   // barrier need lie between here and the previous tile owner's write of
   // oth[s], and the inflow's lo part is nonzero only at the chain start.
@@ -703,6 +707,113 @@ __device__ __forceinline__ bool df_bdf2_wave(const Planes& g, size_t base,
   return T > 0 && rank == (T - 1) % C;
 }
 
+// -- B15's wavefront: a packed row's tiles, one slot a step ----------------
+//
+// df_multistep_segment's tiles and slots (slot k: step k) as a wavefront,
+// as df_bdf2_wave is to one block walking B6's row. Slot k of tile t needs
+// only slot k of tile t-1 and slot k-1 of tile t, so tile t runs slot k
+// while tile t+1 runs slot k-1. The mail per slot is the base carry, the
+// correction carry, the upwind base o1 edge and, under CN, step k's p1 edge
+// (hi, lo): DFMailbox's fields, one slot a step.
+using DFStepMailbox = Mailbox<5, kMaxSteps>;
+
+// Tile t > 0 takes slot k's state from its mailbox: thread 0 waits, then
+// copies (receive's argument holds: every other thread first reads the
+// slot's state after the next block barrier, upwind_pair's under CN, the
+// base scan's first inside df_substep under BE). Where (sh, sl) are given
+// (the seeded chain's first tile of a halo row) thread 0 waits all the
+// same, discards the mail and sets the slot as seed_row would from the
+// seed: base carry and upwind o1 edge at sh[k], the inflow's lo part at
+// sl[k], a zero correction carry and zero p1 tails. That tile runs
+// df_substep with `first` set, which reads the slot's inflow (oth[k],
+// otl[k]) in thread 0 only, before any barrier: the thread that has just
+// written it, so no barrier is needed; no other thread reads oth[k] or
+// otl[k] (upwind_value hands oth[k] to thread 0 alone), and the owner's
+// rewrite of oth[k] comes after the sub-step's scans' barriers, which
+// thread 0 reaches after its reads.
+template <bool kTail>
+__device__ __forceinline__ void take_step(Shared& sm, DFStepMailbox& mb,
+                                          int k, uint32_t parity,
+                                          const float* sh, const float* sl) {
+  if (threadIdx.x != 0) return;
+  // The seed's loads are issued before the wait and land during it.
+  const float vh = sh ? sh[k] : 0.f, vl = sh ? sl[k] : 0.f;
+  const float* m = wait_mail(mb, k, parity);
+  if (sh) {
+    sm.carry[k] = vh;
+    sm.ccarry[k] = 0.f;
+    sm.oth[k] = vh;
+    sm.otl[k] = vl;
+    sm.eth[k] = sm.etl[k] = 0.f;
+    return;
+  }
+  sm.carry[k] = m[kCarry];
+  sm.ccarry[k] = m[kCCarry];
+  sm.oth[k] = m[kOth];
+  if (kTail) {
+    sm.eth[k] = m[kTh];
+    sm.etl[k] = m[kTl];
+  }
+}
+
+// K whole double-float BE or CN steps over the N cells of the row at plane
+// offset `base`, as this block's share of the row's wavefront: tiles rank,
+// rank + C, ... of the cluster's C blocks, laid out by `chains` (B15:
+// HaloChains, the halo chain from zero and then the seeded chain, whose
+// first tile takes its mail and reseeds from (seeds_h, seeds_l)). The
+// slots and tails in shared memory start as seed_row left them (they serve
+// tile 0). Every tile but the row's last sends its mail, the halo chain's
+// last (ragged or not) too; a ragged tile's p1 tail is its owner's last
+// cell, past the chain's end, and the reseeding tile discards it. Returns
+// whether this block ran the row's last tile, whose slots then hold the
+// row's outflow; prev = each step's input.
+template <int KIND, class Chains>
+__device__ __forceinline__ bool df_multistep_wave(
+    const Planes& g, size_t base, int N, int K, bool use_corr, Shared& sm,
+    DFStepMailbox& mb, int C, int rank, const Chains& chains,
+    const float* seeds_h, const float* seeds_l) {
+  constexpr bool kTail = KIND == kCN;
+  const int tile = blockDim.x * kCells;
+  const int T = chains.tiles(N, tile);
+  const uint32_t next = (rank + 1) % C;
+  int buf = 0;
+  uint32_t parity = 0;
+  for (int t = rank; t < T; t += C) {
+    const int t0 = chains.start(t, tile);
+    const int s1 = chains.end(t, N);
+    const int j0 = t0 + threadIdx.x * kCells;
+    const int owner = tile_owner(t0, j0, tile, s1, kCells);
+    const bool waits = t > 0;
+    const bool first = chains.first(t);
+    const bool reseed = chains.reseeds(t);
+    const bool sender = t + 1 < T && owner >= 0;
+    Pair4 x;
+    load_pair(x, g, base, j0, s1);
+    for (int k = 0; k < K; ++k) {
+      if (waits)
+        take_step<kTail>(sm, mb, k, parity, reseed ? seeds_h : nullptr,
+                         seeds_l);
+      float xu_h = 0.f, xu_l = 0.f;
+      if constexpr (kTail)
+        upwind_pair(x.h1[kCells - 1], x.l1[kCells - 1], &sm.eth[k],
+                    &sm.etl[k], sm, xu_h, xu_l);
+      Pair4 f;
+      df_substep<KIND>(sm.kc[0], use_corr, x, x, x, xu_h, xu_l, 0.f, 0.f, k,
+                       first, owner, sm, buf, f);
+      if (sender) {
+        const float m[5] = {sm.carry[k], sm.ccarry[k], sm.oth[k],
+                            x.h1[kCells - 1], x.l1[kCells - 1]};
+        send_mail(mb, k, next, m, kTail ? 5 : 3);
+      }
+      if (k == K - 1) store_pair(g, 4, base, j0, s1, x);
+      x = f;
+    }
+    store_pair(g, 0, base, j0, s1, x);
+    if (waits) parity ^= 1u;
+  }
+  return T > 0 && rank == (T - 1) % C;
+}
+
 // B6, replaces _make_df_bdf2_kernel (df_sweep.py:372): K whole double-float
 // BDF2 steps as a wavefront over (tile, slot) (df_bdf2_wave, which B14
 // shares): the cluster of C blocks at blockIdx.x / C owns one row, block
@@ -765,8 +876,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 // record their outflow; clusters [rows, 2*rows), present when reset_cell >
 // 0, the chains [0, reset_cell) from zero slots. A chain never hands state
 // to the other, so each cluster's mail runs along one unbroken chain of
-// tiles, which cluster.cuh's protocol needs (a seeded tile mid-chain waits
-// on no mail and could overwrite its successor's unread mailbox). Blocks
+// tiles, which cluster.cuh's protocol needs (a seeded tile mid-chain that
+// waits on no mail could overwrite its successor's unread mailbox; B15
+// keeps one cluster a row instead by taking the mail first). Blocks
 // beyond a short chain's tiles open and close their mailboxes only. Seeds
 // and the record are (rows, 4K); rec holds the hi parts, then the lo parts.
 __global__ void __launch_bounds__(kMaxThreads)
@@ -801,8 +913,16 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // B15, replaces _make_df_halo_multistep_kernel (df_sweep.py:541): K whole
-// seeded double-float BE or CN steps over packed rows, as
-// df_halo_bdf2_kernel; seeds and the record are (rows, K).
+// seeded double-float BE or CN steps over packed rows (mu<0 rows first),
+// each row a wavefront over (tile, slot) on a cluster of C blocks
+// (df_multistep_wave): the row's halo chain [0, reset_cell) from zero slots
+// and its seeded chain [reset_cell, X) run as ONE sequence of tiles
+// (cluster.cuh HaloChains), the seeded chain's first tile taking each
+// slot's mail before it starts from the (hi, lo) seeds (take-and-reseed),
+// so the halo chain costs the launch no cluster. With reset_cell 0 the row
+// is one chain from the seeds. Seeds and the record are (rows, K); rec
+// holds the hi parts, then the lo parts, written by the block that ran the
+// row's last tile.
 template <int KIND>
 __global__ void __launch_bounds__(kMaxThreads)
     df_halo_multistep_kernel(Packs pk, const float* __restrict__ seeds_h,
@@ -810,16 +930,26 @@ __global__ void __launch_bounds__(kMaxThreads)
                              Planes g, int rows, int X, int K,
                              int reset_cell, int use_corr) {
   __shared__ Shared sm;
-  const int row = blockIdx.x;
-  const size_t base = static_cast<size_t>(row) * X;
+  __shared__ DFStepMailbox mb;
+  const cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row = blockIdx.x / C;
   const size_t sd = static_cast<size_t>(row) * K;
+  open_mailboxes(mb, K);
   load_kinds(sm, 1, pk, row);
-  int buf = 0;
-  seed_row(sm, K, K, nullptr, nullptr);
-  df_multistep_segment<KIND>(g, base, 0, reset_cell, K, use_corr, sm, buf);
-  seed_row(sm, K, K, seeds_h + sd, seeds_l + sd);
-  df_multistep_segment<KIND>(g, base, reset_cell, X, K, use_corr, sm, buf);
-  write_record(sm, K, rec + sd, rec + static_cast<size_t>(rows) * K + sd);
+  // Kind and tails on every block; the slots' inflow (zero before a halo
+  // chain, else the seeds) serves tile 0 only.
+  const bool halo = reset_cell > 0;
+  seed_row(sm, K, K, halo ? nullptr : seeds_h + sd,
+           halo ? nullptr : seeds_l + sd);
+  if (df_multistep_wave<KIND>(g, static_cast<size_t>(row) * X, X, K,
+                              use_corr, sm, mb, C, rank,
+                              HaloChains(reset_cell, blockDim.x * kCells),
+                              seeds_h + sd, seeds_l + sd))
+    write_record(sm, K, rec + sd, rec + static_cast<size_t>(rows) * K + sd);
+  close_mailboxes();
 }
 
 Planes unpack_planes(void* const* planes, int nout) {
@@ -954,24 +1084,54 @@ int rt_df_halo_bdf2(const float* cbe, const float* ccn, const float* cbdf,
       use_corr));
 }
 
+// B15's launch shape for `rows` packed rows of X cells at K steps with the
+// seeded chains from reset_cell, at most max_threads threads a block and
+// max_cluster blocks a row: out = (threads a block, blocks a row (the
+// cluster), tiles of the seeded chain [reset_cell, X), tiles of the halo
+// chain [0, reset_cell)). One cluster a row runs both chains.
+int rt_df_halo_multistep_geometry(int X, int K, int reset_cell,
+                                  int max_threads, int max_cluster, int rows,
+                                  int* out) {
+  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
+      reset_cell < 0 || reset_cell >= X || max_threads < 32 ||
+      max_threads > kMaxThreads || max_threads % 32 || max_cluster < 1 ||
+      max_cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = pick_threads(X, kCells, max_threads);
+  const int tile = threads * kCells;
+  const int main_tiles = (X - reset_cell + tile - 1) / tile;
+  const int halo_tiles = (reset_cell + tile - 1) / tile;
+  out[0] = threads;
+  out[1] = wave_cluster(
+      main_tiles + halo_tiles, K, threads, max_cluster, rows,
+      {reinterpret_cast<const void*>(&df_halo_multistep_kernel<kBE>),
+       reinterpret_cast<const void*>(&df_halo_multistep_kernel<kCN>)});
+  out[2] = main_tiles;
+  out[3] = halo_tiles;
+  return 0;
+}
+
+// max_threads and max_cluster as rt_df_halo_multistep_geometry's.
 int rt_df_halo_multistep(int kind, const float* coef, const float* dcoef,
                          const float* seeds_h, const float* seeds_l,
                          float* rec, void* const* planes, int rows, int X,
-                         int K, int reset_cell, int use_corr, void* stream) {
-  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
-      reset_cell < 0 || reset_cell >= X || (kind != kBE && kind != kCN))
+                         int K, int reset_cell, int use_corr, int max_threads,
+                         int max_cluster, void* stream) {
+  if (kind != kBE && kind != kCN)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int geo[4];
+  const int bad = rt_df_halo_multistep_geometry(
+      X, K, reset_cell, max_threads, max_cluster, rows, geo);
+  if (bad) return bad;
   const Packs pk{{coef, nullptr, nullptr}, {dcoef, nullptr, nullptr}};
   const Planes g = unpack_planes(planes, 8);
-  const int threads = pick_threads(X, kCells, kMaxThreads);
-  if (kind == kBE)
-    df_halo_multistep_kernel<kBE><<<rows, threads, 0, st>>>(
-        pk, seeds_h, seeds_l, rec, g, rows, X, K, reset_cell, use_corr);
-  else
-    df_halo_multistep_kernel<kCN><<<rows, threads, 0, st>>>(
-        pk, seeds_h, seeds_l, rec, g, rows, X, K, reset_cell, use_corr);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // A refused cluster launch returns its error.
+  return static_cast<int>(launch_clusters(
+      kind == kBE ? &df_halo_multistep_kernel<kBE>
+                  : &df_halo_multistep_kernel<kCN>,
+      rows, geo[1], geo[0], st, pk, seeds_h, seeds_l, rec, g, rows, X, K,
+      reset_cell, use_corr));
 }
 
 }  // extern "C"

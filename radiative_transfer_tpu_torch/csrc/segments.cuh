@@ -1,12 +1,12 @@
-// The one-block row walks: one thread block owns one row and loops over its
-// tiles. The K-step BDF2 walk (bdf2_segment) of the halo kernel B4 (sweep.cu
-// halo_bdf2_kernel), with B1's tile shape and its shared-memory carries and
-// tails per (step, phase) slot, which B1 and B11 share as a cluster
-// wavefront (wave.cuh: the same tiles, slots and arithmetic); the row's
-// inflow and outflow records; and the one-sub-step row walk
-// (substep_segment) with a load hook, which B3 (sweep.cu substep_kernel)
-// and B8 (sharded.cu, the corrections of the mesh engine applied on load)
-// share.
+// The row tile of sweep.cu's kernels (kSegCells cells a thread) and its
+// shared-memory carries and tails per (step, phase) slot (SegShared), which
+// the cluster wavefronts of B1, B2 and B4 (sweep.cu) and B11 (adjoint.cu;
+// wave.cuh holds B1's, B4's and B11's one body), B3's and B5's one-block
+// walks and B8 share; the row's inflow and outflow records; and the
+// one-sub-step row walk (substep_segment) with a load hook, where one
+// thread block owns one row and loops over its tiles, which B3 (sweep.cu
+// substep_kernel) and B8 (sharded.cu, the corrections of the mesh engine
+// applied on load) share.
 
 #pragma once
 
@@ -70,69 +70,6 @@ __device__ __forceinline__ void record_row(const SegShared& sm, int slots,
                                            float* rec, int h, int row,
                                            int reflective) {
   if (h == 0 && reflective) write_record(sm, slots, rec + row * slots);
-}
-
-// K whole BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF
-// corrector, over the cells [s0, s1) of one row (pointers are the row's),
-// in tiles aligned to s0. Starts from the carries and tails in shared
-// memory and leaves them there. The half snapshot is the CN output where
-// snap_cn, else the phase-0 BE output.
-__device__ __forceinline__ void bdf2_segment(
-    const Coef& kbe, const Coef& kcn, const Coef& kbdf, bool snap_cn,
-    const float* __restrict__ e0g, const float* __restrict__ e1g,
-    float* __restrict__ o0g, float* __restrict__ o1g,
-    float* __restrict__ oh0g, float* __restrict__ oh1g,
-    float* __restrict__ op0g, float* __restrict__ op1g, int s0, int s1,
-    int K, SegShared& sm, int& buf) {
-  const bool tail_thread = threadIdx.x == blockDim.x - 1;
-  const int tile = blockDim.x * kSegCells;
-  for (int t0 = s0; t0 < s1; t0 += tile) {
-    const int j0 = t0 + threadIdx.x * kSegCells;
-    const int owner = tile_owner(t0, j0, tile, s1, kSegCells);
-    float x0[kSegCells], x1[kSegCells], hs0[kSegCells], hs1[kSegCells];
-    load_cells(x0, e0g, j0, s1);
-    load_cells(x1, e1g, j0, s1);
-    for (int k = 0; k < K; ++k) {
-      float* cs = sm.carry + 4 * k;
-      // prev = the step's input ends; its upwind edge feeds CN and BDF.
-      const float x1_up =
-          upwind_value(x1[kSegCells - 1], &sm.etail[k], sm.edge_p);
-      float b0[kSegCells], b1[kSegCells];
-      substep_tile<kBE>(kbe, x0, x1, x0, x1, x0, x1, 0.f, 0.f, cs + 0, owner,
-                        sm, buf, b0, b1);
-      float c0[kSegCells], c1[kSegCells];
-      substep_tile<kCN>(kcn, b0, b1, x0, x1, x0, x1, x1_up, 0.f, cs + 1,
-                        owner, sm, buf, c0, c1);
-#pragma unroll
-      for (int c = 0; c < kSegCells; ++c) {
-        hs0[c] = snap_cn ? c0[c] : b0[c];
-        hs1[c] = snap_cn ? c1[c] : b1[c];
-      }
-      const float hs1_up =
-          upwind_value(hs1[kSegCells - 1], &sm.htail[k], sm.edge_h);
-      float d0[kSegCells], d1[kSegCells];
-      substep_tile<kBE>(kbe, c0, c1, x0, x1, hs0, hs1, 0.f, 0.f, cs + 2,
-                        owner, sm, buf, d0, d1);
-      float f0[kSegCells], f1[kSegCells];
-      substep_tile<kBDF>(kbdf, d0, d1, x0, x1, hs0, hs1, x1_up, hs1_up,
-                         cs + 3, owner, sm, buf, f0, f1);
-      if (tail_thread) {
-        sm.etail[k] = x1[kSegCells - 1];
-        sm.htail[k] = hs1[kSegCells - 1];
-      }
-      if (k == K - 1) {
-        // prev of the final state = the LAST step's input.
-        store_cells(op0g, j0, s1, x0);
-        store_cells(op1g, j0, s1, x1);
-      }
-      copy_cells(x0, f0);
-      copy_cells(x1, f1);
-    }
-    store_cells(o0g, j0, s1, x0);
-    store_cells(o1g, j0, s1, x1);
-    store_cells(oh0g, j0, s1, hs0);
-    store_cells(oh1g, j0, s1, hs1);
-  }
 }
 
 // One sub-step of kind KIND over the N cells of one row (pointers are the

@@ -13,12 +13,12 @@
 // of _substep_block, in tiles.cuh, which the adjoint kernels of adjoint.cu
 // share), and one block-wide scan of affine maps (the counterpart of
 // _hillis_steele, in tiles.cuh, which the double-float kernels of
-// df_sweep.cu share too). B1 and B2 walk each row as a cluster wavefront
-// (cluster.cuh, which df_sweep.cu's B6 and B14 share; B1's walk is
-// wave.cuh bdf2_wave, which the K-fused adjoint forward B11 of adjoint.cu
-// runs too); B4 and B5 keep the one-block tile loops (bdf2_segment, in
-// segments.cuh, and multistep_segment); B3 runs substep_segment (in
-// segments.cuh), which the mesh engine's B8 (sharded.cu) runs too.
+// df_sweep.cu share too). B1, B2 and B4 walk each row as a cluster
+// wavefront (cluster.cuh, which df_sweep.cu's B6, B14 and B15 share; B1's
+// walk is wave.cuh bdf2_wave, which the K-fused adjoint forward B11 of
+// adjoint.cu and B4 run too); B5 keeps the one-block tile loop
+// (multistep_segment); B3 runs substep_segment (in segments.cuh), which
+// the mesh engine's B8 (sharded.cu) runs too.
 //
 // What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
 // planes and per sub-step: the right-hand sides r0, r1 of every cell, the
@@ -35,8 +35,9 @@
 //   t-1 (its carry and upwind tails) and step k-1 at tile t (in registers).
 //   K is a runtime argument. Each (step, phase) is a slot, 4K of them for
 //   BDF2 and K for BE or CN.
-// * B1 and B2 run a row's tiles as a wavefront over (tile, slot) on a
-//   thread block cluster of C blocks (bdf2_kernel, multistep_kernel): slot
+// * B1, B2 and B4 run a row's tiles as a wavefront over (tile, slot) on a
+//   thread block cluster of C blocks (bdf2_kernel, multistep_kernel,
+//   halo_bdf2_kernel): slot
 //   s of tile t needs only slot s of tile t-1 and slot s-1 of tile t, so
 //   block rank r of the row's cluster runs tiles r, r + C, ..., and tile t
 //   runs slot s while tile t+1 runs slot s-1. Per slot the mail to the next
@@ -45,15 +46,15 @@
 //   edge with slot 4k+1, B2-CN step k's p1 edge with slot k, B2-BE nothing
 //   more. The mail goes into the next block's mailbox in distributed shared
 //   memory, one mbarrier a slot (cluster.cuh: the protocol and why it needs
-//   no "free" signal). Only the row's last tile may be ragged, and it sends
-//   nothing; the block that runs it writes the reflective outflow record.
-//   C = min(16, slots, tiles), shrunk until every row's cluster of the
-//   launch is resident on the card (rt_sweep_geometry). The tiles, slots
-//   and arithmetic are those of the one-block walk, so the planes are the
-//   same to the bit.
-// * B3, B4 and B5 keep the one-block walk: ONE thread block owns ONE row and
-//   loops over its tiles (bdf2_segment in segments.cuh; multistep_segment;
-//   substep_segment), the carries and tails of every slot in shared memory.
+//   no "free" signal). Only a chain's last tile may be ragged; the row's
+//   last sends nothing, and the block that runs it writes the outflow
+//   record. C = min(16, slots, tiles), shrunk until every row's cluster of
+//   the launch is resident on the card (rt_sweep_geometry,
+//   rt_sweep_halo_bdf2_geometry). The tiles, slots and arithmetic are those
+//   of the one-block walk, so the planes are the same to the bit.
+// * B3 and B5 keep the one-block walk: ONE thread block owns ONE row and
+//   loops over its tiles (multistep_segment; substep_segment), the carries
+//   and tails of every slot in shared memory.
 // * Each thread holds kCells consecutive cells in registers. A tile's scan is
 //   a serial scan over the thread's cells, a warp-shuffle scan of the
 //   per-thread affine maps (a^kCells, local total), one cross-warp pass in
@@ -77,7 +78,11 @@
 //   chains: cells [0, reset_cell) from zero carries, then
 //   [reset_cell, X) from the per-(row, slot) `seeds` values with zero
 //   upwind tails, each segment tiled from its own start (reset_cell is a
-//   multiple of the JAX block, not of this kernel's tile). Every row
+//   multiple of the JAX block, not of this kernel's tile). B5 walks both
+//   on one block, seed_row's barriers between them; B4 runs both on the
+//   row's one cluster as one sequence of tiles, the seeded chain's first
+//   tile taking its mail before it reseeds (cluster.cuh HaloChains; the
+//   halo chain's last tile, ragged or not, sends). Every row
 //   records its carries after the last cell. Because this kernel scans
 //   exactly, a seed's influence does not stop at the creep bound the JAX
 //   engine's truncated scan enforces: it decays as a^distance, so the
@@ -98,8 +103,10 @@
 // handoff chain. On an H100 at the bench shape (T = 256, C = 6) B1 takes
 // 3.6 ms at K = 4, ~7 us a tile on the chain and 11x its byte bound; at
 // K = 8 the tile-phases bind at ~1.8 us each (PERF.md). The mu>0 half of a
-// reflective slab still waits for the whole mu<0 half. The halo kernels run all 2*Bh rows at once (8 SMs at
-// gray S_8, against the plain kernels' 4 at a time there).
+// reflective slab still waits for the whole mu<0 half. The halo kernels run
+// all 2*Bh rows at once: B5 on 8 SMs at gray S_8 (one block a row), B4 on
+// 8 clusters of C blocks, the halo chain's tiles ahead of the seeded
+// chain's on the same cluster.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -133,8 +140,9 @@ __device__ __forceinline__ void seed_row(Shared& sm, int slots, int steps,
   __syncthreads();
 }
 
-// K whole BE or CN steps over the cells [s0, s1) of one row, as
-// bdf2_segment; prev = each step's input.
+// K whole BE or CN steps over the cells [s0, s1) of one row (pointers are
+// the row's), in tiles aligned to s0, from the carries and tails in shared
+// memory, which it leaves there; prev = each step's input.
 template <int KIND>
 __device__ __forceinline__ void multistep_segment(
     const Coef& kc, const float* __restrict__ e0g,
@@ -180,9 +188,9 @@ __device__ __forceinline__ void multistep_segment(
 // each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector, as a wavefront
 // over (tile, slot) (wave.cuh bdf2_wave, which B11 runs with its records):
 // the cluster of C blocks at blockIdx.x / C owns one row, block rank r its
-// tiles r, r + C, ... The tiles, slots and arithmetic are bdf2_segment's
-// (which B4 keeps); only who runs a tile and how a slot's state reaches the
-// next tile differ, so the planes are bdf2_segment's to the bit.
+// tiles r, r + C, ... The tiles, slots and arithmetic are those of one
+// block walking the row; only who runs a tile and how a slot's state
+// reaches the next tile differ, so the planes are that walk's to the bit.
 __global__ void __launch_bounds__(kMaxThreads)
     bdf2_kernel(const float* __restrict__ cbe, const float* __restrict__ ccn,
                 const float* __restrict__ cbdf, const float* __restrict__ bc,
@@ -215,7 +223,16 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // B4, replaces _make_halo_bdf2_kernel (pallas_sweep.py:638): K whole seeded
-// BDF2 steps over packed rows (mu<0 rows first), one thread block a row.
+// BDF2 steps over packed rows (mu<0 rows first), each row a wavefront over
+// (tile, slot) on a cluster of C blocks (wave.cuh bdf2_wave, B1's body):
+// the row's halo chain [0, reset_cell) from zero carries and its seeded
+// chain [reset_cell, X) run as ONE sequence of tiles (cluster.cuh
+// HaloChains), and the seeded chain's first tile takes each slot's mail
+// before it starts from seeds[slot] with zero tails (take-and-reseed), so
+// the halo chain costs the launch no cluster. With reset_cell 0 the row is
+// one chain from the seeds, B1's layout. The tiles, slots and arithmetic
+// are those of the one-block walk this kernel ran before; every row records
+// its carries after the last cell, from the block that ran its last tile.
 __global__ void __launch_bounds__(kMaxThreads)
     halo_bdf2_kernel(const float* __restrict__ cbe,
                      const float* __restrict__ ccn,
@@ -228,24 +245,24 @@ __global__ void __launch_bounds__(kMaxThreads)
                      float* __restrict__ op1g, int rows, int X, int K,
                      int reset_cell, int symmetric) {
   __shared__ Shared sm;
-  const int row = blockIdx.x;
+  __shared__ WaveMail mb;
+  const WaveRow w = wave_row(rows, 0);
+  const int row = w.hr;
   const int slots = 4 * K;
-  const Coef kbe = load_coef(cbe + row * kNCoef);
-  const Coef kcn = load_coef(ccn + row * kNCoef);
-  const Coef kbdf = load_coef(cbdf + row * kNCoef);
-  // The per-row blend of the half snapshot: both halves share the launch.
-  const bool snap_cn = symmetric || row < rows / 2;
+  const float* sd = seeds + static_cast<size_t>(row) * slots;
+  open_mailboxes(mb, slots);
+  // Tails on every block; the slots' inflow (zero before a halo chain, else
+  // the seeds) serves tile 0 only.
+  seed_row(sm, slots, K, reset_cell > 0 ? nullptr : sd);
   const size_t base = static_cast<size_t>(row) * X;
-  int buf = 0;
-  seed_row(sm, slots, K, nullptr);
-  bdf2_segment(kbe, kcn, kbdf, snap_cn, e0g + base, e1g + base, o0g + base,
-               o1g + base, oh0g + base, oh1g + base, op0g + base, op1g + base,
-               0, reset_cell, K, sm, buf);
-  seed_row(sm, slots, K, seeds + static_cast<size_t>(row) * slots);
-  bdf2_segment(kbe, kcn, kbdf, snap_cn, e0g + base, e1g + base, o0g + base,
-               o1g + base, oh0g + base, oh1g + base, op0g + base, op1g + base,
-               reset_cell, X, K, sm, buf);
-  write_record(sm, slots, rec + static_cast<size_t>(row) * slots);
+  // The per-row blend of the half snapshot: both halves share the launch.
+  bdf2_wave(load_coef(cbe + row * kNCoef), load_coef(ccn + row * kNCoef),
+            load_coef(cbdf + row * kNCoef), symmetric || row < rows / 2,
+            e0g + base, e1g + base, o0g + base, o1g + base, oh0g + base,
+            oh1g + base, op0g + base, op1g + base, X, K, sm, mb, w.C, w.rank,
+            rec + static_cast<size_t>(row) * slots, NoRecords(),
+            HaloChains(reset_cell, blockDim.x * kCells), sd);
+  close_mailboxes();
 }
 
 // B2, replaces _make_multistep_kernel (pallas_sweep.py:387): K whole BE or
@@ -493,19 +510,48 @@ int rt_sweep_substep(int kind, const float* coef, const float* bc,
 // rows first, coefficients (rows, 10), seeds and rec (rows, slots), and the
 // cell reset_cell in [0, X) where the seeded chain starts.
 
+// B4's launch shape for `rows` packed rows of X cells at K steps with the
+// seeded chains from reset_cell, at most max_threads threads a block and
+// max_cluster blocks a row: out = (threads a block, blocks a row (the
+// cluster), tiles of the seeded chain [reset_cell, X), tiles of the halo
+// chain [0, reset_cell)). One cluster a row runs both chains.
+int rt_sweep_halo_bdf2_geometry(int X, int K, int reset_cell,
+                                int max_threads, int max_cluster, int rows,
+                                int* out) {
+  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
+      reset_cell < 0 || reset_cell >= X || max_threads < 32 ||
+      max_threads > kMaxThreads || max_threads % 32 || max_cluster < 1 ||
+      max_cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = pick_threads(X, kCells, max_threads);
+  const int tile = threads * kCells;
+  const int main_tiles = (X - reset_cell + tile - 1) / tile;
+  const int halo_tiles = (reset_cell + tile - 1) / tile;
+  out[0] = threads;
+  out[1] = wave_cluster(main_tiles + halo_tiles, 4 * K, threads, max_cluster,
+                        rows,
+                        {reinterpret_cast<const void*>(&halo_bdf2_kernel)});
+  out[2] = main_tiles;
+  out[3] = halo_tiles;
+  return 0;
+}
+
+// max_threads and max_cluster as rt_sweep_halo_bdf2_geometry's.
 int rt_sweep_halo_bdf2(const float* cbe, const float* ccn, const float* cbdf,
                        const float* seeds, float* rec, const float* e0,
                        const float* e1, float* o0, float* o1, float* oh0,
                        float* oh1, float* op0, float* op1, int rows, int X,
-                       int K, int reset_cell, int symmetric, void* stream) {
-  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
-      reset_cell < 0 || reset_cell >= X)
-    return static_cast<int>(cudaErrorInvalidValue);
-  halo_bdf2_kernel<<<rows, pick_threads(X, kCells, kMaxThreads), 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      cbe, ccn, cbdf, seeds, rec, e0, e1, o0, o1, oh0, oh1, op0, op1, rows, X,
-      K, reset_cell, symmetric);
-  return static_cast<int>(cudaGetLastError());
+                       int K, int reset_cell, int symmetric, int max_threads,
+                       int max_cluster, void* stream) {
+  int geo[4];
+  const int bad = rt_sweep_halo_bdf2_geometry(X, K, reset_cell, max_threads,
+                                              max_cluster, rows, geo);
+  if (bad) return bad;
+  // A refused cluster launch returns its error.
+  return static_cast<int>(launch_clusters(
+      halo_bdf2_kernel, rows, geo[1], geo[0],
+      static_cast<cudaStream_t>(stream), cbe, ccn, cbdf, seeds, rec, e0, e1,
+      o0, o1, oh0, oh1, op0, op1, rows, X, K, reset_cell, symmetric));
 }
 
 int rt_sweep_halo_multistep(int kind, const float* coef, const float* seeds,

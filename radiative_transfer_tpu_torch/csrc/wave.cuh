@@ -1,17 +1,21 @@
 // The K-step BDF2 wavefront over (tile, slot) shared by B1 (sweep.cu
-// bdf2_kernel) and the K-fused adjoint forward B11 (adjoint.cu
-// fwd_record_k_kernel), and the take and give of one slot's mail, which B2
-// (sweep.cu multistep_kernel) shares.
+// bdf2_kernel), the K-fused adjoint forward B11 (adjoint.cu
+// fwd_record_k_kernel) and the halo kernel B4 (sweep.cu halo_bdf2_kernel),
+// and the take and give of one slot's mail, which B2 (sweep.cu
+// multistep_kernel) shares.
 //
 // A row's tiles run on the C blocks of a thread block cluster, tile t on
 // block t mod C, and each (step, phase) slot's carry goes from tile t to
 // tile t+1 through cluster.cuh's mailboxes, step k's upwind p1 edge with
 // slot 4k and its h1 edge with slot 4k+1. The tiles, slots and arithmetic
-// are those of the one-block walk (segments.cuh bdf2_segment, which B4
-// keeps), so the planes are its planes to the bit. A record hook sees each
-// slot's carry entering the tile, each step's upwind edges and the inputs
-// of steps 1..K-1: NoRecords for B1, B11's KRecords, so B11's six planes
-// are B1's to the bit and its records those of K chained B9 launches.
+// are those of the one-block walk that B4 ran before it (a loop over the
+// tiles, every slot's carry and tail in shared memory), so the planes are
+// its planes to the bit. A record hook sees each slot's carry entering the
+// tile, each step's upwind edges and the inputs of steps 1..K-1: NoRecords
+// for B1 and B4, B11's KRecords, so B11's six planes are B1's to the bit
+// and its records those of K chained B9 launches. A layout hook gives the
+// row's tiles: OneChain (cluster.cuh) for B1 and B11, HaloChains for B4,
+// whose seeded chain's first tile takes its mail and reseeds.
 
 #pragma once
 
@@ -49,26 +53,34 @@ __device__ __forceinline__ WaveRow wave_row(int Bh, int half0) {
 }
 
 // Tile t > 0 takes slot s's carry, and where `tail` is given the tail the
-// slot carries, from its mailbox: thread 0 waits, then copies. No barrier
+// slot carries, from its mailbox: thread 0 waits, then copies. Where `seed`
+// is given (the seeded chain's first tile of a halo row) it waits all the
+// same, then sets the carry to seed[s] and the tail to 0 instead: the mail
+// is discarded, the wait keeps cluster.cuh's chain whole. No barrier
 // follows: the other threads first read the carry inside the slot's scan,
 // after its first barrier, and only thread 0 reads a tail (upwind_value,
 // after the next barrier); the copy overwrites state last read C tiles ago.
 template <int F, int S>
 __device__ __forceinline__ void take(SegShared& sm, Mailbox<F, S>& mb, int s,
-                                     float* tail, uint32_t parity) {
+                                     float* tail, uint32_t parity,
+                                     const float* seed = nullptr) {
   if (threadIdx.x == 0) {
+    // The seed's load is issued before the wait and lands during it.
+    const float sd = seed ? seed[s] : 0.f;
     const float* m = wait_mail(mb, s, parity);
-    sm.carry[s] = m[0];
+    sm.carry[s] = seed ? sd : m[0];
     if constexpr (F > 1) {
-      if (tail) *tail = m[1];
+      if (tail) *tail = seed ? 0.f : m[1];
     }
   }
 }
 
 // Slot s's carry, by the thread that wrote it in substep_tile (the owner of
-// the full tile's last cell, which also holds the tile's last cell of every
-// plane), and the tail if the slot carries one, into block `next`'s
-// mailbox.
+// the tile's last cell, which in a full tile also holds the tile's last
+// cell of every plane, the tail), and the tail if the slot carries one,
+// into block `next`'s mailbox. The one ragged tile that sends, a halo
+// chain's last, sends its owner's last cell as the tail, past the chain's
+// end; the reseeding tile that takes it discards the mail.
 template <int F, int S>
 __device__ __forceinline__ void give(const SegShared& sm, Mailbox<F, S>& mb,
                                      int s, uint32_t next, float tail,
@@ -79,7 +91,7 @@ __device__ __forceinline__ void give(const SegShared& sm, Mailbox<F, S>& mb,
   send_mail(mb, s, next, m, has_tail ? F : 1);
 }
 
-// bdf2_wave's record hook for B1: nothing is kept.
+// bdf2_wave's record hook for B1 and B4: nothing is kept.
 struct NoRecords {
   __device__ __forceinline__ void input(int, int, int,
                                         const float (&)[kSegCells],
@@ -91,18 +103,22 @@ struct NoRecords {
 // K whole BDF2 steps, each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF
 // corrector, over the N cells of one row (pointers are the row's), as this
 // block's share of the row's wavefront: tiles rank, rank + C, ... of the
-// cluster's C blocks. The carries and tails in shared memory start as
-// init_row left them (they serve tile 0; the mailboxes, opened before,
-// bring every later tile's). The half snapshot is the CN output where
-// snap_cn, else the phase-0 BE output. At tile t it hands `rec` step k's
-// input cells (k >= 1: input(k, j0, N, x0, x1), every thread), each (step,
-// phase) slot's carry entering the tile (carry(t, slot, c), every thread,
-// the same value, read inside the slot's scan) and step k's upwind e1 and
-// hs1 edges (edges(t, k, e1, hs1), every thread; thread 0's are the values
-// upwind of the tile). The block that runs the row's last tile holds the
-// outflow carries and writes them to `outflow` (one a slot) unless it is
-// null.
-template <class Rec = NoRecords>
+// cluster's C blocks, laid out by `chains` (OneChain: one chain from cell
+// 0; HaloChains: B4's halo chain, then its seeded chain, whose first tile
+// takes its mail and starts from seeds[slot] with zero tails). The carries
+// and tails in shared memory start as the kernel left them (they serve tile
+// 0; the mailboxes, opened before, bring every later tile's). The half
+// snapshot is the CN output where snap_cn, else the phase-0 BE output. At
+// tile t it hands `rec` step k's input cells (k >= 1: input(k, j0, s1, x0,
+// x1), every thread, s1 the end of the tile's chain), each (step, phase)
+// slot's carry entering the tile (carry(t, slot, c), every thread, the same
+// value, read inside the slot's scan) and step k's upwind e1 and hs1 edges
+// (edges(t, k, e1, hs1), every thread; thread 0's are the values upwind of
+// the tile). Every tile but the row's last sends its mail, a ragged one
+// (the halo chain's last) too. The block that runs the row's last tile
+// holds the outflow carries and writes them to `outflow` (one a slot)
+// unless it is null.
+template <class Rec = NoRecords, class Chains = OneChain>
 __device__ __forceinline__ void bdf2_wave(
     const Coef& kbe, const Coef& kcn, const Coef& kbdf, bool snap_cn,
     const float* __restrict__ e0g, const float* __restrict__ e1g,
@@ -110,26 +126,29 @@ __device__ __forceinline__ void bdf2_wave(
     float* __restrict__ oh0g, float* __restrict__ oh1g,
     float* __restrict__ op0g, float* __restrict__ op1g, int N, int K,
     SegShared& sm, WaveMail& mb, int C, int rank, float* outflow,
-    const Rec& rec = Rec()) {
+    const Rec& rec = Rec(), const Chains& chains = Chains(),
+    const float* seeds = nullptr) {
   const int tile = blockDim.x * kSegCells;
-  const int T = (N + tile - 1) / tile;
+  const int T = chains.tiles(N, tile);
   const uint32_t next = (rank + 1) % C;
   int buf = 0;
   uint32_t parity = 0;
   for (int t = rank; t < T; t += C) {
-    const int t0 = t * tile;
+    const int t0 = chains.start(t, tile);
+    const int s1 = chains.end(t, N);
     const int j0 = t0 + threadIdx.x * kSegCells;
-    const int owner = tile_owner(t0, j0, tile, N, kSegCells);
+    const int owner = tile_owner(t0, j0, tile, s1, kSegCells);
     const bool first = t == 0;
     const bool sender = t + 1 < T && owner >= 0;
+    const float* seed = chains.reseeds(t) ? seeds : nullptr;
     float x0[kSegCells], x1[kSegCells], hs0[kSegCells], hs1[kSegCells];
-    load_cells(x0, e0g, j0, N);
-    load_cells(x1, e1g, j0, N);
+    load_cells(x0, e0g, j0, s1);
+    load_cells(x1, e1g, j0, s1);
     for (int k = 0; k < K; ++k) {
       const int s = 4 * k;
       float* cs = sm.carry + s;
-      if (k > 0) rec.input(k, j0, N, x0, x1);
-      if (!first) take(sm, mb, s, &sm.etail[k], parity);
+      if (k > 0) rec.input(k, j0, s1, x0, x1);
+      if (!first) take(sm, mb, s, &sm.etail[k], parity, seed);
       // prev = the step's input ends; its upwind edge feeds CN and BDF.
       const float x1_up =
           upwind_value(x1[kSegCells - 1], &sm.etail[k], sm.edge_p);
@@ -138,7 +157,7 @@ __device__ __forceinline__ void bdf2_wave(
                 substep_tile<kBE>(kbe, x0, x1, x0, x1, x0, x1, 0.f, 0.f,
                                   cs + 0, owner, sm, buf, b0, b1));
       if (sender) give(sm, mb, s, next, x1[kSegCells - 1], true);
-      if (!first) take(sm, mb, s + 1, &sm.htail[k], parity);
+      if (!first) take(sm, mb, s + 1, &sm.htail[k], parity, seed);
       float c0[kSegCells], c1[kSegCells];
       rec.carry(t, s + 1,
                 substep_tile<kCN>(kcn, b0, b1, x0, x1, x0, x1, x1_up, 0.f,
@@ -149,7 +168,7 @@ __device__ __forceinline__ void bdf2_wave(
         hs1[c] = snap_cn ? c1[c] : b1[c];
       }
       if (sender) give(sm, mb, s + 1, next, hs1[kSegCells - 1], true);
-      if (!first) take(sm, mb, s + 2, nullptr, parity);
+      if (!first) take(sm, mb, s + 2, nullptr, parity, seed);
       const float hs1_up =
           upwind_value(hs1[kSegCells - 1], &sm.htail[k], sm.edge_h);
       rec.edges(t, k, x1_up, hs1_up);
@@ -158,7 +177,7 @@ __device__ __forceinline__ void bdf2_wave(
                 substep_tile<kBE>(kbe, c0, c1, x0, x1, hs0, hs1, 0.f, 0.f,
                                   cs + 2, owner, sm, buf, d0, d1));
       if (sender) give(sm, mb, s + 2, next, 0.f, false);
-      if (!first) take(sm, mb, s + 3, nullptr, parity);
+      if (!first) take(sm, mb, s + 3, nullptr, parity, seed);
       float f0[kSegCells], f1[kSegCells];
       rec.carry(t, s + 3,
                 substep_tile<kBDF>(kbdf, d0, d1, x0, x1, hs0, hs1, x1_up,
@@ -166,16 +185,16 @@ __device__ __forceinline__ void bdf2_wave(
       if (sender) give(sm, mb, s + 3, next, 0.f, false);
       if (k == K - 1) {
         // prev of the final state = the LAST step's input.
-        store_cells(op0g, j0, N, x0);
-        store_cells(op1g, j0, N, x1);
+        store_cells(op0g, j0, s1, x0);
+        store_cells(op1g, j0, s1, x1);
       }
       copy_cells(x0, f0);
       copy_cells(x1, f1);
     }
-    store_cells(o0g, j0, N, x0);
-    store_cells(o1g, j0, N, x1);
-    store_cells(oh0g, j0, N, hs0);
-    store_cells(oh1g, j0, N, hs1);
+    store_cells(o0g, j0, s1, x0);
+    store_cells(o1g, j0, s1, x1);
+    store_cells(oh0g, j0, s1, hs0);
+    store_cells(oh1g, j0, s1, hs1);
     if (!first) parity ^= 1u;
   }
   if (outflow && rank == (T - 1) % C) write_record(sm, 4 * K, outflow);

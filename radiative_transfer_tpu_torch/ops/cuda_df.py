@@ -547,11 +547,12 @@ def _plane_array(ins, outs):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-# B6's launch shape: at most this many threads a block (a tile is 4 cells
-# a thread) and blocks a row (above 8 a non-portable cluster size); the
-# kernel takes fewer blocks a row where the card cannot hold every row's
-# cluster at once. 512 threads beat 256, and 16 blocks beat 8 at gray_s8
-# (chip_smoke.py times both).
+# B6's, B14's and B15's launch shape: at most this many threads a block (a
+# tile is 4 cells a thread; 512 keeps B15 on B7's tiles, so DFHaloCudaEngine
+# stays bit-equal to DFCudaEngine at BE and CN) and blocks a row (above 8 a
+# non-portable cluster size); the kernel takes fewer blocks a row where the
+# card cannot hold every row's cluster at once. 512 threads beat 256, and
+# 16 blocks beat 8 at gray_s8 (chip_smoke.py times both).
 DF_BDF2_THREADS = 512
 DF_BDF2_MAX_CLUSTER = 16
 
@@ -576,6 +577,21 @@ def df_halo_bdf2_geometry(X: int, K: int, reset_cell: int,
     out = (ctypes.c_int * 4)()
     cs._raise_on("df_halo_bdf2_geometry",
                  load_kernels().rt_df_halo_bdf2_geometry(
+                     X, K, reset_cell, DF_BDF2_THREADS, DF_BDF2_MAX_CLUSTER,
+                     rows, out))
+    return tuple(out)
+
+
+def df_halo_multistep_geometry(X: int, K: int, reset_cell: int,
+                               rows: int) -> Tuple[int, int, int, int]:
+    """B15's launch shape for `rows` packed rows of X cells at K steps with
+    the seeded chains from cell reset_cell: (threads a block, blocks a row,
+    i.e. the cluster size, tiles of the seeded chain [reset_cell, X), tiles
+    of the halo chain [0, reset_cell) from zero). B6's caps; one cluster a
+    row runs both chains."""
+    out = (ctypes.c_int * 4)()
+    cs._raise_on("df_halo_multistep_geometry",
+                 load_kernels().rt_df_halo_multistep_geometry(
                      X, K, reset_cell, DF_BDF2_THREADS, DF_BDF2_MAX_CLUSTER,
                      rows, out))
     return tuple(out)
@@ -702,8 +718,10 @@ def df_halo_multistep_launch(kind: int, coef, dcoef, seeds_h, seeds_l,
                              use_corr: bool, blk: int, npass: int,
                              npass_c: int):
     """B15: K whole seeded double-float BE or CN steps over packed (rows,
-    X) planes in one launch. Returns the 8 planes and the record's hi and
-    lo."""
+    X) planes in one launch (see ``df_halo_multistep_launch_ref``), each
+    row's two chains one wavefront over a cluster of blocks
+    (``df_halo_multistep_geometry``). Returns the 8 planes and the record's
+    hi and lo."""
     if e0h.device.type == "cpu":
         return df_halo_multistep_launch_ref(
             kind, coef, dcoef, seeds_h, seeds_l, reset, e0h, e0l, e1h, e1l,
@@ -722,8 +740,8 @@ def df_halo_multistep_launch(kind: int, coef, dcoef, seeds_h, seeds_l,
     with torch.cuda.device(e0h.device):
         rc = lib.rt_df_halo_multistep(
             kind, *map(cs._ptr, (coef, dcoef, seeds_h, seeds_l, rec)),
-            planes, rows, X, K, reset * blk, int(use_corr),
-            cs._stream(e0h.device))
+            planes, rows, X, K, reset * blk, int(use_corr), DF_BDF2_THREADS,
+            DF_BDF2_MAX_CLUSTER, cs._stream(e0h.device))
     cs._raise_on(name, rc)
     df_halo_multistep_launch.launches += 1
     return (*outs, rec[0], rec[1])

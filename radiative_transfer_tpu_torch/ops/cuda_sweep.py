@@ -23,9 +23,10 @@ One carries the per-sub-step mesh engine (parallel/sharded_cuda.py):
   ``_make_sharded_packed_kernel``; csrc/sharded.cu).
 
 Each wrapper launches its kernel in csrc/sweep.cu (B8: csrc/sharded.cu)
-for a CUDA tensor and raises if it cannot (B1 and B2 walk each row as a
-wavefront over a thread block cluster, ``sweep_geometry``; a refused
-cluster launch raises too); for a CPU tensor it runs its plain PyTorch version
+for a CUDA tensor and raises if it cannot (B1, B2 and B4 walk each row as
+a wavefront over a thread block cluster, ``sweep_geometry`` and
+``halo_bdf2_geometry``; a refused cluster launch raises too); for a CPU
+tensor it runs its plain PyTorch version
 (``*_launch_ref``), which keeps the JAX kernel's blocked algorithm: the
 same (half, block) visit order, the same truncated Hillis-Steele scan
 (_scan_npass passes) and the same operation order, so on the CPU it
@@ -511,11 +512,12 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-# B1's and B2's launch shape: at most this many threads a block (a tile is
-# 8 cells a thread; 512 keeps the tiles of B4's and B11's one-block walk,
-# so B11 stays bit-equal to B1) and blocks a row (a cluster; above 8 a
-# non-portable size). The kernel takes fewer blocks a row where the card
-# cannot hold every row's cluster at once.
+# B1's, B2's and B4's launch shape: at most this many threads a block (a
+# tile is 8 cells a thread; 512 keeps the tiles of the one-block walks
+# these kernels replaced, so B11 stays bit-equal to B1 and HaloCudaEngine
+# to CudaSweepEngine) and blocks a row (a cluster; above 8 a non-portable
+# size). The kernel takes fewer blocks a row where the card cannot hold
+# every row's cluster at once.
 SWEEP_THREADS = 512
 SWEEP_MAX_CLUSTER = 16
 
@@ -706,13 +708,29 @@ def _check_packed(name: str, coefs, seeds, planes, C: int, reset: int,
     return rows, X
 
 
+def halo_bdf2_geometry(X: int, K: int, reset_cell: int,
+                       rows: int) -> Tuple[int, int, int, int]:
+    """B4's launch shape for `rows` packed rows of X cells at K steps with
+    the seeded chains from cell reset_cell: (threads a block, blocks a row,
+    i.e. the cluster size, tiles of the seeded chain [reset_cell, X), tiles
+    of the halo chain [0, reset_cell) from zero). B1's tiles and caps; one
+    cluster a row runs both chains."""
+    out = (ctypes.c_int * 4)()
+    _raise_on("halo_bdf2_geometry",
+              load_kernels().rt_sweep_halo_bdf2_geometry(
+                  X, K, reset_cell, SWEEP_THREADS, SWEEP_MAX_CLUSTER, rows,
+                  out))
+    return tuple(out)
+
+
 def halo_bdf2_launch(cbe, ccn, cbdf, seeds, reset: int, e0, e1, *, K: int,
                      symmetric_half: bool, blk: int, npass_be: int,
                      npass_cn: int, npass_bdf: int):
     """B4: K whole seeded BDF2 steps over packed (rows, X) planes in one
     launch (see ``halo_bdf2_launch_ref``). The kernel restarts the chains
-    at cell reset*blk and scans exactly. Returns (ends0, ends1, half0,
-    half1, prev0, prev1, record)."""
+    at cell reset*blk and scans exactly, each row's two chains one
+    wavefront over a cluster of blocks (``halo_bdf2_geometry``). Returns
+    (ends0, ends1, half0, half1, prev0, prev1, record)."""
     if e0.device.type == "cpu":
         return halo_bdf2_launch_ref(
             cbe, ccn, cbdf, seeds, reset, e0, e1, K=K,
@@ -728,8 +746,8 @@ def halo_bdf2_launch(cbe, ccn, cbdf, seeds, reset: int, e0, e1, *, K: int,
     with torch.cuda.device(e0.device):
         rc = lib.rt_sweep_halo_bdf2(
             *map(_ptr, (cbe, ccn, cbdf, seeds, rec, e0, e1, *outs)),
-            rows, X, K, reset * blk, int(symmetric_half),
-            _stream(e0.device))
+            rows, X, K, reset * blk, int(symmetric_half), SWEEP_THREADS,
+            SWEEP_MAX_CLUSTER, _stream(e0.device))
     _raise_on(name, rc)
     halo_bdf2_launch.launches += 1
     return (*outs, rec)
