@@ -44,7 +44,12 @@ Phases, one line each; any failure exits nonzero before the result line:
    in phase 5 beside B4's row walk, and the same workload on
    CudaSweepEngine; B4 at gray_s8's main launch held as its own shapes,
    and its grids at the main and fixup launches (rows x blocks a row x
-   tiles; more than one block a row at the main launch);
+   tiles; more than one block a row at the main launch); whether
+   HaloCudaEngine is bit-equal to CudaSweepEngine at every kind, printed;
+   gray_s8 at CN on HaloCudaEngine (auto's pick, B5) and CudaSweepEngine
+   (B2), timed likewise beside B5's row walk; B5 at gray_s8's CN main
+   launch held as its own shapes in phase 3, and its grids at the main and
+   fixup launches (more than one block a row at the main launch);
 7. f64-grade path (the double-float engine, B6 and B7): the CLI with
    --engine df on prm/single_group.prm (200 steps) and its BE and CN
    variants, prm/multi_group_equilibrium.prm (200 steps) and
@@ -54,7 +59,8 @@ Phases, one line each; any failure exits nonzero before the result line:
    max|F| / B < 1e-12 after 200 steps; then the bench workload and gray_s8
    on DFCudaEngine, timed as in phase 5, beside the row walk's rates (see
    WALK_RATES), with B6's
-   grid at both (rows x blocks a row; more than one block a row);
+   grid at both (rows x blocks a row; more than one block a row) and B7's
+   at CN at both (the engine's K; more than one block a row);
 8. f64 tiny-batch route (the packed-rows double-float halo engine, B14 and
    B15): B14 and B15 against their plain versions to DF_TOL in hi + lo
    (packed rows 2 and 32, a segment and a reset cell off the kernel's
@@ -83,7 +89,8 @@ Phases, one line each; any failure exits nonzero before the result line:
    the row walk's rates; gray_s8 at CN likewise on both engines (B15 and
    B7 their kernels); B15 at gray_s8's CN main launch held as its own
    shapes, and its grids at the main and fixup launches (more than one
-   block a row at the main launch);
+   block a row at the main launch); DFCudaEngine's CN rate beside B7's row
+   walk;
 9. the adjoint path (B9 forward-with-records, B10 transposed step): B9 and
    B10 against their plain versions (planes and cbc <= 1e-5, gradient packs
    <= 1e-4 of their largest magnitude) for BE, CN and BDF2, reflective and
@@ -209,8 +216,19 @@ the float32 plain version itself lies above 1e-5 from its float64
 evaluation): 41 whole tiles and a ragged one (T >= 2C) for B1 at K = 1,
 4, 8 and B2 BE at K = 5 and CN at K = 16, a row below one tile for B1 at
 K = 3 and B2 BE/CN at K = 1 and 3, 10 tiles for B2-CN at K = 1 (one
-block a row, sending to itself); both boundaries, both half modes. Every
-kernel wrapper's
+block a row, sending to itself); both boundaries, both half modes. B5's
+cluster wavefront (B2's body on one cluster a packed row, take-and-reseed)
+on its own shapes likewise, the worst held to TOL (check_f64 where the
+float32 plain version lies above it): a ragged halo chain that sends, reset
+0 (at K = 1 a one-block cluster), a one-tile halo chain shorter than C, a
+halo chain of 5 tiles at C = 3, a seeded chain of C + 1 tiles, packed rows
+2 and 32, BE and CN at K 1, 3 and 16 (and gray_s8's CN main launch in
+phase 6). B7's (B15's body under OneChain) likewise, the worst held by
+check_f64's rule against B7's function in float64 (df_truth) with DF_TOL,
+the launches bit-equal to B15 on the same tiles: a row of one tile,
+T = C + 1 tiles at K = 8 and at K = 1, 19 tiles with a ragged last at
+K = 3, 83 tiles at K = 16; BE and CN, reflective and source left,
+use_correction on and off. Every kernel wrapper's
 launch count is zeroed before a path's phases and read after them: each
 kernel of a path must have launched on it (B1-B3 on phases 4-5, B4-B5 on
 phase 6, B6-B7 on phase 7, B14-B15 on phase 8, B9-B10 on phase 9,
@@ -230,16 +248,18 @@ row the geometry picks and at half as many; B6 at the df bench at K = 1,
 2, 4 with 512 and 256 threads a block, at gray_s8 with at most 16 and 8
 blocks a row; B14 at gray_s8 with at most 16 and 8 blocks a chain, and
 its seeded and halo chains as two launches would run them; B4 at gray_s8's
-and the gray rung's main launches and B15 at gray_s8's CN main launch, each
-at the blocks a row the geometry picks and at half as many; B11 at
+and the gray rung's main launches, B15 and B5 at gray_s8's CN main launch
+and B7 at the df bench's CN shape, each at the blocks a row the geometry
+picks and at half as many; B11 at
 the adjoint bench at the blocks a row the geometry picks and at half as
 many; B8 at the gray shard with 32-512 threads; B9 at the adjoint bench
 with 32-512 threads; B13 at the gray shard with 32-128 threads and its
 materialize_only variant; B10 and B12 (K = 4) at the
 adjoint bench with 256 and 128 threads a block, each at the blocks a row
 the geometry picks and at half as many.
-Lines set B4's, B9's, B11's, B13's, B14's and B15's times (and B4's
-HaloCudaEngine rates) against their one-block row walks'.
+Lines set B4's, B5's, B7's, B9's, B11's, B13's, B14's and B15's times (and
+the HaloCudaEngine and DFCudaEngine rates they carry) against their
+one-block row walks'.
 A line splits each kernel's launches on its path's phases into those at
 the shape it is timed at and the rest. The last lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -272,9 +292,10 @@ DRIFT_TOL = 5e-5
 # f64-grade engine drift ~1e-13 a step from float64).
 DF_TOL = 1e-11
 DF_CLI_TOL = 1e-10
-# Launches of each redesigned kernel (B1's, B2's, B4's, B6's, B10's, B11's,
-# B12's, B14's and B15's wavefronts, B8's, B9's and B13's look-backs) per
-# new parity shape: a race shows intermittently, so the worst is held.
+# Launches of each redesigned kernel (B1's, B2's, B4's, B5's, B6's, B7's,
+# B10's, B11's, B12's, B14's and B15's wavefronts, B8's, B9's and B13's
+# look-backs) per new parity shape: a race shows intermittently, so the
+# worst is held.
 REPEAT = 5
 # The rates (updates/s) these paths ran at while B1, B6 and B8 still walked
 # each row on one thread block, measured on one H100 80GB HBM3 at 700 W
@@ -315,6 +336,16 @@ B4_B15_WALK = {"halo_bdf2_launch ms": 2.721,
                "df_halo_multistep_launch ms": 4.177,
                "gray_s8 HaloCudaEngine": 2.38634e10,
                "gray rung HaloCudaEngine": 9.92078e10}
+# B5's and B7's one-launch times (gray_s8's CN halo main launch at K = 16,
+# the df bench's CN shape at K = 8) and gray_s8's CN rates on the engines
+# they carry (HaloCudaEngine, DFCudaEngine) while both still walked each row
+# on one thread block, measured on one NVIDIA H100 80GB HBM3 at a 700.00 W
+# power limit (PERF.md sections 5-6; the HaloCudaEngine rate timed as
+# phase 6 times it), printed beside this run's.
+B5_B7_WALK = {"halo_multistep_launch ms": 1.779,
+              "df_multistep_launch ms": 32.325,
+              "df gray_s8 CN DFCudaEngine": 2.09036e9,
+              "gray_s8 CN HaloCudaEngine": 1.71243e10}
 SWEEP_CU = "radiative_transfer_tpu_torch/csrc/sweep.cu"
 DF_CU = "radiative_transfer_tpu_torch/csrc/df_sweep.cu"
 ADJ_CU = "radiative_transfer_tpu_torch/csrc/adjoint.cu"
@@ -383,10 +414,11 @@ BDF2_STEP_FLOPS = 2 * FLOPS_PER_CELL["BE"] + FLOPS_PER_CELL["CN"] + \
 # df_substep in csrc/df_sweep.cu (two_sum 6, split 1 and an integer mask,
 # prod_err 8, a captured product 12 and 14 with a lo part): the right-hand
 # side's captures and two_sum cascades (BE 44, CN 110, BDF 226), the base
-# solve 16, the residual 104, the correction solve 16, the renormalisation
-# 12; the correction source adds 32 where use_correction is set. The scan
-# work (a^n products, shuffles) and the integer masks are not counted.
-DF_FLOPS_PER_CELL = {"BE": 192, "CN": 258, "BDF": 374}
+# solve 17 (b 4, the carry b + (c - g*c) 3, u 2, two edges 8), the residual
+# 104, the correction solve 17, the renormalisation 12; the correction
+# source adds 32 where use_correction is set. The scan work (the 1 - a^n
+# terms, shuffles) and the integer masks are not counted.
+DF_FLOPS_PER_CELL = {"BE": 194, "CN": 260, "BDF": 376}
 DF_CORR_FLOPS = 32
 # f32 operations per cell of one adjoint phase, counted from phase_adj in
 # csrc/adjoint.cu: the cotangent solve and reversed-scan fix-up 14, the
@@ -833,6 +865,7 @@ def main() -> int:
     from radiative_transfer_tpu_torch.ops import cuda_df as cd
     from radiative_transfer_tpu_torch.ops import cuda_fused as cf
     from radiative_transfer_tpu_torch.ops import cuda_sweep as cs
+    from radiative_transfer_tpu_torch.ops import fast_sweep as fs
     from radiative_transfer_tpu_torch.ops.fast_sweep import (BDF, BE, CN,
                                                              FlatState)
 
@@ -1035,6 +1068,24 @@ def main() -> int:
                f"N{Nw}-C{C}T{T}")
         check_f64(name, tag, worst, ref, ref64)
 
+    def packed_f32(Mr, Gr, X, blk, seed):
+        """The mg deck's packed-rows f32 inputs at M = Mr, G = Gr, N = X:
+        (rows, coef, npass at plain blocks of blk cells, x0, x1, seeds(C):
+        C columns of the row's scale times [0.5, 6.5))."""
+        e = engine(load_config(deck, M=Mr, G=Gr, N=X, ts_method=3))
+        rows = 2 * e.Bh
+        coef = {k: c.reshape(rows, -1) for k, c in e.coef.items()}
+        npass = {k: cs._scan_npass(float(np.max(e.kcs[k].a)), blk, 1e-10)
+                 for k in e.kcs}
+        x0, x1 = (p.reshape(rows, -1) for p in rand_state(e, seed)[:2])
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def seeds(C):
+            return (x0[:, :1] * (0.5 + 6 * torch.rand(
+                (rows, C), generator=g, device=dev))).contiguous()
+
+        return rows, coef, npass, x0, x1, seeds
+
     # B4/B5 on packed rows (2*Bh, 12800). Blocks of 1280 cells: reset 3
     # restarts the chains at cell 3840, inside the first 4096-cell kernel
     # tile, and leaves a 8960-cell segment (2 tiles and a ragged 768).
@@ -1074,6 +1125,61 @@ def main() -> int:
                           f"B5-{label}-rows{rows}-r{reset}-K{K}",
                           cs.halo_multistep_launch(*args, **kw),
                           cs.halo_multistep_launch_ref(*args, **kw))
+
+    # B5's wavefront (B2's body on one cluster a packed row, the seeded
+    # chain's first tile taking its mail before it reseeds) on its own
+    # shapes, each launched REPEAT times against one plain launch, the
+    # launches bit-identical (a race between the cluster's blocks shows
+    # intermittently) and within TOL of the plain version, or by check_f64
+    # where that one lies above TOL from its float64 evaluation. Packed rows
+    # 2 and 32 of the mg deck, 4096-cell tiles: reset 3 or 5 blocks of 1280
+    # (a halo chain of one or two tiles ending in a ragged one that sends, a
+    # seeded chain with a ragged last tile); reset 0 (one chain from the
+    # seeds; at K = 1 a one-block cluster that mails itself); a one-tile
+    # halo chain shorter than C; a halo chain of 5 tiles at C = 3 (T_h >=
+    # C); a seeded chain of C + 1 tiles, its last ragged, behind a one-tile
+    # halo chain; BE and CN at K 1, 3 and 16. gray_s8's CN main launch
+    # follows in phase 6.
+    def b5_hold(label, args, kw, rows, X, reset_cell):
+        threads, C, tm, th = cs.halo_multistep_geometry(X, kw["K"],
+                                                        reset_cell, rows)
+        tag = (f"B5-{label}-{'BE' if args[0] == BE else 'CN'}-rows{rows}-"
+               f"X{X}-reset{reset_cell}-K{kw['K']}-C{C}-tiles{th}+{tm}")
+        outs = [cs.halo_multistep_launch(*args, **kw) for _ in range(REPEAT)]
+        if not all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(o, outs[0])):
+            raise AssertionError(f"halo_multistep_launch {tag}: {REPEAT} "
+                                 f"launches on the same inputs are not "
+                                 f"bit-identical")
+        ref = cs.halo_multistep_launch_ref(*args, **kw)
+        err = max(nerr(g, r) for g, r in zip(outs[0], ref))
+        if err <= TOL:
+            b5_waves.append(f"{tag}={err:.1e}")
+            return
+        ref64 = cs.halo_multistep_launch_ref(
+            *(a.double() if torch.is_tensor(a) else a for a in args), **kw)
+        check_f64("halo_multistep_launch", tag, outs[0], ref, ref64)
+        b5_waves.append(checks.pop())
+
+    b5_waves = []
+    c5 = {Kx: cs.halo_multistep_geometry(1 << 20, Kx, 2048, 2)[1]
+          for Kx in (3, 16)}
+    for label, kind, Mr, Gr, X, blk, reset, Kw in (
+            ("ragged-halo", BE, 2, 1, 12800, 1280, 3, 3),
+            ("ragged-halo", CN, 8, 4, 12800, 1280, 5, 16),
+            ("ragged-halo", BE, 8, 4, 12800, 1280, 3, 1),
+            ("reset0", CN, 2, 1, 12800, 1280, 0, 1),
+            ("reset0", BE, 8, 4, 12800, 1280, 0, 16),
+            ("halo-one-tile", CN, 2, 1, 12800, 1280, 1, 16),
+            ("halo-ge-C", CN, 2, 1, 16 * 4096 + 1024, 1024, 18, 3),
+            ("halo-ge-C", BE, 2, 1, 16 * 4096 + 1024, 1024, 18, 3),
+            ("seeded-C+1", CN, 2, 1, 2048 + c5[3] * 4096 + 2048, 2048, 1, 3),
+            ("seeded-C+1", BE, 2, 1, 2048 + c5[16] * 4096 + 2048, 2048, 1,
+             16)):
+        rows, coef, npass, x0w, x1w, seeds = packed_f32(
+            Mr, Gr, X, blk, 330 + len(b5_waves))
+        b5_hold(label, (kind, coef[kind], seeds(Kw), reset, x0w, x1w),
+                dict(K=Kw, blk=blk, npass=npass[kind]), rows, X, reset * blk)
 
     # B6/B7, compared in hi + lo. N = 12800 is 6 full 2048-cell df tiles and
     # a ragged 512 (plain versions: 25 blocks of 512); N = 100 is one ragged
@@ -1146,9 +1252,126 @@ def main() -> int:
             df_check("df_multistep_launch",
                      f"B7-{label}-K{K}-{'refl' if refl else 'src'}",
                      df_launch(e, ins, K), df_launch(e, ins, K, plain=True))
+    def df_truth(e, ins, K):
+        """B7's function on `ins` in float64, apart from the double-float
+        arithmetic: B2's plain version on the float64 coefficients
+        (fast_sweep.kind_coeffs at float64), the hi + lo planes and
+        boundary value, its block scans exact (the CPU tests hold the two
+        together, tests/test_torch_stepwave.py (d)). Returns (e0, e1, p0,
+        p1)."""
+        kind = e.cfg.ts_method
+        kc = fs.kind_coeffs(e.cfg, e.tables, np.float64)[kind]
+        coef = torch.as_tensor(np.concatenate(
+            [np.asarray(c)[0] for c in (kc.w, kc.T0, kc.q, kc.inv_det, kc.a,
+                                        kc.Sbase, kc.c1, kc.c0, kc.k_ee,
+                                        kc.k_p)], axis=-1), device=dev)
+        x0, x1 = (ins[i].double() + ins[i + 1].double() for i in (0, 2))
+        return cs.multistep_launch_ref(
+            kind, coef, e.bc.double() + e.bcl.double(), e.flip, x0, x1, K=K,
+            s=kc.s, reflective=e.reflective, blk=e.block,
+            npass=int(np.ceil(np.log2(e.block))))
+
+    def truth_err(got, truth):
+        """nerr of a double-float launch's hi + lo planes against float64
+        planes, worst over the pairs."""
+        return max(nerr(got[2 * i].double() + got[2 * i + 1].double(), t)
+                   for i, t in enumerate(truth))
+
+    def b7_witness(e, ins, K):
+        """B7's launch as B15 runs the same tiles, slots and arithmetic:
+        each half's rows as packed rows of one chain (reset 0) seeded with
+        the slots' inflow, the boundary's (hi, lo) value or, for the mu>0
+        half of a reflective slab, the mu<0 launch's record through flip.
+        Returns the 8 planes."""
+        kind, Bh, N_ = e.cfg.ts_method, e.Bh, e.cfg.N
+        kw = dict(K=K, use_corr=bool(e.cfg.use_correction), blk=e.block,
+                  npass=e.scan_npass[kind], npass_c=e.corr_npass[kind])
+
+        def rows_of(t, h):
+            t = t if h is None else t[h]
+            return t.reshape(-1, t.shape[-1]).contiguous()
+
+        def run(h, sh, sl):
+            return cd.df_halo_multistep_launch(
+                kind, rows_of(e.coef[kind], h), rows_of(e.dcoef[kind], h),
+                sh.contiguous(), sl.contiguous(), 0,
+                *(rows_of(p, h) for p in ins), **kw)
+
+        if not e.reflective:
+            o = run(None, e.bc.reshape(-1, 1).expand(-1, K),
+                    e.bcl.reshape(-1, 1).expand(-1, K))
+            return [p.reshape(2, Bh, N_) for p in o[:8]]
+        a = run(0, e.bc[0].expand(-1, K), e.bcl[0].expand(-1, K))
+        flip = e.flip.long()
+        b = run(1, a[8][flip], a[9][flip])
+        return [torch.stack([x, y]) for x, y in zip(a[:8], b[:8])]
+
+    # B7's wavefront (B15's body under OneChain, one slot a step) on its own
+    # shapes, each launched REPEAT times against one plain launch, the
+    # launches bit-identical and bit-equal to b7_witness (B15 on the same
+    # tiles). The worst launch is held as check_f64 holds B1 and B2 on long
+    # rows: both it and the plain version against B7's function evaluated
+    # in float64 (df_truth), the kernel within the plain version's own
+    # distance plus DF_TOL (which is DF_TOL against the plain version
+    # wherever that one is accurate). The kernels scan in the g = 1 - a
+    # form, the plain versions in JAX's (csrc/df_sweep.cu KindCoef): on
+    # long rows of thin groups at BE the plain version lies above DF_TOL
+    # from float64 by the float32 multiplier's bias, the kernel not. A row
+    # of one 2048-cell tile; T = C + 1 tiles (C the blocks a row that
+    # df_multistep_geometry picks for the launch's rows) at K = 8 and at
+    # K = 1 (C = 1, the block mails itself); 19 tiles with a ragged last at
+    # K = 3 (as B6's); 83 tiles (169984 cells) at K = 16; BE and CN,
+    # reflective and source left (the mu>0 half of a reflective slab from
+    # the mu<0 record through flip), use_correction on and off.
+    b7_waves = []
+    for kind, Nkey, K, refl, corr in (
+            (BE, "one-tile", 3, True, True), (CN, "one-tile", 8, False, False),
+            (CN, "T=C+1", 8, True, True), (BE, "T=C+1", 8, False, False),
+            (CN, "T=C+1", 1, True, False), (CN, "ragged", 3, True, False),
+            (BE, "ragged", 3, False, True), (BE, "ragged", 3, True, True),
+            (BE, "long", 16, False, True)):
+        rows7 = 16 if refl else 32
+        Nw = {"one-tile": b6_tile, "ragged": 18 * b6_tile + b6_tile // 2,
+              "long": 83 * b6_tile,
+              "T=C+1": (cd.df_multistep_geometry(1 << 20, K, rows7)[1] + 1)
+              * b6_tile}[Nkey]
+        e = df_engine(load_config(
+            deck, M=8, G=4, N=Nw, ts_method=kind,
+            bc_left_indicator=2 if refl else 1, use_correction=corr))
+        threads, C, T = cd.df_multistep_geometry(Nw, K, rows7)
+        ins = df_rand(e, 75 + K)
+        ref = df_launch(e, ins, K, plain=True)
+        outs = [df_launch(e, ins, K) for _ in range(REPEAT)]
+        err = max(df_err(o, ref) for o in outs)
+        truth = df_truth(e, ins, K)
+        err_k = max(truth_err(o, truth) for o in outs)
+        err_p = truth_err(ref, truth)
+        tag = (f"B7-{Nkey}-{'BE' if kind == BE else 'CN'}-K{K}-"
+               f"{'refl' if refl else 'src'}-corr{int(corr)}-N{Nw}-C{C}T{T}")
+        b7_waves.append(f"{tag}={err:.1e} (vs float64: kernel {err_k:.1e}, "
+                        f"plain {err_p:.1e})")
+        if not err_k <= err_p + DF_TOL:
+            raise AssertionError(
+                f"df_multistep_launch {tag}: hi+lo normalised error from the "
+                f"float64 evaluation {err_k:.3e} (worst of {REPEAT} "
+                f"launches) > the plain version's {err_p:.3e} + {DF_TOL}; "
+                f"from the plain version {err:.3e}")
+        if not all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(o, outs[0])):
+            raise AssertionError(f"df_multistep_launch {tag}: {REPEAT} "
+                                 f"launches on the same inputs are not "
+                                 f"bit-identical")
+        if not all(torch.equal(a, b)
+                   for a, b in zip(outs[0], b7_witness(e, ins, K))):
+            raise AssertionError(f"df_multistep_launch {tag}: not bit-equal "
+                                 f"to B15 on the same tiles")
     torch.cuda.synchronize()
     print(f"phase 3 kernel parity: ok, max normalised error "
-          + ", ".join(checks), flush=True)
+          + ", ".join(checks) + f"; B5 wavefront shapes (worst of {REPEAT} "
+          f"launches, bit-identical): " + ", ".join(b5_waves)
+          + f"; B7 wavefront shapes (worst of {REPEAT} launches, "
+          f"bit-identical, bit-equal to B15 on the same tiles): "
+          + ", ".join(b7_waves), flush=True)
 
     # -- 4. main path ------------------------------------------------------------
     names = ("phi", "phi_plus", "psi", "x", "F", "e_ave", "left_ends",
@@ -1350,23 +1573,6 @@ def main() -> int:
     # 5 tiles at C = 4 (T_h >= C); a seeded chain of C + 1 tiles, its last
     # ragged, behind a one-tile halo chain (shorter than C); K 1, 2 and 8,
     # both half modes. gray_s8's main launch follows once the engine stands.
-    def packed_f32(Mr, Gr, X, blk, seed):
-        """The mg deck's packed-rows f32 inputs at M = Mr, G = Gr, N = X:
-        (rows, coef, npass at plain blocks of blk cells, x0, x1, seeds(C):
-        C columns of the row's scale times [0.5, 6.5))."""
-        e = engine(load_config(deck, M=Mr, G=Gr, N=X, ts_method=3))
-        rows = 2 * e.Bh
-        coef = {k: c.reshape(rows, -1) for k, c in e.coef.items()}
-        npass = {k: cs._scan_npass(float(np.max(e.kcs[k].a)), blk, 1e-10)
-                 for k in e.kcs}
-        x0, x1 = (p.reshape(rows, -1) for p in rand_state(e, seed)[:2])
-        g = torch.Generator(device=dev).manual_seed(seed)
-
-        def seeds(C):
-            return (x0[:, :1] * (0.5 + 6 * torch.rand(
-                (rows, C), generator=g, device=dev))).contiguous()
-
-        return rows, coef, npass, x0, x1, seeds
 
     def b4_hold(label, args, kw, rows, X, reset_cell):
         threads, C, tm, th = cs.halo_bdf2_geometry(X, kw["K"], reset_cell,
@@ -1428,7 +1634,7 @@ def main() -> int:
                                  f"gray_s8 ts_method={cfg.ts_method}")
         return eng
 
-    pairs = []
+    pairs, h_equal = [], True
     for ts_method, label in ((3, "BDF2"), (1, "BE"), (2, "CN")):
         he = auto_engine(gray_cfg(Ms, Ns, ts_method))
         pe = engine(gray_cfg(Ms, Ns, ts_method))
@@ -1440,6 +1646,7 @@ def main() -> int:
             raise AssertionError(f"gray_s8 {label}: HaloCudaEngine vs "
                                  f"CudaSweepEngine ends/prev/half {errs}")
         equal = all(torch.equal(a, b) for a, b in zip(hs, ps))
+        h_equal &= equal
         pairs.append(f"{label} K={he.K_launch} H={he.H} block {he.block} "
                      f"ends/prev/half {max(errs):.1e}, bit-equal {equal}")
 
@@ -1449,7 +1656,25 @@ def main() -> int:
     h_seconds, h_windows, hst = windows_of(
         lambda s, n: halo.solve(s, num_steps=n), halo.init_state(), 2 * Kh)
     h_peak = peak()
+    # The same gray_s8 at CN on both engines: B5 carries HaloCudaEngine there
+    # (one main and one fixup launch a group of K steps), B2
+    # CudaSweepEngine.
+    halo_cn = auto_engine(gray_cfg(Ms, Ns, 2))
+    Khc = halo_cn.K_launch
+    peak = peak_from()
+    hc_seconds, hc_windows, _ = windows_of(
+        lambda s, n: halo_cn.solve(s, num_steps=n), halo_cn.init_state(),
+        2 * Khc)
+    hc_peak = peak()
     launches.update(read_counts(PATH_AUTO, "the auto route (phase 6)"))
+    plain_cn = engine(gray_cfg(Ms, Ns, 2))
+    Kpc = plain_cn.max_steps_per_launch()
+    peak = peak_from()
+    pc_seconds, pc_windows, _ = windows_of(
+        lambda s, n: plain_cn.solve(s, num_steps=n, steps_per_launch=Kpc),
+        plain_cn.init_state(), 2 * Kpc)
+    pc_peak = peak()
+    ups_cn = Ms * Ns * 64
 
     plain8 = engine(gray_cfg(Ms, Ns, 3))
     K8 = plain8.max_steps_per_launch()
@@ -1490,6 +1715,29 @@ def main() -> int:
             raise AssertionError(f"B4 at gray_s8 {tag}: {C} block a row")
         b4_grids[tag] = (f"{rows8} rows x {C} blocks of {threads} threads, "
                          f"tiles a row {th} (halo) + {tm} (seeded)")
+    # B5 at gray_s8's CN main launch (the engine's K, random planes) held as
+    # its own shapes in phase 3, and its grids there and at the fixup: more
+    # than one block a row at the main launch.
+    g5 = torch.Generator(device=dev).manual_seed(97)
+    xc = [torch.cat([p.new_zeros((2, halo_cn.Bh, halo_cn.H)), p], -1)
+          .reshape(halo_cn.rows, -1)
+          * (0.5 + torch.rand((halo_cn.rows, halo_cn.H + Ns), generator=g5,
+                              device=dev))
+          for p in halo_cn.init_state()[:2]]
+    Kc5, s5 = Khc, halo_cn._main_seeds(Khc)
+    b5_args = (CN, halo_cn.coef[CN], s5, halo_cn.hb, *xc)
+    b5_kw = dict(K=Kc5, blk=halo_cn.block, npass=halo_cn.scan_npass[CN])
+    b5_hold("gray_s8-main", b5_args, b5_kw, halo_cn.rows, halo_cn.H + Ns,
+            halo_cn.H)
+    b5_grids = {}
+    for tag, Xg, rc_ in (("main", halo_cn.H + Ns, halo_cn.H),
+                         ("fixup", halo_cn.H, 0)):
+        threads, C, tm, th = cs.halo_multistep_geometry(Xg, Khc, rc_,
+                                                        halo_cn.rows)
+        if tag == "main" and C < 2:
+            raise AssertionError(f"B5 at gray_s8 CN {tag}: {C} block a row")
+        b5_grids[tag] = (f"{halo_cn.rows} rows x {C} blocks of {threads} "
+                         f"threads, tiles a row {th} (halo) + {tm} (seeded)")
     ups = 4 * Ms * Ns * 64
     print(f"phase 6 auto route: ok; {cli_summary}; B4 wavefront shapes "
           f"(worst of {REPEAT} launches, bit-identical): "
@@ -1509,7 +1757,21 @@ def main() -> int:
           f"{ups / p_seconds:.6g} updates/s (row walk: "
           f"{WALK_RATES['gray_s8 CudaSweepEngine']:.6g}), peak "
           f"{p_peak:.3f} GiB; halo/plain "
-          f"{p_seconds / h_seconds:.3f}x; card: {card}", flush=True)
+          f"{p_seconds / h_seconds:.3f}x; HaloCudaEngine vs CudaSweepEngine "
+          f"bit-equal at every gray_s8 kind: {h_equal}; B5 at gray_s8 CN: "
+          f"{b5_waves[-1]} (worst of {REPEAT} launches, bit-identical); B5 "
+          f"grid at gray_s8 CN K={Khc}: "
+          + "; ".join(f"{k} {v}" for k, v in b5_grids.items())
+          + f"; gray_s8 CN via auto = HaloCudaEngine K={Khc} H={halo_cn.H}: "
+          f"64 steps in {hc_seconds:.4f} s (median of "
+          f"{fmt_windows(hc_windows)}) = {ups_cn / hc_seconds:.6g} updates/s "
+          f"(B5 on the row walk: "
+          f"{B5_B7_WALK['gray_s8 CN HaloCudaEngine']:.6g}), peak "
+          f"{hc_peak:.3f} GiB; CudaSweepEngine K={Kpc}: 64 steps in "
+          f"{pc_seconds:.4f} s (median of {fmt_windows(pc_windows)}) = "
+          f"{ups_cn / pc_seconds:.6g} updates/s, peak {pc_peak:.3f} GiB; "
+          f"halo/plain at CN {pc_seconds / hc_seconds:.3f}x; card: {card}",
+          flush=True)
 
     # -- 7. f64-grade path -----------------------------------------------------
     cd.reset_launch_counts()
@@ -1566,6 +1828,18 @@ def main() -> int:
                          f"a launch, {T} tiles a row")
         if C < 2:
             raise AssertionError(f"B6 at the {tag} runs {C} block a row")
+    # B7's launch shapes at CN (the engine's K) at the df bench and at
+    # gray_s8: a cluster of C > 1 blocks a row.
+    b7_grids = {}
+    for tag, Mx, Nx in (("df bench CN", M, N), ("gray_s8 CN", Ms, Ns)):
+        eng_ = df_engine(gray_cfg(Mx, Nx, 2))
+        Kx = eng_.max_steps_per_launch()
+        rows_ = eng_.Bh if eng_.reflective else 2 * eng_.Bh
+        threads, C, T = cd.df_multistep_geometry(Nx, Kx, rows_)
+        b7_grids[tag] = (f"K={Kx}: {rows_} rows x {C} blocks of {threads} "
+                         f"threads a launch, {T} tiles a row")
+        if C < 2:
+            raise AssertionError(f"B7 at the {tag} runs {C} block a row")
     print(f"phase 7 f64-grade path: ok; {'; '.join(df_summary)}; "
           f"{auto_summary} (prints '{auto_line}'); equilibrium max|F|/B "
           f"{f_over_b:.3e} after 200 steps; bench (gray S_32, N=2^20, BDF2) "
@@ -1580,6 +1854,7 @@ def main() -> int:
           f"{WALK_RATES['df bench']:.6g}, gray_s8 "
           f"{WALK_RATES['df gray_s8 DFCudaEngine']:.6g} updates/s; B6 grid: "
           + "; ".join(f"{k} {v}" for k, v in b6_grids.items())
+          + "; B7 grid: " + "; ".join(f"{k} {v}" for k, v in b7_grids.items())
           + f"; card: {card}", flush=True)
 
     # -- 8. f64 tiny-batch route ---------------------------------------------
@@ -1815,7 +2090,6 @@ def main() -> int:
         lambda s, n: dhalo_cn.solve(s, num_steps=n), dhalo_cn.init_state(),
         2 * Kdc15)
     _, Kpc8, dpc_seconds, dpc_windows, _ = df_timed(gray_cfg(Ms, Ns, 2))
-    ups_cn = Ms * Ns * 64
 
     def df_packed(eng, seed):
         """(e0 hi, e0 lo, e1 hi, e1 lo) packed (rows, H + N): hi planes
@@ -1917,7 +2191,8 @@ def main() -> int:
           f"{fmt_windows(dhc_windows)}) = {ups_cn / dhc_seconds:.6g} "
           f"updates/s; DFCudaEngine K={Kpc8}: 64 steps in "
           f"{dpc_seconds:.4f} s (median of {fmt_windows(dpc_windows)}) = "
-          f"{ups_cn / dpc_seconds:.6g} updates/s; halo/plain at CN "
+          f"{ups_cn / dpc_seconds:.6g} updates/s (B7 on the row walk: "
+          f"{B5_B7_WALK['df gray_s8 CN DFCudaEngine']:.6g}); halo/plain at CN "
           f"{dpc_seconds / dhc_seconds:.3f}x (B15's main launch on the row "
           f"walk: {B4_B15_WALK['df_halo_multistep_launch ms']} ms); "
           f"DFHaloCudaEngine vs DFCudaEngine bit-equal at every gray_s8 "
@@ -3017,19 +3292,8 @@ def main() -> int:
     planes = 2 * big.Bh * N * 4            # bytes of one (2, Bh, N) plane
     cells = 2 * big.Bh * N
 
-    # B5 at gray_s8 CN: its main launch over H + N packed cells.
-    halo_cn = auto_engine(gray_cfg(Ms, Ns, 2))
-    Kc5 = halo_cn.K_launch
-    g5 = torch.Generator(device=dev).manual_seed(97)
-    xc = [torch.cat([p.new_zeros((2, halo_cn.Bh, halo_cn.H)), p], -1)
-          .reshape(halo_cn.rows, -1)
-          * (0.5 + torch.rand((halo_cn.rows, halo_cn.H + Ns), generator=g5,
-                              device=dev))
-          for p in halo_cn.init_state()[:2]]
-    s5 = halo_cn._main_seeds(Kc5)
-    b5_args = (CN, halo_cn.coef[CN], s5, halo_cn.hb, *xc)
-    b5_kw = dict(K=Kc5, blk=halo_cn.block, npass=halo_cn.scan_npass[CN])
-    # B4 at gray_s8 BDF2: the main launch timed above, on random planes.
+    # B5 at gray_s8 CN: its main launch over H + N packed cells (phase 6's
+    # arguments). B4 at gray_s8 BDF2: the main launch timed above, on random planes.
     xb = [x * (0.5 + torch.rand(x.shape, generator=g5, device=dev))
           for x in (x0.reshape(rows8, -1), x1.reshape(rows8, -1))]
     b4_args = (halo.coef[BE], halo.coef[CN], halo.coef[BDF], main_seeds,
@@ -3289,6 +3553,19 @@ def main() -> int:
                     lambda: cd.df_halo_multistep_launch(*b15_args, **b15_kw),
                     5)
         shape_ms.append(f"B15 gray_s8 CN K={Kdc15} C={mc} {ms:.3f} ms")
+    # B5 at gray_s8's CN main launch and B7 at the df bench's CN shape, each
+    # at the blocks a row the geometry picks and at half as many.
+    C5 = cs.halo_multistep_geometry(halo_cn.H + Ns, Kc5, halo_cn.H,
+                                    halo_cn.rows)[1]
+    for mc in sorted({C5, max(1, C5 // 2)}, reverse=True):
+        ms = shaped(cs, "SWEEP_MAX_CLUSTER", mc,
+                    lambda: cs.halo_multistep_launch(*b5_args, **b5_kw), 20)
+        shape_ms.append(f"B5 gray_s8 CN K={Kc5} C={mc} {ms:.3f} ms")
+    C7 = cd.df_multistep_geometry(N, Kdc, dcn.Bh)[1]
+    for mc in sorted({C7, max(1, C7 // 2)}, reverse=True):
+        ms = shaped(cd, "DF_BDF2_MAX_CLUSTER", mc,
+                    lambda: df_launch(dcn, rdc, Kdc), 5)
+        shape_ms.append(f"B7 df bench CN K={Kdc} C={mc} {ms:.3f} ms")
     C11 = ca.fwd_k_geometry(Na, Ka, fwd_eng.Bh)[1]
     for mc in sorted({C11, max(1, C11 // 2)}, reverse=True):
         ms = shaped(cs, "SWEEP_MAX_CLUSTER", mc,
@@ -3360,6 +3637,17 @@ def main() -> int:
           f"{B4_B15_WALK['gray_s8 HaloCudaEngine']:.6g}), gray rung "
           f"HaloCudaEngine {halo_gray_rate:.6g} (row walk "
           f"{B4_B15_WALK['gray rung HaloCudaEngine']:.6g}); card: {card}",
+          flush=True)
+    print("B5 and B7, one launch, this run against the row walk (one block "
+          "a row, NVIDIA H100 80GB HBM3 at 700.00 W): halo_multistep_launch "
+          f"{row_ms['halo_multistep_launch']:.4f} ms (row walk "
+          f"{B5_B7_WALK['halo_multistep_launch ms']}), df_multistep_launch "
+          f"{row_ms['df_multistep_launch']:.4f} ms (row walk "
+          f"{B5_B7_WALK['df_multistep_launch ms']}); gray_s8 CN "
+          f"HaloCudaEngine {ups_cn / hc_seconds:.6g} updates/s (row walk "
+          f"{B5_B7_WALK['gray_s8 CN HaloCudaEngine']:.6g}), df gray_s8 CN "
+          f"DFCudaEngine {ups_cn / dpc_seconds:.6g} (row walk "
+          f"{B5_B7_WALK['df gray_s8 CN DFCudaEngine']:.6g}); card: {card}",
           flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

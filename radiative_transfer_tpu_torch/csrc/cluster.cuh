@@ -1,12 +1,14 @@
 // The thread block cluster machinery of the wavefront kernels (df_sweep.cu:
-// B6 df_bdf2_kernel, B14 df_halo_bdf2_kernel and B15
-// df_halo_multistep_kernel; sweep.cu: B1 bdf2_kernel, B2 multistep_kernel
-// and B4 halo_bdf2_kernel; adjoint.cu: B11 fwd_record_k_kernel, B10
-// bwd_kernel and B12 bwd_k_kernel), which run one row's tiles (B14: one
-// chain's) on the C blocks of a cluster, tile t on block t mod C, and hand
-// each (step, phase) slot's state from tile t to tile t+1 through
-// distributed shared memory (B10 and B12 count their sub-tiles from the
-// row's end and hand each slot's state upstream):
+// B6 df_bdf2_kernel, B7 df_multistep_kernel, B14 df_halo_bdf2_kernel and
+// B15 df_halo_multistep_kernel; sweep.cu: B1 bdf2_kernel, B2
+// multistep_kernel, B4 halo_bdf2_kernel and B5 halo_multistep_kernel;
+// adjoint.cu: B11 fwd_record_k_kernel, B10 bwd_kernel and B12 bwd_k_kernel;
+// of the row kernels only sweep.cu's B3 still walks a row on one block),
+// which run one row's tiles (B14: one chain's) on the C blocks of a
+// cluster, tile t on block t mod C, and hand each (step, phase) slot's
+// state from tile t to tile t+1 through distributed shared memory (B10 and
+// B12 count their sub-tiles from the row's end and hand each slot's state
+// upstream):
 // * a per-slot mailbox of F floats and an mbarrier of one arrival a phase
 //   (Mailbox), opened by every block before any block sends;
 // * the send: `mapa` to the next block's copy of the slot's mailbox,
@@ -15,7 +17,7 @@
 //   the block's parity bit, then a read of its own mailbox;
 // * the tiles of a row: one chain from cell 0 (OneChain), or a packed
 //   row's two chains, [0, reset) from zero and [reset, N) from seeds, as
-//   ONE sequence of tiles (HaloChains: B4 and B15);
+//   ONE sequence of tiles (HaloChains: B4, B5 and B15);
 // * on the host, how many clusters of C blocks the card holds at once, the
 //   largest C (at most the slots, the tiles and max_cluster) at which every
 //   row's cluster of a launch is resident, and the cluster launch.
@@ -39,8 +41,8 @@
 // tile that waits on no mail (a chain's first) may only be tile 0 of its
 // cluster, or it could run ahead and overwrite a mailbox its successor's
 // block has not read yet. There are two ways to keep it whole where a row
-// holds two chains: B14 runs each chain on a cluster of its own; B4 and
-// B15 run both on one cluster as one sequence of tiles, and the seeded
+// holds two chains: B14 runs each chain on a cluster of its own; B4, B5
+// and B15 run both on one cluster as one sequence of tiles, and the seeded
 // chain's first tile still takes its mail for every slot (thread 0 waits
 // as for any tile > 0) and then overwrites the slot's state with the seed
 // (take-and-reseed): every tile but tile 0 waits, so every link above
@@ -165,7 +167,7 @@ __device__ __forceinline__ void send_mail(Mailbox<F, S>& mb, int s,
 }
 
 // The tiles of a wavefront's row of N cells, `tile` cells each: one chain
-// from cell 0 (B1, B11).
+// from cell 0 (B1, B2, B7, B11).
 struct OneChain {
   __device__ __forceinline__ int tiles(int N, int tile) const {
     return (N + tile - 1) / tile;
@@ -182,12 +184,13 @@ struct OneChain {
   __device__ __forceinline__ bool reseeds(int) const { return false; }
 };
 
-// A packed halo row's two chains as one sequence of tiles (B4, B15): tiles
-// 0 .. Th-1 the halo chain [0, reset) from zero, then the seeded chain
-// [reset, N), each tiled from its own start (reset is a multiple of the
-// JAX block, not of the kernel's tile, so the halo chain's last tile may
-// be ragged; it sends its mail all the same). Tile Th takes its mail and
-// reseeds; with reset 0 there is no halo chain and the row is OneChain's.
+// A packed halo row's two chains as one sequence of tiles (B4, B5, B15):
+// tiles 0 .. Th-1 the halo chain [0, reset) from zero, then the seeded
+// chain [reset, N), each tiled from its own start (reset is a multiple of
+// the JAX block, not of the kernel's tile, so the halo chain's last tile
+// may be ragged; it sends its mail all the same). Tile Th takes its mail
+// and reseeds; with reset 0 there is no halo chain and the row is
+// OneChain's.
 struct HaloChains {
   int Th, reset;
   __device__ __forceinline__ HaloChains(int reset_cell, int tile)

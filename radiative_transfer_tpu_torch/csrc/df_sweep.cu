@@ -13,11 +13,11 @@
 //                                                 BE or CN, packed rows; B15)
 // All run on one __device__ sub-step routine, df_substep (the counterpart
 // of _df_substep), and the row-tile machinery of tiles.cuh (block-wide scan,
-// upwind exchange, cell loads and stores). B7 walks each row on one block
-// (df_multistep_segment); B6 and B14 run the same tiles as a cluster
-// wavefront (df_bdf2_wave), and B15 runs B7's tiles and slots as one
-// (df_multistep_wave), on cluster.cuh's mailboxes (which sweep.cu's B1, B2
-// and B4 and adjoint.cu's B10-B12 share).
+// upwind exchange, cell loads and stores). Every kernel here runs its rows'
+// tiles as a cluster wavefront on cluster.cuh's mailboxes (which sweep.cu's
+// B1, B2, B4 and B5 and adjoint.cu's B10-B12 share): B6 and B14 on
+// df_bdf2_wave, B7 and B15 on df_multistep_wave, one slot a step. No
+// kernel of this file walks a row on one block any more.
 //
 // What is computed. A value is an unevaluated sum hi + lo of two float32
 // numbers; the planes come in (hi, lo) pairs. Each sub-step of each row is
@@ -34,18 +34,19 @@
 // error-free transforms and two float32 scans. No double is used.
 //
 // Design.
-// * B7: one thread block owns one row and walks N in tiles of
-//   blockDim*kCells cells, all K steps per tile, as csrc/sweep.cu's B3 and
-//   B5 do. B6, B14 and B15 run the same tiles and slots (4K for BDF2, K for
-//   BE or CN) as a wavefront over a thread block cluster (df_bdf2_wave,
-//   df_multistep_wave below): tile t of a chain (B15: of a packed row) on
-//   block t mod C, each slot's state handed to the next tile's block
-//   through distributed shared memory. Shared memory carries, per (step,
-//   phase) slot, the base carry, the correction carry and the upwind base
-//   o1 edge (the residual's coupling to the upwind tile), plus the inflow's
-//   lo part for the first tile; per step, the upwind (hi, lo) edges of the
-//   p1 and h1 history planes. Each is read only where a barrier separates
-//   the read from the write it needs and from the next tile's overwrite.
+// * A row is cut into tiles of blockDim*kCells cells, and every tile runs
+//   all K steps (times 4 phases for BDF2) before it leaves the tile: the
+//   tiles and slots (4K for BDF2, K for BE or CN) of the one-block walk
+//   this file's kernels ran before, now a wavefront over a thread block
+//   cluster (df_bdf2_wave, df_multistep_wave below): tile t of a chain (B7:
+//   of a row; B15: of a packed row) on block t mod C, each slot's state
+//   handed to the next tile's block through distributed shared memory.
+//   Shared memory carries, per (step, phase) slot, the base carry, the
+//   correction carry and the upwind base o1 edge (the residual's coupling to
+//   the upwind tile), plus the inflow's lo part for the first tile; per step,
+//   the upwind (hi, lo) edges of the p1 and h1 history planes. Each is read
+//   only where a barrier separates the read from the write it needs and from
+//   the next tile's overwrite.
 // * At the row start every slot holds the true double-float inflow: the
 //   boundary value, or for the mu>0 half of a reflective slab the flipped
 //   mu<0 CORRECTED outflow two_sum(base o1 edge, correction carry) of the
@@ -61,9 +62,13 @@
 //   the correction scan may contract freely: the residual is computed from
 //   the base outputs, so it is exact for whatever they are.
 // * The scans are exact over each tile (the plain versions truncate to
-//   npass/npass_c Hillis-Steele passes). The residual absorbs the
-//   difference, so kernel and plain version agree to double-float
-//   precision, not bit for bit.
+//   npass/npass_c Hillis-Steele passes), and both solves scan in the
+//   g = 1 - a form (KindCoef), where the plain versions keep JAX's float32
+//   multiplier a. The residual absorbs every rounding of the base solve,
+//   but the solves' shared multiplier bias survives one refinement as its
+//   square: the plain versions carry it, some 1e-11 of the state on long
+//   rows of thin groups, the kernels not. So kernel and plain version agree
+//   to the plain version's own distance from float64, not bit for bit.
 // * Cells past N in the last (ragged) tile load as 0 and are never stored;
 //   they lie downstream of every real cell.
 // * The halo kernels (B14, B15) take both direction halves as 2*Bh packed
@@ -87,21 +92,21 @@
 //   output, and the right-hand side with its error terms are live at once.
 //   The coefficients (30 floats a kind) live in shared memory.
 //
-// What bounds it on this card: the arithmetic of each row's serial tile
-// walk. A BDF2 cell-step is ~1016 float32 operations here against the
-// float32 kernel's 124 (capture, residual, second scan; counted in
-// chip_smoke.py), most of them __f*_rn that cannot fuse. B7 runs 2*Bh
-// blocks (Bh at a time for a reflective boundary), each walking its row's
-// T tiles x slots in order on one SM. On an H100 at the bench shape a
-// 2048-cell tile-phase took ~4.1 us; its ~254 operations a cell need ~2.1
-// us of the SM's 128 float32 lanes at 1.98 GHz, and the rest is barriers
-// and latency. B6's and B14's wavefront puts C blocks on each chain, so a
-// chain's critical path is ~T handoffs of one tile-phase each plus the
-// 4K - 1 slots of the last tile, not T * 4K tile-phases; B14's longest
-// chain (the seeded one past the halo) binds its launch. B15's puts C
-// blocks on each packed row: ~T_h + T_m handoffs plus the K - 1 slots of
-// the last tile. Device-memory traffic is 4 planes read and 12 (B6, B14)
-// or 8 (B7, B15) written per K-step launch.
+// What bounds it on this card: each chain's handoffs and tile-phases. A
+// BDF2 cell-step is ~1016 float32 operations here against the float32
+// kernel's 124 (capture, residual, second scan; counted in chip_smoke.py),
+// most of them __f*_rn that cannot fuse. On an H100 at the bench shape a
+// 2048-cell tile-phase took ~4.1 us when one block walked a row (its ~254
+// operations a cell need ~2.1 us of the SM's 128 float32 lanes at 1.98
+// GHz; the rest is barriers and latency), and only 2*Bh blocks ran (Bh at
+// a time for a reflective boundary). The wavefront puts C blocks on each
+// chain, so a chain's critical path is ~T handoffs of one tile-phase each
+// plus the last tile's remaining slots (4K - 1 for B6 and B14, K - 1 for
+// B7 and B15), not T * slots tile-phases, and a block runs T * slots / C
+// tile-phases; B14's longest chain (the seeded one past the halo) binds its
+// launch, B15's chain is a packed row's T_h + T_m tiles. Device-memory
+// traffic is 4 planes read and 12 (B6, B14) or 8 (B7, B15) written per
+// K-step launch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -173,9 +178,17 @@ __device__ __forceinline__ void cap(const DFConst& c, float v, float vlo,
 
 // One sub-step kind's coefficients: the base solve's float32 values and the
 // double-float constants of the capture and residual (hi parts are the
-// float32 values).
+// float32 values). g = 1 - a is the scans' multiplier as its distance from
+// 1: a = 2q^2 / (T0^2 + q^2), so 1 - a = (T0 - q)(T0 + q) * idet, with
+// T0 - q from the double-float T0 and q (where a ~ 1 the hi parts'
+// difference is exact and the lo parts give the rest). The float32 a lies
+// up to half an ulp from the true one, a relative error in 1 - a of
+// ~6e-8 * a / (1 - a); as the multiplier it biases both solves alike, and
+// one refinement leaves the square of that bias (some 1e-11 of the state
+// where 1/(1 - a) ~ 100, thin groups on long rows). g is good to a few ulps
+// of itself, so the scans below carry maps x -> (1 - G)*x + B.
 struct KindCoef {
-  float w, T0, q, idet, a;
+  float w, T0, q, idet, g;
   DFConst dT0, dq, dw, dkee, dkp, dc1;
   float S0h, S0l;                  // S0 = Sbase + c0
 };
@@ -187,7 +200,8 @@ __device__ __forceinline__ void load_kind(KindCoef& k,
   k.T0 = c[1];
   k.q = c[2];
   k.idet = c[3];
-  k.a = c[4];
+  k.g = mul(mul(add(sub(c[1], c[2]), sub(d[0], d[3])), add(c[1], c[2])),
+            c[3]);
   // Columns of the df pack, in _DF_ORDER: T0 q w kee kp c1.
   auto dfc = [d](int n, float hi) {
     return DFConst{hi, d[3 * n], d[3 * n + 1], d[3 * n + 2]};
@@ -311,7 +325,7 @@ __device__ __forceinline__ void df_substep(
 
   // -- 1. right-hand side with capture ---------------------------------------
   float r0[kCells], r0e[kCells], r1[kCells], r1e[kCells], b[kCells];
-  float A = 1.f, B = 0.f;
+  float G = 0.f, B = 0.f;  // this thread's map x -> (1 - G)*x + B
 #pragma unroll
   for (int c = 0; c < kCells; ++c) {
     float S, Se;
@@ -389,22 +403,22 @@ __device__ __forceinline__ void df_substep(
                    add(add(eg, eh), add(ei, ej)));
     }
     b[c] = (k.q * r0[c] + k.T0 * r1[c]) * k.idet;
-    B = k.a * B + b[c];
-    A = A * k.a;
+    B = b[c] + (B - k.g * B);
+    G = k.g + (G - k.g * G);
   }
 
   // -- 2. base: float32 scan and reconstruct ---------------------------------
-  float exA, exB;
+  float exG, exB;
   const float c_in =
-      block_exclusive_scan(A, B, &sm.carry[s], sm, buf, exA, exB);
-  float cur = exA * c_in + exB;  // carry entering this thread's first cell
+      block_exclusive_scan<true>(G, B, &sm.carry[s], sm, buf, exG, exB);
+  float cur = exB + (c_in - exG * c_in);  // carry entering the thread's cells
   float o0[kCells], o1[kCells];
 #pragma unroll
   for (int c = 0; c < kCells; ++c) {
     const float u = r0[c] + k.w * cur;
     o0[c] = (k.T0 * u - k.q * r1[c]) * k.idet;
     o1[c] = (k.q * u + k.T0 * r1[c]) * k.idet;
-    cur = k.a * cur + b[c];
+    cur = b[c] + (cur - k.g * cur);
     if (c == owner) sm.carry[s] = cur;
   }
 
@@ -415,7 +429,7 @@ __device__ __forceinline__ void df_substep(
   const float o1u = upwind_value(o1[kCells - 1], &sm.oth[s], sm.edge_o);
   const float o1u_l = ofl;  // 0 past the row's first tile and thread 0
   float rho0[kCells], rho1[kCells];
-  A = 1.f;
+  G = 0.f;
   B = 0.f;
 #pragma unroll
   for (int c = 0; c < kCells; ++c) {
@@ -437,21 +451,21 @@ __device__ __forceinline__ void df_substep(
     two_sum(t, -pT1, t, y2);
     rho1[c] = add(t, add(add(y1, y2), sub(add(r1e[c], eQ0), eT1)));
     b[c] = (k.q * rho0[c] + k.T0 * rho1[c]) * k.idet;
-    B = k.a * B + b[c];
-    A = A * k.a;
+    B = b[c] + (B - k.g * B);
+    G = k.g + (G - k.g * G);
   }
 
   // -- 4. correction scan, reconstruct and renormalise -----------------------
   const float cc_in =
-      block_exclusive_scan(A, B, &sm.ccarry[s], sm, buf, exA, exB);
-  cur = exA * cc_in + exB;
+      block_exclusive_scan<true>(G, B, &sm.ccarry[s], sm, buf, exG, exB);
+  cur = exB + (cc_in - exG * cc_in);
 #pragma unroll
   for (int c = 0; c < kCells; ++c) {
     const float u = rho0[c] + k.w * cur;
     // The last products are rounded on their own: two_sum must see them.
     const float d0 = mul(k.T0 * u - k.q * rho1[c], k.idet);
     const float d1 = mul(k.q * u + k.T0 * rho1[c], k.idet);
-    cur = k.a * cur + b[c];
+    cur = b[c] + (cur - k.g * cur);
     if (c == owner) {
       // The next tile's residual couples against the BASE o1 edge.
       sm.ccarry[s] = cur;
@@ -541,42 +555,6 @@ __device__ __forceinline__ void record_row(const Shared& sm, int slots,
   if (!(h == 0 && reflective)) return;
   float* r = rec + 2 * slots * row;
   write_record(sm, slots, r, r + slots);
-}
-
-// K whole double-float BE or CN steps over the cells [s0, s1) of the row at
-// plane offset `base`, in tiles aligned to s0. Starts from the slots and
-// tails in shared memory and leaves them there; prev = each step's input.
-template <int KIND>
-__device__ __forceinline__ void df_multistep_segment(const Planes& g,
-                                                     size_t base, int s0,
-                                                     int s1, int K,
-                                                     bool use_corr,
-                                                     Shared& sm, int& buf) {
-  const bool tail_thread = threadIdx.x == blockDim.x - 1;
-  const int tile = blockDim.x * kCells;
-  for (int t0 = s0; t0 < s1; t0 += tile) {
-    const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, s1, kCells);
-    const bool first = t0 == s0;
-    Pair4 x;
-    load_pair(x, g, base, j0, s1);
-    for (int k = 0; k < K; ++k) {
-      float xu_h = 0.f, xu_l = 0.f;
-      if constexpr (KIND == kCN)
-        upwind_pair(x.h1[kCells - 1], x.l1[kCells - 1], &sm.eth[k],
-                    &sm.etl[k], sm, xu_h, xu_l);
-      Pair4 f;
-      df_substep<KIND>(sm.kc[0], use_corr, x, x, x, xu_h, xu_l, 0.f, 0.f, k,
-                       first, owner, sm, buf, f);
-      if (KIND == kCN && tail_thread) {
-        sm.eth[k] = x.h1[kCells - 1];
-        sm.etl[k] = x.l1[kCells - 1];
-      }
-      if (k == K - 1) store_pair(g, 4, base, j0, s1, x);
-      x = f;
-    }
-    store_pair(g, 0, base, j0, s1, x);
-  }
 }
 
 // -- B6's and B14's wavefront: a chain's tiles across a thread block cluster
@@ -707,14 +685,14 @@ __device__ __forceinline__ bool df_bdf2_wave(const Planes& g, size_t base,
   return T > 0 && rank == (T - 1) % C;
 }
 
-// -- B15's wavefront: a packed row's tiles, one slot a step ----------------
+// -- B7's and B15's wavefront: a row's tiles, one slot a step --------------
 //
-// df_multistep_segment's tiles and slots (slot k: step k) as a wavefront,
-// as df_bdf2_wave is to one block walking B6's row. Slot k of tile t needs
-// only slot k of tile t-1 and slot k-1 of tile t, so tile t runs slot k
-// while tile t+1 runs slot k-1. The mail per slot is the base carry, the
-// correction carry, the upwind base o1 edge and, under CN, step k's p1 edge
-// (hi, lo): DFMailbox's fields, one slot a step.
+// The tiles and slots (slot k: step k) of the one-block walk B7 and B15 ran
+// before, as a wavefront, as df_bdf2_wave is to one block walking B6's row.
+// Slot k of tile t needs only slot k of tile t-1 and slot k-1 of tile t, so
+// tile t runs slot k while tile t+1 runs slot k-1. The mail per slot is the
+// base carry, the correction carry, the upwind base o1 edge and, under CN,
+// step k's p1 edge (hi, lo): DFMailbox's fields, one slot a step.
 using DFStepMailbox = Mailbox<5, kMaxSteps>;
 
 // Tile t > 0 takes slot k's state from its mailbox: thread 0 waits, then
@@ -758,11 +736,15 @@ __device__ __forceinline__ void take_step(Shared& sm, DFStepMailbox& mb,
 
 // K whole double-float BE or CN steps over the N cells of the row at plane
 // offset `base`, as this block's share of the row's wavefront: tiles rank,
-// rank + C, ... of the cluster's C blocks, laid out by `chains` (B15:
-// HaloChains, the halo chain from zero and then the seeded chain, whose
-// first tile takes its mail and reseeds from (seeds_h, seeds_l)). The
-// slots and tails in shared memory start as seed_row left them (they serve
-// tile 0). Every tile but the row's last sends its mail, the halo chain's
+// rank + C, ... of the cluster's C blocks, laid out by `chains` (B7:
+// OneChain, one chain from cell 0; B15: HaloChains, the halo chain from
+// zero and then the seeded chain, whose first tile takes its mail and
+// reseeds from (seeds_h, seeds_l)). The slots and tails in shared memory
+// start as init_row (B7) or seed_row (B15) left them: they serve tile 0
+// only, whose sub-steps read the slot's (hi, lo) inflow as `first`; every
+// later tile takes its slot's state from its mail (take_step), the
+// reseeding tile from the seeds. Every tile but the row's last sends its
+// mail, the halo chain's
 // last (ragged or not) too; a ragged tile's p1 tail is its owner's last
 // cell, past the chain's end, and the reseeding tile discards it. Returns
 // whether this block ran the row's last tile, whose slots then hold the
@@ -850,7 +832,15 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // B7, replaces _make_df_multistep_kernel (df_sweep.py:475): K whole
-// double-float BE or CN steps; prev = each step's input.
+// double-float BE or CN steps, prev = each step's input, as a wavefront
+// over (tile, slot), one slot a step (df_multistep_wave under OneChain,
+// which B15 runs under HaloChains): the cluster of C blocks at blockIdx.x /
+// C owns one row, block rank r its tiles r, r + C, ... The tiles, slots and
+// arithmetic are those of the one-block walk this kernel ran before; only
+// who runs a tile and how a slot's state reaches the next tile differ. The
+// mu<0 half of a reflective slab records its corrected outflow from the
+// block that ran the row's last tile; the mu>0 half, launched after it,
+// reads that record as its tile 0's inflow.
 template <int KIND>
 __global__ void __launch_bounds__(kMaxThreads)
     df_multistep_kernel(Packs pk, const float* __restrict__ bc,
@@ -859,14 +849,23 @@ __global__ void __launch_bounds__(kMaxThreads)
                         int Bh, int N, int K, int reflective, int use_corr,
                         int half0) {
   __shared__ Shared sm;
-  const int row = blockIdx.x % Bh;
-  const int h = half0 + blockIdx.x / Bh;
+  __shared__ DFStepMailbox mb;
+  const cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cr = blockIdx.x / C;
+  const int row = cr % Bh;
+  const int h = half0 + cr / Bh;
   const int hr = h * Bh + row;
+  open_mailboxes(mb, K);
+  // Kind and tails on every block; the slots' inflow serves tile 0 only.
   init_row(sm, K, K, 1, pk, bc, bcl, flip, rec, h, row, hr, reflective);
-  int buf = 0;
-  df_multistep_segment<KIND>(g, static_cast<size_t>(hr) * N, 0, N, K,
-                             use_corr, sm, buf);
-  record_row(sm, K, rec, h, row, reflective);
+  if (df_multistep_wave<KIND>(g, static_cast<size_t>(hr) * N, N, K,
+                              use_corr, sm, mb, C, rank, OneChain(), nullptr,
+                              nullptr))
+    record_row(sm, K, rec, h, row, reflective);
+  close_mailboxes();
 }
 
 // B14, replaces _make_df_halo_bdf2_kernel (df_sweep.py:640): K whole seeded
@@ -1011,24 +1010,50 @@ int rt_df_bdf2(const float* cbe, const float* ccn, const float* cbdf,
   });
 }
 
+// B7's launch shape for rows of N cells at K steps, at most max_threads
+// threads a block and max_cluster blocks a row, `clusters` rows a launch
+// (Bh for a reflective boundary, else 2*Bh): out = (threads a block, blocks
+// a row (the cluster), tiles a row). One slot a step.
+int rt_df_multistep_geometry(int N, int K, int max_threads, int max_cluster,
+                             int clusters, int* out) {
+  if (K < 1 || K > kMaxSteps || N < 1 || clusters < 1 || max_threads < 32 ||
+      max_threads > kMaxThreads || max_threads % 32 || max_cluster < 1 ||
+      max_cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = pick_threads(N, kCells, max_threads);
+  const int tiles = (N + threads * kCells - 1) / (threads * kCells);
+  out[0] = threads;
+  out[1] = wave_cluster(
+      tiles, K, threads, max_cluster, clusters,
+      {reinterpret_cast<const void*>(&df_multistep_kernel<kBE>),
+       reinterpret_cast<const void*>(&df_multistep_kernel<kCN>)});
+  out[2] = tiles;
+  return 0;
+}
+
+// max_threads and max_cluster as rt_df_multistep_geometry's.
 int rt_df_multistep(int kind, const float* coef, const float* dcoef,
                     const float* bc, const float* bcl, const int* flip,
                     float* rec, void* const* planes, int Bh, int N, int K,
-                    int reflective, int use_corr, void* stream) {
-  if (K < 1 || K > kMaxSteps || Bh < 1 || N < 1 ||
-      (kind != kBE && kind != kCN))
+                    int reflective, int use_corr, int max_threads,
+                    int max_cluster, void* stream) {
+  if (Bh < 1 || (kind != kBE && kind != kCN))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int geo[3];
+  const int bad = rt_df_multistep_geometry(N, K, max_threads, max_cluster,
+                                           reflective ? Bh : 2 * Bh, geo);
+  if (bad) return bad;
   const Packs pk{{coef, nullptr, nullptr}, {dcoef, nullptr, nullptr}};
   const Planes g = unpack_planes(planes, 8);
-  const int threads = pick_threads(N, kCells, kMaxThreads);
-  return launch_halves(Bh, reflective, [&](int grid, int half0) {
-    if (kind == kBE)
-      df_multistep_kernel<kBE><<<grid, threads, 0, st>>>(
-          pk, bc, bcl, flip, rec, g, Bh, N, K, reflective, use_corr, half0);
-    else
-      df_multistep_kernel<kCN><<<grid, threads, 0, st>>>(
-          pk, bc, bcl, flip, rec, g, Bh, N, K, reflective, use_corr, half0);
+  const int threads = geo[0], C = geo[1];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // A refused cluster launch returns its error, and the second half is
+  // not launched.
+  return launch_halves_ex(Bh, reflective, [&](int grid, int half0) {
+    return launch_clusters(
+        kind == kBE ? &df_multistep_kernel<kBE> : &df_multistep_kernel<kCN>,
+        grid, C, threads, st, pk, bc, bcl, flip, rec, g, Bh, N, K,
+        reflective, use_corr, half0);
   });
 }
 

@@ -1,12 +1,11 @@
 // The row tile of sweep.cu's kernels (kSegCells cells a thread) and its
 // shared-memory carries and tails per (step, phase) slot (SegShared), which
-// the cluster wavefronts of B1, B2 and B4 (sweep.cu) and B11 (adjoint.cu;
-// wave.cuh holds B1's, B4's and B11's one body), B3's and B5's one-block
-// walks and B8 share; the row's inflow and outflow records; and the
-// one-sub-step row walk (substep_segment) with a load hook, where one
-// thread block owns one row and loops over its tiles, which B3 (sweep.cu
-// substep_kernel) and B8 (sharded.cu, the corrections of the mesh engine
-// applied on load) share.
+// the cluster wavefronts of B1, B2, B4 and B5 (sweep.cu) and B11
+// (adjoint.cu; wave.cuh holds their bodies), B8's look-back (sharded.cu)
+// and B3's one-block walk share (B13, fused.cu, the tile alone); the row's
+// inflow and outflow records; and the one-sub-step row walk
+// (substep_segment), where one thread block owns one row and loops over its
+// tiles, which only B3 (sweep.cu substep_kernel) runs.
 
 #pragma once
 
@@ -73,9 +72,8 @@ __device__ __forceinline__ void record_row(const SegShared& sm, int slots,
 }
 
 // One sub-step of kind KIND over the N cells of one row (pointers are the
-// row's), in tiles from cell 0 (B3, and B8 with its pending corrections
-// applied on load): the carry and the upwind p1/h1 tails start where the
-// caller left them, in sm.carry[0], sm.etail[0] and sm.htail[0].
+// row's), in tiles from cell 0 (B3): the carry and the upwind p1/h1 tails start
+// where the caller left them, in sm.carry[0], sm.etail[0] and sm.htail[0].
 // load(j0, x0, x1, p0, p1, q0, q1) fills the thread's cells from j0 of the
 // planes KIND reads: e (x0, x1); CN also p1; BDF also p0, p1 and h (q0, q1).
 template <int KIND, class Load>

@@ -13,12 +13,12 @@
 // of _substep_block, in tiles.cuh, which the adjoint kernels of adjoint.cu
 // share), and one block-wide scan of affine maps (the counterpart of
 // _hillis_steele, in tiles.cuh, which the double-float kernels of
-// df_sweep.cu share too). B1, B2 and B4 walk each row as a cluster
-// wavefront (cluster.cuh, which df_sweep.cu's B6, B14 and B15 share; B1's
-// walk is wave.cuh bdf2_wave, which the K-fused adjoint forward B11 of
-// adjoint.cu and B4 run too); B5 keeps the one-block tile loop
-// (multistep_segment); B3 runs substep_segment (in segments.cuh), which
-// the mesh engine's B8 (sharded.cu) runs too.
+// df_sweep.cu share too). B1, B2, B4 and B5 walk each row as a cluster
+// wavefront (cluster.cuh, which df_sweep.cu's B6, B7, B14 and B15 share;
+// B1's walk is wave.cuh bdf2_wave, which the K-fused adjoint forward B11 of
+// adjoint.cu and B4 run too, and B2's is wave.cuh multistep_wave, which B5
+// runs too). Only B3 still walks a row on one block: substep_segment (in
+// segments.cuh).
 //
 // What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
 // planes and per sub-step: the right-hand sides r0, r1 of every cell, the
@@ -35,26 +35,26 @@
 //   t-1 (its carry and upwind tails) and step k-1 at tile t (in registers).
 //   K is a runtime argument. Each (step, phase) is a slot, 4K of them for
 //   BDF2 and K for BE or CN.
-// * B1, B2 and B4 run a row's tiles as a wavefront over (tile, slot) on a
+// * B1, B2, B4 and B5 run a row's tiles as a wavefront over (tile, slot) on a
 //   thread block cluster of C blocks (bdf2_kernel, multistep_kernel,
-//   halo_bdf2_kernel): slot
-//   s of tile t needs only slot s of tile t-1 and slot s-1 of tile t, so
-//   block rank r of the row's cluster runs tiles r, r + C, ..., and tile t
-//   runs slot s while tile t+1 runs slot s-1. Per slot the mail to the next
-//   tile's block is the carry leaving the tile, plus the tail the slot
-//   carries: B1 hands step k's upwind p1 edge on with slot 4k and its h1
-//   edge with slot 4k+1, B2-CN step k's p1 edge with slot k, B2-BE nothing
-//   more. The mail goes into the next block's mailbox in distributed shared
-//   memory, one mbarrier a slot (cluster.cuh: the protocol and why it needs
-//   no "free" signal). Only a chain's last tile may be ragged; the row's
-//   last sends nothing, and the block that runs it writes the outflow
-//   record. C = min(16, slots, tiles), shrunk until every row's cluster of
-//   the launch is resident on the card (rt_sweep_geometry,
-//   rt_sweep_halo_bdf2_geometry). The tiles, slots and arithmetic are those
-//   of the one-block walk, so the planes are the same to the bit.
-// * B3 and B5 keep the one-block walk: ONE thread block owns ONE row and
-//   loops over its tiles (multistep_segment; substep_segment), the carries
-//   and tails of every slot in shared memory.
+//   halo_bdf2_kernel, halo_multistep_kernel): slot s of tile t needs only slot
+//   s of tile t-1 and slot s-1 of tile t, so block rank r of the row's cluster
+//   runs tiles r, r + C, ..., and tile t runs slot s while tile t+1 runs slot
+//   s-1. Per slot the mail to the next tile's block is the carry leaving the
+//   tile, plus the tail the slot carries: B1 and B4 hand step k's upwind p1
+//   edge on with slot 4k and its h1 edge with slot 4k+1, B2-CN and B5-CN step
+//   k's p1 edge with slot k, B2-BE and B5-BE nothing more. The mail goes into
+//   the next block's mailbox in distributed shared memory, one mbarrier a slot
+//   (cluster.cuh: the protocol and why it needs no "free" signal). Only a
+//   chain's last tile may be ragged; the row's last sends nothing, and the
+//   block that runs it writes the outflow record. C = min(16, slots, tiles),
+//   shrunk until every row's cluster of the launch is resident on the card
+//   (rt_sweep_geometry, rt_sweep_halo_bdf2_geometry,
+//   rt_sweep_halo_multistep_geometry). The tiles, slots and arithmetic are
+//   those of the one-block walk, so the planes are the same to the bit.
+// * B3 alone keeps the one-block walk: ONE thread block owns ONE row and
+//   loops over its tiles (substep_segment), the carry and tails of its one
+//   slot in shared memory.
 // * Each thread holds kCells consecutive cells in registers. A tile's scan is
 //   a serial scan over the thread's cells, a warp-shuffle scan of the
 //   per-thread affine maps (a^kCells, local total), one cross-warp pass in
@@ -78,12 +78,12 @@
 //   chains: cells [0, reset_cell) from zero carries, then
 //   [reset_cell, X) from the per-(row, slot) `seeds` values with zero
 //   upwind tails, each segment tiled from its own start (reset_cell is a
-//   multiple of the JAX block, not of this kernel's tile). B5 walks both
-//   on one block, seed_row's barriers between them; B4 runs both on the
-//   row's one cluster as one sequence of tiles, the seeded chain's first
-//   tile taking its mail before it reseeds (cluster.cuh HaloChains; the
-//   halo chain's last tile, ragged or not, sends). Every row
-//   records its carries after the last cell. Because this kernel scans
+//   multiple of the JAX block, not of this kernel's tile). B4 and B5 run
+//   both on the row's one cluster as one sequence of tiles, the seeded
+//   chain's first tile taking its mail before it reseeds (cluster.cuh
+//   HaloChains; the halo chain's last tile, ragged or not, sends). Every
+//   row records its carries after the last cell, from the block that ran
+//   its last tile. Because this kernel scans
 //   exactly, a seed's influence does not stop at the creep bound the JAX
 //   engine's truncated scan enforces: it decays as a^distance, so the
 //   engine's splice of the fixup launch over the first H cells leaves an
@@ -104,9 +104,9 @@
 // 3.6 ms at K = 4, ~7 us a tile on the chain and 11x its byte bound; at
 // K = 8 the tile-phases bind at ~1.8 us each (PERF.md). The mu>0 half of a
 // reflective slab still waits for the whole mu<0 half. The halo kernels run
-// all 2*Bh rows at once: B5 on 8 SMs at gray S_8 (one block a row), B4 on
-// 8 clusters of C blocks, the halo chain's tiles ahead of the seeded
-// chain's on the same cluster.
+// all 2*Bh rows at once, B4 and B5 each on 8 clusters of C blocks at gray
+// S_8, the halo chain's tiles ahead of the seeded chain's on the same
+// cluster. Only B3 still runs a row's T tiles on one SM.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -140,49 +140,13 @@ __device__ __forceinline__ void seed_row(Shared& sm, int slots, int steps,
   __syncthreads();
 }
 
-// K whole BE or CN steps over the cells [s0, s1) of one row (pointers are
-// the row's), in tiles aligned to s0, from the carries and tails in shared
-// memory, which it leaves there; prev = each step's input.
-template <int KIND>
-__device__ __forceinline__ void multistep_segment(
-    const Coef& kc, const float* __restrict__ e0g,
-    const float* __restrict__ e1g, float* __restrict__ o0g,
-    float* __restrict__ o1g, float* __restrict__ op0g,
-    float* __restrict__ op1g, int s0, int s1, int K, Shared& sm, int& buf) {
-  const bool tail_thread = threadIdx.x == blockDim.x - 1;
-  const int tile = blockDim.x * kCells;
-  for (int t0 = s0; t0 < s1; t0 += tile) {
-    const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, s1, kCells);
-    float x0[kCells], x1[kCells];
-    load_cells(x0, e0g, j0, s1);
-    load_cells(x1, e1g, j0, s1);
-    for (int k = 0; k < K; ++k) {
-      float x1_up = 0.f;
-      if constexpr (KIND == kCN)
-        x1_up = upwind_value(x1[kCells - 1], &sm.etail[k], sm.edge_p);
-      float f0[kCells], f1[kCells];
-      substep_tile<KIND>(kc, x0, x1, x0, x1, x0, x1, x1_up, 0.f,
-                         sm.carry + k, owner, sm, buf, f0, f1);
-      if (tail_thread) sm.etail[k] = x1[kCells - 1];
-      if (k == K - 1) {
-        store_cells(op0g, j0, s1, x0);
-        store_cells(op1g, j0, s1, x1);
-      }
-      copy_cells(x0, f0);
-      copy_cells(x1, f1);
-    }
-    store_cells(o0g, j0, s1, x0);
-    store_cells(o1g, j0, s1, x1);
-  }
-}
-
-// -- B1's and B2's wavefront: a row's tiles across a thread block cluster ---
+// -- the wavefronts: a row's tiles across a thread block cluster ------------
 //
 // Per slot the mail is the carry leaving the tile and, where the slot
-// carries one, a tail: B1's slot 4k step k's upwind p1 edge (etail[k]), its
-// slot 4k+1 step k's h1 edge (htail[k]); B2-CN's slot k step k's p1 edge.
-// B2-BE's mail is the carry alone (wave.cuh: take, give).
+// carries one, a tail: B1's and B4's slot 4k step k's upwind p1 edge
+// (etail[k]), their slot 4k+1 step k's h1 edge (htail[k]); B2-CN's and
+// B5-CN's slot k step k's p1 edge. B2-BE's and B5-BE's mail is the carry
+// alone (wave.cuh: take, give).
 
 // B1, replaces _make_bdf2_kernel (pallas_sweep.py:444): K whole BDF2 steps,
 // each BE(dt/2), CN(dt/2), BE(dt/2) and the BDF corrector, as a wavefront
@@ -267,8 +231,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // B2, replaces _make_multistep_kernel (pallas_sweep.py:387): K whole BE or
 // CN steps, prev = each step's input, as a wavefront over (tile, slot) as in
-// bdf2_kernel, one slot a step; the tiles, slots and arithmetic are
-// multistep_segment's (which B5 keeps).
+// bdf2_kernel, one slot a step (wave.cuh multistep_wave, which B5 shares).
 template <int KIND>
 __global__ void __launch_bounds__(kMaxThreads)
     multistep_kernel(const float* __restrict__ coef,
@@ -279,56 +242,32 @@ __global__ void __launch_bounds__(kMaxThreads)
                      float* __restrict__ o1g, float* __restrict__ op0g,
                      float* __restrict__ op1g, int Bh, int N, int K, float s,
                      int reflective, int half0) {
-  constexpr bool kTail = KIND == kCN;
   __shared__ Shared sm;
-  __shared__ Mailbox<kTail ? 2 : 1, kMaxSteps> mb;
+  __shared__ StepMail<KIND> mb;
   const WaveRow w = wave_row(Bh, half0);
-  const int C = w.C, rank = w.rank;
   const float s_of[1] = {s};
   open_mailboxes(mb, K);
+  // Tails on every block; the slots' inflow serves tile 0 only.
   init_row(sm, K, K, s_of, 1, bc, flip, rec, w.h, w.row, w.hr, reflective);
-  const Coef kc = load_coef(coef + w.hr * kNCoef);
   const size_t base = static_cast<size_t>(w.hr) * N;
-  const int tile = blockDim.x * kCells;
-  const int T = (N + tile - 1) / tile;
-  const uint32_t next = (rank + 1) % C;
-  int buf = 0;
-  uint32_t parity = 0;
-  for (int t = rank; t < T; t += C) {
-    const int t0 = t * tile;
-    const int j0 = t0 + threadIdx.x * kCells;
-    const int owner = tile_owner(t0, j0, tile, N, kCells);
-    const bool first = t == 0;
-    const bool sender = t + 1 < T && owner >= 0;
-    float x0[kCells], x1[kCells];
-    load_cells(x0, e0g + base, j0, N);
-    load_cells(x1, e1g + base, j0, N);
-    for (int k = 0; k < K; ++k) {
-      if (!first) take(sm, mb, k, kTail ? &sm.etail[k] : nullptr, parity);
-      float x1_up = 0.f;
-      if constexpr (kTail)
-        x1_up = upwind_value(x1[kCells - 1], &sm.etail[k], sm.edge_p);
-      float f0[kCells], f1[kCells];
-      substep_tile<KIND>(kc, x0, x1, x0, x1, x0, x1, x1_up, 0.f,
-                         sm.carry + k, owner, sm, buf, f0, f1);
-      if (sender) give(sm, mb, k, next, x1[kCells - 1], kTail);
-      if (k == K - 1) {
-        store_cells(op0g + base, j0, N, x0);
-        store_cells(op1g + base, j0, N, x1);
-      }
-      copy_cells(x0, f0);
-      copy_cells(x1, f1);
-    }
-    store_cells(o0g + base, j0, N, x0);
-    store_cells(o1g + base, j0, N, x1);
-    if (!first) parity ^= 1u;
-  }
-  if (rank == (T - 1) % C) record_row(sm, K, rec, w.h, w.row, reflective);
+  // The block that ran the row's last tile holds the outflow carries.
+  if (multistep_wave<KIND>(load_coef(coef + w.hr * kNCoef), e0g + base,
+                           e1g + base, o0g + base, o1g + base, op0g + base,
+                           op1g + base, N, K, sm, mb, w.C, w.rank))
+    record_row(sm, K, rec, w.h, w.row, reflective);
   close_mailboxes();
 }
 
 // B5, replaces _make_halo_multistep_kernel (pallas_sweep.py:568): K whole
-// seeded BE or CN steps over packed rows, as halo_bdf2_kernel.
+// seeded BE or CN steps over packed rows (mu<0 rows first), each row a
+// wavefront over (tile, slot) on a cluster of C blocks (wave.cuh
+// multistep_wave, B2's body), laid out as halo_bdf2_kernel's: the row's
+// halo chain [0, reset_cell) from zero carries and its seeded chain
+// [reset_cell, X) as ONE sequence of tiles (cluster.cuh HaloChains), the
+// seeded chain's first tile taking each slot's mail before it starts from
+// seeds[k] with a zero tail (take-and-reseed). With reset_cell 0 the row is
+// one chain from the seeds. Every row records its carries after the last
+// cell, from the block that ran its last tile.
 template <int KIND>
 __global__ void __launch_bounds__(kMaxThreads)
     halo_multistep_kernel(const float* __restrict__ coef,
@@ -337,19 +276,23 @@ __global__ void __launch_bounds__(kMaxThreads)
                           const float* __restrict__ e1g,
                           float* __restrict__ o0g, float* __restrict__ o1g,
                           float* __restrict__ op0g, float* __restrict__ op1g,
-                          int X, int K, int reset_cell) {
+                          int rows, int X, int K, int reset_cell) {
   __shared__ Shared sm;
-  const int row = blockIdx.x;
-  const Coef kc = load_coef(coef + row * kNCoef);
+  __shared__ StepMail<KIND> mb;
+  const WaveRow w = wave_row(rows, 0);
+  const int row = w.hr;
+  const float* sd = seeds + static_cast<size_t>(row) * K;
+  open_mailboxes(mb, K);
+  // Tails on every block; the slots' inflow (zero before a halo chain, else
+  // the seeds) serves tile 0 only.
+  seed_row(sm, K, K, reset_cell > 0 ? nullptr : sd);
   const size_t base = static_cast<size_t>(row) * X;
-  int buf = 0;
-  seed_row(sm, K, K, nullptr);
-  multistep_segment<KIND>(kc, e0g + base, e1g + base, o0g + base, o1g + base,
-                          op0g + base, op1g + base, 0, reset_cell, K, sm, buf);
-  seed_row(sm, K, K, seeds + static_cast<size_t>(row) * K);
-  multistep_segment<KIND>(kc, e0g + base, e1g + base, o0g + base, o1g + base,
-                          op0g + base, op1g + base, reset_cell, X, K, sm, buf);
-  write_record(sm, K, rec + static_cast<size_t>(row) * K);
+  if (multistep_wave<KIND>(load_coef(coef + row * kNCoef), e0g + base,
+                           e1g + base, o0g + base, o1g + base, op0g + base,
+                           op1g + base, X, K, sm, mb, w.C, w.rank,
+                           HaloChains(reset_cell, blockDim.x * kCells), sd))
+    write_record(sm, K, rec + static_cast<size_t>(row) * K);
+  close_mailboxes();
 }
 
 // B3's loads: the planes of kind KIND as they are.
@@ -554,23 +497,51 @@ int rt_sweep_halo_bdf2(const float* cbe, const float* ccn, const float* cbdf,
       o0, o1, oh0, oh1, op0, op1, rows, X, K, reset_cell, symmetric));
 }
 
+// B5's launch shape for `rows` packed rows of X cells at K steps with the
+// seeded chains from reset_cell, at most max_threads threads a block and
+// max_cluster blocks a row: out = (threads a block, blocks a row (the
+// cluster), tiles of the seeded chain [reset_cell, X), tiles of the halo
+// chain [0, reset_cell)). One cluster a row runs both chains, one slot a
+// step.
+int rt_sweep_halo_multistep_geometry(int X, int K, int reset_cell,
+                                     int max_threads, int max_cluster,
+                                     int rows, int* out) {
+  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
+      reset_cell < 0 || reset_cell >= X || max_threads < 32 ||
+      max_threads > kMaxThreads || max_threads % 32 || max_cluster < 1 ||
+      max_cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = pick_threads(X, kCells, max_threads);
+  const int tile = threads * kCells;
+  const int main_tiles = (X - reset_cell + tile - 1) / tile;
+  const int halo_tiles = (reset_cell + tile - 1) / tile;
+  out[0] = threads;
+  out[1] = wave_cluster(
+      main_tiles + halo_tiles, K, threads, max_cluster, rows,
+      {reinterpret_cast<const void*>(&halo_multistep_kernel<kBE>),
+       reinterpret_cast<const void*>(&halo_multistep_kernel<kCN>)});
+  out[2] = main_tiles;
+  out[3] = halo_tiles;
+  return 0;
+}
+
+// max_threads and max_cluster as rt_sweep_halo_multistep_geometry's.
 int rt_sweep_halo_multistep(int kind, const float* coef, const float* seeds,
                             float* rec, const float* e0, const float* e1,
                             float* o0, float* o1, float* op0, float* op1,
                             int rows, int X, int K, int reset_cell,
-                            void* stream) {
-  if (K < 1 || K > kMaxSteps || rows < 2 || rows % 2 || X < 1 ||
-      reset_cell < 0 || reset_cell >= X || (kind != kBE && kind != kCN))
+                            int max_threads, int max_cluster, void* stream) {
+  if (kind != kBE && kind != kCN)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = pick_threads(X, kCells, kMaxThreads);
-  if (kind == kBE)
-    halo_multistep_kernel<kBE><<<rows, threads, 0, st>>>(
-        coef, seeds, rec, e0, e1, o0, o1, op0, op1, X, K, reset_cell);
-  else
-    halo_multistep_kernel<kCN><<<rows, threads, 0, st>>>(
-        coef, seeds, rec, e0, e1, o0, o1, op0, op1, X, K, reset_cell);
-  return static_cast<int>(cudaGetLastError());
+  int geo[4];
+  const int bad = rt_sweep_halo_multistep_geometry(
+      X, K, reset_cell, max_threads, max_cluster, rows, geo);
+  if (bad) return bad;
+  // A refused cluster launch returns its error.
+  return static_cast<int>(launch_clusters(
+      kind == kBE ? &halo_multistep_kernel<kBE> : &halo_multistep_kernel<kCN>,
+      rows, geo[1], geo[0], static_cast<cudaStream_t>(stream), coef, seeds,
+      rec, e0, e1, o0, o1, op0, op1, rows, X, K, reset_cell));
 }
 
 }  // extern "C"

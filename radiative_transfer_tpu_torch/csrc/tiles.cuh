@@ -18,7 +18,13 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 
 // Inclusive scan over a warp of the maps x -> A*x + B in lane order
-// ("f then g" composes to (gA*fA, gA*fB + gB)).
+// ("f then g" composes to (gA*fA, gA*fB + gB)). With kOneMinus the maps
+// are x -> (1 - A)*x + B, A carrying 1 minus the multiplier ("f then g":
+// (gA + (fA - gA*fA), gB + (fB - gA*fB))): the double-float kernels'
+// form, in which a multiplier near 1 keeps the relative precision of its
+// distance from 1 (df_sweep.cu, KindCoef::g). The identity is (1, 0), or
+// (0, 0) with kOneMinus.
+template <bool kOneMinus = false>
 __device__ __forceinline__ void warp_inclusive_scan(float& A, float& B) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -26,8 +32,13 @@ __device__ __forceinline__ void warp_inclusive_scan(float& A, float& B) {
     const float pA = __shfl_up_sync(kFull, A, d);
     const float pB = __shfl_up_sync(kFull, B, d);
     if (lane >= d) {
-      B = A * pB + B;
-      A = A * pA;
+      if constexpr (kOneMinus) {
+        B = B + (pB - A * pB);
+        A = A + (pA - A * pA);
+      } else {
+        B = A * pB + B;
+        A = A * pA;
+      }
     }
   }
 }
@@ -39,14 +50,16 @@ __device__ __forceinline__ void warp_inclusive_scan(float& A, float& B) {
 // the second). `buf` alternates between calls, so a warp that runs ahead
 // into the next scan never overwrites totals that another warp still reads.
 // S is the kernel's shared-memory struct; it must hold the double-buffered
-// cross-warp totals `float scanA[2][32], scanB[2][32]`.
-template <class S>
+// cross-warp totals `float scanA[2][32], scanB[2][32]`. kOneMinus: the
+// maps of warp_inclusive_scan<true>, (exA, exB) in the same form.
+template <bool kOneMinus = false, class S>
 __device__ __forceinline__ float block_exclusive_scan(
     float A, float B, const float* carry, S& sm, int& buf, float& exA,
     float& exB) {
+  constexpr float kIdA = kOneMinus ? 0.f : 1.f;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  warp_inclusive_scan(A, B);
+  warp_inclusive_scan<kOneMinus>(A, B);
   if (lane == 31) {
     sm.scanA[buf][warp] = A;
     sm.scanB[buf][warp] = B;
@@ -54,13 +67,13 @@ __device__ __forceinline__ float block_exclusive_scan(
   __syncthreads();
   const float c_in = *carry;
   if (warp == 0) {
-    float wA = lane < nwarps ? sm.scanA[buf][lane] : 1.f;
+    float wA = lane < nwarps ? sm.scanA[buf][lane] : kIdA;
     float wB = lane < nwarps ? sm.scanB[buf][lane] : 0.f;
-    warp_inclusive_scan(wA, wB);
+    warp_inclusive_scan<kOneMinus>(wA, wB);
     float xA = __shfl_up_sync(kFull, wA, 1);
     float xB = __shfl_up_sync(kFull, wB, 1);
     if (lane == 0) {
-      xA = 1.f;
+      xA = kIdA;
       xB = 0.f;
     }
     if (lane < nwarps) {
@@ -73,11 +86,16 @@ __device__ __forceinline__ float block_exclusive_scan(
   float tA = __shfl_up_sync(kFull, A, 1);
   float tB = __shfl_up_sync(kFull, B, 1);
   if (lane == 0) {
-    tA = 1.f;
+    tA = kIdA;
     tB = 0.f;
   }
-  exA = tA * wA;
-  exB = tA * wB + tB;
+  if constexpr (kOneMinus) {
+    exA = tA + (wA - tA * wA);
+    exB = tB + (wB - tA * wB);
+  } else {
+    exA = tA * wA;
+    exB = tA * wB + tB;
+  }
   buf ^= 1;
   return c_in;
 }

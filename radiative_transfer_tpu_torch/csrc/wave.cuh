@@ -1,20 +1,24 @@
-// The K-step BDF2 wavefront over (tile, slot) shared by B1 (sweep.cu
-// bdf2_kernel), the K-fused adjoint forward B11 (adjoint.cu
-// fwd_record_k_kernel) and the halo kernel B4 (sweep.cu halo_bdf2_kernel),
-// and the take and give of one slot's mail, which B2 (sweep.cu
-// multistep_kernel) shares.
+// The cluster wavefronts over (tile, slot) of sweep.cu's f32 kernels and
+// the K-fused adjoint forward: the K-step BDF2 wavefront (bdf2_wave) that B1
+// (sweep.cu bdf2_kernel), B11 (adjoint.cu fwd_record_k_kernel) and B4
+// (sweep.cu halo_bdf2_kernel) share, the K-step BE or CN wavefront, one slot
+// a step (multistep_wave), that B2 (sweep.cu multistep_kernel) and B5
+// (sweep.cu halo_multistep_kernel) share, and the take and give of one
+// slot's mail.
 //
 // A row's tiles run on the C blocks of a thread block cluster, tile t on
-// block t mod C, and each (step, phase) slot's carry goes from tile t to
-// tile t+1 through cluster.cuh's mailboxes, step k's upwind p1 edge with
-// slot 4k and its h1 edge with slot 4k+1. The tiles, slots and arithmetic
-// are those of the one-block walk that B4 ran before it (a loop over the
-// tiles, every slot's carry and tail in shared memory), so the planes are
-// its planes to the bit. A record hook sees each slot's carry entering the
-// tile, each step's upwind edges and the inputs of steps 1..K-1: NoRecords
-// for B1 and B4, B11's KRecords, so B11's six planes are B1's to the bit
-// and its records those of K chained B9 launches. A layout hook gives the
-// row's tiles: OneChain (cluster.cuh) for B1 and B11, HaloChains for B4,
+// block t mod C, and each slot's carry goes from tile t to tile t+1 through
+// cluster.cuh's mailboxes: in bdf2_wave a slot a (step, phase), step k's
+// upwind p1 edge with slot 4k and its h1 edge with slot 4k+1; in
+// multistep_wave a slot a step, under CN step k's p1 edge with slot k. The
+// tiles, slots and arithmetic are those of the one-block walks these
+// kernels ran before them (a loop over the tiles, every slot's carry and
+// tail in shared memory), so the planes are those walks' planes to the
+// bit. A record hook sees each slot's carry entering the tile, each step's
+// upwind edges and the inputs of steps 1..K-1: NoRecords for B1 and B4,
+// B11's KRecords, so B11's six planes are B1's to the bit and its records
+// those of K chained B9 launches. A layout hook gives the row's tiles:
+// OneChain (cluster.cuh) for B1, B2 and B11, HaloChains for B4 and B5,
 // whose seeded chain's first tile takes its mail and reseeds.
 
 #pragma once
@@ -32,8 +36,8 @@ namespace {
 // slot carries one, a tail (field 1).
 using WaveMail = Mailbox<2, kMaxSlots>;
 
-// The row a cluster block of a B1, B2 or B11 launch works on: the cluster
-// of C blocks at blockIdx.x / C owns row `row` of half h (hr = h * Bh +
+// The row a cluster block of a B1, B2, B4, B5 or B11 launch works on: the
+// cluster of C blocks at blockIdx.x / C owns row `row` of half h (hr = h * Bh +
 // row), block `rank` its tiles rank, rank + C, ...
 struct WaveRow {
   int C, rank, row, h, hr;
@@ -198,6 +202,73 @@ __device__ __forceinline__ void bdf2_wave(
     if (!first) parity ^= 1u;
   }
   if (outflow && rank == (T - 1) % C) write_record(sm, 4 * K, outflow);
+}
+
+// multistep_wave's mailbox: per slot (step) the carry leaving the tile and,
+// under CN, the step's upwind p1 edge.
+template <int KIND>
+using StepMail = Mailbox<KIND == kCN ? 2 : 1, kMaxSteps>;
+
+// K whole BE or CN steps over the N cells of one row (pointers are the
+// row's), one slot a step, as this block's share of the row's wavefront:
+// tiles rank, rank + C, ... of the cluster's C blocks, laid out by
+// `chains` (OneChain: B2's one chain from cell 0; HaloChains: B5's halo
+// chain, then its seeded chain, whose first tile takes its mail and starts
+// from seeds[k] with zero tails). Slot k of tile t needs only slot k of
+// tile t-1 and slot k-1 of tile t, so tile t runs step k while tile t+1
+// runs step k-1. The carries and tails in shared memory start as the kernel
+// left them (they serve tile 0; the mailboxes, opened before, bring every
+// later tile's). Every tile but the row's last sends its mail, a ragged one
+// (the halo chain's last) too; under CN the tail is the owner's last cell,
+// past the chain's end in a ragged tile, and the reseeding tile discards
+// it. prev = each step's input. Returns whether this block ran the row's
+// last tile, whose slots then hold the row's outflow carries.
+template <int KIND, class Chains = OneChain>
+__device__ __forceinline__ bool multistep_wave(
+    const Coef& kc, const float* __restrict__ e0g,
+    const float* __restrict__ e1g, float* __restrict__ o0g,
+    float* __restrict__ o1g, float* __restrict__ op0g,
+    float* __restrict__ op1g, int N, int K, SegShared& sm,
+    StepMail<KIND>& mb, int C, int rank, const Chains& chains = Chains(),
+    const float* seeds = nullptr) {
+  constexpr bool kTail = KIND == kCN;
+  const int tile = blockDim.x * kSegCells;
+  const int T = chains.tiles(N, tile);
+  const uint32_t next = (rank + 1) % C;
+  int buf = 0;
+  uint32_t parity = 0;
+  for (int t = rank; t < T; t += C) {
+    const int t0 = chains.start(t, tile);
+    const int s1 = chains.end(t, N);
+    const int j0 = t0 + threadIdx.x * kSegCells;
+    const int owner = tile_owner(t0, j0, tile, s1, kSegCells);
+    const bool waits = t > 0;
+    const bool sender = t + 1 < T && owner >= 0;
+    const float* seed = chains.reseeds(t) ? seeds : nullptr;
+    float x0[kSegCells], x1[kSegCells];
+    load_cells(x0, e0g, j0, s1);
+    load_cells(x1, e1g, j0, s1);
+    for (int k = 0; k < K; ++k) {
+      if (waits) take(sm, mb, k, kTail ? &sm.etail[k] : nullptr, parity, seed);
+      float x1_up = 0.f;
+      if constexpr (kTail)
+        x1_up = upwind_value(x1[kSegCells - 1], &sm.etail[k], sm.edge_p);
+      float f0[kSegCells], f1[kSegCells];
+      substep_tile<KIND>(kc, x0, x1, x0, x1, x0, x1, x1_up, 0.f,
+                         sm.carry + k, owner, sm, buf, f0, f1);
+      if (sender) give(sm, mb, k, next, x1[kSegCells - 1], kTail);
+      if (k == K - 1) {
+        store_cells(op0g, j0, s1, x0);
+        store_cells(op1g, j0, s1, x1);
+      }
+      copy_cells(x0, f0);
+      copy_cells(x1, f1);
+    }
+    store_cells(o0g, j0, s1, x0);
+    store_cells(o1g, j0, s1, x1);
+    if (waits) parity ^= 1u;
+  }
+  return T > 0 && rank == (T - 1) % C;
 }
 
 }  // namespace

@@ -45,10 +45,12 @@ _SIGNATURES = {
     "rt_sweep_substep": [_I] + [_P] * 12 + [_I, _I, _F, _I, _P],
     "rt_sweep_halo_bdf2": [_P] * 13 + [_I] * 7 + [_P],
     "rt_sweep_halo_bdf2_geometry": [_I] * 6 + [_P],
-    "rt_sweep_halo_multistep": [_I] + [_P] * 9 + [_I] * 4 + [_P],
+    "rt_sweep_halo_multistep": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+    "rt_sweep_halo_multistep_geometry": [_I] * 6 + [_P],
     "rt_df_bdf2": [_P] * 10 + [_PP] + [_I] * 8 + [_P],
     "rt_df_bdf2_geometry": [_I] * 5 + [_P],
-    "rt_df_multistep": [_I] + [_P] * 6 + [_PP] + [_I] * 5 + [_P],
+    "rt_df_multistep": [_I] + [_P] * 6 + [_PP] + [_I] * 7 + [_P],
+    "rt_df_multistep_geometry": [_I] * 5 + [_P],
     "rt_df_halo_bdf2": [_P] * 9 + [_PP] + [_I] * 8 + [_P],
     "rt_df_halo_bdf2_geometry": [_I] * 6 + [_P],
     "rt_df_halo_multistep": [_I] + [_P] * 5 + [_PP] + [_I] * 7 + [_P],

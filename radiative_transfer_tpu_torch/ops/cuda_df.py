@@ -28,19 +28,28 @@ sub-step is iterative refinement inside the kernel, as in the JAX engine:
 4. CORRECT: a second float32 scan solve of A*delta = rho, then
    out = two_sum(x_base, delta).
 
-Every float32 error of the base solve (rounding, the scan, the carry
-across blocks or tiles) lands in the output-based residual, so the result
-tracks the float64 engine to double-float precision whatever scan the
-base ran. That is why the CUDA kernels (csrc/df_sweep.cu), which scan each
-tile exactly, and the plain versions here (``*_launch_ref``), which keep
-the JAX kernels' blocks, truncated Hillis-Steele scans (``npass`` from
-scan_tol, ``npass_c`` from CORR_SCAN_TOL) and operation order,
-agree to double-float precision and not bit for bit: compare hi + lo in
-float64, never the hi planes alone.
+Every float32 rounding of the base solve (the scan, the carry across
+blocks or tiles) lands in the output-based residual. What one refinement
+does not remove is a bias both solves share: the scan multiplier a in
+float32 lies up to half an ulp from the true a, a relative error in 1 - a
+of ~6e-8 * a / (1 - a), and the refined result keeps its square, some
+1e-11 of the state where 1/(1 - a) ~ 100 (thin groups on long rows), and
+more at larger 1/(1 - a) and K. The plain versions
+here (``*_launch_ref``) keep the JAX kernels' blocks, truncated
+Hillis-Steele scans (``npass`` from scan_tol, ``npass_c`` from
+CORR_SCAN_TOL), float32 multiplier and operation order, and so that bias.
+The CUDA kernels (csrc/df_sweep.cu) scan each tile exactly and carry the
+multiplier as g = 1 - a from the double-float T0 and q (KindCoef there),
+which removes it. So the two agree to the plain version's own distance from
+float64, not bit for bit: compare hi + lo in float64, never the hi planes
+alone; where that distance exceeds the bar, hold the kernel against the
+function in float64 (chip_smoke.py's df_truth).
 
 Each wrapper launches its kernel for a CUDA tensor and raises if it
-cannot; for a CPU tensor it runs the plain version. Each counts its
-kernel launches in ``<wrapper>.launches``.
+cannot (every kernel runs each row's tiles as a wavefront over a thread
+block cluster, its shape from the matching ``*_geometry``; a refused
+cluster launch raises too); for a CPU tensor it runs the plain version.
+Each counts its kernel launches in ``<wrapper>.launches``.
 
 State: ``DFState(hi, lo)``, two FlatStates of (2, Bh, N) float32 planes.
 The JAX state's opaque ``one`` exists only to stop XLA from folding its
@@ -547,11 +556,12 @@ def _plane_array(ins, outs):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-# B6's, B14's and B15's launch shape: at most this many threads a block (a
-# tile is 4 cells a thread; 512 keeps B15 on B7's tiles, so DFHaloCudaEngine
-# stays bit-equal to DFCudaEngine at BE and CN) and blocks a row (above 8 a
-# non-portable cluster size); the kernel takes fewer blocks a row where the
-# card cannot hold every row's cluster at once. 512 threads beat 256, and
+# B6's, B7's, B14's and B15's launch shape: at most this many threads a
+# block (a tile is 4 cells a thread; 512 keeps B7 and B15 on the tiles of
+# the one-block walk B7 ran before, so DFHaloCudaEngine stays bit-equal to
+# DFCudaEngine at BE and CN) and blocks a row (above 8 a non-portable
+# cluster size); the kernel takes fewer blocks a row where the card cannot
+# hold every row's cluster at once. 512 threads beat 256, and
 # 16 blocks beat 8 at gray_s8 (chip_smoke.py times both).
 DF_BDF2_THREADS = 512
 DF_BDF2_MAX_CLUSTER = 16
@@ -564,6 +574,18 @@ def df_bdf2_geometry(N: int, K: int, rows: int) -> Tuple[int, int, int]:
     out = (ctypes.c_int * 3)()
     load_kernels().rt_df_bdf2_geometry(N, K, DF_BDF2_THREADS,
                                        DF_BDF2_MAX_CLUSTER, rows, out)
+    return tuple(out)
+
+
+def df_multistep_geometry(N: int, K: int, rows: int) -> Tuple[int, int, int]:
+    """B7's launch shape for `rows` rows a launch (Bh for a reflective
+    boundary, else 2*Bh) of N cells at K steps: (threads a block, blocks a
+    row, i.e. the cluster size, tiles a row). B6's caps, one slot a
+    step."""
+    out = (ctypes.c_int * 3)()
+    cs._raise_on("df_multistep_geometry",
+                 load_kernels().rt_df_multistep_geometry(
+                     N, K, DF_BDF2_THREADS, DF_BDF2_MAX_CLUSTER, rows, out))
     return tuple(out)
 
 
@@ -636,7 +658,9 @@ def df_multistep_launch(kind: int, coef, dcoef, bc, bcl, flip, e0h, e0l, e1h,
                         e1l, *, K: int, reflective: bool, use_corr: bool,
                         blk: int, npass: int, npass_c: int):
     """B7: K whole double-float BE or CN steps in one launch (see
-    ``df_multistep_launch_ref``)."""
+    ``df_multistep_launch_ref``), each row's tiles as a wavefront over a
+    cluster of blocks (``df_multistep_geometry``); the mu<0 half of a
+    reflective slab first, the mu>0 half reading its record."""
     if e0h.device.type == "cpu":
         return df_multistep_launch_ref(
             kind, coef, dcoef, bc, bcl, flip, e0h, e0l, e1h, e1l, K=K,
@@ -655,8 +679,8 @@ def df_multistep_launch(kind: int, coef, dcoef, bc, bcl, flip, e0h, e0l, e1h,
     with torch.cuda.device(e0h.device):
         rc = lib.rt_df_multistep(
             kind, *map(cs._ptr, (coef, dcoef, bc, bcl, flip, rec)), planes,
-            Bh, N, K, int(reflective), int(use_corr),
-            cs._stream(e0h.device))
+            Bh, N, K, int(reflective), int(use_corr), DF_BDF2_THREADS,
+            DF_BDF2_MAX_CLUSTER, cs._stream(e0h.device))
     cs._raise_on(name, rc)
     df_multistep_launch.launches += 1
     return tuple(outs)

@@ -23,9 +23,10 @@ One carries the per-sub-step mesh engine (parallel/sharded_cuda.py):
   ``_make_sharded_packed_kernel``; csrc/sharded.cu).
 
 Each wrapper launches its kernel in csrc/sweep.cu (B8: csrc/sharded.cu)
-for a CUDA tensor and raises if it cannot (B1, B2 and B4 walk each row as
-a wavefront over a thread block cluster, ``sweep_geometry`` and
-``halo_bdf2_geometry``; a refused cluster launch raises too); for a CPU
+for a CUDA tensor and raises if it cannot (B1, B2, B4 and B5 walk each row
+as a wavefront over a thread block cluster, ``sweep_geometry``,
+``halo_bdf2_geometry`` and ``halo_multistep_geometry``; a refused cluster
+launch raises too); for a CPU
 tensor it runs its plain PyTorch version
 (``*_launch_ref``), which keeps the JAX kernel's blocked algorithm: the
 same (half, block) visit order, the same truncated Hillis-Steele scan
@@ -512,8 +513,8 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-# B1's, B2's and B4's launch shape: at most this many threads a block (a
-# tile is 8 cells a thread; 512 keeps the tiles of the one-block walks
+# B1's, B2's, B4's and B5's launch shape: at most this many threads a block
+# (a tile is 8 cells a thread; 512 keeps the tiles of the one-block walks
 # these kernels replaced, so B11 stays bit-equal to B1 and HaloCudaEngine
 # to CudaSweepEngine) and blocks a row (a cluster; above 8 a non-portable
 # size). The kernel takes fewer blocks a row where the card cannot hold
@@ -753,10 +754,28 @@ def halo_bdf2_launch(cbe, ccn, cbdf, seeds, reset: int, e0, e1, *, K: int,
     return (*outs, rec)
 
 
+def halo_multistep_geometry(X: int, K: int, reset_cell: int,
+                            rows: int) -> Tuple[int, int, int, int]:
+    """B5's launch shape for `rows` packed rows of X cells at K steps with
+    the seeded chains from cell reset_cell: (threads a block, blocks a row,
+    i.e. the cluster size, tiles of the seeded chain [reset_cell, X), tiles
+    of the halo chain [0, reset_cell) from zero). B2's tiles and caps; one
+    cluster a row runs both chains, one slot a step."""
+    out = (ctypes.c_int * 4)()
+    _raise_on("halo_multistep_geometry",
+              load_kernels().rt_sweep_halo_multistep_geometry(
+                  X, K, reset_cell, SWEEP_THREADS, SWEEP_MAX_CLUSTER, rows,
+                  out))
+    return tuple(out)
+
+
 def halo_multistep_launch(kind: int, coef, seeds, reset: int, e0, e1, *,
                           K: int, blk: int, npass: int):
     """B5: K whole seeded BE or CN steps over packed (rows, X) planes in
-    one launch. Returns (ends0, ends1, prev0, prev1, record)."""
+    one launch (see ``halo_multistep_launch_ref``). The kernel restarts the
+    chains at cell reset*blk and scans exactly, each row's two chains one
+    wavefront over a cluster of blocks (``halo_multistep_geometry``).
+    Returns (ends0, ends1, prev0, prev1, record)."""
     if e0.device.type == "cpu":
         return halo_multistep_launch_ref(kind, coef, seeds, reset, e0, e1,
                                          K=K, blk=blk, npass=npass)
@@ -771,7 +790,8 @@ def halo_multistep_launch(kind: int, coef, seeds, reset: int, e0, e1, *,
     with torch.cuda.device(e0.device):
         rc = lib.rt_sweep_halo_multistep(
             kind, *map(_ptr, (coef, seeds, rec, e0, e1, *outs)),
-            rows, X, K, reset * blk, _stream(e0.device))
+            rows, X, K, reset * blk, SWEEP_THREADS, SWEEP_MAX_CLUSTER,
+            _stream(e0.device))
     _raise_on(name, rc)
     halo_multistep_launch.launches += 1
     return (*outs, rec)
