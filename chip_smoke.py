@@ -12,7 +12,14 @@ Phases, one line each; any failure exits nonzero before the result line:
 3. kernel parity: each CUDA kernel (B1 bdf2, B2 multistep, B3 substep) on
    seeded random states against its plain PyTorch version on the same card,
    max error over max magnitude <= 1e-5 (the kernels scan exactly, the plain
-   versions truncate to scan_tol = 1e-10; the rest is f32 rounding);
+   versions truncate to scan_tol = 1e-10; the rest is f32 rounding); B3's
+   look-back on its own shapes (BE, CN and BDF, reflective and source left:
+   a row below one tile, a ragged last tile, whole tiles, 40 tiles, a
+   169984-cell row by check_f64, the llnl deck's Bh = 124, N = 50 rows,
+   and the bench shape (gray S_32, N = 2^20, reflective) at TOL, or by
+   check_f64 where the float32 plain version itself lies above TOL from
+   float64), REPEAT launches each, the worst held; step() at BE and CN
+   within STEP_TOL of multi_step(st, 1);
 4. main path: the port's CLI with --engine pallas --device cuda on
    prm/llnl_slab_test.prm (2 steps), prm/single_group.prm (200 steps) and its
    BE and CN variants, plus BE/CN engine.step() calls; the 8 CSVs must be
@@ -24,7 +31,9 @@ Phases, one line each; any failure exits nonzero before the result line:
    the plain version's time for one K-step launch at the same shape and
    the peak device memory above what the phase started with, and B1's
    and B2-CN's launch shapes at that size (rows x blocks a row x tiles;
-   more than one block a row);
+   more than one block a row) and B3's (rows x tiles); then the same
+   workload at BE and CN through step() (one B3 launch a step) and at CN
+   through solve() (B2, K = 16), timed likewise;
 6. tiny-batch auto route (the packed-rows halo engine, B4 and B5): B4's
    cluster wavefront (one cluster a packed row, the seeded chain's first
    tile taking its mail before it reseeds) on its own shapes, each launched
@@ -252,14 +261,16 @@ and the gray rung's main launches, B15 and B5 at gray_s8's CN main launch
 and B7 at the df bench's CN shape, each at the blocks a row the geometry
 picks and at half as many; B11 at
 the adjoint bench at the blocks a row the geometry picks and at half as
-many; B8 at the gray shard with 32-512 threads; B9 at the adjoint bench
-with 32-512 threads; B13 at the gray shard with 32-128 threads and its
-materialize_only variant; B10 and B12 (K = 4) at the
+many; B3 at the bench (BE, CN, BDF) with 32-512 threads; B8 at the gray
+shard with 32-512 threads; B9 at the adjoint bench with 32-512 threads;
+B13 at the gray shard with 32-128 threads and its materialize_only
+variant; B10 and B12 (K = 4) at the
 adjoint bench with 256 and 128 threads a block, each at the blocks a row
 the geometry picks and at half as many.
-Lines set B4's, B5's, B7's, B9's, B11's, B13's, B14's and B15's times (and
-the HaloCudaEngine and DFCudaEngine rates they carry) against their
-one-block row walks'.
+Lines set B3's (at BE, CN and BDF, beside their bounds), B4's, B5's,
+B7's, B9's, B11's, B13's, B14's and B15's times (and the step(),
+HaloCudaEngine and DFCudaEngine rates they carry) against their one-block
+row walks'.
 A line splits each kernel's launches on its path's phases into those at
 the shape it is timed at and the rest. The last lines are the kernels
 JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -292,6 +303,11 @@ DRIFT_TOL = 5e-5
 # f64-grade engine drift ~1e-13 a step from float64).
 DF_TOL = 1e-11
 DF_CLI_TOL = 1e-10
+# step() at BE and CN (B3's look-back) against multi_step(st, 1) (B2's
+# wavefront) on the same state: exact scans over other tiles, composed in
+# another order, so rounding apart (B9 against B1/B2 at K = 1 has the same
+# bar).
+STEP_TOL = 1e-6
 # Launches of each redesigned kernel (B1's, B2's, B4's, B5's, B6's, B7's,
 # B10's, B11's, B12's, B14's and B15's wavefronts, B8's, B9's and B13's
 # look-backs) per new parity shape: a race shows intermittently, so the
@@ -327,6 +343,14 @@ B11_B14_WALK = {"fwd_record_k_launch ms": 2.832,
 B9_B13_WALK = {"fwd_record_launch ms": 0.9834, "fused_step_launch ms": 4.401,
                "grad_k1_vs_fwd": 13.06,
                "gray rung FusedExchangeCudaEngine": 2.99295e10}
+# B3's one-launch times at the bench (gray S_32, N = 2^20, reflective) and
+# step()'s rates on the bench workload at BE and CN while B3 still walked
+# each row on one thread block (two launches a sub-step, one a half),
+# measured on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit (PERF.md
+# section 6), printed beside this run's.
+B3_WALK = {"substep_launch BE ms": 3.2881, "substep_launch CN ms": 3.5854,
+           "substep_launch BDF ms": 4.7249, "step() BE": 1.0195e10,
+           "step() CN": 9.4121e9}
 # B4's and B15's one-launch times (gray_s8's halo main launch, BDF2 K = 8
 # and CN K = 8) and HaloCudaEngine's rates on gray_s8 and on the gray rung
 # at one rank while both still walked each row on one thread block,
@@ -925,10 +949,11 @@ def main() -> int:
         return {BE: (st.e0, st.e1), CN: (st.e0, st.e1, st.p1),
                 BDF: tuple(st)}[kind]
 
-    def substep_plain(eng, kind, st):
+    def substep_plain(eng, kind, st, f64=False):
+        d = (lambda t: t.double()) if f64 else (lambda t: t)
         return cs.substep_launch_ref(
-            kind, eng.coef[kind], eng.bc, eng.flip,
-            substep_planes(kind, st), s=eng.kcs[kind].s,
+            kind, d(eng.coef[kind]), d(eng.bc), eng.flip,
+            [d(x) for x in substep_planes(kind, st)], s=eng.kcs[kind].s,
             reflective=eng.reflective, blk=eng.block,
             npass=eng.scan_npass[kind])
 
@@ -1007,11 +1032,74 @@ def main() -> int:
     def f64(xs):
         return [x.double() for x in xs]
 
-    eng = mg(3, reflective=True)
-    for kind, label in ((BE, "BE"), (CN, "CN"), (BDF, "BDF")):
-        st = rand_state(eng, kind)
-        check("substep_launch", f"B3-{label}", eng.substep(kind, st),
-              substep_plain(eng, kind, st))
+    # B3's look-back (one block a tile of cs.substep_geometry, both halves in
+    # one launch) on its own shapes, each launched REPEAT times against one
+    # plain launch, the worst held: the tiles' maps compose in an order that
+    # depends on timing. The mg deck (Bh = 16) at BE, CN and BDF, reflective
+    # and source left: a row below one tile, 6 whole tiles and a ragged
+    # quarter tile, 6 whole tiles, 40 tiles and a ragged half (beyond one
+    # warp's look-back window), at TOL; a 169984-cell row by check_f64 (the
+    # float32 plain version lies up to ~4e-5 from float64 there); the llnl
+    # deck's Bh = 124, N = 50 rows at TOL; the bench shape (gray S_32,
+    # N = 2^20, reflective: the rows phase 5's step() calls launch B3 on) at
+    # TOL, or by check_f64 where the float32 plain version itself lies above
+    # TOL from float64 (f64_rule None decides so for each kind).
+    b3_tile = cs.substep_geometry(1 << 20)[0] * 8
+
+    def b3_hold(e, label, f64_rule=False):
+        for kind, kname in ((BE, "BE"), (CN, "CN"), (BDF, "BDF")):
+            st = rand_state(e, 40 + kind)
+            ref = substep_plain(e, kind, st)
+            ref64 = substep_plain(e, kind, st, f64=True)
+            rule64 = (max(nerr(r, r64) for r, r64 in zip(ref, ref64)) > TOL
+                      if f64_rule is None else f64_rule)
+            hold = ref64 if rule64 else ref
+            worst, worst_err = None, -1.0
+            for _ in range(REPEAT):
+                got = e.substep(kind, st)
+                err = max(nerr(g, r) for g, r in zip(got, hold))
+                if err > worst_err:
+                    worst, worst_err = got, err
+            tag = (f"B3-{kname}-{label}-N{e.cfg.N}-"
+                   f"T{cs.substep_geometry(e.cfg.N)[1]}")
+            if rule64:
+                check_f64("substep_launch", tag, worst, ref, ref64)
+            else:
+                check("substep_launch", tag, worst, ref)
+
+    for refl in (True, False):
+        for label, Nx, f64_rule in (
+                ("below-one-tile", b3_tile // 2, False),
+                ("ragged", 6 * b3_tile + b3_tile // 4, False),
+                ("whole-tiles", 6 * b3_tile, False),
+                ("40-tiles", 40 * b3_tile + b3_tile // 2, False),
+                ("long", 41 * 4096 + 2048, True)):
+            b3_hold(engine(load_config(deck, M=8, G=4, N=Nx, ts_method=3,
+                                       bc_left_indicator=2 if refl else 1)),
+                    f"{label}-{'refl' if refl else 'src'}", f64_rule)
+    b3_hold(engine(load_config(os.path.join(ROOT, "prm",
+                                            "llnl_slab_test.prm"))),
+            "llnl-Bh124")
+    b3_hold(engine(gray_cfg(32, 1 << 20, 3)), "bench", None)
+    # step() at BE and CN (B3) against B2 at K = 1 on the same state, on the
+    # mg deck (both boundaries) and at the bench: both scan exactly, over
+    # other tiles in another order, so STEP_TOL, not bits.
+    for ts_method in (1, 2):
+        for refl in (True, False, None):
+            e = (engine(gray_cfg(32, 1 << 20, ts_method)) if refl is None
+                 else mg(ts_method, refl))
+            st = rand_state(e, 30 + ts_method)
+            err = max(max(nerr(a, b) for a, b in zip(e.step(st),
+                                                     e.multi_step(st, 1)))
+                      for _ in range(REPEAT))
+            label = (f"step-vs-B2-K1-{'BE' if ts_method == 1 else 'CN'}-"
+                     + ("bench" if refl is None else
+                        f"mg-{'refl' if refl else 'src'}"))
+            checks.append(f"{label}={err:.1e}")
+            if not err <= STEP_TOL:
+                raise AssertionError(f"{label}: step() against "
+                                     f"multi_step(st, 1) {err:.3e} > "
+                                     f"{STEP_TOL}")
     for ts_method, K, refl in ((1, 1, True), (1, 5, False), (2, 1, False),
                                (2, 5, True)):
         e = mg(ts_method, refl)
@@ -1534,13 +1622,34 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps, out
 
+    # step() at BE and CN on the bench workload (one B3 launch a step) and
+    # the CN steps K = Kcn a launch through solve() (B2), 64 steps each,
+    # windowed as the bench; M * N updates a step.
+    cn_eng = engine(gray_cfg(M, N, 2))
+    Kcn = cn_eng.max_steps_per_launch()
+
+    def stepping(eng_):
+        def solve(s, n):
+            for _ in range(n):
+                s = eng_.step(s)
+            return s
+        return solve
+
+    step_rates = {}
+    for ts_method, tag in ((1, "BE"), (2, "CN")):
+        eng_s = cn_eng if ts_method == 2 else engine(gray_cfg(M, N, 1))
+        sec_s, win_s, _ = windows_of(stepping(eng_s), eng_s.init_state(), 2)
+        step_rates[f"step() {tag}"] = (M * N * steps / sec_s, win_s)
+    sec_s, win_s, _ = windows_of(
+        lambda s, n: cn_eng.solve(s, num_steps=n, steps_per_launch=Kcn),
+        cn_eng.init_state(), 2 * Kcn)
+    step_rates[f"B2 CN K={Kcn}"] = (M * N * steps / sec_s, win_s)
+
     launches = read_counts(PATH_PLAIN, "the main path (phases 4-5)")
 
     plain_ms, _ = timed(lambda: bdf2_plain(big, st, K), 1)
     # B1's and B2-CN's launch shapes at the bench: a cluster of C > 1
     # blocks a row.
-    cn_eng = engine(gray_cfg(M, N, 2))
-    Kcn = cn_eng.max_steps_per_launch()
     wave_grids = {}
     for tag, Kx, spp in (("B1", K, 4), ("B2-CN", Kcn, 1)):
         threads, C, T = cs.sweep_geometry(N, Kx, big.Bh, spp)
@@ -1548,6 +1657,9 @@ def main() -> int:
                            f"{threads} threads a launch, {T} tiles a row")
         if C < 2:
             raise AssertionError(f"{tag} at the bench runs {C} block a row")
+    threads, T = cs.substep_geometry(N)
+    wave_grids["B3"] = (f"{2 * big.Bh} rows x {T} tiles a row, one block of "
+                        f"{threads} threads a tile, one launch")
     print(f"phase 5 full size: gray S_32 N=2^20 BDF2 K={K} block "
           f"{big.block}: {steps} steps in {seconds:.4f} s (median of "
           f"{fmt_windows(windows)}) = {rate:.6g} "
@@ -1556,6 +1668,12 @@ def main() -> int:
           f"{peak_gib:.3f} GiB above the phase's start; max|x| ok; grids: "
           + "; ".join(f"{k} {v}" for k, v in wave_grids.items())
           + f"; card: {card}", flush=True)
+    print(f"phase 5 stepping: gray S_32 N=2^20, {steps} steps, median of 3 "
+          f"windows: " + "; ".join(
+              f"{k} {r:.6g} updates/s ({fmt_windows(w)} s)"
+              for k, (r, w) in step_rates.items())
+          + f" (row walk: step() BE {B3_WALK['step() BE']:.6g}, CN "
+          f"{B3_WALK['step() CN']:.6g}); card: {card}", flush=True)
 
     # -- 6. tiny-batch auto route ------------------------------------------------
     from radiative_transfer_tpu_torch.parallel import make_multichip_engine
@@ -3571,6 +3689,13 @@ def main() -> int:
         ms = shaped(cs, "SWEEP_MAX_CLUSTER", mc,
                     lambda: ca.fwd_record_k_launch(*b9_in, K=Ka, **ageo), 5)
         shape_ms.append(f"B11 adjoint bench K={Ka} C={mc} {ms:.3f} ms")
+    # B3 at the bench, each kind, with 32-512 threads a block (look-back
+    # tiles of 8 cells a thread).
+    for thr in (32, 64, 128, 256, 512):
+        for kind, kname in ((BE, "BE"), (CN, "CN"), (BDF, "BDF")):
+            ms = shaped(cs, "SUBSTEP_THREADS", thr,
+                        lambda: big.substep(kind, rs), 20)
+            shape_ms.append(f"B3 bench {kname} {thr} threads {ms:.4f} ms")
     for thr in (32, 64, 128, 512):
         ms = shaped(cs, "SHARDED_THREADS", thr,
                     lambda: cs.sharded_substep_launch(*b8_args, **b8_kw), 20)
@@ -3612,6 +3737,22 @@ def main() -> int:
     print("path launches at the timed shape + elsewhere: " + ", ".join(split),
           flush=True)
     row_ms = {row["name"]: row["ms"] for row in table}
+    # B3 at the bench at each kind (BDF the table's row), beside its bound:
+    # BE reads 2 planes, CN 3, BDF 6, and each writes 2.
+    b3_kinds = []
+    for kind, kname, nplanes in ((BE, "BE", 4), (CN, "CN", 5),
+                                 (BDF, "BDF", 8)):
+        ms = (row_ms["substep_launch"] if kind == BDF else
+              timed(lambda: big.substep(kind, rs), 20)[0])
+        bms, by = bound(nplanes * planes
+                        + nbytes(big.coef[kind], big.bc, big.flip),
+                        cells * FLOPS_PER_CELL[kname])
+        b3_kinds.append(f"{kname} {ms:.4f} ms (bound {bms:.4f} by {by}; row "
+                        f"walk {B3_WALK[f'substep_launch {kname} ms']})")
+    print(f"B3, one launch at the bench ({cs.SUBSTEP_THREADS} threads a "
+          "block), this run against the row walk (one block a row, NVIDIA "
+          "H100 80GB HBM3 at 700.00 W): " + "; ".join(b3_kinds)
+          + f"; card: {card}", flush=True)
     print("B9 and B13, one launch, this run against the row walk (one block "
           "a row, NVIDIA H100 80GB HBM3 at 700.00 W): fwd_record_launch "
           f"{row_ms['fwd_record_launch']:.4f} ms (row walk "

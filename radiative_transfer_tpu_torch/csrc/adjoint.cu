@@ -420,16 +420,13 @@ __device__ __forceinline__ void fwd_record_tile(
   }
   float c_out;
   auto slot = [&](int p) { return status + p * words + hr * T; };
-  // Tile 0's carry in: s_p * the boundary value, or for the mu>0 half of a
-  // reflective slab s_p * the mu<0 outflow of the flipped row, the
-  // INCLUSIVE word of that row's last tile (its tickets all came first).
+  // Tile 0's carry in (lb_row_inflow): s_p * the boundary value, or the
+  // flipped mu<0 row's outflow (its tickets all came first).
   auto inflow = [&](int p) {
     return [=] {
-      const float in =
-          (h == 1 && reflective)
-              ? lb_wait_inclusive(status + p * words + flip[row] * T + T - 1)
-              : bc[hr];
-      return phase_s<TS>(p, s_be, s_cn, s_bdf) * in;
+      return lb_row_inflow(phase_s<TS>(p, s_be, s_cn, s_bdf),
+                           status + p * words, h, row, hr, T, reflective, bc,
+                           flip);
     };
   };
   auto record = [&](int p, float c_in) {
@@ -497,15 +494,11 @@ __global__ void __launch_bounds__(kFwdThreads)
   constexpr int nedge = TS == 3 ? 1 : 0;
   lb_ticket(sm, status + static_cast<size_t>(nph + nedge) * 2 * Bh * T);
   __syncthreads();
-  // Tickets run tile-major across the rows of a group: both halves' rows
-  // for a source boundary, else the mu<0 half's rows first, then the mu>0
-  // half's (whose row starts wait on the mu<0 outflow).
-  const int group = reflective ? Bh : 2 * Bh;
-  const int per = group * T;
-  const int g = sm.ticket / per, rem = sm.ticket - g * per;
-  const int t = rem / group;
-  const int hr = g * group + rem - t * group;
-  const int h = hr / Bh, row = hr - h * Bh;
+  // Tickets run tile-major across a group of rows, every mu<0 one first
+  // for a reflective boundary (lb_tile).
+  const LbTile w = lb_tile(sm.ticket, Bh, T, reflective);
+  const int h = w.h, row = w.row, t = w.t;
+  const int hr = h * Bh + row;
   if (threadIdx.x == 0) {
     kc[0] = load_coef(cbe + hr * kNCoef);
     kc[1] = load_coef(ccn + hr * kNCoef);

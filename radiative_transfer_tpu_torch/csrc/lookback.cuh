@@ -1,10 +1,11 @@
-// The multi-slot single-pass chained scan with decoupled look-back (Merrill &
-// Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
-// NVIDIA 2016) that B9 (adjoint.cu fwd_record_kernel) and B13 (fused.cu
-// fused_step_kernel) run: one thread block a tile of a row, S scan slots a
-// tile (the sub-steps of a step, in order), each slot's carries chained
-// across the row's tiles by its own status words. B8 (sharded.cu) runs the
-// one-slot case with its own copy of the words and is left as it is.
+// The single-pass chained scan with decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016)
+// that B3 (sweep.cu substep_kernel, one slot), B9 (adjoint.cu
+// fwd_record_kernel) and B13 (fused.cu fused_step_kernel) run: one thread
+// block a tile of a row, S scan slots a tile (the sub-steps of a step, in
+// order), each slot's carries chained across the row's tiles by its own
+// status words. B8 (sharded.cu) runs the one-slot case with its own copy of
+// the words and is left as it is.
 //
 // Why it fits. `a` is constant along a row, so a full tile's map of a slot's
 // carry is x -> a^L * x + B_t and only the one float B_t has to travel
@@ -16,12 +17,13 @@
 //
 // The protocol, per block:
 // * Tickets. Thread 0 takes the block's ticket from a per-launch counter
-//   (lb_ticket); the kernel maps it tile-major across its rows, so every
-//   tile's predecessors in its row took smaller tickets. A block waits only
-//   on words of smaller tickets (its row's earlier tiles; B9's mu>0 row
-//   start on the mu<0 half, whose tickets all come first), and a ticket is
-//   only handed to a block that is running: no block waits on one that has
-//   not started.
+//   (lb_ticket); B3 and B9 map it tile-major across a group of rows
+//   (lb_tile), B13 across its packed rows, so every tile's predecessors in
+//   its row took smaller tickets. A block waits only on words of smaller
+//   tickets (its row's earlier tiles; B3's and B9's mu>0 row start on the
+//   mu<0 half, whose tickets all come first), and a ticket is only handed
+//   to a block that is running: no block waits on one that has not
+//   started.
 // * Status words. One 64-bit word a (slot, row, tile): the flag in the high
 //   half, the float in the low, stored and loaded as one access (B8's
 //   words), so a reader that sees a flag sees its value. Warp 0, which runs
@@ -33,14 +35,15 @@
 //   latest: a lane before the row's start reads as a ready AGGREGATE 0 and
 //   never ends one. The row's last tile (perhaps ragged; no tile looks back
 //   through it) publishes only INCLUSIVE, from the owner of its last real
-//   cell after the reconstruction: the carry leaving the row (B9's mu<0
-//   outflow).
+//   cell after the reconstruction: the carry leaving the row (B3's and
+//   B9's mu<0 outflow, lb_row_inflow).
 // * Edge words. The one-cell edges a successor's shift reads (a slot's
 //   last-cell output) are words of their own, (EDGE, value), written by the
 //   thread that holds the tile's last cell after the slot's reconstruction
 //   with st.release.gpu and read by the successor's thread 0 with
 //   ld.acquire.gpu, spinning until the flag is set. Each carries its own
-//   flag: no reader infers an edge's presence from another word.
+//   flag: no reader infers an edge's presence from another word. B3 reads
+//   its edges from its input planes and has none.
 // * Scratch. The status and edge words and the counter live in one scratch
 //   the entry point zeroes on the stream before each launch.
 //
@@ -143,6 +146,41 @@ __device__ __forceinline__ float lb_wait_edge(const unsigned long long* w) {
     if (static_cast<unsigned>(word >> 32) == kLbEdge)
       return __uint_as_float(static_cast<unsigned>(word));
   }
+}
+
+// The tile a ticket stands for: tickets run tile-major across the rows of a
+// group, both halves' rows for a source boundary, else the mu<0 half's rows
+// first and then the mu>0 half's, whose row starts wait on the mu<0 outflow
+// (lb_row_inflow), so every word a block waits on has a smaller ticket.
+struct LbTile {
+  int h, row, t;
+};
+
+__device__ __forceinline__ LbTile lb_tile(int ticket, int Bh, int T,
+                                          int reflective) {
+  const int group = reflective ? Bh : 2 * Bh;
+  const int per = group * T;
+  const int g = ticket / per, rem = ticket - g * per;
+  const int t = rem / group;
+  const int hr = g * group + rem - t * group;
+  const int h = hr / Bh;
+  return {h, hr - h * Bh, t};
+}
+
+// Tile 0's carry in for row `row` of half h (hr = h * Bh + row) of a slot
+// whose status words of the launch, (2 * Bh, T), start at `st`: s times the
+// boundary value, or for the mu>0 half of a reflective slab s times the
+// mu<0 outflow of the flipped row, the INCLUSIVE word of that row's last
+// tile, waited on (one thread).
+__device__ __forceinline__ float lb_row_inflow(
+    float s, const unsigned long long* st, int h, int row, int hr, int T,
+    int reflective, const float* __restrict__ bc,
+    const int* __restrict__ flip) {
+  const float in =
+      (h == 1 && reflective)
+          ? lb_wait_inclusive(st + static_cast<size_t>(flip[row]) * T + T - 1)
+          : bc[hr];
+  return s * in;
 }
 
 // The carry entering tile t > 0 of a slot whose status words of the row

@@ -11,14 +11,17 @@
 //                                                 BE or CN, packed rows)
 // All run on one __device__ sub-step routine, substep_tile (the counterpart
 // of _substep_block, in tiles.cuh, which the adjoint kernels of adjoint.cu
-// share), and one block-wide scan of affine maps (the counterpart of
-// _hillis_steele, in tiles.cuh, which the double-float kernels of
-// df_sweep.cu share too). B1, B2, B4 and B5 walk each row as a cluster
-// wavefront (cluster.cuh, which df_sweep.cu's B6, B7, B14 and B15 share;
-// B1's walk is wave.cuh bdf2_wave, which the K-fused adjoint forward B11 of
-// adjoint.cu and B4 run too, and B2's is wave.cuh multistep_wave, which B5
-// runs too). Only B3 still walks a row on one block: substep_segment (in
-// segments.cuh).
+// share; B3 on its two stages, substep_rhs and substep_out, with the
+// look-back between them, lookback.cuh lb_substep), and one block-wide
+// scan of affine maps (the counterpart of _hillis_steele, in tiles.cuh,
+// which the double-float kernels of df_sweep.cu share too). B1, B2, B4 and
+// B5 walk each row as a cluster wavefront (cluster.cuh, which df_sweep.cu's
+// B6, B7, B14 and B15 share; B1's walk is wave.cuh bdf2_wave, which the
+// K-fused adjoint forward B11 of adjoint.cu and B4 run too, and B2's is
+// wave.cuh multistep_wave, which B5 runs too). B3 runs one sub-step as a
+// one-slot look-back scan, one block a tile (lookback.cuh, which B9 of
+// adjoint.cu and B13 of fused.cu share); no kernel here walks a row on one
+// block.
 //
 // What is computed. Per row (direction half h, batch r) of the (2, Bh, N)
 // planes and per sub-step: the right-hand sides r0, r1 of every cell, the
@@ -52,19 +55,22 @@
 //   (rt_sweep_geometry, rt_sweep_halo_bdf2_geometry,
 //   rt_sweep_halo_multistep_geometry). The tiles, slots and arithmetic are
 //   those of the one-block walk, so the planes are the same to the bit.
-// * B3 alone keeps the one-block walk: ONE thread block owns ONE row and
-//   loops over its tiles (substep_segment), the carry and tails of its one
-//   slot in shared memory.
+// * B3 has one slot, so it needs no wavefront: one thread block a tile of
+//   blockDim*kCells cells (SUBSTEP_THREADS threads, ops/cuda_sweep.py),
+//   every tile of both halves in one launch, each tile's carry in resolved
+//   by decoupled look-back over its row's earlier tiles (substep_kernel).
 // * Each thread holds kCells consecutive cells in registers. A tile's scan is
 //   a serial scan over the thread's cells, a warp-shuffle scan of the
 //   per-thread affine maps (a^kCells, local total), one cross-warp pass in
 //   shared memory, and a serial fix-up of the thread's cells.
 // * Reflective left boundary: the mu>0 inflow of row i is s_p times the mu<0
-//   outflow of row flip[i] for the same (step, phase). The mu<0 half is
-//   launched first and writes a (Bh, slots) outflow record; the mu>0 half is
-//   launched second and reads it through `flip` (a gather: the TPU kernel's
-//   permutation matmul exists only because Mosaic has no reverse). With a
-//   source boundary the halves are independent and share one launch.
+//   outflow of row flip[i] for the same (step, phase). In B1 and B2 the mu<0
+//   half is launched first and writes a (Bh, slots) outflow record; the mu>0
+//   half is launched second and reads it through `flip` (a gather: the TPU
+//   kernel's permutation matmul exists only because Mosaic has no reverse).
+//   B3 runs both halves in one launch, the mu>0 row starts waiting on the
+//   flipped mu<0 rows' last look-back words. With a source boundary the
+//   halves are independent and share one launch.
 // * The scan is not truncated. The JAX kernels cut the in-block Hillis-Steele
 //   scan to _scan_npass passes, whose neglected upwind tail is bounded by
 //   scan_tol (1e-10 relative, pallas_sweep.py:97-117), far below f32
@@ -106,7 +112,8 @@
 // reflective slab still waits for the whole mu<0 half. The halo kernels run
 // all 2*Bh rows at once, B4 and B5 each on 8 clusters of C blocks at gray
 // S_8, the halo chain's tiles ahead of the seeded chain's on the same
-// cluster. Only B3 still runs a row's T tiles on one SM.
+// cluster. B3 puts all 2*Bh*T tiles of a sub-step in flight at once: its
+// serial depth is one look-back a tile, not the row's T tiles.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -115,6 +122,7 @@
 #include <cstdint>
 
 #include "cluster.cuh"
+#include "lookback.cuh"
 #include "segments.cuh"
 #include "wave.cuh"
 
@@ -295,54 +303,73 @@ __global__ void __launch_bounds__(kMaxThreads)
   close_mailboxes();
 }
 
-// B3's loads: the planes of kind KIND as they are.
-template <int KIND>
-struct PlainLoad {
-  const float *e0, *e1, *p0, *p1, *h0, *h1;
-  int N;
-  __device__ __forceinline__ void operator()(
-      int j0, float (&x0)[kCells], float (&x1)[kCells], float (&q0p)[kCells],
-      float (&q1p)[kCells], float (&q0h)[kCells],
-      float (&q1h)[kCells]) const {
-    load_cells(x0, e0, j0, N);
-    load_cells(x1, e1, j0, N);
-    if constexpr (KIND == kCN) load_cells(q1p, p1, j0, N);
-    if constexpr (KIND == kBDF) {
-      load_cells(q0p, p0, j0, N);
-      load_cells(q1p, p1, j0, N);
-      load_cells(q0h, h0, j0, N);
-      load_cells(q1h, h1, j0, N);
-    }
-  }
-};
-
-// B3, replaces _make_kernel (pallas_sweep.py:229): one sub-step. BE reads
-// (e0, e1), CN also p1, BDF all six planes.
+// B3, replaces _make_kernel (pallas_sweep.py:229): one BE, CN or BDF
+// sub-step as a one-slot look-back scan (lookback.cuh lb_substep), one
+// thread block a tile of blockDim*kCells cells, both halves in one launch
+// (lb_tile: every mu<0 ticket first for a reflective boundary; tile 0's
+// carry in from lb_row_inflow). BE reads (e0, e1), CN also p1, BDF all six
+// planes. A tile's upwind p1/h1 edges are the input planes' values at cell
+// t0 - 1, and 0 at a half's start, where JAX zeroes its tails
+// (pallas_sweep.py:244-266): no block waits on another for an edge.
+// `status` holds the words (2*Bh, T), then the tile counter, all zeroed.
 template <int KIND>
 __global__ void __launch_bounds__(kMaxThreads)
     substep_kernel(const float* __restrict__ coef,
                    const float* __restrict__ bc, const int* __restrict__ flip,
-                   float* rec, const float* __restrict__ e0g,
+                   const float* __restrict__ e0g,
                    const float* __restrict__ e1g,
                    const float* __restrict__ p0g,
                    const float* __restrict__ p1g,
                    const float* __restrict__ h0g,
                    const float* __restrict__ h1g, float* __restrict__ o0g,
-                   float* __restrict__ o1g, int Bh, int N, float s,
-                   int reflective, int half0) {
-  __shared__ Shared sm;
-  const int row = blockIdx.x % Bh;
-  const int h = half0 + blockIdx.x / Bh;
-  const int hr = h * Bh + row;
-  const float s_of[1] = {s};
-  init_row(sm, 1, 1, s_of, 1, bc, flip, rec, h, row, hr, reflective);
+                   float* __restrict__ o1g, int Bh, int N, int T, float s,
+                   int reflective, unsigned long long* status) {
+  __shared__ LookbackShared sm;
+  lb_ticket(sm, status + static_cast<size_t>(2 * Bh) * T);
+  __syncthreads();
+  const LbTile w = lb_tile(sm.ticket, Bh, T, reflective);
+  const int hr = w.h * Bh + w.row;
+  const int tile = blockDim.x * kCells;
+  const int t0 = w.t * tile;
+  const int j0 = t0 + threadIdx.x * kCells;
+  const int owner = tile_owner(t0, j0, tile, N, kCells);
   const size_t base = static_cast<size_t>(hr) * N;
-  const PlainLoad<KIND> load{e0g + base, e1g + base, p0g + base,
-                             p1g + base, h0g + base, h1g + base, N};
+  const Coef kc = load_coef(coef + hr * kNCoef);
+  float x0[kCells], x1[kCells], p0[kCells], p1[kCells], q0[kCells],
+      q1[kCells], o0[kCells], o1[kCells], c_out;
+  load_cells(x0, e0g + base, j0, N);
+  load_cells(x1, e1g + base, j0, N);
+  // Thread 0's upwind values of the tile (t0 - 1 lies inside the row).
+  if constexpr (KIND != kBE) {
+    load_cells(p1, p1g + base, j0, N);
+    if (threadIdx.x == 0) sm.ptail = t0 ? p1g[base + t0 - 1] : 0.f;
+  }
+  if constexpr (KIND == kBDF) {
+    load_cells(p0, p0g + base, j0, N);
+    load_cells(q0, h0g + base, j0, N);
+    load_cells(q1, h1g + base, j0, N);
+    if (threadIdx.x == 0) sm.htail = t0 ? h1g[base + t0 - 1] : 0.f;
+  }
+  unsigned long long* st = status + static_cast<size_t>(hr) * T;
+  auto inflow = [=] {
+    return lb_row_inflow(s, status, w.h, w.row, hr, T, reflective, bc, flip);
+  };
   int buf = 0;
-  substep_segment<KIND>(load_coef(coef + hr * kNCoef), load, o0g + base,
-                        o1g + base, N, sm, buf);
-  record_row(sm, 1, rec, h, row, reflective);
+  if constexpr (KIND == kBE) {
+    lb_substep<kBE>(kc, x0, x1, x0, x1, x0, x1, 0.f, 0.f, w.t, T, owner, st,
+                    inflow, sm, buf, o0, o1, c_out);
+  } else if constexpr (KIND == kCN) {
+    const float p1_up = upwind_value(p1[kCells - 1], &sm.ptail, sm.edge_p);
+    lb_substep<kCN>(kc, x0, x1, x0, p1, x0, x1, p1_up, 0.f, w.t, T, owner,
+                    st, inflow, sm, buf, o0, o1, c_out);
+  } else {
+    const float p1_up = upwind_value(p1[kCells - 1], &sm.ptail, sm.edge_p);
+    const float h1_up = upwind_value(q1[kCells - 1], &sm.htail, sm.edge_h);
+    lb_substep<kBDF>(kc, x0, x1, p0, p1, q0, q1, p1_up, h1_up, w.t, T, owner,
+                     st, inflow, sm, buf, o0, o1, c_out);
+  }
+  store_cells(o0g + base, j0, N, o0);
+  store_cells(o1g + base, j0, N, o1);
 }
 
 }  // namespace
@@ -352,7 +379,8 @@ extern "C" {
 // Each entry point launches on `stream`, does not synchronise, and returns
 // the launch's error (0 on success). Planes are contiguous (2, Bh, N)
 // float32, coefficients (2, Bh, 10) float32, bc (2, Bh, 1) float32, flip
-// (Bh,) int32, rec a (Bh, slots) float32 scratch record.
+// (Bh,) int32, rec a (Bh, slots) float32 scratch record (B1, B2; B3 takes
+// a look-back scratch instead).
 
 // B1's and B2's launch shape for rows of N cells at K steps of
 // slots_per_step slots each (4: B1; 1: B2, both kinds), at most max_threads
@@ -424,29 +452,50 @@ int rt_sweep_multistep(int kind, const float* coef, const float* bc,
   });
 }
 
+// B3's launch shape for rows of N cells at most max_threads threads a block
+// (a power of two from 32 to 512): out = (threads a block, look-back tiles
+// a row); the scratch the wrapper passes holds 2 * Bh * tiles + 1 words.
+int rt_sweep_substep_geometry(int N, int max_threads, int* out) {
+  if (!lb_shape_ok(N, max_threads, kMaxThreads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  lb_geometry(N, kCells, max_threads, out);
+  return 0;
+}
+
+// Unread planes may alias any plane (BE reads e0, e1; CN also p1). status:
+// the look-back scratch of rt_sweep_substep_geometry's size at the same
+// max_threads, zeroed here before the launch. Both halves run in one
+// launch, the mu<0 half's tiles first for a reflective boundary.
 int rt_sweep_substep(int kind, const float* coef, const float* bc,
-                     const int* flip, float* rec, const float* e0,
-                     const float* e1, const float* p0, const float* p1,
-                     const float* h0, const float* h1, float* o0, float* o1,
-                     int Bh, int N, float s, int reflective, void* stream) {
-  if (Bh < 1 || N < 1 || kind < kBE || kind > kBDF)
+                     const int* flip, const float* e0, const float* e1,
+                     const float* p0, const float* p1, const float* h0,
+                     const float* h1, float* o0, float* o1,
+                     unsigned long long* status, int Bh, int N, float s,
+                     int reflective, int max_threads, void* stream) {
+  int geo[2];
+  if (Bh < 1 || kind < kBE || kind > kBDF ||
+      rt_sweep_substep_geometry(N, max_threads, geo))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = pick_threads(N, kCells, kMaxThreads);
-  return launch_halves(Bh, reflective, [&](int grid, int half0) {
-    if (kind == kBE)
-      substep_kernel<kBE><<<grid, threads, 0, st>>>(
-          coef, bc, flip, rec, e0, e1, p0, p1, h0, h1, o0, o1, Bh, N, s,
-          reflective, half0);
-    else if (kind == kCN)
-      substep_kernel<kCN><<<grid, threads, 0, st>>>(
-          coef, bc, flip, rec, e0, e1, p0, p1, h0, h1, o0, o1, Bh, N, s,
-          reflective, half0);
-    else
-      substep_kernel<kBDF><<<grid, threads, 0, st>>>(
-          coef, bc, flip, rec, e0, e1, p0, p1, h0, h1, o0, o1, Bh, N, s,
-          reflective, half0);
-  });
+  const int threads = geo[0], T = geo[1];
+  const cudaError_t err = cudaMemsetAsync(
+      status, 0,
+      (static_cast<size_t>(2 * Bh) * T + 1) * sizeof(*status), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = 2 * Bh * T;
+  if (kind == kBE)
+    substep_kernel<kBE><<<grid, threads, 0, st>>>(
+        coef, bc, flip, e0, e1, p0, p1, h0, h1, o0, o1, Bh, N, T, s,
+        reflective, status);
+  else if (kind == kCN)
+    substep_kernel<kCN><<<grid, threads, 0, st>>>(
+        coef, bc, flip, e0, e1, p0, p1, h0, h1, o0, o1, Bh, N, T, s,
+        reflective, status);
+  else
+    substep_kernel<kBDF><<<grid, threads, 0, st>>>(
+        coef, bc, flip, e0, e1, p0, p1, h0, h1, o0, o1, Bh, N, T, s,
+        reflective, status);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The halo kernels take packed (rows, X) planes, rows = 2*Bh with the mu<0

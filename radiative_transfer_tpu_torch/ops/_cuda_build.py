@@ -42,7 +42,8 @@ _SIGNATURES = {
     "rt_sweep_multistep": [_I] + [_P] * 10 + [_I, _I, _I, _F] + [_I] * 3
     + [_P],
     "rt_sweep_geometry": [_I] * 6 + [_P],
-    "rt_sweep_substep": [_I] + [_P] * 12 + [_I, _I, _F, _I, _P],
+    "rt_sweep_substep": [_I] + [_P] * 12 + [_I, _I, _F, _I, _I, _P],
+    "rt_sweep_substep_geometry": [_I, _I, _P],
     "rt_sweep_halo_bdf2": [_P] * 13 + [_I] * 7 + [_P],
     "rt_sweep_halo_bdf2_geometry": [_I] * 6 + [_P],
     "rt_sweep_halo_multistep": [_I] + [_P] * 9 + [_I] * 6 + [_P],

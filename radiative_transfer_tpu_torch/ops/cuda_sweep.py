@@ -3,7 +3,8 @@
 Port of radiative_transfer_tpu/ops/pallas_sweep.py (PallasEngine and its
 kernel factories). Three kernel wrappers carry the engine:
 
-* ``substep_launch``   — one BE, CN or BDF sub-step (B3, ``_make_kernel``);
+* ``substep_launch``   — one BE, CN or BDF sub-step (B3, ``_make_kernel``;
+  one block a tile, decoupled look-back, ``substep_geometry``);
 * ``multistep_launch`` — K whole BE or CN steps (B2,
   ``_make_multistep_kernel``);
 * ``bdf2_launch``      — K whole BDF2 four-phase steps (B1,
@@ -594,10 +595,27 @@ def multistep_launch(kind: int, coef, bc, flip, e0, e1, *, K: int,
     return tuple(outs)
 
 
+# B3's threads a block at most (a look-back tile is 8 cells a thread; a
+# power of two from 32 to 512).
+SUBSTEP_THREADS = 64
+
+
+def substep_geometry(N: int) -> Tuple[int, int]:
+    """B3's launch shape for rows of N cells: (threads a block, look-back
+    tiles a row); the kernel runs one block a tile."""
+    out = (ctypes.c_int * 2)()
+    _raise_on("substep_geometry", load_kernels().rt_sweep_substep_geometry(
+        N, SUBSTEP_THREADS, out))
+    return tuple(out)
+
+
 def substep_launch(kind: int, coef, bc, flip, planes, *, s: float,
                    reflective: bool, blk: int, npass: int):
     """B3: one sub-step. `planes` is (e0, e1) for BE, (e0, e1, p1) for
-    CN, (e0, e1, p0, p1, h0, h1) for BDF. Returns the new (e0, e1)."""
+    CN, (e0, e1, p0, p1, h0, h1) for BDF. Returns the new (e0, e1). On the
+    card one block a tile of ``substep_geometry``, the tiles' carries
+    chained by decoupled look-back, both halves in one launch; `blk`/
+    `npass` shape the plain version only."""
     if planes[0].device.type == "cpu":
         return substep_launch_ref(kind, coef, bc, flip, planes, s=s,
                                   reflective=reflective, blk=blk,
@@ -607,12 +625,16 @@ def substep_launch(kind: int, coef, bc, flip, planes, *, s: float,
     Bh, N = _check_cuda(name, (coef,), bc, flip, tuple(planes))
     lib = load_kernels()
     o0, o1 = torch.empty_like(e0), torch.empty_like(e0)
-    rec = torch.empty((Bh, 1), dtype=torch.float32, device=e0.device)
+    # The look-back's status words, a word a (row, tile), and the tile
+    # counter: the entry point zeroes them before the launch.
+    _, tiles = substep_geometry(N)
+    status = torch.empty(2 * Bh * tiles + 1, dtype=torch.int64,
+                         device=e0.device)
     with torch.cuda.device(e0.device):
         rc = lib.rt_sweep_substep(
-            kind, *map(_ptr, (coef, bc, flip, rec, e0, e1, p0, p1, h0, h1,
-                              o0, o1)),
-            Bh, N, s, int(reflective), _stream(e0.device))
+            kind, *map(_ptr, (coef, bc, flip, e0, e1, p0, p1, h0, h1, o0, o1,
+                              status)),
+            Bh, N, s, int(reflective), SUBSTEP_THREADS, _stream(e0.device))
     _raise_on(name, rc)
     substep_launch.launches += 1
     return o0, o1

@@ -53,7 +53,7 @@ def choose_backend(device_type: str, local_world: int) -> tuple:
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None, device_type: str = "cpu",
+               process_id: Optional[int] = None, device_type: str = "cuda",
                timeout_s: float = 300.0) -> dict:
     """Join the process group (no-op if already joined, or if this is a
     single process with no launcher environment).
@@ -61,7 +61,9 @@ def initialize(coordinator_address: Optional[str] = None,
     `coordinator_address` ("host:port"), `num_processes` and `process_id`
     name the group explicitly; otherwise torchrun's environment does. A
     group that cannot be formed raises. choose_backend(device_type, ranks
-    on this host) picks the backend, and the choice is printed. Returns
+    on this host) picks the backend, and the choice is printed: ranks
+    whose tensors live on the card (the default) get NCCL where each has
+    a card of its own; pass device_type="cpu" for CPU tensors. Returns
     {process_index, process_count, backend}."""
     explicit = coordinator_address is not None
     if not dist.is_initialized():

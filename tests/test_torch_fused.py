@@ -202,7 +202,7 @@ WORKER = textwrap.dedent("""
     from radiative_transfer_tpu_torch.parallel.fused_exchange_cuda import (
         FusedExchangeCudaEngine)
     out_path, cases = sys.argv[1], eval(sys.argv[2])
-    distributed.initialize()
+    distributed.initialize(device_type="cpu")
     m = mesh.make_mesh_1d(4)
     out = {}
     for name, (deck, over, steps, blk) in cases.items():

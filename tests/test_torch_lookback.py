@@ -1,10 +1,10 @@
-"""A protocol model of the multi-slot look-back scan of B9 and B13, on the CPU.
+"""A protocol model of the look-back scan of B3, B9 and B13, on the CPU.
 
-The CUDA kernels (csrc/adjoint.cu fwd_record_kernel, csrc/fused.cu
-fused_step_kernel, on csrc/lookback.cuh) run only on the card
-(chip_smoke.py phases 9 and 12 hold them against their plain versions
-there). These tests hold the design's protocol and arithmetic in plain
-Python and numpy, in float64:
+The CUDA kernels (csrc/sweep.cu substep_kernel, csrc/adjoint.cu
+fwd_record_kernel, csrc/fused.cu fused_step_kernel, on csrc/lookback.cuh)
+run only on the card (chip_smoke.py phases 3, 9 and 12 hold them against
+their plain versions there). These tests hold the design's protocol and
+arithmetic in plain Python and numpy, in float64:
 
 * Every block of a launch is a generator that runs one tile of a row as
   the kernel does: per slot the right-hand sides from the tile's inputs,
@@ -32,12 +32,18 @@ Python and numpy, in float64:
 * B13: the step and ``materialize_only``, both half modes; the planes and
   the (rows, 6) record (written by the block of the row's last tile)
   against ``fused_step_launch_ref`` likewise.
+* B3: one slot, BE, CN and BDF, reflective (tickets as B9's) and source
+  left; a tile's upwind p1/h1 edges are the input planes' values at cell
+  t0 - 1 (0 at a half's start). The planes against ``substep_launch_ref``
+  in float64 with exact block scans, within 1e-12.
 * Shapes: a ragged last tile, a row below one tile, whole tiles, and a row
   of more than 32 tiles (beyond one warp's window of the look-back).
 * Mutants that must fail: a successor that reads its predecessor's edge
   word without waiting for it to be written; a reflective launch whose
   tickets run tile-major across both halves (a mu>0 ticket before mu<0
-  ones), which deadlocks once the waiting mu>0 blocks fill the residency.
+  ones), which deadlocks once the waiting mu>0 blocks fill the residency
+  (B9 and B3); a B3 mu>0 row start that peeks the flipped row's outflow
+  word without waiting and takes 0 while it is unwritten.
 
 No JAX program is compiled here.
 """
@@ -223,14 +229,26 @@ def _nerr(got, ref) -> float:
     return float(np.abs(got - ref).max() / (scale if scale > 0 else 1.0))
 
 
+def tile_major(block, Bh, T, reflective, mutant_tickets):
+    """The blocks (h, row, t) in ticket order (csrc/lookback.cuh lb_tile):
+    tile-major across a group's rows, the mu<0 half's rows a group of their
+    own for a reflective boundary (the mutant: one group of both halves)."""
+    group = 2 * Bh if (mutant_tickets or not reflective) else Bh
+    blocks = []
+    for g in range(2 * Bh // group):
+        for t in range(T):
+            for r in range(group):
+                hr = g * group + r
+                blocks.append(block(hr // Bh, hr % Bh, t))
+    return blocks
+
+
 # -- B9 ----------------------------------------------------------------------
 
 def b9_blocks(mem, x, out, ts, kc, bc, flip, s_of, reflective, symmetric,
               N, mutant_edge=False, mutant_tickets=False):
     """The launch's blocks in ticket order (csrc/adjoint.cu
-    fwd_record_kernel): tile-major across a group's rows, the mu<0 half's
-    rows a group of their own for a reflective boundary (the mutant: one
-    group of both halves)."""
+    fwd_record_kernel; tile_major)."""
     e0, e1 = x
     Bh = e0.shape[1]
     T = -(-N // L)
@@ -290,14 +308,7 @@ def b9_blocks(mem, x, out, ts, kc, bc, flip, s_of, reflective, symmetric,
                                          et if kind == CN else 0.0, 0.0)
         out["o0"][h, row, t0:t1], out["o1"][h, row, t0:t1] = f0, f1
 
-    group = 2 * Bh if (mutant_tickets or not reflective) else Bh
-    blocks = []
-    for g in range(2 * Bh // group):
-        for t in range(T):
-            for r in range(group):
-                hr = g * group + r
-                blocks.append(block(hr // Bh, hr % Bh, t))
-    return blocks
+    return tile_major(block, Bh, T, reflective, mutant_tickets)
 
 
 @pytest.fixture(scope="module")
@@ -537,6 +548,89 @@ def test_b13_lookback_model_matches_plain(b13_engines, mo, sym, shape):
         assert err <= BAR, (seed, err)
 
 
+# -- B3 ----------------------------------------------------------------------
+
+def b3_blocks(mem, kind, planes, out, kc, bc, flip, s, reflective, N,
+              mutant_peek=False, mutant_tickets=False):
+    """The launch's blocks in ticket order (csrc/sweep.cu substep_kernel;
+    tile_major): one slot a tile, its upwind p1/h1 edges the input planes'
+    values at cell t0 - 1. The mutant_peek row start reads the flipped row's
+    outflow word without waiting, 0 while it is unwritten."""
+    Bh = planes[0].shape[1]
+    T = -(-N // L)
+    p1, h1 = planes[3], planes[5]
+
+    def block(h, row, t):
+        t0, t1 = t * L, min((t + 1) * L, N)
+        ins = tuple(x[h, row, t0:t1] for x in planes)
+        p1_up = p1[h, row, t0 - 1] if t0 else 0.0
+        h1_up = h1[h, row, t0 - 1] if t0 else 0.0
+
+        def inflow():
+            if h == 1 and reflective:
+                key = (0, flip[row], T - 1)
+                if not mutant_peek:
+                    yield lambda: mem.words.get(key, (0,))[0] == INCL
+                flag, val = mem.words.get(key, (0, 0.0))
+                return s * (val if flag == INCL else 0.0)
+            return s * bc[h, row]
+
+        f0, f1, _, _ = yield from slot(
+            mem, lambda j: (h, row, j), t, T, kind, coef_row(kc[h, row]),
+            ins, p1_up, h1_up, inflow)
+        out["o0"][h, row, t0:t1], out["o1"][h, row, t0:t1] = f0, f1
+
+    return tile_major(block, Bh, T, reflective, mutant_tickets)
+
+
+def b3_case(eng, kind, seed):
+    """Seeded input planes of `kind` (BE 2, CN 3, BDF 6) and the plain
+    version's float64 planes at exact scans."""
+    rng = np.random.default_rng(seed)
+    base = eng.init_state().e0.double().numpy()
+    n = {BE: 2, CN: 3, BDF: 6}[kind]
+    x = [base * rng.uniform(0.5, 1.5, base.shape) for _ in range(n)]
+    ref = cs.substep_launch_ref(
+        kind, eng.coef[kind].double(), eng.bc.double(), eng.flip,
+        [torch.as_tensor(a) for a in x], s=float(eng.kcs[kind].s),
+        reflective=eng.reflective, blk=BLK, npass=int(np.log2(BLK)))
+    return x, [r.numpy() for r in ref]
+
+
+def b3_model(eng, kind, x, seed, resident, **mutant):
+    N = x[0].shape[-1]
+    out = {"o0": np.zeros_like(x[0]), "o1": np.zeros_like(x[0])}
+    mem = Launch()
+    planes = [p.numpy() for p in cs._substep_planes(
+        kind, [torch.as_tensor(a) for a in x])]
+    blocks = b3_blocks(mem, kind, planes, out, eng.coef[kind].double().numpy(),
+                       eng.bc.double().numpy()[..., 0], eng.flip.numpy(),
+                       float(eng.kcs[kind].s), eng.reflective, N, **mutant)
+    run(blocks, resident, random.Random(seed), mem)
+    return out
+
+
+def b3_error(out, ref):
+    return max(_nerr(out["o0"], ref[0]), _nerr(out["o1"], ref[1]))
+
+
+B3_CASES = [(kind, refl, shape) for kind in (BE, CN, BDF)
+            for refl in (True, False) for shape in SHAPES]
+
+
+@pytest.mark.parametrize(
+    "kind,refl,shape", B3_CASES,
+    ids=[f"{ {BE: 'BE', CN: 'CN', BDF: 'BDF'}[c[0]]}-"
+         f"{'refl' if c[1] else 'src'}-{c[2]}" for c in B3_CASES])
+def test_b3_lookback_model_matches_plain(b9_engines, kind, refl, shape):
+    N = SHAPES[shape]
+    eng = b9_engines(3, refl, False, N)
+    x, ref = b3_case(eng, kind, seed=100 * kind + N)
+    for seed, resident in ((kind + N, 3), (kind + N + 1, 2 * eng.Bh * 8)):
+        err = b3_error(b3_model(eng, kind, x, seed, resident), ref)
+        assert err <= BAR, (seed, err)
+
+
 # -- mutants -----------------------------------------------------------------
 
 def test_mutant_unguarded_edge_read_fails(b9_engines, b13_engines):
@@ -572,3 +666,28 @@ def test_mutant_mu_pos_ticket_first_deadlocks(b9_engines):
     assert max(b9_errors(out, ref, N)) <= BAR
     with pytest.raises(Deadlock):
         b9_model(eng, co, x, geo, 5, resident, mutant_tickets=True)
+
+
+def test_b3_mutant_unwaited_outflow_fails(b9_engines):
+    """A B3 mu>0 row start that peeks the flipped mu<0 row's outflow word
+    without waiting and takes 0 while it is unwritten: some seeded
+    interleaving starts a mu>0 row before that word is written."""
+    N = SHAPES["ragged"]
+    eng = b9_engines(3, True, False, N)
+    x, ref = b3_case(eng, BDF, seed=4)
+    errs = [b3_error(b3_model(eng, BDF, x, seed, 2 * eng.Bh * 8,
+                              mutant_peek=True), ref) for seed in range(8)]
+    assert max(errs) > 1e-6, errs
+
+
+def test_b3_mutant_mu_pos_ticket_first_deadlocks(b9_engines):
+    """B3's reflective launch with tickets tile-major across both halves:
+    the mu>0 row starts fill the residency waiting on mu<0 outflow words
+    whose tiles have no ticket yet. The kernel's order finishes there."""
+    N = SHAPES["whole-tiles"]
+    eng = b9_engines(3, True, False, N)
+    x, ref = b3_case(eng, CN, seed=6)
+    resident = eng.Bh
+    assert b3_error(b3_model(eng, CN, x, 5, resident), ref) <= BAR
+    with pytest.raises(Deadlock):
+        b3_model(eng, CN, x, 5, resident, mutant_tickets=True)

@@ -114,7 +114,7 @@ WORKER = textwrap.dedent("""
     out_path, deck, blk, halo_cases, select_cases = sys.argv[1:6]
     blk, halo_cases = int(blk), eval(halo_cases)
     select_cases = eval(select_cases)
-    distributed.initialize()
+    distributed.initialize(device_type="cpu")
     m = mesh.make_mesh_1d(4)
 
     def planes(eng, st):
@@ -329,7 +329,7 @@ def test_explicit_coordinator_failure_raises():
 def test_single_process_initialize_is_a_no_op(monkeypatch):
     for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(key, raising=False)
-    info = port_dist.initialize()
+    info = port_dist.initialize(device_type="cpu")
     assert info == {"process_index": 0, "process_count": 1,
                     "backend": None}
 

@@ -164,7 +164,7 @@ WORKER = textwrap.dedent("""
         ShardedCudaEngine)
     out_path, ng, nx, deck, cases = sys.argv[1:6]
     ng, nx, cases = int(ng), int(nx), eval(cases)
-    distributed.initialize()
+    distributed.initialize(device_type="cpu")
     m = mesh.make_mesh_2d(ng, nx) if ng > 1 else mesh.make_mesh_1d(nx)
     out = {}
     for name, over in cases.items():
