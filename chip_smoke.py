@@ -206,7 +206,24 @@ Phases, one line each; any failure exits nonzero before the result line:
    llnl-shipped rung recorded beside its witness (each float32 result's
    distance from DFCudaEngine); and the CLI with --mesh 1x1 for pallas,
    fused and auto (prm/single_group.prm) and halo (its thick variant,
-   N = 2048, X = 20.48) against its CPU run.
+   N = 2048, X = 20.48) against its CPU run;
+14. the general f64 path (models/transport.py on ops/sweep.py and
+   ops/scan.py, plain PyTorch with no kernel of its own): the CLI's
+   default engine on the three shipped decks and single_group.prm at BE and
+   CN, its CSVs within 1e-12 (F against max|phi|) of its CPU run, and on
+   each the CLI's --engine pallas (B1, B2) within 5e-5 and
+   run_problem(engine="df") (B6, B7) within 1e-10 of the card's general
+   run, each of the four kernels launched there; the bench workload (gray
+   S_32, N = 2^20, BDF2) at float64 and float32, 8 steps after 1 timed with
+   CUDA events, with peak memory, the float64 state within 1e-10 of
+   DFCudaEngine's; one make_diff_solve value and kappa gradient at the
+   adjoint bench (N = 2^17, 96 BDF2 steps, remat) timed against the
+   forward, with peak memory, within 1e-5 of phase 9's kernel adjoint
+   (the value, and the kappa gradient as a sensitivity of the loss: at
+   equilibrium it cancels to roundoff); and parallel/sharded.solve_sharded
+   on two ranks sharing the card over gloo (`chip_smoke.py
+   --general-worker` children: gray S_32 at 2^16 cells on 1x2, the
+   multigroup deck at 4096 cells on 2x1) within 1e-12 of one rank.
 
 Phase 3 also holds B4 and B5 against their plain versions (rows 2 and 8, a
 segment and a reset cell off the kernel's tile, reset 0 and > 0, K 1/3/8
@@ -243,7 +260,8 @@ kernel of a path must have launched on it (B1-B3 on phases 4-5, B4-B5 on
 phase 6, B6-B7 on phase 7, B14-B15 on phase 8, B9-B10 on phase 9,
 B11-B12 on phase 10's K-fused grad steps and fit, B8 and B13 on phase 13).
 With --mesh-worker OUT P STEPS the script is instead one rank of a
-P-rank run (phase 13 starts two). With --ranks P it runs only the mesh
+P-rank run (phase 13 starts two), with --general-worker OUT one rank of
+phase 14's two-rank run. With --ranks P it runs only the mesh
 path on P ranks, one a card where the host has P cards (NCCL), else
 sharing them (gloo): every case of rank_cases at P shards against one
 rank, the gray rung's weak scaling, and the CLI under torchrun --mesh 1xP
@@ -303,6 +321,28 @@ DRIFT_TOL = 5e-5
 # f64-grade engine drift ~1e-13 a step from float64).
 DF_TOL = 1e-11
 DF_CLI_TOL = 1e-10
+# The general engine in float64 on the card against its own CPU run, and on
+# two ranks against one: the same float64 arithmetic in other kernels and
+# reduction orders (the JAX package's general engine agrees with the
+# port's CPU run to ~5e-15 after 20 steps, tests/test_torch_general.py).
+GENERAL_TOL = 1e-12
+# The kernel adjoint's (float32, make_diff_solve_cuda) value and kappa
+# gradient against the general engine's float64 ones at the adjoint bench's
+# shape, from a seeded state off equilibrium: JAX's bars for its f32 adjoint
+# against its f64 one (tests/test_pallas_adjoint.py), 1e-5 on the value and
+# 1e-4 on a gradient, relative to its own magnitude.
+ADJ_TOL = 1e-5
+ADJ_GRAD_TOL = 1e-4
+# make_diff_solve on the card against the same call on the CPU (float64
+# both): value and every gradient relative to its own magnitude, the bar of
+# its CPU test against jax.grad (tests/test_torch_general_adjoint.py).
+GENERAL_GRAD_TOL = 1e-10
+# Phase 14's full-size shapes: the bench (gray S_M, N cells, BDF2; 8 steps
+# timed after 1) and the adjoint bench (S_M, N cells, `steps` BDF2 steps);
+# the adjoint's card-vs-CPU check at a cut N (S_M, N cells, `steps` steps).
+GENERAL_BENCH = (32, 1 << 20, 8)
+GENERAL_ADJ = (32, 1 << 17, 96)
+GENERAL_ADJ_CPU = (32, 4096, 16)
 # step() at BE and CN (B3's look-back) against multi_step(st, 1) (B2's
 # wavefront) on the same state: exact scans over other tiles, composed in
 # another order, so rounding apart (B9 against B1/B2 at K = 1 has the same
@@ -799,6 +839,328 @@ def ranks_check(shards: int) -> int:
     print(json.dumps({"ok": True, "ranks": shards, "backend": backend}),
           flush=True)
     return 0
+
+
+def general_rank_cases():
+    """phase 14's two-rank checks of parallel/sharded.solve_sharded:
+    (tag, cfg, mesh GxX, steps): the gray bench workload at 2^16 cells
+    (S_32, BDF2, reflective left) with a boundary source of 2.0 (against
+    B = 4.0931) split over 'x', and the multigroup equilibrium deck (G = 4,
+    correction on) at 4096 cells split over 'g'; each from
+    general_rank_state."""
+    from radiative_transfer_tpu_torch import load_config
+
+    gray = gray_cfg(32, 1 << 16, 3).replace(
+        psi_source=tuple((2.0,) for _ in range(32)))
+    mg = load_config(os.path.join(ROOT, "prm", "multi_group_equilibrium.prm"),
+                     N=4096)
+    return (("gray", gray, "1x2", 8), ("mg", mg, "2x1", 8))
+
+
+def general_rank_state(cfg, tables):
+    """A seeded random state around psi = B_g (float64, on the CPU): the
+    same on every rank and on the one-rank side, and off equilibrium at
+    every cell, so the shards' composed carries are exercised."""
+    import torch
+
+    from radiative_transfer_tpu_torch.models import transport
+
+    g = torch.Generator().manual_seed(cfg.N)
+    return transport.State(*(
+        x * (0.5 + torch.rand(x.shape, generator=g, dtype=torch.float64))
+        for x in transport.initial_state(cfg, tables)))
+
+
+def general_worker(out_path: str) -> int:
+    """One rank of phase 14's two-rank run (started with
+    parallel.distributed.launch_local): every case of general_rank_cases
+    through solve_sharded on the card; rank 0 saves the global (ends,
+    prev, half) of each."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke general worker: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.parallel import distributed, sharded
+    from radiative_transfer_tpu_torch.parallel import mesh as mesh_mod
+
+    distributed.initialize(device_type="cuda")
+    dev = distributed.local_device("cuda")
+    torch.cuda.set_device(dev)
+    out = {}
+    for tag, cfg, shape, steps in general_rank_cases():
+        ng, nx = (int(v) for v in shape.split("x"))
+        m = (mesh_mod.make_mesh_2d(ng, nx) if ng > 1
+             else mesh_mod.make_mesh_1d(nx))
+        tables, _, _ = transport.build_tables(cfg)
+        t0 = time.perf_counter()
+        st = sharded.solve_sharded(cfg, tables,
+                                   general_rank_state(cfg, tables), m,
+                                   num_steps=steps, device=dev)
+        torch.cuda.synchronize(dev)
+        out[tag + "/seconds"] = np.array(time.perf_counter() - t0)
+        out[tag] = np.stack([x.cpu().numpy() for x in st])
+    if distributed.process_index() == 0:
+        np.savez(out_path, **out)
+    distributed.shutdown()
+    return 0
+
+
+def general_path(dev, card, cli_vs_cpu, run_cli, variant, peak_from,
+                 kernel_rates):
+    """Phase 14, the general engine (models/transport.py, ops/sweep.py,
+    ops/scan.py, parallel/sharded.py: plain PyTorch, no kernel of its own)
+    on the card. Raises on a failed check; returns the phase's line.
+
+    * The CLI's default engine (general, float64) on the three shipped
+      decks and single_group.prm at BE and CN, its 8 CSVs within
+      GENERAL_TOL of the same CLI on the CPU; on each, the CLI's --engine
+      pallas (B1, B2) within DRIFT_TOL and run_problem(engine="df") (B6,
+      B7) within DF_CLI_TOL of the card's general run (both counted: each
+      of the four kernels must launch).
+    * The bench workload (GENERAL_BENCH) at float64 and float32 from a
+      seeded state off equilibrium (general_rank_state), timed with CUDA
+      events, with peak memory; the float64 state held to DFCudaEngine's
+      from the same state after the same steps (DF_CLI_TOL); one float64
+      sub-step of each kind and one half's scan timed alone.
+    * One make_diff_solve value and gradient in kappa at the adjoint bench
+      (GENERAL_ADJ, remat) from a seeded state, timed against the forward
+      solve, with peak memory, held to make_diff_solve_cuda's on the same
+      state (ADJ_TOL, ADJ_GRAD_TOL); at a cut N (GENERAL_ADJ_CPU) its value
+      and gradients in kappa, rho, psi_source and the initial state held
+      to the same call on the CPU (GENERAL_GRAD_TOL).
+    * solve_sharded on two ranks sharing the card (gloo) against one rank
+      (GENERAL_TOL)."""
+    import numpy as np
+    import torch
+
+    from radiative_transfer_tpu_torch import adjoint as adj
+    from radiative_transfer_tpu_torch import load_config
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.ops import cuda_adjoint as ca
+    from radiative_transfer_tpu_torch.ops import cuda_df as cd
+    from radiative_transfer_tpu_torch.ops import cuda_sweep as cs
+    from radiative_transfer_tpu_torch.ops.scan import affine_scan
+    from radiative_transfer_tpu_torch.parallel import distributed
+
+    def csv_err(got_dir, ref_dir):
+        phi = np.abs(np.loadtxt(os.path.join(ref_dir, "phi.csv"))).max()
+        worst = 0.0
+        for name in ("phi", "phi_plus", "psi", "x", "F", "e_ave",
+                     "left_ends", "right_ends"):
+            got = np.loadtxt(os.path.join(got_dir, f"{name}.csv"), ndmin=2)
+            ref = np.loadtxt(os.path.join(ref_dir, f"{name}.csv"), ndmin=2)
+            scale = phi if name == "F" else np.abs(ref).max()
+            worst = max(worst, float(np.abs(got - ref).max() / scale))
+        return worst
+
+    def cuda_seconds(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / 1e3, out
+
+    fields = ("psi", "phi", "phi_plus", "left_ends", "right_ends")
+    kernels = ("bdf2_launch", "multistep_launch", "df_bdf2_launch",
+               "df_multistep_launch")
+    cs.reset_launch_counts()
+    cd.reset_launch_counts()
+    lines = []
+    gray = os.path.join(ROOT, "prm", "single_group.prm")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        runs = [(os.path.join(ROOT, "prm", "llnl_slab_test.prm"), 2, "llnl"),
+                (gray, 200, "gray"),
+                (os.path.join(ROOT, "prm", "multi_group_equilibrium.prm"),
+                 200, "mg"),
+                (variant(tmp, 1), 200, "gray-BE"),
+                (variant(tmp, 2), 200, "gray-CN")]
+        for deck, steps, tag in runs:
+            summary, _ = cli_vs_cpu(tmp, deck, steps, f"general-{tag}", [],
+                                    tol=GENERAL_TOL)
+            gen_dir = os.path.join(tmp, f"general-{tag}_cuda")
+            pal_dir, _ = run_cli(tmp, deck, steps, "cuda", f"pallas-{tag}",
+                                 ["--engine", "pallas", "--dtype",
+                                  "float32"])
+            pal = csv_err(pal_dir, gen_dir)
+            cfg = load_config(deck, max_timesteps=steps)
+            gen = transport.run_problem(cfg, device=dev)
+            df = transport.run_problem(cfg, engine="df", device=dev)
+            # F cancels near equilibrium: phi bounds it.
+            dfe = max([nerr(getattr(df, k), getattr(gen, k)) for k in fields]
+                      + [float((df.F - gen.F).abs().max()
+                               / gen.phi.abs().max())])
+            if not pal <= DRIFT_TOL:
+                raise AssertionError(f"phase 14 {tag}: --engine pallas vs "
+                                     f"general {pal:.3e} > {DRIFT_TOL}")
+            if not dfe <= DF_CLI_TOL:
+                raise AssertionError(f"phase 14 {tag}: df vs general "
+                                     f"{dfe:.3e} > {DF_CLI_TOL}")
+            lines.append(f"{summary}; pallas vs general {pal:.1e}, df vs "
+                         f"general {dfe:.1e}")
+    counts = {name: getattr(cd if name.startswith("df_") else cs,
+                            name).launches for name in kernels}
+    if not all(counts.values()):
+        raise AssertionError(f"phase 14: kernels not launched: {counts}")
+
+    # The bench workload, float64 and float32, from a seeded state (at
+    # psi = B the state would not move): 1 step, then 8 timed.
+    Mb, Nb, nb = GENERAL_BENCH
+    bcfg = gray_cfg(Mb, Nb, 3)
+    btab, _, _ = transport.build_tables(bcfg)
+    bst = general_rank_state(bcfg, btab)
+    ups = 4 * Mb * Nb * nb
+    rates = {}
+    ends = {}
+    for dname, dtype in (("float64", torch.float64),
+                         ("float32", torch.float32)):
+        pk = peak_from()
+        st = transport.solve(bcfg, btab, bst, 1, dtype, dev)
+        secs, st = cuda_seconds(lambda: transport.solve(
+            bcfg, btab, st, nb, dtype, dev))
+        peak = pk()
+        if not bool(torch.isfinite(st.ends).all()):
+            raise AssertionError(f"phase 14 bench {dname}: not finite")
+        rates[dname] = {"seconds": secs, "updates_per_s": ups / secs,
+                        "peak_gib": peak}
+        ends[dname] = st.ends
+        del st
+    dfe_ = cd.DFCudaEngine(bcfg, btab, device=dev)
+    df_ends = dfe_.ends(dfe_.solve(dfe_.from_ends(*bst), num_steps=nb + 1))
+    bench_moved = nerr(ends["float64"], bst.ends.to(dev))
+    bench_df = nerr(ends["float64"], df_ends)
+    if not bench_df <= DF_CLI_TOL:
+        raise AssertionError(f"phase 14 bench: general vs DFCudaEngine "
+                             f"{bench_df:.3e} > {DF_CLI_TOL}")
+    bench_f32 = nerr(ends["float32"], ends["float64"])
+    # Where a float64 step's time goes: one sub-step of each kind on the
+    # final state, and the scan of one direction half's (a, b) alone.
+    t64 = transport.device_tables(btab, torch.float64, dev)
+    e = ends["float64"]
+    split = {name: cuda_seconds(lambda: transport.substep(
+        kind, bcfg, t64, e, e, e, bcfg.dt / 2.0))[0] * 1e3
+        for name, kind in (("BE", 1), ("CN", 2), ("BDF", 3))}
+    half = e[:Mb // 2, :, :, 0]
+    split["scan of one half"] = cuda_seconds(
+        lambda: affine_scan(half * 0.5, half))[0] * 1e3
+    del dfe_, df_ends, ends, e, half, bst
+
+    # One value and gradient at the adjoint bench's shape from a seeded
+    # state (at psi = B, dL/dkappa is roundoff), timed against the forward
+    # and held to the kernel adjoint from the same state.
+    Ma, Na, na = GENERAL_ADJ
+    acfg = gray_cfg(Ma, Na, 3, na)
+    atab, _, _ = transport.build_tables(acfg)
+    ast = general_rank_state(acfg, atab)
+    f_secs, _ = cuda_seconds(lambda: transport.solve(
+        acfg, atab, ast, na, device=dev).ends)
+    kap = torch.ones(1, dtype=torch.float64, requires_grad=True)
+
+    def value_and_grad(make, steps):
+        sfg = make(acfg, atab, num_steps=steps, device=dev)
+        kap.grad = None
+        val = torch.sum(sfg({"kappa": kap}, ast).ends ** 2) * 1e-3
+        val.backward()
+        return val.detach(), float(kap.grad[0])
+
+    value_and_grad(adj.make_diff_solve, 1)             # warm-up
+    pk = peak_from()
+    g_secs, (gval, ggrad) = cuda_seconds(
+        lambda: value_and_grad(adj.make_diff_solve, na))
+    g_peak = pk()
+    kval, kgrad = value_and_grad(ca.make_diff_solve_cuda, na)
+    v_err = abs(float(kval) - float(gval)) / abs(float(gval))
+    k_err = abs(kgrad - ggrad) / abs(ggrad)
+    if not (v_err <= ADJ_TOL and k_err <= ADJ_GRAD_TOL):
+        raise AssertionError(f"phase 14 adjoint bench: kernel vs general "
+                             f"value {v_err:.3e} > {ADJ_TOL} or dL/dkappa "
+                             f"{k_err:.3e} > {ADJ_GRAD_TOL}")
+
+    # make_diff_solve on the card against the CPU at a cut N, every
+    # parameter kind and the initial state.
+    Mc, Nc, nc = GENERAL_ADJ_CPU
+    ccfg = gray_cfg(Mc, Nc, 3, nc)
+    ctab, _, _ = transport.build_tables(ccfg)
+    cst = general_rank_state(ccfg, ctab)
+    cgrads = {}
+    for where in (dev, "cpu"):
+        prm = {"kappa": torch.ones(1, dtype=torch.float64),
+               "rho": torch.ones(1, dtype=torch.float64),
+               "psi_source": torch.full((Mc, 1), 2.0, dtype=torch.float64)}
+        # A BDF2 step overwrites prev_ends and reads half_ends only after
+        # its own snapshot, so only the initial ends carry a gradient.
+        e0 = cst.ends.clone().requires_grad_(True)
+        for x in prm.values():
+            x.requires_grad_(True)
+        sfc = adj.make_diff_solve(ccfg, ctab, num_steps=nc, device=where)
+        val = torch.sum(sfc(prm, cst._replace(ends=e0)).ends ** 2) * 1e-3
+        val.backward()
+        cgrads[str(where)] = ([val.detach().cpu()]
+                              + [prm[k].grad.cpu() for k in sorted(prm)]
+                              + [e0.grad.cpu()])
+    names = ["value"] + sorted(prm) + ["initial ends"]
+    cpu_errs = {n: nerr(g, c) for n, g, c in
+                zip(names, cgrads[str(dev)], cgrads["cpu"])}
+    if not max(cpu_errs.values()) <= GENERAL_GRAD_TOL:
+        raise AssertionError(f"phase 14 make_diff_solve card vs CPU: "
+                             f"{cpu_errs} > {GENERAL_GRAD_TOL}")
+
+    # Two ranks sharing the card (gloo) against one rank.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        out_path = os.path.join(tmp, "general.npz")
+        t0 = time.perf_counter()
+        runs = distributed.launch_local(
+            [os.path.abspath(__file__), "--general-worker", out_path], 2,
+            cwd=ROOT, timeout=600)
+        two_wall = time.perf_counter() - t0
+        for r in runs:
+            if r.returncode != 0:
+                raise AssertionError(f"phase 14 two ranks rc {r.returncode}:"
+                                     "\n" + r.stdout[-2000:]
+                                     + r.stderr[-4000:])
+        ranks = dict(np.load(out_path))
+    two = []
+    for tag, cfg, shape, steps in general_rank_cases():
+        tables, _, _ = transport.build_tables(cfg)
+        want = transport.solve(cfg, tables, general_rank_state(cfg, tables),
+                               steps, device=dev)
+        err = max(nerr(torch.as_tensor(g, device=dev), w)
+                  for g, w in zip(ranks[tag], want))
+        if not err <= GENERAL_TOL:
+            raise AssertionError(f"phase 14 {tag} {shape} ranks vs one "
+                                 f"rank {err:.3e} > {GENERAL_TOL}")
+        two.append(f"{tag} N={cfg.N} {shape} {steps} steps vs one rank "
+                   f"{err:.1e} (ranks' solve "
+                   f"{float(ranks[tag + '/seconds']):.3f} s)")
+
+    return (f"phase 14 general f64 path: ok; CLI default engine (general, "
+            f"float64) vs CPU and the kernels vs it on the card: "
+            + "; ".join(lines) + f"; launches there {json.dumps(counts)}; "
+            f"bench (gray S_{Mb}, N=2^{Nb.bit_length() - 1}, BDF2, {nb} steps "
+            f"after 1, CUDA events): " + json.dumps(rates)
+            + f"; from a seeded state (moved {bench_moved:.2e} in "
+            f"{nb + 1} steps): float64 vs DFCudaEngine {bench_df:.2e}, "
+            f"float32 vs float64 {bench_f32:.2e}; float64 split (ms, CUDA events, one "
+            "call each after the timed steps; a BDF2 step is BE, CN, BE, "
+            "BDF): " + json.dumps(split) + "; kernel engines' bench rates "
+            "(phases 5, 7): " + json.dumps(kernel_rates) + f"; adjoint bench (gray "
+            f"S_{Ma}, N=2^{Na.bit_length() - 1}, {na} BDF2 steps, remat): "
+            f"forward {f_secs:.4f} s, value and grad {g_secs:.4f} s "
+            f"(grad/forward {g_secs / f_secs:.3f}), peak {g_peak:.3f} GiB; "
+            f"from a seeded state vs make_diff_solve_cuda: value "
+            f"{v_err:.2e}, dL/dkappa {k_err:.2e} (kernel {kgrad:.6e}, "
+            f"general {ggrad:.6e}, L {float(gval):.6e}); make_diff_solve "
+            f"card vs CPU (gray S_{Mc}, N={Nc}, {nc} steps, seeded state): "
+            + json.dumps({k: float(f"{v:.2e}") for k, v in cpu_errs.items()})
+            + "; two ranks sharing the card (gloo, "
+            f"{two_wall:.1f} s wall with start-up): " + "; ".join(two)
+            + f"; card: {card}")
 
 
 def card_line() -> str:
@@ -3319,9 +3681,9 @@ def main() -> int:
                                   "peak_gib": pk(), "in_guard_64": ref_ok,
                                   "max_abs_64": ref_max}
         del ref_e, rst
-        names = ("pallas", "fused", "halo") if tag == "gray" else (
+        rung_engines = ("pallas", "fused", "halo") if tag == "gray" else (
             "pallas", "fused")
-        for engine_name in names:
+        for engine_name in rung_engines:
             eng = built.pop((tag, engine_name), None) or mesh_engine(
                 cfg, engine_name)
             ename = type(eng).__name__
@@ -3398,6 +3760,12 @@ def main() -> int:
           + "; ".join(two_lines) + f"; card: {card}", flush=True)
     if held.failures:
         raise AssertionError("phase 13: " + "; ".join(held.failures))
+
+    # -- 14. the general f64 path -------------------------------------------------
+    print(general_path(
+        dev, card, cli_vs_cpu, run_cli, variant, peak_from,
+        {"CudaSweepEngine": rate, "DFCudaEngine": d_rate}),
+        flush=True)
 
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the
@@ -3802,6 +4170,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(sys.argv[2], int(sys.argv[3]),
                              int(sys.argv[4])))
+    if sys.argv[1:2] == ["--general-worker"]:
+        sys.exit(general_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--ranks"]:
         sys.exit(ranks_check(int(sys.argv[2])))
     sys.exit(main())

@@ -18,12 +18,13 @@ table into the sweep coefficients:
   so gradients at the deck temperature are exact;
 * the initial ``State`` — as the solve's input.
 
-The differentiable solve itself is ops/cuda_adjoint.make_diff_solve_cuda,
-whose forward and backward run the hand-written CUDA kernels (B9-B10) at
-K = 1; ``fit_params`` drives it with ``torch.optim.Adam``. The general
-and fast solvers of the JAX package (make_diff_solve,
-make_diff_solve_fast) wait for the general engine (ROADMAP A2) and the
-XLA fast engine (A7).
+Two differentiable solves: ``make_diff_solve``, autograd through the
+general engine's float64 steps (models/transport.make_step_fn), the exact
+discrete adjoint; and ops/cuda_adjoint.make_diff_solve_cuda, whose
+forward and backward run the hand-written CUDA kernels (B9-B12),
+f32-grade. ``fit_params`` drives either with ``torch.optim.Adam``. The
+JAX package's fast solver (make_diff_solve_fast) waits for the XLA fast
+engine (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -32,9 +33,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import constants
 from .config.config import Config
+from .models import transport
 from .models.transport import State, Tables
 from .ops import correction as corr_mod
 
@@ -187,7 +190,7 @@ def traced_initial_state(cfg: Config, tables: Tables) -> State:
     """The reference initial condition psi = ends = B_g
     (src/solver.cpp:165-181) built from possibly-traced tables, so a
     temperature gradient includes the initial condition's T-dependence
-    (the start of make_diff_solve_cuda's solve when no state is given).
+    (the start of a differentiable solve when no state is given).
     float64 on B's device (the CPU for numpy tables), broadcast, not
     copied, to (M, G, N, 2)."""
     ends = torch.as_tensor(tables.B, dtype=_F64)[None, :, None, None]
@@ -206,6 +209,55 @@ def state_from_numpy(ends, prev_ends, half_ends,
     return State(leaf(ends), leaf(prev_ends), leaf(half_ends))
 
 
+def make_diff_solve(cfg: Config, tables: Tables,
+                    num_steps: Optional[int] = None, remat: bool = True,
+                    device="cuda"):
+    """Build ``solve_fn(params, state=None) -> State``, differentiable in
+    both arguments, on `device` in float64.
+
+    ``params`` holds any of _PARAM_KEYS (numpy arrays or tensors); omitted
+    ones stay at their ``tables`` values (for 'T' gradients are exact at
+    the deck temperature, see the module docstring). ``state=None`` starts
+    from psi = B_g built from the traced tables, so a T gradient includes
+    the initial condition. The function runs ``num_steps`` full timesteps
+    (default cfg.max_timesteps) of cfg.ts_method, the program of
+    models/transport.solve; with ``remat`` each step runs under
+    ``torch.utils.checkpoint``, so the backward pass keeps one State a
+    step and recomputes each step's sweeps (JAX's jax.checkpoint).
+
+    Compose with the diagnostics for observables::
+
+        solve_fn = make_diff_solve(cfg, tables, device="cpu")
+        final = solve_fn({"kappa": kappa0})
+        phi = transport.compute_phi(transport.psi_from_ends(final.ends), wt)
+        torch.mean((phi - phi_target) ** 2).backward()
+    """
+    device = transport.solve_device(device)
+    n = cfg.max_timesteps if num_steps is None else num_steps
+
+    def solve_fn(params: dict, state: Optional[State] = None) -> State:
+        unknown = set(params) - set(_PARAM_KEYS)
+        if unknown:
+            raise ValueError(
+                f"unknown differentiable parameters {sorted(unknown)}; "
+                f"supported: {_PARAM_KEYS}")
+        t = traced_tables(cfg, tables, **params)
+        if state is None:   # B on the device: the broadcast fills there
+            state = traced_initial_state(cfg, t._replace(B=t.B.to(device)))
+        step = transport.make_step_fn(cfg, t, _F64, device)
+        st = State(*(torch.as_tensor(x).to(device=device, dtype=_F64)
+                     for x in state))
+        for _ in range(n):
+            if remat:
+                st = State(*checkpoint(lambda *s: tuple(step(State(*s))),
+                                       *st, use_reentrant=False))
+            else:
+                st = step(st)
+        return st
+
+    return solve_fn
+
+
 def fit_params(cfg: Config, tables: Tables, state0: Optional[State],
                loss_of_state, params0: dict,
                num_steps: Optional[int] = None,
@@ -222,28 +274,30 @@ def fit_params(cfg: Config, tables: Tables, state0: Optional[State],
     loss_history): float64 CPU tensors and one float per iteration, the
     loss at the parameters before that iteration's update.
 
-    ``solver='pallas'`` differentiates through the CUDA kernels with the
-    transposed-step kernels (ops/cuda_adjoint.make_diff_solve_cuda at its
-    default, as JAX's: BDF2 fused K = min(max_steps_per_launch(), 4,
-    num_steps) steps a launch on B11-B12, the tail and BE/CN one step a
-    launch on B9-B10) on `device` (the plain versions for
-    ``device='cpu'``): f32-grade gradients. ``'general'`` and ``'fast'``
-    are not ported yet.
+    ``solver='general'`` (the default) differentiates through the
+    general engine in float64 (make_diff_solve) on `device`: the exact
+    discrete adjoint. ``solver='pallas'`` differentiates through the CUDA
+    kernels with the transposed-step kernels (ops/cuda_adjoint
+    .make_diff_solve_cuda at its default, as JAX's: BDF2 fused K =
+    min(max_steps_per_launch(), 4, num_steps) steps a launch on B11-B12,
+    the tail and BE/CN one step a launch on B9-B10) on `device` (the
+    plain versions for ``device='cpu'``): f32-grade gradients. ``'fast'``
+    is not ported yet.
     """
-    if solver == "general":
-        raise NotImplementedError(
-            "solver='general' needs the general f64 engine, not ported yet "
-            "(ROADMAP A2); use solver='pallas'")
     if solver == "fast":
         raise NotImplementedError(
             "solver='fast' needs the XLA fast engine, not ported yet "
-            "(ROADMAP A7); use solver='pallas'")
-    if solver != "pallas":
-        raise ValueError(f"unknown solver {solver!r} (general/fast/pallas)")
-    from .ops.cuda_adjoint import make_diff_solve_cuda
+            "(ROADMAP A7); use solver='general' or 'pallas'")
+    if solver == "general":
+        solve_fn = make_diff_solve(cfg, tables, num_steps=num_steps,
+                                   device=device)
+    elif solver == "pallas":
+        from .ops.cuda_adjoint import make_diff_solve_cuda
 
-    solve_fn = make_diff_solve_cuda(cfg, tables, num_steps=num_steps,
-                                    device=device)
+        solve_fn = make_diff_solve_cuda(cfg, tables, num_steps=num_steps,
+                                        device=device)
+    else:
+        raise ValueError(f"unknown solver {solver!r} (general/fast/pallas)")
     params = {k: _f64(v).detach().clone().requires_grad_(True)
               for k, v in params0.items()}
     opt = (torch.optim.Adam(list(params.values()), lr=learning_rate)

@@ -1,13 +1,13 @@
 """Command-line driver: deck in, CSVs out.
 
-Port of radiative_transfer_tpu/cli.py on its kernel engine paths, on one
-device and on a mesh (reference: src/main.cc:60-136): read a .prm deck,
-run it on the CUDA sweep kernels, print the per-group balance diagnostic
-and write the 8 CSVs the reference plot scripts consume.
+Port of radiative_transfer_tpu/cli.py on its general and kernel engine
+paths, on one device and on a mesh (reference: src/main.cc:60-136): read a
+.prm deck, run it, print the per-group balance diagnostic and write the 8
+CSVs the reference plot scripts consume.
 
 Usage:
     python -m radiative_transfer_tpu_torch.cli DECK --outdir D
-        --engine pallas|halo|fused|df|auto [--mesh GxX]
+        [--engine general|pallas|halo|fused|df|auto] [--mesh GxX]
         [--dtype float64|float32] [--steps n] [--scan-tol x] [--profile]
         [--device cuda|cpu]
 
@@ -16,6 +16,9 @@ Usage:
 
 Engines without ``--mesh``:
 
+* ``general`` (the default, as in JAX): models/transport.solve, the
+  readable scan-parallel path in plain PyTorch at ``--dtype`` (float64 by
+  default);
 * ``pallas``: CudaSweepEngine, the fused f32 sweep (kernels B1-B3);
 * ``halo``: HaloCudaEngine, the packed-rows halo engine at one device
   (B4-B5; the JAX CLI's ``--engine halo`` with its implied ``--mesh 1x1``);
@@ -42,6 +45,8 @@ JAX) every rank of the process group (torchrun's environment,
 parallel/distributed.py) runs its shard of a (group, spatial) mesh, and
 rank 0 writes the CSVs from the gathered ends:
 
+* ``general``: parallel/sharded.solve_sharded, the general engine on the
+  mesh at ``--dtype``;
 * ``pallas``: ShardedCudaEngine (B8, one exchange a sub-step);
 * ``fused``: FusedExchangeCudaEngine (B13, one exchange a BDF2 step);
 * ``halo``: HaloCudaEngine on the mesh (B4-B5), exit 2 where infeasible;
@@ -54,11 +59,11 @@ rank 0 writes the CSVs from the gathered ends:
 
 ``pallas``, ``halo`` and ``fused`` are float32 engines; at ``--dtype
 float64`` they print a note and run in float32, as the JAX CLI does.
-``--device cuda`` (the default) runs the CUDA kernels and fails with exit
-code 2 when there is no CUDA device; ``--device cpu`` runs the kernels'
-plain PyTorch versions. Every other engine (``general``, ROADMAP A2;
-``fast``, A7) and flag of the JAX package's CLI is refused with exit code
-2: it is not ported yet.
+``--device cuda`` (the default) runs on the card and fails with exit
+code 2 when there is no CUDA device; ``--device cpu`` runs the general
+engine and the kernels' plain PyTorch versions on the CPU. Every other
+engine (``fast``, ROADMAP A7) and flag of the JAX package's CLI is refused
+with exit code 2: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -89,23 +94,24 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=None,
                     help="override max_timesteps")
     ap.add_argument("--engine", default="general",
-                    help="pallas: the fused f32 sweep on the CUDA kernels "
-                         "(with --mesh, the per-sub-step mesh engine); "
-                         "halo: the packed-rows halo engine (implies --mesh "
-                         "1x1); fused: the single-exchange fused BDF2 mesh "
-                         "engine (implies --mesh 1x1); df: the f64-grade "
+                    help="general: the readable scan path at --dtype "
+                         "(default; with --mesh, on the mesh); pallas: the "
+                         "fused f32 sweep on the CUDA kernels (with --mesh, "
+                         "the per-sub-step mesh engine); halo: the "
+                         "packed-rows halo engine (implies --mesh 1x1); "
+                         "fused: the single-exchange fused BDF2 mesh engine "
+                         "(implies --mesh 1x1); df: the f64-grade "
                          "double-float sweep (with --mesh, its halo engine); "
-                         "auto: the shape-aware pick for the mesh and dtype "
-                         "(the JAX package's default, general, is not ported "
-                         "yet)")
+                         "auto: the shape-aware pick for the mesh and dtype")
     ap.add_argument("--mesh", default=None, metavar="GxX",
                     help="solve on a (group, spatial) mesh of G*X ranks, "
                          "one shard each, e.g. 1x4 under torchrun "
                          "--nproc_per_node 4")
     ap.add_argument("--dtype", choices=("float64", "float32"),
                     default="float64",
-                    help="float32 for the f32 engines; float64 (default) "
-                         "picks the double-float engine under auto")
+                    help="the general engine's dtype; float32 for the f32 "
+                         "engines; float64 (default) picks the double-float "
+                         "engine under auto")
     ap.add_argument("--scan-tol", type=float, default=1e-10,
                     help="accuracy bound of the plain versions' truncated "
                          "prefix scan (neglected upwind tail a^(2^k)/(1-a) "
@@ -119,14 +125,15 @@ def main(argv=None) -> int:
 
     if extra:
         print(f"not ported yet: {' '.join(extra)} (this CLI takes --outdir, "
-              "--steps, --engine pallas|halo|fused|df|auto, --mesh, "
+              "--steps, --engine general|pallas|halo|fused|df|auto, --mesh, "
               "--dtype, --scan-tol, --profile, --device)", file=sys.stderr)
         return 2
-    if args.engine not in ("pallas", "halo", "fused", "df", "auto"):
-        item = {"general": " (ROADMAP A2)", "fast": " (ROADMAP A7)"}
+    if args.engine not in ("general", "pallas", "halo", "fused", "df",
+                           "auto"):
+        item = {"fast": " (ROADMAP A7)"}
         print(f"--engine {args.engine} is not ported yet"
-              f"{item.get(args.engine, '')}; use --engine pallas, halo, "
-              "fused, df or auto", file=sys.stderr)
+              f"{item.get(args.engine, '')}; use --engine general, pallas, "
+              "halo, fused, df or auto", file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (--device cpu "
@@ -146,7 +153,7 @@ def main(argv=None) -> int:
     # exist before the process group is joined (as JAX's cli.py:277-278).
     if args.engine in ("halo", "fused") and not args.mesh:
         args.mesh = "1x1"
-    device = args.device
+    device = torch.device(args.device)
     if args.mesh:
         distributed.initialize(device_type=args.device)
         device = distributed.local_device(args.device)
@@ -167,13 +174,16 @@ def main(argv=None) -> int:
         return 1
 
     t0 = time.perf_counter()
-    eng = (_mesh_engine(args, cfg, tables, device, say) if args.mesh
-           else _single_engine(args, cfg, tables))
-    if isinstance(eng, int):
-        return eng
-    ends = eng.ends(eng.solve())
-    if eng.device.type == "cuda":
-        torch.cuda.synchronize(eng.device)
+    if args.engine == "general":
+        ends = _general(args, cfg, tables, device)
+    else:
+        eng = (_mesh_engine(args, cfg, tables, device, say) if args.mesh
+               else _single_engine(args, cfg, tables))
+        ends = eng if isinstance(eng, int) else eng.ends(eng.solve())
+    if isinstance(ends, int):
+        return ends
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     if not is_p0:
         return 0
@@ -203,6 +213,53 @@ def main(argv=None) -> int:
                                        np.asarray(grid.e_ave))
     print(f"wrote {len(paths)} CSVs to {os.path.abspath(args.outdir)}")
     return 0
+
+
+def _general(args, cfg, tables, device):
+    """The general engine's final ends (JAX's transport.solve, or its
+    _run_sharded on --mesh), or an exit code."""
+    from .models import transport
+    from .parallel import sharded
+
+    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    state = transport.initial_state(cfg, tables)
+    if not args.mesh:
+        return transport.solve(cfg, tables, state, dtype=dtype,
+                               device=device).ends
+    mesh = _mesh(args)
+    if isinstance(mesh, int):
+        return mesh
+    try:
+        return sharded.solve_sharded(cfg, tables, state, mesh, dtype=dtype,
+                                     device=device).ends
+    except ValueError as e:
+        print(f"--engine general infeasible on --mesh {args.mesh}: {e}",
+              file=sys.stderr)
+        return 2
+
+
+def _mesh(args):
+    """The (group, spatial) mesh of --mesh GxX over this run's ranks, or
+    an exit code."""
+    from .parallel import distributed
+    from .parallel import mesh as mesh_mod
+
+    try:
+        ng, nx = (int(v) for v in args.mesh.lower().split("x"))
+    except ValueError:
+        print(f"--mesh must look like 2x4, got {args.mesh!r}",
+              file=sys.stderr)
+        return 2
+    ranks = distributed.process_count()
+    if ng * nx != ranks:
+        print(f"--mesh {args.mesh} needs {ng * nx} ranks, this run has "
+              f"{ranks} (run it under torchrun --nproc_per_node "
+              f"{ng * nx})", file=sys.stderr)
+        return 2
+    mesh = (mesh_mod.make_mesh_2d(ng, nx) if ng > 1
+            else mesh_mod.make_mesh_1d(nx))
+    distributed.assert_mesh_spans_hosts(mesh)
+    return mesh
 
 
 def _single_engine(args, cfg, tables):
@@ -246,24 +303,11 @@ def _single_engine(args, cfg, tables):
 def _mesh_engine(args, cfg, tables, device, say):
     """The mesh engine of --engine on --mesh GxX (JAX's _run_sharded), or
     an exit code."""
-    from .parallel import distributed, make_multichip_engine
-    from .parallel import mesh as mesh_mod
+    from .parallel import make_multichip_engine
 
-    try:
-        ng, nx = (int(v) for v in args.mesh.lower().split("x"))
-    except ValueError:
-        print(f"--mesh must look like 2x4, got {args.mesh!r}",
-              file=sys.stderr)
-        return 2
-    ranks = distributed.process_count()
-    if ng * nx != ranks:
-        print(f"--mesh {args.mesh} needs {ng * nx} ranks, this run has "
-              f"{ranks} (run it under torchrun --nproc_per_node "
-              f"{ng * nx})", file=sys.stderr)
-        return 2
-    mesh = (mesh_mod.make_mesh_2d(ng, nx) if ng > 1
-            else mesh_mod.make_mesh_1d(nx))
-    distributed.assert_mesh_spans_hosts(mesh)
+    mesh = _mesh(args)
+    if isinstance(mesh, int):
+        return mesh
     engine, f64 = args.engine, args.dtype == "float64"
     kw = dict(scan_tol=args.scan_tol, device=device)
     if engine == "df" and not f64:

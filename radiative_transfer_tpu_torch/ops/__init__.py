@@ -1,2 +1,3 @@
 """Numerical kernels: quadrature, group grids, Planck integrals,
-correction tables, sweep coefficients and the CUDA sweep engine."""
+correction tables, sweep coefficients, the general engine's sweep and
+scan, and the CUDA sweep engines."""

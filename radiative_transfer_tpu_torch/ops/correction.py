@@ -1,12 +1,11 @@
 """Relativistic (v/c) correction source tables (host numpy).
 
-Port of the numpy parts of radiative_transfer_tpu/ops/correction.py that
-models/transport.build_tables and validate_tables use (reference:
+Port of radiative_transfer_tpu/ops/correction.py (reference:
 src/correction.cpp:11-401). Every T-dependent table is computed once on
 the host in float64. The psi-dependent assembly total_correction
-(correction.cpp:382-399) belongs to the general engine and is not part
-of this module yet; the kernel engine folds the correction into its
-per-kind coefficients (ops/fast_sweep._kind_coeff_fields).
+(correction.cpp:382-399) is the general engine's, in torch on the solve's
+device; the kernel engines fold the correction into their per-kind
+coefficients (ops/fast_sweep._kind_coeff_fields).
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from .. import constants
 from . import planck as planck_mod
@@ -130,6 +130,23 @@ def build_correction_tables(
         cor2=cor2,
         cor3=cor3,
     )
+
+
+def total_correction(
+    psi: torch.Tensor,   # (M, G, N)
+    mu: torch.Tensor,    # (M,)
+    cor1: torch.Tensor,  # (G,)
+    cor2: torch.Tensor,
+    cor3: torch.Tensor,
+    beta,
+) -> torch.Tensor:
+    """(cor1*psi + cor2)*mu*beta - cor3*mu^2*beta^2, per (direction, group,
+    cell) (src/correction.cpp:382-399)."""
+    mu_b = (mu * beta)[:, None, None]
+    c1 = cor1[None, :, None]
+    c2 = cor2[None, :, None]
+    c3 = cor3[None, :, None]
+    return (c1 * psi + c2) * mu_b - c3 * mu_b * mu_b
 
 
 def equilibrium_psi_source(

@@ -4,9 +4,11 @@ Port of radiative_transfer_tpu/parallel/__init__.py on torch.distributed:
 the packed-rows halo engines (parallel/halo_cuda.py,
 parallel/df_halo_cuda.py), the per-sub-step mesh engine
 (parallel/sharded_cuda.py), the single-exchange fused BDF2 mesh engine
-(parallel/fused_exchange_cuda.py), the mesh (parallel/mesh.py) and the
-process-group helpers (parallel/distributed.py). Not ported: the f64
-general ShardedEngine (with ROADMAP A2) and ShardedFastEngine (with A7).
+(parallel/fused_exchange_cuda.py), the general engine on a mesh
+(parallel/sharded.py, solve_sharded: the JAX general ShardedEngine), the
+mesh (parallel/mesh.py) and the process-group helpers
+(parallel/distributed.py). Not ported: ShardedFastEngine (with ROADMAP
+A7).
 """
 
 from __future__ import annotations

@@ -99,7 +99,7 @@ def test_writers_byte_identical(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--engine", "general"],
+    ["--engine", "general", "--balance-every", "5"],
     ["--engine", "fast"],
     ["--engine", "df", "--mesh", "1x2"],
     ["--engine", "pallas", "--mesh", "1x2"],
