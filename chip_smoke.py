@@ -224,6 +224,24 @@ Phases, one line each; any failure exits nonzero before the result line:
    on two ranks sharing the card over gloo (`chip_smoke.py
    --general-worker` children: gray S_32 at 2^16 cells on 1x2, the
    multigroup deck at 4096 cells on 2x1) within 1e-12 of one rank.
+15. A8's utilities (utils/checkpoint.py, utils/debug.py,
+   utils/profiling.py and the CLI flags on them): the bench workload on
+   CudaSweepEngine (B1, K = 4) from a seeded state, 5 steps straight
+   against a run killed at step 3 with a checkpoint every 3 and resumed
+   (chunks of 3 and 2 that do not divide K; two saves, each ~150 s of
+   host zlib), bit-equal, with each save's and load's seconds, the
+   checkpoint's bytes and the peak memory; through the CLI, 8 steps
+   straight against killed at 6 (every 3) and resumed, on the general
+   engine, pallas at CN (B2), halo at BDF2 and CN (B4, B5), df (B6, B7)
+   and auto at float64 on the thick tiny-batch deck (B14, B15), each
+   bit-equal, and on --mesh 1x2 with two ranks sharing the card
+   (`chip_smoke.py --a8-worker` children) for general (bit-equal, and to
+   one rank), pallas (B8) and fused (B13) within 1e-6 (bit-equality
+   printed), and df (B14, B15) bit-equal; the card's general checkpoint
+   resumed on the CPU within 1e-12; --balance-every, --check --check-positivity (a healthy
+   run, and a checkpoint poisoned with a NaN aborting with no CSV),
+   --metrics-json (the JAX CLI's keys) and --trace (a Chrome trace naming
+   bdf2_kernel); B1, B2, B4-B8 and B13-B15 each launched in the phase.
 
 Phase 3 also holds B4 and B5 against their plain versions (rows 2 and 8, a
 segment and a reset cell off the kernel's tile, reset 0 and > 0, K 1/3/8
@@ -258,10 +276,11 @@ use_correction on and off. Every kernel wrapper's
 launch count is zeroed before a path's phases and read after them: each
 kernel of a path must have launched on it (B1-B3 on phases 4-5, B4-B5 on
 phase 6, B6-B7 on phase 7, B14-B15 on phase 8, B9-B10 on phase 9,
-B11-B12 on phase 10's K-fused grad steps and fit, B8 and B13 on phase 13).
+B11-B12 on phase 10's K-fused grad steps and fit, B8 and B13 on phase 13;
+phase 15 zeroes them again and needs B1, B2, B4-B8 and B13-B15).
 With --mesh-worker OUT P STEPS the script is instead one rank of a
 P-rank run (phase 13 starts two), with --general-worker OUT one rank of
-phase 14's two-rank run. With --ranks P it runs only the mesh
+phase 14's two-rank run, with --a8-worker DIR one rank of phase 15's. With --ranks P it runs only the mesh
 path on P ranks, one a card where the host has P cards (NCCL), else
 sharing them (gloo): every case of rank_cases at P shards against one
 rank, the gray rung's weak scaling, and the CLI under torchrun --mesh 1xP
@@ -348,6 +367,53 @@ GENERAL_ADJ_CPU = (32, 4096, 16)
 # another order, so rounding apart (B9 against B1/B2 at K = 1 has the same
 # bar).
 STEP_TOL = 1e-6
+# Phase 15, A8's utilities: kill and resume with checkpoints (the straight
+# run's steps, the killed run's steps, the steps between checkpoints) on
+# the CLI's routes, and at the bench on CudaSweepEngine, where chunks of 3
+# and 2 steps do not divide B1's K = 4. At the bench a checkpoint costs
+# ~150 s of host zlib (np.savez_compressed of three 512 MiB float64
+# arrays on one core; PERF.md), so it runs two saves, not three.
+A8_STEPS = (8, 6, 3)
+A8_BENCH_STEPS = (5, 3, 3)
+# The single-device routes phase 15 kills and resumes through the CLI:
+# (tag, deck, CLI arguments, bar). The decks are a8_decks'; bar 0 is
+# bit-equality: the general engine and the wavefront kernels (B1, B2,
+# B4-B7, B14, B15) compute a step the same way whatever the steps a
+# launch, and a float32 plane, or a double-float (hi, lo) pair, comes
+# back from its float64 container unchanged.
+A8_ROUTES = (
+    ("general", "mv", ["--engine", "general"], 0.0),
+    ("pallas-CN", "mv_cn", ["--engine", "pallas", "--dtype", "float32"],
+     0.0),
+    ("halo", "thick", ["--engine", "halo", "--dtype", "float32"], 0.0),
+    ("halo-CN", "thick_cn", ["--engine", "halo", "--dtype", "float32"],
+     0.0),
+    ("df", "mv", ["--engine", "df"], 0.0),
+    ("df-CN", "mv_cn", ["--engine", "df"], 0.0),
+    ("auto-f64", "thick", ["--engine", "auto"], 0.0),
+    ("auto-f64-CN", "thick_cn", ["--engine", "auto"], 0.0),
+)
+# The same on --mesh 1x2, two ranks sharing the card (chip_smoke.py
+# --a8-worker children). B8's and B13's look-backs compose their tiles in
+# an order that depends on timing, and a resumed sharded or fused state
+# starts with no pending correction: STEP_TOL there.
+A8_MESH_ROUTES = (
+    ("mesh-general", "mv", ["--engine", "general"], 0.0),
+    ("mesh-pallas", "mv", ["--engine", "pallas", "--dtype", "float32"],
+     STEP_TOL),
+    ("mesh-fused", "mv", ["--engine", "fused", "--dtype", "float32"],
+     STEP_TOL),
+    ("mesh-df", "thick", ["--engine", "df"], 0.0),
+    ("mesh-df-CN", "thick_cn", ["--engine", "df"], 0.0),
+)
+# The kernels phase 15 must launch (B1, B2, B4-B8, B13-B15).
+PATH_A8 = ("bdf2_launch", "multistep_launch", "halo_bdf2_launch",
+           "halo_multistep_launch", "df_bdf2_launch", "df_multistep_launch",
+           "sharded_substep_launch", "fused_step_launch",
+           "df_halo_bdf2_launch", "df_halo_multistep_launch")
+# The JAX CLI's --metrics-json keys (radiative_transfer_tpu/cli.py:350-362).
+METRICS_KEYS = {"deck", "engine", "mesh", "dtype", "steps_run", "wall_s",
+                "updates_per_s", "balance_max", "balance_mean", "outputs"}
 # Launches of each redesigned kernel (B1's, B2's, B4's, B5's, B6's, B7's,
 # B10's, B11's, B12's, B14's and B15's wavefronts, B8's, B9's and B13's
 # look-backs) per new parity shape: a race shows intermittently, so the
@@ -1161,6 +1227,373 @@ def general_path(dev, card, cli_vs_cpu, run_cli, variant, peak_from,
             + "; two ranks sharing the card (gloo, "
             f"{two_wall:.1f} s wall with start-up): " + "; ".join(two)
             + f"; card: {card}")
+
+
+def a8_deck_paths(tmp: str) -> dict:
+    """Where a8_decks writes each of phase 15's decks."""
+    return {k: os.path.join(tmp, f"a8_{k}.prm")
+            for k in ("mv", "mv_cn", "thick", "thick_cn")}
+
+
+def a8_decks(tmp: str) -> dict:
+    """phase 15's decks, written to tmp: single_group.prm with a boundary
+    source of 2.0 against B = 4.0931, so that the state moves ("mv"), and
+    its thick tiny-batch variant N = 2048, X = 20.48, which the halo
+    engines' creep bound admits ("thick"); each at BDF2 and at CN
+    ("_cn")."""
+    base = open(os.path.join(ROOT, "prm", "single_group.prm")).read()
+    edits = {"mv": [("psi_source=4.0931 4.0931", "psi_source=2.0 2.0")]}
+    edits["thick"] = edits["mv"] + [("N=100", "N=2048"), ("X=1.", "X=20.48")]
+    paths = a8_deck_paths(tmp)
+    for name, subs in edits.items():
+        for suffix, ts in (("", []), ("_cn", [("ts_method=3",
+                                               "ts_method=2")])):
+            text = base
+            for old, new in subs + ts:
+                if old not in text:
+                    raise RuntimeError(f"single_group.prm no longer says "
+                                       f"{old}")
+                text = text.replace(old, new)
+            with open(paths[name + suffix], "w") as fh:
+                fh.write(text)
+    return paths
+
+
+def a8_cli(argv):
+    """The port's CLI in this process; its stdout lines, or RuntimeError
+    with its tail where it exits nonzero."""
+    from radiative_transfer_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"cli {' '.join(argv)} exit {rc}:\n"
+                           + buf.getvalue()[-3000:])
+    return buf.getvalue().splitlines()
+
+
+def a8_kill_resume(tmp, decks, tag, deck, args, device="cuda"):
+    """One route straight for A8_STEPS[0] steps, killed at A8_STEPS[1]
+    with a checkpoint every A8_STEPS[2], then resumed to A8_STEPS[0]:
+    writes tmp/<tag>_{straight,killed,resumed} and tmp/<tag>_ck. Returns
+    the resumed run's stdout lines."""
+    total, killed, every = A8_STEPS
+    base = [decks[deck], *args, "--device", device]
+    ck = ["--checkpoint-dir", os.path.join(tmp, f"{tag}_ck"),
+          "--checkpoint-every", str(every)]
+    a8_cli(base + ["--steps", str(total), "--outdir",
+                   os.path.join(tmp, f"{tag}_straight")])
+    a8_cli(base + ck + ["--steps", str(killed), "--outdir",
+                        os.path.join(tmp, f"{tag}_killed")])
+    out = a8_cli(base + ck + ["--steps", str(total), "--outdir",
+                              os.path.join(tmp, f"{tag}_resumed")])
+    from radiative_transfer_tpu_torch.parallel import distributed
+
+    if (distributed.process_index() == 0
+            and f"resumed from step {killed}" not in out):
+        raise AssertionError(f"phase 15 {tag}: the resumed run did not say "
+                             f"'resumed from step {killed}'")
+    return out
+
+
+def a8_csv_err(got_dir, ref_dir):
+    """(max normalised error over the 8 CSVs, F against max|phi|; whether
+    every file is byte-equal: the CSVs print float64 at %.17g)."""
+    import numpy as np
+
+    phi = np.abs(np.loadtxt(os.path.join(ref_dir, "phi.csv"))).max()
+    worst, same = 0.0, True
+    for name in ("phi", "phi_plus", "psi", "x", "F", "e_ave", "left_ends",
+                 "right_ends"):
+        gp, rp = (os.path.join(d, f"{name}.csv") for d in (got_dir, ref_dir))
+        got, ref = np.loadtxt(gp, ndmin=2), np.loadtxt(rp, ndmin=2)
+        if got.shape != ref.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"{gp}: shape {got.shape} vs {ref.shape} "
+                                 "or not finite")
+        scale = phi if name == "F" else np.abs(ref).max()
+        worst = max(worst, float(np.abs(got - ref).max()
+                                 / max(scale, 1e-300)))
+        same = same and open(gp, "rb").read() == open(rp, "rb").read()
+    return worst, same
+
+
+def a8_counts():
+    """Every phase-15 kernel wrapper's launch count in this process."""
+    from radiative_transfer_tpu_torch.ops import cuda_df as cd
+    from radiative_transfer_tpu_torch.ops import cuda_fused as cf
+    from radiative_transfer_tpu_torch.ops import cuda_sweep as cs
+
+    return {name: getattr(cf if name == "fused_step_launch" else
+                          cd if name.startswith("df_") else cs,
+                          name).launches for name in PATH_A8}
+
+
+def a8_worker(tmp: str) -> int:
+    """One rank of phase 15's two-rank run (started with
+    parallel.distributed.launch_local): every route of A8_MESH_ROUTES
+    killed and resumed through the CLI on --mesh 1x2; each rank saves its
+    launch counts to tmp/a8_counts_<rank>.json."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke a8 worker: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from radiative_transfer_tpu_torch.parallel import distributed
+
+    decks = a8_deck_paths(tmp)
+    for tag, deck, args, _ in A8_MESH_ROUTES:
+        a8_kill_resume(tmp, decks, tag, deck, [*args, "--mesh", "1x2"])
+    with open(os.path.join(tmp, f"a8_counts_{distributed.process_index()}"
+                                ".json"), "w") as fh:
+        json.dump(a8_counts(), fh)
+    distributed.shutdown()
+    return 0
+
+
+def utilities_path(dev, card, peak_from):
+    """Phase 15, A8's utilities (utils/checkpoint.py, utils/debug.py,
+    utils/profiling.py and the CLI flags on them) on the card. Raises on a
+    failed check; returns the phase's line.
+
+    * The main path at full width: CudaSweepEngine (B1, K = 4) at the
+      bench workload from a seeded state (general_rank_state), straight for
+      A8_BENCH_STEPS[0] steps against a run killed at A8_BENCH_STEPS[1]
+      with a checkpoint every A8_BENCH_STEPS[2] (chunks that do not divide
+      K) and resumed, through solve_with_checkpoints_engine: ends, prev
+      and half bit-equal; each save's and load's seconds, the file's
+      bytes, the device's peak memory above the start and the process's
+      peak resident memory.
+    * Every route of A8_ROUTES through the CLI, and of A8_MESH_ROUTES on
+      two ranks sharing the card (--a8-worker children): the resumed run's
+      CSVs against the straight run's within the route's bar (on the mesh
+      the general engine bit-equal to one rank too), bit-equality
+      printed.
+    * A checkpoint the general route wrote on the card, resumed on the
+      CPU: within GENERAL_TOL of the card's straight run.
+    * --balance-every 2 on pallas and df (a line every 2 steps); --check
+      --check-positivity on a healthy run, and --check on a run resuming
+      from a checkpoint poisoned with a NaN (aborts naming the check, no
+      CSV written; completes without --check); --metrics-json (the JAX
+      CLI's keys, a positive rate); --trace (a Chrome trace holding
+      bdf2_kernel's launches).
+    * B1, B2, B4-B8 and B13-B15 each launched within the phase."""
+    import glob
+    import resource
+    import shutil
+
+    import torch
+
+    from radiative_transfer_tpu_torch import load_config
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.ops import cuda_df as cd
+    from radiative_transfer_tpu_torch.ops import cuda_fused as cf
+    from radiative_transfer_tpu_torch.ops import cuda_sweep as cs
+    from radiative_transfer_tpu_torch.parallel import distributed
+    from radiative_transfer_tpu_torch.utils import checkpoint as ckpt
+    from radiative_transfer_tpu_torch.utils import profiling
+    from radiative_transfer_tpu_torch.utils.debug import NumericCheckError
+
+    t_phase = time.perf_counter()
+    for mod in (cs, cd, cf):
+        mod.reset_launch_counts()
+
+    # -- the main path at full width ---------------------------------------
+    total, killed, every = A8_BENCH_STEPS
+    cfg = gray_cfg(32, 1 << 20, 3, steps=total)
+    tables, _, _ = transport.build_tables(cfg)
+    eng = cs.CudaSweepEngine(cfg, tables, device=dev)
+    K = min(eng.max_steps_per_launch(), total)
+    seeded = eng.from_ends(*general_rank_state(cfg, tables))
+    pk = peak_from()
+    want = planes_of(eng, eng.solve(seeded, num_steps=total))
+    # The killed run starts from the same seeded state (at psi = B the
+    # bench does not move).
+    eng.init_state = lambda: seeded
+    seconds = {"save": [], "load": []}
+    real = {"save": ckpt.save_checkpoint, "load": ckpt.load_checkpoint}
+
+    def timed(key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = real[key](*args, **kw)
+            seconds[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ckdir = os.path.join(tmp, "bench_ck")
+        ckpt.save_checkpoint, ckpt.load_checkpoint = (timed("save"),
+                                                      timed("load"))
+        try:
+            ckpt.solve_with_checkpoints_engine(eng, cfg, ckdir, every,
+                                               num_steps=killed)
+            st, resumed = ckpt.solve_with_checkpoints_engine(
+                eng, cfg, ckdir, every, num_steps=total)
+        finally:
+            ckpt.save_checkpoint = real["save"]
+            ckpt.load_checkpoint = real["load"]
+        file_bytes = os.path.getsize(ckpt.checkpoint_path(ckdir, total))
+    got = planes_of(eng, st)
+    dev_peak = pk()
+    bench_s = time.perf_counter() - t0
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    bench_err = max(nerr(a, b) for a, b in zip(got, want))
+    bench_bit = all(torch.equal(a, b) for a, b in zip(got, want))
+    if resumed != killed or not bench_bit:
+        raise AssertionError(f"phase 15 bench: resumed from {resumed} (not "
+                             f"{killed}) or resumed vs straight "
+                             f"{bench_err:.3e}, not bit-equal")
+    del eng, seeded, want, got, st
+    bench_line = (
+        f"main path at full width (gray S_{cfg.M}, N=2^"
+        f"{cfg.N.bit_length() - 1}, BDF2, CudaSweepEngine B1 K={K}, from a "
+        f"seeded state): {total} steps straight vs killed at {killed} (a "
+        f"checkpoint every {every}: launches of K "
+        + ", ".join(str(min(K, n)) for n in (every, killed - every,
+                                             total - killed) if n)
+        + f") and resumed from {resumed}: ends/prev/half bit-equal; saves "
+        + ", ".join(f"{x:.2f}" for x in seconds["save"]) + " s, load "
+        + ", ".join(f"{x:.2f}" for x in seconds["load"])
+        + f" s, a checkpoint {file_bytes} bytes, device peak {dev_peak:.3f} "
+        f"GiB above the start, process peak resident {host_peak:.2f} GiB, "
+        f"{bench_s:.1f} s")
+    total, killed, every = A8_STEPS
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # -- every other route, one device and two ranks -------------------
+        decks = a8_decks(tmp)
+        t0 = time.perf_counter()
+        for tag, deck, args, _ in A8_ROUTES:
+            a8_kill_resume(tmp, decks, tag, deck, args)
+        routes_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs = distributed.launch_local(
+            [os.path.abspath(__file__), "--a8-worker", tmp], 2, cwd=ROOT,
+            timeout=600)
+        two_wall = time.perf_counter() - t0
+        for r in runs:
+            if r.returncode != 0:
+                raise AssertionError(f"phase 15 two ranks rc {r.returncode}:"
+                                     "\n" + r.stdout[-2000:]
+                                     + r.stderr[-4000:])
+        results, not_bit = [], []
+        for tag, _, _, bar in A8_ROUTES + A8_MESH_ROUTES:
+            err, same = a8_csv_err(os.path.join(tmp, f"{tag}_resumed"),
+                                   os.path.join(tmp, f"{tag}_straight"))
+            if not (same if bar == 0 else err <= bar):
+                raise AssertionError(f"phase 15 {tag}: resumed vs straight "
+                                     f"{err:.3e}, byte-equal {same} (bar "
+                                     f"{bar or 'bit-equality'})")
+            results.append(f"{tag} {'bit-equal' if same else f'{err:.2e}'}")
+            if not same:
+                not_bit.append(tag)
+        err, same = a8_csv_err(os.path.join(tmp, "mesh-general_resumed"),
+                               os.path.join(tmp, "general_straight"))
+        if not same:
+            raise AssertionError(f"phase 15: the general engine resumed on "
+                                 f"two ranks vs one rank straight {err:.3e}, "
+                                 "not bit-equal")
+
+        # -- the card's general checkpoint, resumed on the CPU -------------
+        cpu_ck = os.path.join(tmp, "general_cpu_ck")
+        shutil.copytree(os.path.join(tmp, "general_ck"), cpu_ck)
+        os.remove(ckpt.checkpoint_path(cpu_ck, total))
+        a8_cli([decks["mv"], "--engine", "general", "--device", "cpu",
+                "--steps", str(total), "--checkpoint-dir", cpu_ck,
+                "--checkpoint-every", str(every), "--outdir",
+                os.path.join(tmp, "general_cpu")])
+        cpu_err, _ = a8_csv_err(os.path.join(tmp, "general_cpu"),
+                                os.path.join(tmp, "general_straight"))
+        if not cpu_err <= GENERAL_TOL:
+            raise AssertionError(f"phase 15: the card's checkpoint resumed "
+                                 f"on the CPU {cpu_err:.3e} > {GENERAL_TOL}")
+
+        # -- the other flags ------------------------------------------------
+        pallas = ["--engine", "pallas", "--dtype", "float32"]
+        bal_re = re.compile(r"step\s+\d+: balance max=")
+        balance = []
+        for tag, args in (("pallas", pallas), ("df", ["--engine", "df"])):
+            out = a8_cli([decks["mv"], *args, "--steps", str(total),
+                          "--balance-every", "2", "--outdir",
+                          os.path.join(tmp, f"balance_{tag}")])
+            lines = sum(1 for ln in out if bal_re.match(ln))
+            if lines != total // 2:
+                raise AssertionError(f"phase 15 --balance-every 2 {tag}: "
+                                     f"{lines} lines, not {total // 2}")
+            balance.append(f"{tag} {lines} lines")
+        a8_cli([decks["mv"], *pallas, "--steps", str(total), "--check",
+                "--check-positivity", "--outdir",
+                os.path.join(tmp, "check_ok")])
+        pcfg = load_config(decks["mv"])
+        ptab, _, _ = transport.build_tables(pcfg)
+        st0 = transport.initial_state(pcfg, ptab)
+        ends = st0.ends.clone()
+        ends[0, 0, 2, 0] = float("nan")
+        pdir, pout = (os.path.join(tmp, n) for n in ("poisoned_ck",
+                                                     "poisoned"))
+        ckpt.save_checkpoint(pdir, st0._replace(ends=ends), every, pcfg)
+        argv = [decks["mv"], *pallas, "--steps", str(killed),
+                "--checkpoint-dir", pdir, "--checkpoint-every", str(every),
+                "--outdir", pout, "--check"]
+        try:
+            a8_cli(argv)
+            raise AssertionError("phase 15: --check did not abort on the "
+                                 "poisoned checkpoint")
+        except NumericCheckError as e:
+            abort = str(e)
+        if ("'finite-intensity'" not in abort
+                or not abort.endswith(f"at step {every}")
+                or glob.glob(os.path.join(pout, "*.csv"))):
+            raise AssertionError(f"phase 15 --check: {abort!r}, CSVs "
+                                 f"{glob.glob(os.path.join(pout, '*.csv'))}")
+        a8_cli(argv[:-1])   # the same run completes without --check
+        mpath, tdir = (os.path.join(tmp, n) for n in ("metrics.json",
+                                                      "trace"))
+        a8_cli([decks["mv"], *pallas, "--steps", str(total),
+                "--metrics-json", mpath, "--trace", tdir, "--outdir",
+                os.path.join(tmp, "metrics")])
+        with open(mpath) as fh:
+            metrics = json.load(fh)
+        if set(metrics) != METRICS_KEYS or not metrics["updates_per_s"] > 0:
+            raise AssertionError(f"phase 15 --metrics-json: {metrics}")
+        with open(profiling.trace_path(tdir)) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        named = [n for n in kernels if "bdf2_kernel" in n]
+        if not named:
+            raise AssertionError(
+                f"phase 15 --trace: no bdf2_kernel among {len(kernels)} "
+                f"kernel events (categories: "
+                f"{sorted({str(e.get('cat')) for e in events})})")
+        trace_bytes = os.path.getsize(profiling.trace_path(tdir))
+
+        counts = a8_counts()
+        for rank in range(2):
+            with open(os.path.join(tmp, f"a8_counts_{rank}.json")) as fh:
+                for name, n in json.load(fh).items():
+                    counts[name] += n
+    missing = [name for name, n in counts.items() if n == 0]
+    if missing:
+        raise AssertionError(f"phase 15: kernels not launched: {missing} "
+                             f"({counts})")
+    return (f"phase 15 A8 utilities: ok in {time.perf_counter() - t_phase:.1f}"
+            f" s; {bench_line}; kill and resume through "
+            f"the CLI ({total} straight vs killed at {killed} every {every} "
+            f"and resumed; {routes_s:.1f} s one device, two ranks sharing the "
+            f"card {two_wall:.1f} s wall with start-up): " + ", ".join(results)
+            + f"; not bit-equal: {not_bit or 'none'}; mesh-general resumed "
+            f"bit-equal to general straight on one rank; the card's general "
+            f"checkpoint at step {killed} resumed on the CPU vs the card "
+            f"{cpu_err:.1e}; --balance-every 2: " + ", ".join(balance)
+            + f"; --check --check-positivity healthy ok, poisoned checkpoint "
+            f"aborted ({abort!r}), no CSV, completes without --check; "
+            f"--metrics-json keys ok, {metrics['updates_per_s']:.4g} "
+            f"updates/s; --trace {trace_bytes} bytes, {len(kernels)} kernel "
+            f"events, {len(named)} named {named[0]!r}; launches "
+            f"{json.dumps(counts)}; card: {card}")
 
 
 def card_line() -> str:
@@ -3767,6 +4200,9 @@ def main() -> int:
         {"CudaSweepEngine": rate, "DFCudaEngine": d_rate}),
         flush=True)
 
+    # -- 15. A8's utilities: checkpoints, the CLI's run-time flags ----------------
+    print(utilities_path(dev, card, peak_from), flush=True)
+
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the
     # kernel only passes between its own launches is not counted; the halo
@@ -4172,6 +4608,8 @@ if __name__ == "__main__":
                              int(sys.argv[4])))
     if sys.argv[1:2] == ["--general-worker"]:
         sys.exit(general_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--a8-worker"]:
+        sys.exit(a8_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--ranks"]:
         sys.exit(ranks_check(int(sys.argv[2])))
     sys.exit(main())

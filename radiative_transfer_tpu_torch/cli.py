@@ -2,14 +2,20 @@
 
 Port of radiative_transfer_tpu/cli.py on its general and kernel engine
 paths, on one device and on a mesh (reference: src/main.cc:60-136): read a
-.prm deck, run it, print the per-group balance diagnostic and write the 8
-CSVs the reference plot scripts consume.
+.prm deck, echo the input quantities
+(ParameterHandler::display_input_quantities, src/ParameterHandler.cpp:
+20-96) and the solver's quadrature and group tables, run it, print the
+per-group balance diagnostic and write the 8 CSVs the reference plot
+scripts consume.
 
 Usage:
     python -m radiative_transfer_tpu_torch.cli DECK --outdir D
         [--engine general|pallas|halo|fused|df|auto] [--mesh GxX]
         [--dtype float64|float32] [--steps n] [--scan-tol x] [--profile]
         [--device cuda|cpu]
+        [--checkpoint-dir DIR [--checkpoint-every n] [--no-resume]]
+        [--balance-every K] [--check [--check-positivity]]
+        [--print-tables] [--trace LOGDIR] [--metrics-json FILE]
 
     torchrun --nproc_per_node P -m radiative_transfer_tpu_torch.cli DECK
         --mesh GxX ...        (P = G*X ranks, one shard each)
@@ -61,9 +67,30 @@ rank 0 writes the CSVs from the gathered ends:
 float64`` they print a note and run in float32, as the JAX CLI does.
 ``--device cuda`` (the default) runs on the card and fails with exit
 code 2 when there is no CUDA device; ``--device cpu`` runs the general
-engine and the kernels' plain PyTorch versions on the CPU. Every other
-engine (``fast``, ROADMAP A7) and flag of the JAX package's CLI is refused
-with exit code 2: it is not ported yet.
+engine and the kernels' plain PyTorch versions on the CPU.
+
+The run-time flags work on every engine and mesh, with the JAX CLI's
+semantics (utils/checkpoint.py, utils/debug.py, utils/diagnostics.py,
+utils/profiling.py):
+
+* ``--checkpoint-dir DIR`` writes ``ckpt_%09d.npz`` every
+  ``--checkpoint-every`` steps (default 100) and resumes from the newest
+  one (``--no-resume`` ignores them), printing ``resumed from step N``;
+  the files cross between this package and the JAX package both ways;
+* ``--balance-every K`` runs in K-step chunks and prints the per-group
+  balance and step metrics after each (an argparse error, exit 2, with
+  ``--checkpoint-dir``, whose chunking owns the loop);
+* ``--check`` guards every chunk's ends (finite; with
+  ``--check-positivity`` also positive) and aborts with the check named
+  before any CSV or poisoned checkpoint is written;
+* ``--print-tables`` prints every physics table and writes them as CSVs;
+* ``--trace LOGDIR`` writes a torch.profiler Chrome trace of the solve
+  (the kernels included on the card) to LOGDIR/trace_rank<r>.json;
+* ``--metrics-json FILE`` writes the run's metrics as one JSON object.
+
+Refused with exit code 2, naming the ROADMAP item that ports them:
+``--engine fast``, ``--steady`` and ``--steady-method`` (A7),
+``--ensemble-kappa`` (A10).
 """
 
 from __future__ import annotations
@@ -75,6 +102,87 @@ import time
 
 import numpy as np
 import torch
+
+
+def _echo_inputs(cfg) -> None:
+    """Byte-format replica of display_input_quantities
+    (src/ParameterHandler.cpp:20-96): same lines, same default-`cout`
+    number formatting (%g at 6 significant digits), same BC wording and
+    blank-line placement. psi_source prints Eigen-style (column-aligned
+    matrix; one value per line when G==1, matching a column vector)."""
+    from .constants import SPEED_OF_LIGHT
+
+    g = lambda v: f"{v:.6g}"  # noqa: E731 - cout's default double format
+    bc_name = {0: "vacuum", 2: "reflective", 1: "source"}
+
+    out = ["", "--- Input Parameters ---"]
+    out.append(f"Angle quadrature order: {cfg.M}")
+    out.append(f"Number of energy groups: {cfg.G}")
+    if cfg.have_group_bounds:
+        out.append("Group bounds (keV) specified in file: "
+                   f"{cfg.filename_group_bounds}")
+    else:
+        out.append("Group bounds (keV) will be computed logarithmically, "
+                   f"with first group edge at {g(cfg.efirst)} and last "
+                   f"group edge at {g(cfg.elast)}")
+    out.append(f"Slab thickness (cm): {g(cfg.X)}")
+    out.append(f"Number of cells: {cfg.N}")
+    out.append(f"Material density (g/cm^3): {g(cfg.rho)}")
+    if cfg.have_group_absorption_opacities:
+        out.append("Group opacities (cm^2/g) specified in file: "
+                   f"{cfg.filename_group_kappa}")
+    else:
+        out.append("Group opacities will be set to the constant grey "
+                   f"opacity (cm^2/g): {g(cfg.kappa_grey)}")
+    out.append(f"Material temperature (keV): {g(cfg.T)}")
+    out.append(f"Material velocity (cm/shake): {g(cfg.V)}")
+    out.append(f"Beta: {g(cfg.V / SPEED_OF_LIGHT)}")
+    out.append("Right boundary condition: "
+               + bc_name.get(cfg.bc_right_indicator,
+                             "Incorrect boundary conditions provided."))
+    out.append("Left boundary condition: "
+               + bc_name.get(cfg.bc_left_indicator,
+                             "Incorrect boundary conditions provided."))
+    out.append("")
+    out.append("Psi_source: ")
+    src = [[g(v) for v in row] for row in cfg.psi_source] or [[]]
+    w = max((len(s) for row in src for s in row), default=0)
+    for row in src:
+        out.append(" ".join(s.rjust(w) for s in row).rstrip())
+    print("\n".join(out))
+
+
+def _echo_solver_tables(cfg) -> None:
+    """Byte-format replica of the quadrature and energy-group tables the
+    reference prints at Solver construction (src/solver.cpp:80-87,
+    107-122): setw/left iostream layout, showpos on the quadrature
+    values, %g-6 number formatting, same trailing blank lines."""
+    from .ops.groups import build_group_grid
+    from .ops.quadrature import gauss_legendre
+
+    g = lambda v: f"{v:.6g}"        # noqa: E731 - cout default format
+    gp = lambda v: f"{v:+.6g}"      # noqa: E731 - with showpos
+
+    mu, wt = gauss_legendre(cfg.M)
+    out = ["Mu".ljust(16) + "Wt".ljust(16),
+           "--".ljust(16) + "--".ljust(16)]
+    for i in range(cfg.M):
+        out.append(gp(mu[i]).ljust(16) + gp(wt[i]).ljust(16))
+    out.append("")
+
+    grid = build_group_grid(cfg.G, cfg.efirst, cfg.elast,
+                            cfg.group_bounds_array())
+    out.append("Group Index".ljust(13) + "Average Energy".ljust(16)
+               + "Upper Energy".ljust(14) + "Group Width".ljust(13))
+    out.append("-----------".ljust(13) + "(keV)---------".ljust(16)
+               + "(keV)-------".ljust(14) + "(keV)------".ljust(13))
+    for gi in range(cfg.G):
+        out.append(str(gi).ljust(13) + g(grid.e_ave[gi]).ljust(16)
+                   + g(grid.e_edge[gi + 1]).ljust(14)
+                   + g(grid.de_ave[gi]).ljust(13))
+    out.append("")
+    out.append("")
+    print("\n".join(ln.rstrip() for ln in out))
 
 
 def main(argv=None) -> int:
@@ -121,19 +229,72 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda: the CUDA kernels (default); cpu: their "
                          "plain PyTorch versions")
-    args, extra = ap.parse_known_args(argv)
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="write .npz checkpoints here and resume from the "
+                         "newest one (exact restart)")
+    ap.add_argument("--checkpoint-every", type=int, default=100,
+                    help="full timesteps between checkpoints")
+    ap.add_argument("--no-resume", action="store_true",
+                    help="ignore existing checkpoints in --checkpoint-dir")
+    ap.add_argument("--print-tables", action="store_true",
+                    help="print every physics table (quadrature, groups, "
+                         "Planck integrals, correction components) and "
+                         "write them as CSVs to --outdir")
+    ap.add_argument("--check", action="store_true",
+                    help="numeric guards: verify the intensity state is "
+                         "finite after every solve chunk (and at the end), "
+                         "aborting with the failing check named (the "
+                         "solver.cpp:609-612 assert analogue)")
+    ap.add_argument("--check-positivity", action="store_true",
+                    help="with --check, also enforce strictly positive "
+                         "edge intensities (reference debug-build assert, "
+                         "solver.cpp:402; off by default because vacuum "
+                         "boundaries legitimately reach ~0)")
+    ap.add_argument("--trace", default=None, metavar="LOGDIR",
+                    help="write a torch.profiler Chrome trace of the solve "
+                         "(host operators, and the kernels on the card) to "
+                         "LOGDIR/trace_rank<r>.json")
+    ap.add_argument("--metrics-json", default=None, metavar="FILE",
+                    help="write one JSON object of run metrics (wall "
+                         "time, steps, updates/s, balance, engine/mesh/"
+                         "dtype) to FILE")
+    ap.add_argument("--balance-every", type=int, default=None, metavar="K",
+                    help="run in K-step chunks, printing the per-group "
+                         "balance diagnostic and step metrics after each "
+                         "(every engine and mesh mode; incompatible with "
+                         "--checkpoint-dir, whose chunking owns the loop)")
+    ap.add_argument("--steady", action="store_true",
+                    help="the direct steady-state solve: not ported yet "
+                         "(ROADMAP A7)")
+    ap.add_argument("--steady-method", choices=("direct", "cycle"),
+                    default="direct",
+                    help="with --steady: not ported yet (ROADMAP A7)")
+    ap.add_argument("--ensemble-kappa", default=None, metavar="FILE",
+                    help="the opacity ensemble: not ported yet (ROADMAP "
+                         "A10)")
+    args = ap.parse_args(argv)
 
-    if extra:
-        print(f"not ported yet: {' '.join(extra)} (this CLI takes --outdir, "
-              "--steps, --engine general|pallas|halo|fused|df|auto, --mesh, "
-              "--dtype, --scan-tol, --profile, --device)", file=sys.stderr)
-        return 2
+    if args.balance_every and args.checkpoint_dir:
+        ap.error("--balance-every and --checkpoint-dir both chunk the "
+                 "solve loop; pick one")
+    if args.steady_method != "direct" and not args.steady:
+        ap.error("--steady-method requires --steady")
+    if (args.balance_every is not None and args.balance_every < 1
+            or args.checkpoint_every < 1):
+        ap.error("--balance-every and --checkpoint-every take a positive "
+                 "number of steps")
+    refused = ((args.steady, "--steady", "A7, with the fast engine"),
+               (args.ensemble_kappa, "--ensemble-kappa", "A10"),
+               (args.engine == "fast", "--engine fast", "A7"))
+    for on, flag, item in refused:
+        if on:
+            print(f"{flag} is not ported yet (ROADMAP {item})",
+                  file=sys.stderr)
+            return 2
     if args.engine not in ("general", "pallas", "halo", "fused", "df",
                            "auto"):
-        item = {"fast": " (ROADMAP A7)"}
-        print(f"--engine {args.engine} is not ported yet"
-              f"{item.get(args.engine, '')}; use --engine general, pallas, "
-              "halo, fused, df or auto", file=sys.stderr)
+        print(f"unknown --engine {args.engine}; use --engine general, "
+              "pallas, halo, fused, df or auto", file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (--device cpu "
@@ -147,7 +308,7 @@ def main(argv=None) -> int:
     from .models import transport
     from .parallel import distributed
     from .utils import io as io_mod
-    from .utils.profiling import updates_per_step
+    from .utils import profiling
 
     # The halo and fused engines are mesh engines: their implied mesh must
     # exist before the process group is joined (as JAX's cli.py:277-278).
@@ -166,32 +327,51 @@ def main(argv=None) -> int:
     if args.steps is not None:
         overrides["max_timesteps"] = args.steps
     cfg = load_config(args.deck, **overrides)
-    say(f"filename: {args.deck}")
+    if is_p0:
+        print(f"filename: {args.deck}")
+        _echo_inputs(cfg)
+        _echo_solver_tables(cfg)
 
     tables, grid, ct = transport.build_tables(cfg)
+    if args.print_tables and is_p0:
+        from .utils import diagnostics
+
+        print(diagnostics.full_report(cfg, tables, grid, ct))
+        for p in diagnostics.write_tables_csv(args.outdir, cfg, tables,
+                                              grid, ct):
+            print(f"wrote {p}")
     if cfg.include_validation and not transport.validate_tables(cfg, ct):
         print("Invalid Correction Terms", file=sys.stderr)
         return 1
 
+    check_fn = None
+    if args.check:
+        from .utils.debug import make_ends_checker
+
+        check_fn = make_ends_checker(positivity=args.check_positivity)
     t0 = time.perf_counter()
-    if args.engine == "general":
-        ends = _general(args, cfg, tables, device)
-    else:
-        eng = (_mesh_engine(args, cfg, tables, device, say) if args.mesh
-               else _single_engine(args, cfg, tables))
-        ends = eng if isinstance(eng, int) else eng.ends(eng.solve())
-    if isinstance(ends, int):
-        return ends
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with profiling.trace(args.trace, device):
+        if args.engine == "general":
+            eng = _general_engine(args, cfg, tables, device)
+        elif args.mesh:
+            eng = _mesh_engine(args, cfg, tables, device, say)
+        else:
+            eng = _single_engine(args, cfg, tables)
+        if isinstance(eng, int):
+            return eng
+        ends, resumed = _run(args, eng, cfg, tables, check_fn, say)
+        _sync(device)
     wall = time.perf_counter() - t0
+    if args.trace:
+        say(f"wrote trace to {profiling.trace_path(args.trace)}")
     if not is_p0:
         return 0
     result = transport.result_from_ends(cfg, tables, ends)
 
+    # steps_run excludes any checkpoint-resumed prefix.
+    steps_run = cfg.max_timesteps - resumed
+    ups = profiling.updates_per_step(cfg) * steps_run
     if args.profile:
-        steps_run = cfg.max_timesteps
-        ups = updates_per_step(cfg) * steps_run
         print(f"wall: {wall:.3f} s for {steps_run} steps "
               f"({wall / max(steps_run, 1) * 1e3:.2f} ms/step, "
               f"{ups / wall / 1e6:.1f} M updates/s) on {args.device}")
@@ -212,30 +392,142 @@ def main(argv=None) -> int:
     paths = io_mod.write_solution_csvs(args.outdir, result, x,
                                        np.asarray(grid.e_ave))
     print(f"wrote {len(paths)} CSVs to {os.path.abspath(args.outdir)}")
+
+    if args.metrics_json:
+        import json
+
+        with open(args.metrics_json, "w") as f:
+            json.dump({
+                "deck": args.deck,
+                "engine": args.engine,
+                "mesh": args.mesh,
+                "dtype": args.dtype,
+                "steps_run": steps_run,
+                "wall_s": wall,
+                "updates_per_s": ups / wall if wall > 0 else None,
+                "balance_max": float(bal.max()),
+                "balance_mean": float(bal.mean()),
+                "outputs": {n: os.path.abspath(p)
+                            for n, p in paths.items()},
+            }, f, indent=1)
+            f.write("\n")
+        print(f"wrote metrics to {args.metrics_json}")
     return 0
 
 
-def _general(args, cfg, tables, device):
-    """The general engine's final ends (JAX's transport.solve, or its
-    _run_sharded on --mesh), or an exit code."""
-    from .models import transport
-    from .parallel import sharded
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
+
+class _GeneralEngine:
+    """The general engine behind the engine protocol the chunked solve
+    loops use (init_state/solve/ends; JAX cli.py:774-786's adapter): on one
+    device transport.solve, on a mesh parallel/sharded.solve_sharded;
+    its state is the global transport.State, on every rank."""
+
+    def __init__(self, cfg, tables, mesh, dtype, device):
+        from .parallel import sharded
+
+        self.cfg, self.tables, self.mesh = cfg, tables, mesh
+        self.dtype, self.device = dtype, device
+        if mesh is not None:
+            sharded._Blocks(cfg, mesh)   # ValueError where it cannot split
+
+    def init_state(self):
+        from .models import transport
+
+        return transport.initial_state(self.cfg, self.tables)
+
+    def solve(self, state=None, num_steps=None):
+        from .models import transport
+        from .parallel import sharded
+
+        if state is None:
+            state = self.init_state()
+        if self.mesh is None:
+            return transport.solve(self.cfg, self.tables, state, num_steps,
+                                   self.dtype, self.device)
+        return sharded.solve_sharded(self.cfg, self.tables, state, self.mesh,
+                                     num_steps, self.dtype, self.device)
+
+    def ends(self, state):
+        return state.ends
+
+
+def _general_engine(args, cfg, tables, device):
+    """The general engine of --engine general (on --mesh, the mesh's), or
+    an exit code."""
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
-    state = transport.initial_state(cfg, tables)
-    if not args.mesh:
-        return transport.solve(cfg, tables, state, dtype=dtype,
-                               device=device).ends
-    mesh = _mesh(args)
-    if isinstance(mesh, int):
-        return mesh
+    mesh = None
+    if args.mesh:
+        mesh = _mesh(args)
+        if isinstance(mesh, int):
+            return mesh
     try:
-        return sharded.solve_sharded(cfg, tables, state, mesh, dtype=dtype,
-                                     device=device).ends
+        return _GeneralEngine(cfg, tables, mesh, dtype, device)
     except ValueError as e:
         print(f"--engine general infeasible on --mesh {args.mesh}: {e}",
               file=sys.stderr)
         return 2
+
+
+def _run(args, eng, cfg, tables, check_fn, say):
+    """Solve on `eng`: in checkpointed chunks (--checkpoint-dir), in
+    chunks streaming the balance (--balance-every), or straight. Returns
+    (the final global ends, the step resumed from)."""
+    resumed = 0
+    if args.checkpoint_dir:
+        from .utils import checkpoint as ckpt
+
+        kw = dict(every=args.checkpoint_every, resume=not args.no_resume,
+                  check_fn=check_fn)
+        if isinstance(eng, _GeneralEngine):
+            st, resumed = ckpt.solve_with_checkpoints(
+                cfg, tables, eng.init_state(), args.checkpoint_dir,
+                solve_fn=eng.solve, **kw)
+        else:
+            st, resumed = ckpt.solve_with_checkpoints_engine(
+                eng, cfg, args.checkpoint_dir, **kw)
+        if resumed:
+            say(f"resumed from step {resumed}")
+    elif args.balance_every:
+        st = _engine_balance_loop(eng, cfg, args, tables, check_fn, say)
+    else:
+        st = eng.solve()
+    ends = eng.ends(st)
+    if check_fn is not None:
+        check_fn(ends, cfg.max_timesteps)
+    return ends, resumed
+
+
+def _engine_balance_loop(eng, cfg, args, tables, check_fn, say):
+    """--balance-every on every engine and mesh mode: run in K-step
+    chunks, printing the per-group balance summary and step metrics after
+    each (the reference prints balance only at the end,
+    solver.cpp:275-282; here it doubles as a live health monitor)."""
+    from .models import transport
+    from .utils.profiling import StepMetrics, updates_per_step
+
+    state = eng.init_state()
+    metrics = StepMetrics(updates_per_step=updates_per_step(cfg))
+    done, total, every = 0, cfg.max_timesteps, args.balance_every
+    while done < total:
+        n = min(every, total - done)
+        t0 = time.perf_counter()
+        state = eng.solve(state, num_steps=n)
+        ends = eng.ends(state).to(torch.float64)
+        _sync(ends.device)
+        metrics.add(n, time.perf_counter() - t0)
+        done += n
+        if check_fn is not None:
+            check_fn(ends, done)
+        wt = torch.as_tensor(np.asarray(tables.wt), device=ends.device)
+        phi = transport.compute_phi(transport.psi_from_ends(ends), wt)
+        bal = transport.compute_balance(cfg, tables, ends, phi).cpu().numpy()
+        say(f"step {done:>6d}: balance max={bal.max():.3e} "
+            f"mean={bal.mean():.3e}   [{metrics.summary()}]")
+    return state
 
 
 def _mesh(args):

@@ -1,1 +1,2 @@
-"""Host-side runtime utilities: CSV output and step-rate accounting."""
+"""Host-side runtime utilities: CSV output, checkpointing, diagnostics,
+profiling, numeric guards."""

@@ -11,10 +11,12 @@ The CSV writers themselves are byte-identical for identical arrays.
 """
 
 import conftest  # noqa: F401  (JAX on the CPU; repo root on sys.path)
+from conftest import deck_edit
 
 import contextlib
 import io
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -99,23 +101,99 @@ def test_writers_byte_identical(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--engine", "general", "--balance-every", "5"],
+    ["--steady"],
     ["--engine", "fast"],
     ["--engine", "df", "--mesh", "1x2"],
     ["--engine", "pallas", "--mesh", "1x2"],
-    ["--engine", "pallas", "--checkpoint-dir", "ck"],
+    ["--ensemble-kappa", "kappas.txt"],
     ["--engine", "pallas", "--device", "tpu"],
+    ["--balance-every", "2", "--checkpoint-dir", "ck"],
+    ["--steady-method", "cycle"],
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
+    """Exit 2 and no CSV: what is not ported yet (A7, A10), a mesh of more
+    ranks than run, an unknown device, and the JAX CLI's flag hygiene
+    (argparse errors)."""
     argv = [_deck("single_group.prm"), "--outdir", str(tmp_path), *extra]
     if "--device" not in extra:
         argv += ["--device", "cpu"]
     try:
         rc = port_cli.main(argv)
-    except SystemExit as exc:  # argparse refuses a bad --device choice
+    except SystemExit as exc:  # argparse refuses bad flags and choices
         rc = exc.code
     assert rc == 2
     assert not list(tmp_path.glob("*.csv"))
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--steady"], "--steady is not ported yet (ROADMAP A7"),
+    (["--engine", "fast"], "--engine fast is not ported yet (ROADMAP A7"),
+    (["--ensemble-kappa", "kappas.txt"],
+     "--ensemble-kappa is not ported yet (ROADMAP A10")])
+def test_cli_refusals_name_their_roadmap_item(tmp_path, capsys, extra,
+                                              message):
+    rc = port_cli.main([_deck("single_group.prm"), "--outdir", str(tmp_path),
+                        "--device", "cpu", *extra])
+    assert rc == 2
+    assert message in capsys.readouterr().err
+
+
+BAL_RE = re.compile(r"^step\s+(\d+): balance max=", re.M)
+
+
+def _moving_deck(tmp_path, thick):
+    """single_group.prm with a boundary source of 2.0 against B = 4.0931
+    (the state moves), at N = 64 as JAX tests/test_cli_flags.py runs it,
+    or thick (N = 2048, X = 20.48) where the halo engines' creep bound
+    admits it."""
+    text = deck_edit(open(_deck("single_group.prm")).read(),
+                     "psi_source=4.0931 4.0931", "psi_source=2.0 2.0")
+    for old, new in ([("N=100", "N=2048"), ("X=1.", "X=20.48")] if thick
+                     else [("N=100", "N=64")]):
+        text = deck_edit(text, old, new)
+    path = tmp_path / ("thick.prm" if thick else "deck.prm")
+    path.write_text(text)
+    return str(path)
+
+
+BALANCE_MODES = [
+    (["--engine", "general"], False),
+    (["--engine", "general", "--dtype", "float32"], False),
+    (["--engine", "pallas", "--dtype", "float32"], False),
+    (["--engine", "auto", "--dtype", "float32"], False),
+    (["--engine", "df"], False),
+    (["--engine", "auto"], True),
+    (["--engine", "halo", "--dtype", "float32"], True),
+    (["--engine", "fused", "--dtype", "float32"], False),
+]
+
+
+@pytest.mark.parametrize("extra,thick", BALANCE_MODES,
+                         ids=[" ".join(m[0]) for m in BALANCE_MODES])
+def test_balance_every_prints_in_every_mode(tmp_path, extra, thick):
+    """--balance-every streams the balance diagnostic on every engine (the
+    mesh engines in tests/test_torch_checkpoint.py), one line a chunk,
+    ragged last chunk included."""
+    rc, out = _run(port_cli.main, [
+        _moving_deck(tmp_path, thick), "--outdir", str(tmp_path),
+        "--steps", "5", "--balance-every", "2", "--device", "cpu", *extra])
+    assert rc == 0, out[-2000:]
+    assert [int(n) for n in BAL_RE.findall(out)] == [2, 4, 5], out[-2000:]
+    assert "wrote 8 CSVs" in out
+
+
+def test_balance_every_matches_plain_run(tmp_path):
+    """Chunking with the balance stream does not change the solution."""
+    deck = _moving_deck(tmp_path, False)
+    a, b = tmp_path / "a", tmp_path / "b"
+    common = [deck, "--engine", "pallas", "--dtype", "float32", "--steps",
+              "4", "--device", "cpu"]
+    assert _run(port_cli.main, common + ["--outdir", str(a)])[0] == 0
+    assert _run(port_cli.main, common + ["--outdir", str(b),
+                                         "--balance-every", "1"])[0] == 0
+    for name in CSVS:
+        assert (a / f"{name}.csv").read_bytes() == (
+            b / f"{name}.csv").read_bytes(), name
 
 
 def test_cli_cuda_without_card_exits_2(tmp_path, capsys):
