@@ -225,11 +225,11 @@ Phases, one line each; any failure exits nonzero before the result line:
    --general-worker` children: gray S_32 at 2^16 cells on 1x2, the
    multigroup deck at 4096 cells on 2x1) within 1e-12 of one rank.
 15. A8's utilities (utils/checkpoint.py, utils/debug.py,
-   utils/profiling.py and the CLI flags on them): the bench workload on
-   CudaSweepEngine (B1, K = 4) from a seeded state, 5 steps straight
-   against a run killed at step 3 with a checkpoint every 3 and resumed
-   (chunks of 3 and 2 that do not divide K; two saves, each ~150 s of
-   host zlib), bit-equal, with each save's and load's seconds, the
+   utils/profiling.py and the CLI flags on them): the bench workload
+   (gray S_32, BDF2) cut to A8_BENCH_N = 2^19 cells on CudaSweepEngine
+   (B1, K = 4) from a seeded state, 5 steps straight against a run killed
+   at step 3 with a checkpoint every 3 and resumed (chunks of 3 and 2 that
+   do not divide K; two saves, each ~80 s of host zlib), bit-equal, with each save's and load's seconds, the
    checkpoint's bytes and the peak memory; through the CLI, 8 steps
    straight against killed at 6 (every 3) and resumed, on the general
    engine, pallas at CN (B2), halo at BDF2 and CN (B4, B5), df (B6, B7)
@@ -242,6 +242,34 @@ Phases, one line each; any failure exits nonzero before the result line:
    run, and a checkpoint poisoned with a NaN aborting with no CSV),
    --metrics-json (the JAX CLI's keys) and --trace (a Chrome trace naming
    bdf2_kernel); B1, B2, B4-B8 and B13-B15 each launched in the phase.
+16. ensembles (ensemble.py) and the fast engine (ops/fast_sweep.FastEngine,
+   adjoint.make_diff_solve_fast; plain PyTorch, no kernel of their own):
+   benchmarks/suite.py's gray_s8 with ENS_K = 8 seeded opacity members
+   (kappa x U(0.5, 2)) from a seeded shared state, through
+   ensemble.solve_ensemble_stacked on auto (the stacked Bh = 32 on
+   CudaSweepEngine: B1 at BDF2, B2 at CN) and df (DFCudaEngine: B6, B7),
+   each member against its own solve alone (auto's HaloCudaEngine, B4/B5;
+   df's DFHaloCudaEngine, B14/B15): bit-equal, or within STEP_TOL (DF_TOL
+   in hi + lo) with the reason printed; the stacked engine's 64 steps and
+   each solo solve timed with CUDA events (median of 3 windows; aggregate
+   and solo updates/s);
+   the CLI's --ensemble-kappa (K = 4 on single_group.prm moving and its
+   thick variant at BDF2 and CN, where auto and df pick the halo engines;
+   K = 2 on prm/llnl_slab_test.prm, 2 steps) through pallas, auto, df,
+   fast and general, every member's CSVs against the same CLI on the CPU
+   (5e-5, df 1e-10, general and fast 1e-12); FastEngine at the bench at
+   float64 and float32 from a seeded state against the general engine
+   (1e-12; float32 5e-5), rates and peak memory; make_diff_solve_fast's
+   value and dL/dkappa at the adjoint bench against make_diff_solve's
+   (1e-10), grad/forward and peak memory, and card against CPU at N =
+   4096 (1e-10); solve_ensemble (torch.func.vmap of the general solver) at
+   K = 4 on gray_s8 cut to N = 2^14 against its member loop (1e-12); two
+   ranks sharing the card (`chip_smoke.py --ensemble-worker` children):
+   solve_ensemble on a one-axis mesh (1e-12) and the stacked members
+   through auto on a 2x1 mesh (1e-5, bit-equality printed) against one
+   rank; B1, B2, B4-B7, B14 and B15 each launched in the phase.
+
+After each phase a line gives its seconds and the run's so far.
 
 Phase 3 also holds B4 and B5 against their plain versions (rows 2 and 8, a
 segment and a reset cell off the kernel's tile, reset 0 and > 0, K 1/3/8
@@ -280,7 +308,8 @@ B11-B12 on phase 10's K-fused grad steps and fit, B8 and B13 on phase 13;
 phase 15 zeroes them again and needs B1, B2, B4-B8 and B13-B15).
 With --mesh-worker OUT P STEPS the script is instead one rank of a
 P-rank run (phase 13 starts two), with --general-worker OUT one rank of
-phase 14's two-rank run, with --a8-worker DIR one rank of phase 15's. With --ranks P it runs only the mesh
+phase 14's two-rank run, with --a8-worker DIR one rank of phase 15's,
+with --ensemble-worker OUT one rank of phase 16's. With --ranks P it runs only the mesh
 path on P ranks, one a card where the host has P cards (NCCL), else
 sharing them (gloo): every case of rank_cases at P shards against one
 rank, the gray rung's weak scaling, and the CLI under torchrun --mesh 1xP
@@ -369,12 +398,15 @@ GENERAL_ADJ_CPU = (32, 4096, 16)
 STEP_TOL = 1e-6
 # Phase 15, A8's utilities: kill and resume with checkpoints (the straight
 # run's steps, the killed run's steps, the steps between checkpoints) on
-# the CLI's routes, and at the bench on CudaSweepEngine, where chunks of 3
-# and 2 steps do not divide B1's K = 4. At the bench a checkpoint costs
-# ~150 s of host zlib (np.savez_compressed of three 512 MiB float64
-# arrays on one core; PERF.md), so it runs two saves, not three.
+# the CLI's routes, and on the bench workload on CudaSweepEngine, where
+# chunks of 3 and 2 steps do not divide B1's K = 4. A checkpoint of the
+# bench's 2^20 cells costs ~150-176 s of host zlib (np.savez_compressed
+# of three 512 MiB float64 arrays on one core; PERF.md) and a kill and
+# resume needs two saves whatever the steps, so for the smoke's time limit
+# the bench runs there at A8_BENCH_N = 2^19 cells (same K, half the bytes).
 A8_STEPS = (8, 6, 3)
 A8_BENCH_STEPS = (5, 3, 3)
+A8_BENCH_N = 1 << 19
 # The single-device routes phase 15 kills and resumes through the CLI:
 # (tag, deck, CLI arguments, bar). The decks are a8_decks'; bar 0 is
 # bit-equality: the general engine and the wavefront kernels (B1, B2,
@@ -414,6 +446,32 @@ PATH_A8 = ("bdf2_launch", "multistep_launch", "halo_bdf2_launch",
 # The JAX CLI's --metrics-json keys (radiative_transfer_tpu/cli.py:350-362).
 METRICS_KEYS = {"deck", "engine", "mesh", "dtype", "steps_run", "wall_s",
                 "updates_per_s", "balance_max", "balance_mean", "outputs"}
+# Phase 16, ensembles (A10) and the fast engine (A7's first half): the
+# stacked members on benchmarks/suite.py:280's gray_s8 (S_8 gray, Bh = 4,
+# N = 2^18, 64 steps, Courant 0.4, reflective left), K of them, each
+# kappa x U(0.5, 2); a stacked Bh of 4 K >= 8 puts auto on CudaSweepEngine
+# and df on DFCudaEngine, where each member alone runs the halo engines.
+ENS_K = 8
+ENS_S8 = (8, 1 << 18, 64)
+# --ensemble-kappa through the CLI: (tag, deck, K, steps, engines). The
+# decks are a8_decks' (single_group.prm moving; its thick variant, where
+# the stacked Bh = 4 puts auto and df on the halo engines, B4, B5, B14,
+# B15) and the LLNL deck; bars: the f32 drift, df's, general/fast f64.
+ENS_CLI = (
+    ("mv", "mv", 4, 20, ("pallas", "auto", "df", "fast", "general")),
+    ("thick", "thick", 4, 20, ("auto", "df")),
+    ("thick-CN", "thick_cn", 4, 20, ("auto", "df")),
+    ("llnl", "llnl", 2, 2, ("pallas", "auto", "df", "fast", "general")),
+)
+ENS_CLI_TOL = {"pallas": DRIFT_TOL, "auto": DRIFT_TOL, "df": DF_CLI_TOL,
+               "fast": GENERAL_TOL, "general": GENERAL_TOL}
+# solve_ensemble (torch.func.vmap over the general solver): K members of
+# gray_s8 cut to N = 2^14, its 64 steps.
+ENS_VMAP = (4, 1 << 14)
+# The kernels phase 16 must launch (B1, B2, B4-B7, B14, B15).
+PATH_ENS = ("bdf2_launch", "multistep_launch", "halo_bdf2_launch",
+            "halo_multistep_launch", "df_bdf2_launch", "df_multistep_launch",
+            "df_halo_bdf2_launch", "df_halo_multistep_launch")
 # Launches of each redesigned kernel (B1's, B2's, B4's, B5's, B6's, B7's,
 # B10's, B11's, B12's, B14's and B15's wavefronts, B8's, B9's and B13's
 # look-backs) per new parity shape: a race shows intermittently, so the
@@ -975,6 +1033,60 @@ def general_worker(out_path: str) -> int:
     return 0
 
 
+def cuda_seconds(fn):
+    """(seconds between CUDA events around fn(), fn's result)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / 1e3, out
+
+
+def median_seconds(fn, n: int = 3):
+    """(the median of n cuda_seconds windows of fn(), the last result)."""
+    runs = [cuda_seconds(fn) for _ in range(n)]
+    return sorted(r[0] for r in runs)[n // 2], runs[-1][1]
+
+
+def grads_card_vs_cpu(make, dev) -> dict:
+    """A differentiable solve (adjoint.make_diff_solve or
+    make_diff_solve_fast) on the card against the same call on the CPU at
+    GENERAL_ADJ_CPU from a seeded state: {name: nerr} of the value and the
+    gradients in kappa, rho, psi_source and the initial ends."""
+    import torch
+
+    from radiative_transfer_tpu_torch.models import transport
+
+    Mc, Nc, nc = GENERAL_ADJ_CPU
+    ccfg = gray_cfg(Mc, Nc, 3, nc)
+    ctab, _, _ = transport.build_tables(ccfg)
+    cst = general_rank_state(ccfg, ctab)
+    cgrads = {}
+    for where in (dev, "cpu"):
+        prm = {"kappa": torch.ones(1, dtype=torch.float64),
+               "rho": torch.ones(1, dtype=torch.float64),
+               "psi_source": torch.full((Mc, 1), 2.0, dtype=torch.float64)}
+        # A BDF2 step overwrites prev_ends and reads half_ends only after
+        # its own snapshot, so only the initial ends carry a gradient.
+        e0 = cst.ends.clone().requires_grad_(True)
+        for x in prm.values():
+            x.requires_grad_(True)
+        sfc = make(ccfg, ctab, num_steps=nc, device=where)
+        val = torch.sum(sfc(prm, cst._replace(ends=e0)).ends ** 2) * 1e-3
+        val.backward()
+        cgrads[str(where)] = ([val.detach().cpu()]
+                              + [prm[k].grad.cpu() for k in sorted(prm)]
+                              + [e0.grad.cpu()])
+    names = ["value"] + sorted(prm) + ["initial ends"]
+    return {n: nerr(g, c) for n, g, c in
+            zip(names, cgrads[str(dev)], cgrads["cpu"])}
+
+
 def general_path(dev, card, cli_vs_cpu, run_cli, variant, peak_from,
                  kernel_rates):
     """Phase 14, the general engine (models/transport.py, ops/sweep.py,
@@ -1022,16 +1134,6 @@ def general_path(dev, card, cli_vs_cpu, run_cli, variant, peak_from,
             scale = phi if name == "F" else np.abs(ref).max()
             worst = max(worst, float(np.abs(got - ref).max() / scale))
         return worst
-
-    def cuda_seconds(fn):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        out = fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / 1e3, out
 
     fields = ("psi", "phi", "phi_plus", "left_ends", "right_ends")
     kernels = ("bdf2_launch", "multistep_launch", "df_bdf2_launch",
@@ -1150,29 +1252,8 @@ def general_path(dev, card, cli_vs_cpu, run_cli, variant, peak_from,
 
     # make_diff_solve on the card against the CPU at a cut N, every
     # parameter kind and the initial state.
+    cpu_errs = grads_card_vs_cpu(adj.make_diff_solve, dev)
     Mc, Nc, nc = GENERAL_ADJ_CPU
-    ccfg = gray_cfg(Mc, Nc, 3, nc)
-    ctab, _, _ = transport.build_tables(ccfg)
-    cst = general_rank_state(ccfg, ctab)
-    cgrads = {}
-    for where in (dev, "cpu"):
-        prm = {"kappa": torch.ones(1, dtype=torch.float64),
-               "rho": torch.ones(1, dtype=torch.float64),
-               "psi_source": torch.full((Mc, 1), 2.0, dtype=torch.float64)}
-        # A BDF2 step overwrites prev_ends and reads half_ends only after
-        # its own snapshot, so only the initial ends carry a gradient.
-        e0 = cst.ends.clone().requires_grad_(True)
-        for x in prm.values():
-            x.requires_grad_(True)
-        sfc = adj.make_diff_solve(ccfg, ctab, num_steps=nc, device=where)
-        val = torch.sum(sfc(prm, cst._replace(ends=e0)).ends ** 2) * 1e-3
-        val.backward()
-        cgrads[str(where)] = ([val.detach().cpu()]
-                              + [prm[k].grad.cpu() for k in sorted(prm)]
-                              + [e0.grad.cpu()])
-    names = ["value"] + sorted(prm) + ["initial ends"]
-    cpu_errs = {n: nerr(g, c) for n, g, c in
-                zip(names, cgrads[str(dev)], cgrads["cpu"])}
     if not max(cpu_errs.values()) <= GENERAL_GRAD_TOL:
         raise AssertionError(f"phase 14 make_diff_solve card vs CPU: "
                              f"{cpu_errs} > {GENERAL_GRAD_TOL}")
@@ -1357,8 +1438,9 @@ def utilities_path(dev, card, peak_from):
     utils/profiling.py and the CLI flags on them) on the card. Raises on a
     failed check; returns the phase's line.
 
-    * The main path at full width: CudaSweepEngine (B1, K = 4) at the
-      bench workload from a seeded state (general_rank_state), straight for
+    * The main path: CudaSweepEngine (B1, K = 4) at the bench workload
+      cut to A8_BENCH_N cells from a seeded state (general_rank_state),
+      straight for
       A8_BENCH_STEPS[0] steps against a run killed at A8_BENCH_STEPS[1]
       with a checkpoint every A8_BENCH_STEPS[2] (chunks that do not divide
       K) and resumed, through solve_with_checkpoints_engine: ends, prev
@@ -1399,9 +1481,9 @@ def utilities_path(dev, card, peak_from):
     for mod in (cs, cd, cf):
         mod.reset_launch_counts()
 
-    # -- the main path at full width ---------------------------------------
+    # -- the main path (the bench cut to A8_BENCH_N cells) -------------------
     total, killed, every = A8_BENCH_STEPS
-    cfg = gray_cfg(32, 1 << 20, 3, steps=total)
+    cfg = gray_cfg(32, A8_BENCH_N, 3, steps=total)
     tables, _, _ = transport.build_tables(cfg)
     eng = cs.CudaSweepEngine(cfg, tables, device=dev)
     K = min(eng.max_steps_per_launch(), total)
@@ -1448,7 +1530,7 @@ def utilities_path(dev, card, peak_from):
                              f"{bench_err:.3e}, not bit-equal")
     del eng, seeded, want, got, st
     bench_line = (
-        f"main path at full width (gray S_{cfg.M}, N=2^"
+        f"main path (gray S_{cfg.M}, N=2^"
         f"{cfg.N.bit_length() - 1}, BDF2, CudaSweepEngine B1 K={K}, from a "
         f"seeded state): {total} steps straight vs killed at {killed} (a "
         f"checkpoint every {every}: launches of K "
@@ -1596,6 +1678,376 @@ def utilities_path(dev, card, peak_from):
             f"{json.dumps(counts)}; card: {card}")
 
 
+def ens_params(tables, K: int, seed: int) -> dict:
+    """K opacity members: the deck's kappa x U(0.5, 2), seeded."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kappa = np.asarray(tables.kappa)
+    return {"kappa": kappa * rng.uniform(0.5, 2.0, (K,) + kappa.shape)}
+
+
+def ens_rank_cases():
+    """phase 16's two-rank cases: (gray_s8 cut to ENS_VMAP's N, K members)
+    for solve_ensemble on a one-axis mesh, (gray_s8, ENS_K members) for the
+    stacked auto engine on a 2x1 mesh; each from general_rank_state."""
+    K, Nv = ENS_VMAP
+    M, N, steps = ENS_S8
+    return ((gray_cfg(M, Nv, 3, steps), K), (gray_cfg(M, N, 3, steps), ENS_K))
+
+
+def ensemble_worker(out_path: str) -> int:
+    """One rank of phase 16's two-rank run (started with
+    parallel.distributed.launch_local): solve_ensemble on a one-axis mesh
+    of the two ranks (each solves half the members) and the stacked
+    members through make_multichip_engine's auto on a 2x1 mesh (each rank
+    half the rows); rank 0 saves both gathered ensembles and the engine
+    auto picked."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke ensemble worker: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from radiative_transfer_tpu_torch import ensemble as ens
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.parallel import distributed
+    from radiative_transfer_tpu_torch.parallel import make_multichip_engine
+    from radiative_transfer_tpu_torch.parallel import mesh as mesh_mod
+
+    distributed.initialize(device_type="cuda")
+    dev = distributed.local_device("cuda")
+    torch.cuda.set_device(dev)
+    (vcfg, vk), (scfg, sk) = ens_rank_cases()
+    out = {}
+    t0 = time.perf_counter()
+    vtab, _, _ = transport.build_tables(vcfg)
+    got = ens.solve_ensemble(vcfg, vtab, ens_params(vtab, vk, 16),
+                             state=general_rank_state(vcfg, vtab),
+                             mesh=mesh_mod.Mesh({"ens": 2}), device=dev)
+    out["vmap"] = np.stack([x.cpu().numpy() for x in got])
+    out["vmap/seconds"] = np.array(time.perf_counter() - t0)
+    stab, _, _ = transport.build_tables(scfg)
+    params = ens_params(stab, sk, 8)
+    g = mesh_mod.make_mesh_2d(2, 1)
+    t0 = time.perf_counter()
+    got = ens.solve_ensemble_stacked(scfg, stab, params,
+                                     state=general_rank_state(scfg, stab),
+                                     mesh=g, engine="auto", device=dev)
+    out["stacked"] = np.stack([x.cpu().numpy() for x in got])
+    out["stacked/seconds"] = np.array(time.perf_counter() - t0)
+    cfg_s, tab_s, _ = ens.stack_ensemble(scfg, stab, params)
+    out["stacked/engine"] = np.array(type(make_multichip_engine(
+        cfg_s, tab_s, g, engine="auto", device=dev)).__name__)
+    if distributed.process_index() == 0:
+        np.savez(out_path, **out)
+    distributed.shutdown()
+    return 0
+
+
+def ensemble_path(dev, card, peak_from, kernel_rates):
+    """Phase 16, ensembles (ensemble.py, A10) and the fast engine
+    (ops/fast_sweep.FastEngine, adjoint.make_diff_solve_fast: A7's first
+    half, plain PyTorch) on the card. Raises on a failed check; returns
+    the phase's line.
+
+    * Stacked ensembles: gray_s8 (ENS_S8) with ENS_K seeded opacity
+      members from a seeded shared state, through
+      ensemble.solve_ensemble_stacked on auto (CudaSweepEngine at the
+      stacked Bh: B1 at BDF2, B2 at CN) and df (DFCudaEngine: B6, B7), each
+      member against its own solve on the same engine choice alone (auto's
+      HaloCudaEngine, B4/B5; df's DFHaloCudaEngine, B14/B15): bit-equal,
+      or within STEP_TOL (DF_TOL in hi + lo) with the reason printed; the
+      stacked engine's 64 steps and each solo solve timed with CUDA events
+      (the median of 3 windows: aggregate and solo updates/s).
+    * The CLI's --ensemble-kappa (ENS_CLI) on the card against the same
+      CLI on the CPU, every member's 8 CSVs within ENS_CLI_TOL.
+    * FastEngine at the bench (GENERAL_BENCH) at float64 and float32 from
+      a seeded state, against the general engine at float64 (GENERAL_TOL;
+      float32 DRIFT_TOL), 8 steps after 1 timed with CUDA events, with
+      peak memory, beside the general engine's rate and the kernel
+      engines' (phases 5, 7).
+    * make_diff_solve_fast's value and dL/dkappa at the adjoint bench
+      (GENERAL_ADJ, remat) from a seeded state against make_diff_solve's
+      (GENERAL_GRAD_TOL), timed against FastEngine's forward, with peak
+      memory; at a cut N (GENERAL_ADJ_CPU) its value and gradients in
+      kappa, rho, psi_source and the initial ends against the same call on
+      the CPU (GENERAL_GRAD_TOL).
+    * solve_ensemble (vmap of the general solver) at ENS_VMAP against its
+      member loop (GENERAL_TOL).
+    * Two ranks sharing the card (gloo, --ensemble-worker children):
+      solve_ensemble on a one-axis mesh against one rank (GENERAL_TOL),
+      the stacked auto members on a 2x1 mesh against one rank (TOL,
+      bit-equality printed).
+    * B1, B2, B4-B7, B14 and B15 each launched within the phase."""
+    import numpy as np
+    import torch
+
+    from radiative_transfer_tpu_torch import adjoint as adj
+    from radiative_transfer_tpu_torch import ensemble as ens
+    from radiative_transfer_tpu_torch import load_config
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.ops import cuda_df as cd
+    from radiative_transfer_tpu_torch.ops import cuda_sweep as cs
+    from radiative_transfer_tpu_torch.ops import fast_sweep as fs
+    from radiative_transfer_tpu_torch.parallel import distributed
+    from radiative_transfer_tpu_torch.parallel import make_multichip_engine
+
+    def counts():
+        return {name: getattr(cd if name.startswith("df_") else cs,
+                              name).launches for name in PATH_ENS}
+
+    t_phase = time.perf_counter()
+    cs.reset_launch_counts()
+    cd.reset_launch_counts()
+
+    # -- stacked ensembles on gray_s8 -----------------------------------------
+    M8, N8, n8 = ENS_S8
+    stacked, rates = [], {}
+    for ts, kname in ((3, "BDF2"), (2, "CN")):
+        cfg = gray_cfg(M8, N8, ts, n8)
+        tables, _, _ = transport.build_tables(cfg)
+        seeded = general_rank_state(cfg, tables)
+        params = ens_params(tables, ENS_K, 8)
+        ups = cfg.M * cfg.N * n8 * (4 if ts == 3 else 1)    # a member's
+        for engine, bar in (("auto", STEP_TOL), ("df", DF_TOL)):
+            got = ens.solve_ensemble_stacked(cfg, tables, params,
+                                             num_steps=n8, state=seeded,
+                                             engine=engine, device=dev)
+            # The stacked engine's own 64 steps, timed after a warm-up.
+            cfg_s, tab_s, K = ens.stack_ensemble(cfg, tables, params)
+            eng = make_multichip_engine(cfg_s, tab_s, None, engine=engine,
+                                        device=dev)
+            st0 = eng.from_ends(*(torch.tile(x.to(dev), (1, K, 1, 1))
+                                  for x in seeded))
+            eng.solve(st0, num_steps=1)
+            secs, _ = median_seconds(lambda: eng.solve(st0, num_steps=n8))
+            solo_rates, errs, not_bit, solo_name = [], [], [], None
+            for k in range(K):
+                tab_k = ens._host_member_tables(
+                    cfg, tables, {"kappa": params["kappa"][k]})
+                e_k = make_multichip_engine(cfg, tab_k, None, engine=engine,
+                                            device=dev)
+                solo_name = type(e_k).__name__
+                s0 = e_k.from_ends(*seeded)
+                secs_k, st_k = median_seconds(
+                    lambda: e_k.solve(s0, num_steps=n8))
+                solo_rates.append(ups / secs_k)
+                want = planes_of(e_k, st_k)
+                have = (got.ends[k], got.prev_ends[k], got.half_ends[k])
+                err = max(nerr(a, b) for a, b in zip(have, want))
+                errs.append(err)
+                if not all(torch.equal(a, b) for a, b in zip(have, want)):
+                    not_bit.append(k)
+                if not err <= bar:
+                    raise AssertionError(
+                        f"phase 16 stacked {engine} {kname} member {k}: "
+                        f"vs its own {solo_name} solve {err:.3e} > {bar}")
+            agg = K * ups / secs
+            rates[f"{engine} {kname}"] = {
+                "stacked": type(eng).__name__, "aggregate_updates_per_s":
+                agg, "solo": solo_name, "solo_updates_per_s": solo_rates}
+            reason = ("" if not not_bit else
+                      f" (members {not_bit} not bit-equal: the stacked "
+                      f"{type(eng).__name__} at Bh {eng.Bh} and each "
+                      f"member's {solo_name} at Bh {eng.Bh // K} split the "
+                      "rows' tiles over blocks differently; held at "
+                      f"{bar})")
+            stacked.append(
+                f"{engine} {kname}: stacked {type(eng).__name__} (Bh "
+                f"{eng.Bh}) {agg:.6g} updates/s aggregate vs {K} solo "
+                f"{solo_name} {min(solo_rates):.6g}-{max(solo_rates):.6g} "
+                f"(sum of solo times {K * ups / sum(ups / r for r in solo_rates):.6g}"
+                f"); members vs own solves max {max(errs):.1e}, "
+                f"{'bit-equal' if not not_bit else 'not bit-equal'}"
+                + reason)
+            del eng, st0, got
+
+    # -- the CLI's --ensemble-kappa, card against CPU --------------------------
+    cli_lines = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        decks = dict(a8_decks(tmp),
+                     llnl=os.path.join(ROOT, "prm", "llnl_slab_test.prm"))
+        for tag, deck, K, steps, engines in ENS_CLI:
+            dcfg = load_config(decks[deck])
+            dtab, _, _ = transport.build_tables(dcfg)
+            kpath = os.path.join(tmp, f"kappas_{tag}.txt")
+            np.savetxt(kpath, ens_params(dtab, K, len(tag))["kappa"])
+            worst = {}
+            for engine in engines:
+                outdirs, prof = {}, ""
+                for device in ("cuda", "cpu"):
+                    outdirs[device] = os.path.join(
+                        tmp, f"ens-{tag}-{engine}-{device}")
+                    out = a8_cli([decks[deck], "--engine", engine,
+                                  "--ensemble-kappa", kpath, "--steps",
+                                  str(steps), "--device", device, "--outdir",
+                                  outdirs[device], "--profile"])
+                    if device == "cuda":
+                        prof = [ln for ln in out if ln.startswith("wall:")]
+                err = max(a8_csv_err(
+                    os.path.join(outdirs["cuda"], f"member_{k:03d}"),
+                    os.path.join(outdirs["cpu"], f"member_{k:03d}"))[0]
+                    for k in range(K))
+                if not err <= ENS_CLI_TOL[engine]:
+                    raise AssertionError(
+                        f"phase 16 --ensemble-kappa {tag} {engine}: card "
+                        f"vs CPU {err:.3e} > {ENS_CLI_TOL[engine]}")
+                worst[engine] = f"{err:.1e} [{prof[0] if prof else ''}]"
+            cli_lines.append(f"{tag} K={K} {steps} steps: " + ", ".join(
+                f"{e} {v}" for e, v in worst.items()))
+
+    # -- FastEngine at the bench, float64 and float32 --------------------------
+    Mb, Nb, nb = GENERAL_BENCH
+    bcfg = gray_cfg(Mb, Nb, 3)
+    btab, _, _ = transport.build_tables(bcfg)
+    bst = general_rank_state(bcfg, btab)
+    ups = 4 * Mb * Nb * nb
+    st = transport.solve(bcfg, btab, bst, 1, device=dev)
+    g_secs, st = cuda_seconds(lambda: transport.solve(bcfg, btab, st, nb,
+                                                      device=dev))
+    truth = [x.clone() for x in st]
+    del st
+    fast = {"general float64 updates_per_s": ups / g_secs}
+    for dname, dtype, bar in (("float64", torch.float64, GENERAL_TOL),
+                              ("float32", torch.float32, DRIFT_TOL)):
+        pk = peak_from()
+        feng = fs.FastEngine(bcfg, btab, dtype=dtype, device=dev)
+        fst = feng.solve(feng.from_ends(*bst), num_steps=1)
+        secs, fst = cuda_seconds(lambda: feng.solve(fst, num_steps=nb))
+        peak = pk()
+        err = max(nerr(a, b) for a, b in zip(planes_of(feng, fst), truth))
+        if not err <= bar:
+            raise AssertionError(f"phase 16 FastEngine {dname} vs the "
+                                 f"general engine {err:.3e} > {bar}")
+        fast[f"FastEngine {dname}"] = {
+            "updates_per_s": ups / secs, "seconds": secs, "peak_gib": peak,
+            "vs general float64": float(f"{err:.2e}"),
+            "chunk x nc": f"{feng.chunk} x {feng.nc}"}
+        del feng, fst
+    del truth, bst
+
+    # -- make_diff_solve_fast at the adjoint bench, and against the CPU ------
+    Ma, Na, na = GENERAL_ADJ
+    acfg = gray_cfg(Ma, Na, 3, na)
+    atab, _, _ = transport.build_tables(acfg)
+    ast = general_rank_state(acfg, atab)
+    aeng = fs.FastEngine(acfg, atab, dtype=torch.float64, device=dev)
+    f_secs, _ = cuda_seconds(lambda: aeng.ends(aeng.solve(
+        aeng.from_ends(*ast), num_steps=na)))
+    del aeng
+    kap = torch.ones(1, dtype=torch.float64, requires_grad=True)
+
+    def value_and_grad(make, steps):
+        sfg = make(acfg, atab, num_steps=steps, device=dev)
+        kap.grad = None
+        val = torch.sum(sfg({"kappa": kap}, ast).ends ** 2) * 1e-3
+        val.backward()
+        return float(val.detach()), float(kap.grad[0])
+
+    value_and_grad(adj.make_diff_solve_fast, 1)        # warm-up
+    pk = peak_from()
+    fg_secs, (fval, fgrad) = cuda_seconds(
+        lambda: value_and_grad(adj.make_diff_solve_fast, na))
+    fg_peak = pk()
+    gg_secs, (gval, ggrad) = cuda_seconds(
+        lambda: value_and_grad(adj.make_diff_solve, na))
+    v_err = abs(fval - gval) / abs(gval)
+    k_err = abs(fgrad - ggrad) / abs(ggrad)
+    if not (v_err <= GENERAL_GRAD_TOL and k_err <= GENERAL_GRAD_TOL):
+        raise AssertionError(f"phase 16 adjoint bench: make_diff_solve_fast "
+                             f"vs make_diff_solve value {v_err:.3e}, "
+                             f"dL/dkappa {k_err:.3e} > {GENERAL_GRAD_TOL}")
+    cpu_errs = grads_card_vs_cpu(adj.make_diff_solve_fast, dev)
+    Mc, Nc, nc = GENERAL_ADJ_CPU
+    if not max(cpu_errs.values()) <= GENERAL_GRAD_TOL:
+        raise AssertionError(f"phase 16 make_diff_solve_fast card vs CPU: "
+                             f"{cpu_errs} > {GENERAL_GRAD_TOL}")
+
+    # -- solve_ensemble (vmap) against its member loop --------------------------
+    (vcfg, vk), (scfg, sk) = ens_rank_cases()
+    vtab, _, _ = transport.build_tables(vcfg)
+    vst = general_rank_state(vcfg, vtab)
+    vparams = ens_params(vtab, vk, 16)
+    v_secs, vgot = cuda_seconds(lambda: ens.solve_ensemble(
+        vcfg, vtab, vparams, state=vst, device=dev))
+    sf = adj.make_diff_solve(vcfg, vtab, device=dev)
+    l_secs, loop = cuda_seconds(lambda: [
+        sf({"kappa": vparams["kappa"][k]}, vst) for k in range(vk)])
+    v_err = max(nerr(vgot[i][k], loop[k][i]) for k in range(vk)
+                for i in range(3))
+    if not v_err <= GENERAL_TOL:
+        raise AssertionError(f"phase 16 solve_ensemble vs its member loop "
+                             f"{v_err:.3e} > {GENERAL_TOL}")
+    stab, _, _ = transport.build_tables(scfg)
+    sone = ens.solve_ensemble_stacked(scfg, stab, ens_params(stab, sk, 8),
+                                      state=general_rank_state(scfg, stab),
+                                      engine="auto", device=dev)
+    launches = counts()
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"phase 16: kernels not launched: {missing} "
+                             f"({launches})")
+
+    # -- two ranks sharing the card (gloo) against one rank -----------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        out_path = os.path.join(tmp, "ensemble.npz")
+        t0 = time.perf_counter()
+        runs = distributed.launch_local(
+            [os.path.abspath(__file__), "--ensemble-worker", out_path], 2,
+            cwd=ROOT, timeout=600)
+        two_wall = time.perf_counter() - t0
+        for r in runs:
+            if r.returncode != 0:
+                raise AssertionError(f"phase 16 two ranks rc {r.returncode}:"
+                                     "\n" + r.stdout[-2000:]
+                                     + r.stderr[-4000:])
+        ranks = dict(np.load(out_path))
+    r_vmap = max(nerr(torch.as_tensor(g), w.cpu())
+                 for g, w in zip(ranks["vmap"], vgot))
+    r_stk = max(nerr(torch.as_tensor(g), w.cpu())
+                for g, w in zip(ranks["stacked"], sone))
+    r_bit = all(torch.equal(torch.as_tensor(g), w.cpu())
+                for g, w in zip(ranks["stacked"], sone))
+    if not (r_vmap <= GENERAL_TOL and r_stk <= TOL):
+        raise AssertionError(f"phase 16 two ranks vs one: solve_ensemble "
+                             f"{r_vmap:.3e} > {GENERAL_TOL} or stacked auto "
+                             f"{r_stk:.3e} > {TOL}")
+
+    return (f"phase 16 ensembles and the fast engine: ok in "
+            f"{time.perf_counter() - t_phase:.1f} s; stacked gray_s8 (S_{M8}, "
+            f"N=2^{N8.bit_length() - 1}, {n8} steps, K={ENS_K} opacity "
+            f"members from a seeded state, CUDA events): "
+            + "; ".join(stacked) + " " + json.dumps(rates)
+            + "; --ensemble-kappa card vs CPU (max over members and CSVs): "
+            + "; ".join(cli_lines)
+            + f"; FastEngine at the bench (gray S_{Mb}, N=2^"
+            f"{Nb.bit_length() - 1}, BDF2, {nb} steps after 1, seeded): "
+            + json.dumps(fast) + "; kernel engines' bench rates (phases 5, "
+            "7): " + json.dumps(kernel_rates)
+            + f"; make_diff_solve_fast at the adjoint bench (gray S_{Ma}, "
+            f"N=2^{Na.bit_length() - 1}, {na} BDF2 steps, remat, seeded): "
+            f"FastEngine forward {f_secs:.4f} s, value and grad "
+            f"{fg_secs:.4f} s (grad/forward {fg_secs / f_secs:.3f}), peak "
+            f"{fg_peak:.3f} GiB; make_diff_solve's value and grad "
+            f"{gg_secs:.4f} s; fast vs general value {v_err:.2e}, dL/dkappa "
+            f"{k_err:.2e} (fast {fgrad:.6e}, general {ggrad:.6e}); "
+            f"make_diff_solve_fast card vs CPU (gray S_{Mc}, N={Nc}, {nc} "
+            "steps, seeded): "
+            + json.dumps({k: float(f"{v:.2e}") for k, v in cpu_errs.items()})
+            + f"; solve_ensemble K={vk} gray_s8 cut to N=2^"
+            f"{vcfg.N.bit_length() - 1} ({vcfg.max_timesteps} steps) "
+            f"{v_secs:.3f} s vs its member loop {l_secs:.3f} s, "
+            f"{v_err:.1e}; two ranks sharing the card (gloo, {two_wall:.1f} s "
+            f"wall with start-up): solve_ensemble on a 2-rank mesh vs one "
+            f"rank {r_vmap:.1e} ({float(ranks['vmap/seconds']):.3f} s), "
+            f"stacked auto on 2x1 ({ranks['stacked/engine']}) vs one rank "
+            f"{r_stk:.1e} ({'bit-equal' if r_bit else 'not bit-equal'}; "
+            f"{float(ranks['stacked/seconds']):.3f} s); launches "
+            f"{json.dumps(launches)}; card: {card}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1690,6 +2142,16 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
+    t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def phase_seconds(n):
+        """Print phase n's seconds (phases 1 and 2 together) and the run's
+        so far."""
+        now = time.perf_counter()
+        print(f"phase {n} seconds: {now - t_last[0]:.1f} (run "
+              f"{now - t_start:.1f})", flush=True)
+        t_last[0] = now
 
     # -- 1. environment --------------------------------------------------------
     print(f"phase 1 environment: torch {torch.__version__}, CUDA "
@@ -1706,6 +2168,7 @@ def main() -> int:
     print(f"phase 2 build: {build_s:.1f} s ("
           + ", ".join(build_times(log)) + "); ptxas: "
           + "; ".join(ptxas_report(log)), flush=True)
+    phase_seconds(2)
 
     def engine(cfg, **kw):
         tables, _, _ = transport.build_tables(cfg)
@@ -2255,6 +2718,7 @@ def main() -> int:
           + f"; B7 wavefront shapes (worst of {REPEAT} launches, "
           f"bit-identical, bit-equal to B15 on the same tiles): "
           + ", ".join(b7_waves), flush=True)
+    phase_seconds(3)
 
     # -- 4. main path ------------------------------------------------------------
     names = ("phi", "phi_plus", "psi", "x", "F", "e_ave", "left_ends",
@@ -2359,6 +2823,7 @@ def main() -> int:
                 raise AssertionError(f"step() ts_method={ts_method} not finite")
         torch.cuda.synchronize()
         print("phase 4 main path: ok; " + "; ".join(summary), flush=True)
+        phase_seconds(4)
 
     # -- 5. full size ------------------------------------------------------------
     def windows_of(solve, init, warm_steps, steps=64):
@@ -2469,6 +2934,7 @@ def main() -> int:
               for k, (r, w) in step_rates.items())
           + f" (row walk: step() BE {B3_WALK['step() BE']:.6g}, CN "
           f"{B3_WALK['step() CN']:.6g}); card: {card}", flush=True)
+    phase_seconds(5)
 
     # -- 6. tiny-batch auto route ------------------------------------------------
     from radiative_transfer_tpu_torch.parallel import make_multichip_engine
@@ -2685,6 +3151,7 @@ def main() -> int:
           f"{ups_cn / pc_seconds:.6g} updates/s, peak {pc_peak:.3f} GiB; "
           f"halo/plain at CN {pc_seconds / hc_seconds:.3f}x; card: {card}",
           flush=True)
+    phase_seconds(6)
 
     # -- 7. f64-grade path -----------------------------------------------------
     cd.reset_launch_counts()
@@ -2769,6 +3236,7 @@ def main() -> int:
           + "; ".join(f"{k} {v}" for k, v in b6_grids.items())
           + "; B7 grid: " + "; ".join(f"{k} {v}" for k, v in b7_grids.items())
           + f"; card: {card}", flush=True)
+    phase_seconds(7)
 
     # -- 8. f64 tiny-batch route ---------------------------------------------
     from radiative_transfer_tpu_torch.parallel.df_halo_cuda import (
@@ -3110,6 +3578,7 @@ def main() -> int:
           f"walk: {B4_B15_WALK['df_halo_multistep_launch ms']} ms); "
           f"DFHaloCudaEngine vs DFCudaEngine bit-equal at every gray_s8 "
           f"kind: {all_equal}; card: {card}", flush=True)
+    phase_seconds(8)
 
     # -- 9. the adjoint path -------------------------------------------------
     def adj_coefs(eng):
@@ -3539,6 +4008,7 @@ def main() -> int:
           f"{2 * fwd_eng.Bh * b9_geo[1]} blocks in one launch, at most "
           f"{b9_geo[2]} x {n_sm} in flight; card: {card}",
           flush=True)
+    phase_seconds(9)
 
     # -- 10. the K-fused adjoint ---------------------------------------------
     # B11/B12 against their plain versions, B11 against B1 at the same K and
@@ -3846,6 +4316,7 @@ def main() -> int:
           + f" (x {float(loss_0):.6g}), mu<0 source 2.4 -> "
           f"{float(fit_p['psi_source'][0, 0]):.6g}; card: {card}",
           flush=True)
+    phase_seconds(10)
 
 
     # -- 11. B8, the per-sub-step mesh engine's kernel --------------------------
@@ -3952,6 +4423,7 @@ def main() -> int:
           f"kernels line; B8 grid there: {sh_gray.rows} rows x {b8_T} "
           f"blocks of {b8_threads} threads, one a tile; card: {card}",
           flush=True)
+    phase_seconds(11)
 
     # -- 12. B13, the fused engine's kernel --------------------------------------
     def b13_inputs(eng, seed, materialize_only=False):
@@ -4050,6 +4522,7 @@ def main() -> int:
           f"{b13_geo[0]} threads a tile, at most {b13_geo[2]} x {n_sm} in "
           f"flight; card: {card}",
           flush=True)
+    phase_seconds(12)
     # Phase 13 reuses these engines: the fused engine's host outflow map
     # (parallel/step_response.py, float64 recurrences over every cell) takes
     # tens of seconds to build at the gray rung.
@@ -4191,6 +4664,7 @@ def main() -> int:
           " a check of the exchanges on the real kernels, not a scaling "
           f"figure; {two_wall:.1f} s wall with start-up): "
           + "; ".join(two_lines) + f"; card: {card}", flush=True)
+    phase_seconds(13)
     if held.failures:
         raise AssertionError("phase 13: " + "; ".join(held.failures))
 
@@ -4199,9 +4673,17 @@ def main() -> int:
         dev, card, cli_vs_cpu, run_cli, variant, peak_from,
         {"CudaSweepEngine": rate, "DFCudaEngine": d_rate}),
         flush=True)
+    phase_seconds(14)
 
     # -- 15. A8's utilities: checkpoints, the CLI's run-time flags ----------------
     print(utilities_path(dev, card, peak_from), flush=True)
+    phase_seconds(15)
+
+    # -- 16. ensembles (A10) and the fast engine (A7's first half) ---------------
+    print(ensemble_path(dev, card, peak_from,
+                        {"CudaSweepEngine": rate, "DFCudaEngine": d_rate}),
+          flush=True)
+    phase_seconds(16)
 
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the
@@ -4594,6 +5076,7 @@ def main() -> int:
           f"DFCudaEngine {ups_cn / dpc_seconds:.6g} (row walk "
           f"{B5_B7_WALK['df gray_s8 CN DFCudaEngine']:.6g}); card: {card}",
           flush=True)
+    phase_seconds("tail (kernel table, shapes)")
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4610,6 +5093,8 @@ if __name__ == "__main__":
         sys.exit(general_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--a8-worker"]:
         sys.exit(a8_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--ensemble-worker"]:
+        sys.exit(ensemble_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--ranks"]:
         sys.exit(ranks_check(int(sys.argv[2])))
     sys.exit(main())

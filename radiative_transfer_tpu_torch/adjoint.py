@@ -18,13 +18,19 @@ table into the sweep coefficients:
   so gradients at the deck temperature are exact;
 * the initial ``State`` — as the solve's input.
 
-Two differentiable solves: ``make_diff_solve``, autograd through the
+Three differentiable solves: ``make_diff_solve``, autograd through the
 general engine's float64 steps (models/transport.make_step_fn), the exact
-discrete adjoint; and ops/cuda_adjoint.make_diff_solve_cuda, whose
-forward and backward run the hand-written CUDA kernels (B9-B12),
-f32-grade. ``fit_params`` drives either with ``torch.optim.Adam``. The
-JAX package's fast solver (make_diff_solve_fast) waits for the XLA fast
-engine (ROADMAP A7).
+discrete adjoint; ``make_diff_solve_fast``, autograd through the tiled
+fast engine's float64 steps (ops/fast_sweep.FastEngine), the same adjoint
+to roundoff; and ops/cuda_adjoint.make_diff_solve_cuda, whose forward and
+backward run the hand-written CUDA kernels (B9-B12), f32-grade.
+``fit_params`` drives any of them with ``torch.optim.Adam``.
+
+Under remat each step runs under ``torch.utils.checkpoint``, except
+inside a ``torch.func`` transform (the ensembles' ``vmap``, ``vmap(grad)``):
+the grad transforms refuse checkpoint's saved-tensor hooks, so there each
+step's intermediates are kept (the values are the same, the memory is
+not).
 """
 
 from __future__ import annotations
@@ -209,6 +215,19 @@ def state_from_numpy(ends, prev_ends, half_ends,
     return State(leaf(ends), leaf(prev_ends), leaf(half_ends))
 
 
+def _step_loop(step, st, n: int, remat: bool):
+    """`n` applications of `step` (a NamedTuple of tensors in and out),
+    each under torch.utils.checkpoint if `remat`, outside a torch.func
+    transform (module doc)."""
+    remat = remat and torch._C._functorch.peek_interpreter_stack() is None
+    cls = type(st)
+    for _ in range(n):
+        st = (cls(*checkpoint(lambda *s: tuple(step(cls(*s))), *st,
+                              use_reentrant=False))
+              if remat else step(st))
+    return st
+
+
 def make_diff_solve(cfg: Config, tables: Tables,
                     num_steps: Optional[int] = None, remat: bool = True,
                     device="cuda"):
@@ -247,13 +266,76 @@ def make_diff_solve(cfg: Config, tables: Tables,
         step = transport.make_step_fn(cfg, t, _F64, device)
         st = State(*(torch.as_tensor(x).to(device=device, dtype=_F64)
                      for x in state))
-        for _ in range(n):
-            if remat:
-                st = State(*checkpoint(lambda *s: tuple(step(State(*s))),
-                                       *st, use_reentrant=False))
-            else:
-                st = step(st)
-        return st
+        return _step_loop(step, st, n, remat)
+
+    return solve_fn
+
+
+def make_diff_solve_fast(cfg: Config, tables: Tables,
+                         num_steps: Optional[int] = None, remat: bool = True,
+                         chunk: int = 256, device="cuda"):
+    """Differentiable solve through the tiled fast engine, in float64 on
+    `device`.
+
+    The contract of :func:`make_diff_solve` (``solve_fn(params,
+    state=None) -> State`` in the global (M, G, N, 2) layout, autograd
+    through every step), but the forward program is
+    ops/fast_sweep.FastEngine's fused constant-coefficient scan: the
+    per-group parameter dependence reaches the engine's coefficient planes
+    through build_kind_coeffs_traced and its boundary planes through the
+    traced psi_source, so gradients flow through the algebra the engine
+    runs. Values and gradients match make_diff_solve to roundoff."""
+    from .ops import fast_sweep as fs
+
+    device = transport.solve_device(device)
+    n = cfg.max_timesteps if num_steps is None else num_steps
+    eng = fs.FastEngine(cfg, tables, dtype=_F64, chunk=chunk, device=device)
+    Mh, G = cfg.M // 2, cfg.G
+    if cfg.ts_method == 1:
+        kinds = {fs.BE: cfg.dt}
+    elif cfg.ts_method == 2:
+        kinds = {fs.CN: cfg.dt}
+    else:
+        half = cfg.dt / 2.0
+        kinds = {fs.BE: half, fs.CN: half, fs.BDF: half}
+
+    def on_device(kc):
+        return fs.KindCoeffs(*(x.to(device) if isinstance(x, torch.Tensor)
+                               else x for x in kc))
+
+    def solve_fn(params: dict, state: Optional[State] = None) -> State:
+        unknown = set(params) - set(_PARAM_KEYS)
+        if unknown:
+            raise ValueError(
+                f"unknown differentiable parameters {sorted(unknown)}; "
+                f"supported: {_PARAM_KEYS}")
+        t = traced_tables(cfg, tables, **params)
+        kcs = {k: on_device(fs.build_kind_coeffs_traced(cfg, t, k, ts))
+               for k, ts in kinds.items()}
+        # Traced boundary value planes, as FastEngine builds its own
+        # (the left-vacuum fall-through to source included,
+        # solver.cpp:667-671); reflective or fixed stays the engine's.
+        psi_plane = fs._to_plane(t.psi_source.to(device), Mh, G)
+        bc_neg = (psi_plane[0] if cfg.bc_right_indicator == 1
+                  else torch.zeros(Mh * G, dtype=_F64, device=device))
+        bc_pos = None if cfg.bc_left_indicator == 2 else psi_plane[1]
+
+        if state is None:
+            # psi = ends = B_g (solver.cpp:165-181) from the traced B, so
+            # a T gradient includes the initial condition.
+            Bg = t.B.to(device)[None, :].expand(Mh, G).reshape(Mh * G)
+            plane = Bg[None, None, :, None].expand(eng.chunk, 2, Mh * G,
+                                                   eng.nc)
+            st = fs.FlatState(plane, plane, plane, plane, plane, plane)
+        else:
+            st = eng.from_ends(*state)
+
+        def step(s):
+            return eng.step(s, kcs=kcs, bc=(bc_neg, bc_pos))
+
+        st = _step_loop(step, st, n, remat)
+        prev, half = eng.prev_half_ends(st)
+        return State(ends=eng.ends(st), prev_ends=prev, half_ends=half)
 
     return solve_fn
 
@@ -281,16 +363,14 @@ def fit_params(cfg: Config, tables: Tables, state0: Optional[State],
     .make_diff_solve_cuda at its default, as JAX's: BDF2 fused K =
     min(max_steps_per_launch(), 4, num_steps) steps a launch on B11-B12,
     the tail and BE/CN one step a launch on B9-B10) on `device` (the
-    plain versions for ``device='cpu'``): f32-grade gradients. ``'fast'``
-    is not ported yet.
+    plain versions for ``device='cpu'``): f32-grade gradients.
+    ``solver='fast'`` differentiates through the tiled fast engine in
+    float64 (make_diff_solve_fast): the general solver's gradients to
+    roundoff.
     """
-    if solver == "fast":
-        raise NotImplementedError(
-            "solver='fast' needs the XLA fast engine, not ported yet "
-            "(ROADMAP A7); use solver='general' or 'pallas'")
-    if solver == "general":
-        solve_fn = make_diff_solve(cfg, tables, num_steps=num_steps,
-                                   device=device)
+    if solver in ("general", "fast"):
+        make = make_diff_solve if solver == "general" else make_diff_solve_fast
+        solve_fn = make(cfg, tables, num_steps=num_steps, device=device)
     elif solver == "pallas":
         from .ops.cuda_adjoint import make_diff_solve_cuda
 

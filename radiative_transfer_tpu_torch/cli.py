@@ -1,7 +1,8 @@
 """Command-line driver: deck in, CSVs out.
 
-Port of radiative_transfer_tpu/cli.py on its general and kernel engine
-paths, on one device and on a mesh (reference: src/main.cc:60-136): read a
+Port of radiative_transfer_tpu/cli.py on its general, fast and kernel
+engine paths, on one device and on a mesh, and its opacity ensembles
+(reference: src/main.cc:60-136): read a
 .prm deck, echo the input quantities
 (ParameterHandler::display_input_quantities, src/ParameterHandler.cpp:
 20-96) and the solver's quadrature and group tables, run it, print the
@@ -10,12 +11,13 @@ scripts consume.
 
 Usage:
     python -m radiative_transfer_tpu_torch.cli DECK --outdir D
-        [--engine general|pallas|halo|fused|df|auto] [--mesh GxX]
+        [--engine general|fast|pallas|halo|fused|df|auto] [--mesh GxX]
         [--dtype float64|float32] [--steps n] [--scan-tol x] [--profile]
         [--device cuda|cpu]
         [--checkpoint-dir DIR [--checkpoint-every n] [--no-resume]]
         [--balance-every K] [--check [--check-positivity]]
         [--print-tables] [--trace LOGDIR] [--metrics-json FILE]
+        [--ensemble-kappa FILE]
 
     torchrun --nproc_per_node P -m radiative_transfer_tpu_torch.cli DECK
         --mesh GxX ...        (P = G*X ranks, one shard each)
@@ -25,6 +27,8 @@ Engines without ``--mesh``:
 * ``general`` (the default, as in JAX): models/transport.solve, the
   readable scan-parallel path in plain PyTorch at ``--dtype`` (float64 by
   default);
+* ``fast``: ops/fast_sweep.FastEngine, the tiled constant-coefficient
+  scan in plain PyTorch at ``--dtype``;
 * ``pallas``: CudaSweepEngine, the fused f32 sweep (kernels B1-B3);
 * ``halo``: HaloCudaEngine, the packed-rows halo engine at one device
   (B4-B5; the JAX CLI's ``--engine halo`` with its implied ``--mesh 1x1``);
@@ -88,9 +92,21 @@ utils/profiling.py):
   (the kernels included on the card) to LOGDIR/trace_rank<r>.json;
 * ``--metrics-json FILE`` writes the run's metrics as one JSON object.
 
-Refused with exit code 2, naming the ROADMAP item that ports them:
-``--engine fast``, ``--steady`` and ``--steady-method`` (A7),
-``--ensemble-kappa`` (A10).
+``--ensemble-kappa FILE`` runs an opacity ensemble (K rows of G
+opacities, whitespace-separated, # comments) as JAX's does: ``--engine
+general`` vmaps the float64 general solver (ensemble.solve_ensemble);
+``auto``, ``pallas``, ``fast`` and ``df`` run the K members stacked into
+one problem of K*G groups (ensemble.solve_ensemble_stacked on auto,
+single, fast and df; ``fast`` at ``--dtype``, the others their own
+precision, so ``auto`` runs the float32 kernels even at float64, as in
+JAX). Each member writes its 8 CSVs to OUTDIR/member_NNN/; ``--profile``
+prints the aggregate rate. With ``--checkpoint-dir``, ``--balance-every``,
+``--mesh`` or ``--check``, and with ``--engine halo``, it is an argparse
+error (exit 2), as in JAX.
+
+Refused with exit code 2, naming the second half of ROADMAP A7 that ports
+them: ``--steady``, ``--steady-method`` (steady.py) and ``--engine fast
+--mesh`` (ShardedFastEngine).
 """
 
 from __future__ import annotations
@@ -203,7 +219,8 @@ def main(argv=None) -> int:
                     help="override max_timesteps")
     ap.add_argument("--engine", default="general",
                     help="general: the readable scan path at --dtype "
-                         "(default; with --mesh, on the mesh); pallas: the "
+                         "(default; with --mesh, on the mesh); fast: the "
+                         "tiled fast engine at --dtype; pallas: the "
                          "fused f32 sweep on the CUDA kernels (with --mesh, "
                          "the per-sub-step mesh engine); halo: the "
                          "packed-rows halo engine (implies --mesh 1x1); "
@@ -217,9 +234,9 @@ def main(argv=None) -> int:
                          "--nproc_per_node 4")
     ap.add_argument("--dtype", choices=("float64", "float32"),
                     default="float64",
-                    help="the general engine's dtype; float32 for the f32 "
-                         "engines; float64 (default) picks the double-float "
-                         "engine under auto")
+                    help="the general and fast engines' dtype; float32 "
+                         "for the f32 engines; float64 (default) picks the "
+                         "double-float engine under auto")
     ap.add_argument("--scan-tol", type=float, default=1e-10,
                     help="accuracy bound of the plain versions' truncated "
                          "prefix scan (neglected upwind tail a^(2^k)/(1-a) "
@@ -265,13 +282,17 @@ def main(argv=None) -> int:
                          "--checkpoint-dir, whose chunking owns the loop)")
     ap.add_argument("--steady", action="store_true",
                     help="the direct steady-state solve: not ported yet "
-                         "(ROADMAP A7)")
+                         "(ROADMAP A7, its second half)")
     ap.add_argument("--steady-method", choices=("direct", "cycle"),
                     default="direct",
-                    help="with --steady: not ported yet (ROADMAP A7)")
+                    help="with --steady: not ported yet (ROADMAP A7, its "
+                         "second half)")
     ap.add_argument("--ensemble-kappa", default=None, metavar="FILE",
-                    help="the opacity ensemble: not ported yet (ROADMAP "
-                         "A10)")
+                    help="opacity ensemble: FILE has K rows x G columns "
+                         "(whitespace-separated, # comments); the members "
+                         "run as one stacked problem (--engine general: "
+                         "the vmapped f64 solver) and each writes its 8 "
+                         "CSVs to OUTDIR/member_NNN/")
     args = ap.parse_args(argv)
 
     if args.balance_every and args.checkpoint_dir:
@@ -283,18 +304,34 @@ def main(argv=None) -> int:
             or args.checkpoint_every < 1):
         ap.error("--balance-every and --checkpoint-every take a positive "
                  "number of steps")
-    refused = ((args.steady, "--steady", "A7, with the fast engine"),
-               (args.ensemble_kappa, "--ensemble-kappa", "A10"),
-               (args.engine == "fast", "--engine fast", "A7"))
-    for on, flag, item in refused:
+    if args.ensemble_kappa:
+        # Loud refusal over a silent no-op, as the JAX CLI's.
+        for val, name in ((args.checkpoint_dir, "--checkpoint-dir"),
+                          (args.balance_every, "--balance-every"),
+                          (args.mesh, "--mesh"),
+                          (args.check, "--check")):
+            if val:
+                ap.error(f"--ensemble-kappa does not support {name} "
+                         "(use the library API ensemble.solve_ensemble"
+                         "_stacked for meshes/custom loops)")
+        if args.engine == "halo":
+            ap.error("--ensemble-kappa supports --engine "
+                     "general/fast/pallas/auto")
+    refused = (
+        (args.steady and args.steady_method != "direct", "--steady-method",
+         "steady.py's solve_steady_cycle"),
+        (args.steady, "--steady", "steady.py's solve_steady"),
+        (args.engine == "fast" and args.mesh, "--engine fast --mesh",
+         "ShardedFastEngine"))
+    for on, flag, what in refused:
         if on:
-            print(f"{flag} is not ported yet (ROADMAP {item})",
-                  file=sys.stderr)
+            print(f"{flag} is not ported yet (ROADMAP A7, its second half: "
+                  f"{what})", file=sys.stderr)
             return 2
-    if args.engine not in ("general", "pallas", "halo", "fused", "df",
-                           "auto"):
+    if args.engine not in ("general", "fast", "pallas", "halo", "fused",
+                           "df", "auto"):
         print(f"unknown --engine {args.engine}; use --engine general, "
-              "pallas, halo, fused, df or auto", file=sys.stderr)
+              "fast, pallas, halo, fused, df or auto", file=sys.stderr)
         return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (--device cpu "
@@ -343,6 +380,8 @@ def main(argv=None) -> int:
     if cfg.include_validation and not transport.validate_tables(cfg, ct):
         print("Invalid Correction Terms", file=sys.stderr)
         return 1
+    if args.ensemble_kappa:
+        return _run_ensemble(args, cfg, tables, device)
 
     check_fn = None
     if args.check:
@@ -458,7 +497,7 @@ class _GeneralEngine:
 def _general_engine(args, cfg, tables, device):
     """The general engine of --engine general (on --mesh, the mesh's), or
     an exit code."""
-    dtype = torch.float64 if args.dtype == "float64" else torch.float32
+    dtype = _dtype(args)
     mesh = None
     if args.mesh:
         mesh = _mesh(args)
@@ -554,12 +593,83 @@ def _mesh(args):
     return mesh
 
 
+def _dtype(args) -> torch.dtype:
+    return torch.float64 if args.dtype == "float64" else torch.float32
+
+
+def _run_ensemble(args, cfg, tables, device) -> int:
+    """--ensemble-kappa (JAX cli.py's _run_ensemble): the K-row opacity
+    table becomes a {'kappa': (K, G)} ensemble, run stacked on the engines
+    (--engine general: the vmapped f64 solver); each member writes the
+    reference's 8 CSVs (src/main.cc:117-133) to OUTDIR/member_NNN/ and a
+    one-line balance summary."""
+    from . import ensemble
+    from .models import transport
+    from .utils import io as io_mod
+    from .utils.profiling import updates_per_step
+
+    try:
+        kappas = np.loadtxt(args.ensemble_kappa, ndmin=2, dtype=np.float64)
+    except OSError as e:
+        print(f"cannot read --ensemble-kappa table: {e}", file=sys.stderr)
+        return 2
+    if kappas.shape[1] != cfg.G:
+        print(f"--ensemble-kappa needs G={cfg.G} columns per row, got "
+              f"{kappas.shape[1]}", file=sys.stderr)
+        return 2
+    K = kappas.shape[0]
+    params = {"kappa": kappas}
+    eng_name = {"auto": "auto", "pallas": "single", "fast": "fast",
+                "df": "df"}
+    if args.engine != "general" and args.engine not in eng_name:
+        print(f"--ensemble-kappa supports engines {sorted(eng_name)} (got "
+              f"{args.engine!r})", file=sys.stderr)
+        return 2
+
+    t0 = time.perf_counter()
+    if args.engine == "general":
+        final = ensemble.solve_ensemble(cfg, tables, params, device=device)
+    else:
+        kw = ({"dtype": _dtype(args)} if args.engine == "fast"
+              else {"scan_tol": args.scan_tol})
+        final = ensemble.solve_ensemble_stacked(
+            cfg, tables, params, engine=eng_name[args.engine],
+            device=device, **kw)
+    ends = final.ends.to(torch.float64)
+    _sync(device)
+    wall = time.perf_counter() - t0
+
+    if args.profile:
+        ups = updates_per_step(cfg) * cfg.max_timesteps * K
+        print(f"wall: {wall:.3f} s for {K} members x {cfg.max_timesteps} "
+              f"steps ({ups / wall / 1e6:.1f} M updates/s aggregate) on "
+              f"{args.device}")
+    x = (np.arange(cfg.N) + 0.5) * cfg.dx
+    e_ave = np.asarray(tables.e_ave)
+    for k in range(K):
+        tab_k = ensemble._host_member_tables(cfg, tables,
+                                             {"kappa": kappas[k]})
+        res = transport.result_from_ends(cfg, tab_k, ends[k])
+        sub = os.path.join(args.outdir, f"member_{k:03d}")
+        io_mod.write_solution_csvs(sub, res, x, e_ave)
+        bal = res.balance.cpu().numpy()
+        print(f"member {k:3d}: balance max {bal.max():.3e} "
+              f"mean {bal.mean():.3e} -> {sub}")
+    print(f"wrote {K} member output sets under "
+          f"{os.path.abspath(args.outdir)}")
+    return 0
+
+
 def _single_engine(args, cfg, tables):
     """The one-device engine of --engine (no --mesh), or an exit code."""
     from .ops.cuda_df import DFCudaEngine
+    from .ops.fast_sweep import FastEngine
     from .parallel import make_multichip_engine
 
     engine = args.engine
+    if engine == "fast":
+        return FastEngine(cfg, tables, dtype=_dtype(args),
+                          device=args.device)
     auto_df = engine == "auto" and args.dtype == "float64"
     if auto_df:
         engine = "df"

@@ -433,8 +433,10 @@ def run_problem(cfg: Config, dtype=torch.float64,
     reference: src/main.cc:60-136), on `device`.
 
     engine='general' (default) runs this module's readable path at `dtype`
-    (torch.float64 or torch.float32); engine='df' pins the double-float
-    kernels (ops/cuda_df.DFCudaEngine, f64-grade at kernel rate);
+    (torch.float64 or torch.float32); engine='fast' the tiled fast engine
+    (ops/fast_sweep.FastEngine, plain PyTorch) at `dtype`; engine='df' pins
+    the double-float kernels (ops/cuda_df.DFCudaEngine, f64-grade at
+    kernel rate);
     engine='auto' routes through the shape-aware float32 engine selection
     (parallel.make_multichip_engine). Diagnostics run in float64."""
     tables, _, ct = build_tables(cfg)
@@ -451,9 +453,9 @@ def run_problem(cfg: Config, dtype=torch.float64,
 
             eng = make_multichip_engine(cfg, tables, None, device=device)
         elif engine == "fast":
-            raise NotImplementedError(
-                "engine='fast' needs the XLA fast engine, not ported yet "
-                "(ROADMAP A7)")
+            from ..ops.fast_sweep import FastEngine
+
+            eng = FastEngine(cfg, tables, dtype=dtype, device=device)
         else:
             raise ValueError(f"unknown engine {engine!r} "
                              "(general/fast/df/auto)")

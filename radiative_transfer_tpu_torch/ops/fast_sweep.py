@@ -1,22 +1,40 @@
-"""Sweep coefficients, boundary planes and the flat plane layout.
+"""The fast engine: tiled layout and constant-coefficient scan, and the
+sweep coefficients, boundary planes and flat layout the kernel engines
+borrow.
 
-Port of the parts of radiative_transfer_tpu/ops/fast_sweep.py that the
-kernel engine borrows (ops/pallas_sweep.py:808-845 there): the
-spatially constant per-kind coefficient algebra, the reflective flip,
-the boundary inflow planes, and the converters between the global
-(M, G, N, 2) edge arrays and the flat sweep-order planes (2, Bh, N).
+Port of radiative_transfer_tpu/ops/fast_sweep.py. Two layouts live here:
 
-Flat layout: plane axis 0 is the direction half [mu<0, mu>0], axis 1 the
-flattened (Mh, G) batch Bh = Mh*G, axis 2 the N cells in SWEEP order —
-the mu<0 half is stored N-reversed with its two edges swapped, so both
-halves sweep left to right along the last axis.
+* The flat layout of the kernel engines (ops/pallas_sweep.py:808-845 in
+  the JAX package): plane axis 0 is the direction half [mu<0, mu>0],
+  axis 1 the flattened (Mh, G) batch Bh = Mh*G, axis 2 the N cells in
+  SWEEP order — the mu<0 half is stored N-reversed with its two edges
+  swapped, so both halves sweep left to right along the last axis
+  (``from_ends``, ``ends_pair``).
+* FastEngine's tiled chunk-major layout (chunk, 2, Bh, nc): global cell
+  j = i*chunk + t maps to [t, h, :, i], N padded to nc*chunk with pad
+  cells at the sweep-downstream end of each half (``_pick_chunk``).
 
-Boundary-fill folding (module doc of the JAX original): the first
-cell's upwind prev/half history fills enter the recurrence linearly, so
-they fold into an inflow multiplier s = 1 (BE), 2 (CN), 6 (BDF2
-corrector) on the boundary intensity.
+Constant-coefficient recurrence: the per-cell affine carry map
+carry_j = a*carry_{j-1} + b_j has a spatially CONSTANT multiplier a
+(kappa/rho are per-group vectors), so the scan carries only b and every
+prefix power of a is a small cumulative product.
 
-The XLA tiled FastEngine itself (its two-level scan) is not ported yet.
+Boundary-fill folding: the first cell's upwind prev/half history fills
+(solver.cpp:695-697) enter the recurrence linearly, so they fold into an
+inflow multiplier s = 1 (BE), 2 (CN), 6 (BDF2 corrector) on the boundary
+intensity; every b is then independent of the boundary value, so both
+direction halves (a reflective left boundary included, whose inflow is
+the mu<0 half's outflow, solver.cpp:679-683) share one build and scan.
+
+FastEngine's two-level scan: inside a chunk the JAX package runs a
+sequential lax.scan over the chunk's positions; eager PyTorch would pay
+one round of launches a position, so the port runs a log-step
+(Hillis-Steele) prefix over them instead, exact like the sequential one
+(every pass composes every pair, the multiplier of pass d is a^d), then
+the log-step prefix of the chunk totals (ops/scan.py). The associations
+differ from XLA's, so the engine agrees with the JAX package's to
+roundoff, not bit for bit. FastEngine is plain PyTorch (the JAX engine is
+plain XLA, no Pallas kernel) at float32 or float64 on its device.
 """
 
 from __future__ import annotations
@@ -28,6 +46,7 @@ import torch
 
 from .. import constants
 from ..config.config import Config
+from .scan import _log_prefix
 
 _C = constants.SPEED_OF_LIGHT
 
@@ -35,7 +54,8 @@ BE, CN, BDF = 1, 2, 3
 
 
 class FlatState(NamedTuple):
-    """Sweep state; each plane is (2, Bh, N) in sweep order."""
+    """Sweep state: each plane is (2, Bh, N) in sweep order for the kernel
+    engines, tiled (chunk, 2, Bh, nc) for FastEngine."""
 
     e0: torch.Tensor  # oriented upwind edge
     e1: torch.Tensor  # oriented downwind edge (the carried one)
@@ -259,3 +279,313 @@ def ends_pair(x0: torch.Tensor, x1: torch.Tensor, Mh: int,
     neg = torch.stack([neg0, neg1], dim=-1)
     pos = torch.stack([pos0, pos1], dim=-1)
     return torch.cat([neg, pos], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# FastEngine: the tiled (chunk, 2, Bh, nc) layout and its two-level scan
+# ---------------------------------------------------------------------------
+
+def _pick_chunk(N: int, chunk: int, pad: bool = True) -> Tuple[int, int]:
+    """(chunk, N_pad): in-chunk length and padded cell count (JAX's rule).
+
+    Prefers an exact divisor of N near the requested size (no padding).
+    When N has no usable power-of-two divisor (odd or prime N) it PADS to
+    the next chunk multiple instead of degrading to chunk = 1, which
+    would make the chunk level one scan over all N cells. Pad cells sit
+    at the sweep-DOWNSTREAM end of each half, so no real cell's result
+    can change; the reflective outflow is read at the last REAL cell
+    (FastEngine.inflow). ``pad=False`` pins N_pad == N (any divisor)."""
+    if N % chunk == 0 and N // chunk >= 2:
+        return chunk, N
+    c = 1
+    while N % (c * 2) == 0 and c * 2 <= max(16, N // 4):
+        c *= 2
+    if not pad or c >= min(16, chunk):
+        return c, N
+    half_pow2 = 1 << max(0, (max(N // 4, 1)).bit_length() - 1)
+    c = max(min(16, N), min(chunk, half_pow2))
+    n_pad = -(-N // c) * c
+    return c, n_pad
+
+
+def _shift1_tiled(x: torch.Tensor) -> torch.Tensor:
+    """Shift one cell downwind along N in tiled layout (zero boundary fill;
+    the true boundary contribution is folded into the effective inflow):
+    new[t, ..., i] = x[t-1, ..., i] for t > 0; new[0, ..., i] =
+    x[-1, ..., i-1]."""
+    row0 = torch.cat([torch.zeros_like(x[:1, ..., :1]), x[-1:, ..., :-1]],
+                     dim=-1)
+    return torch.cat([row0, x[:-1]], dim=0)
+
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+class FastEngine:
+    """The fused constant-coefficient solver for one (Config, Tables)
+    problem in plain PyTorch, at `dtype` (torch.float32 or float64) on
+    `device` (the card by default; 'cpu' runs the same operations there).
+    Its state is a FlatState of tiled (chunk, 2, Bh, nc) planes."""
+
+    def __init__(self, cfg: Config, tables, dtype=torch.float32,
+                 chunk: int = 256, pad: bool = True, device="cuda"):
+        from ..models.transport import solve_device
+
+        if dtype not in _NP_DTYPE:
+            raise ValueError(f"FastEngine runs torch.float32 or "
+                             f"torch.float64, got {dtype}")
+        self.cfg = cfg
+        self.tables = tables
+        self.dtype = dtype
+        self.device = solve_device(device)
+        self.chunk, self.N_pad = _pick_chunk(cfg.N, chunk, pad)
+        self.nc = self.N_pad // self.chunk
+        self.pad = self.N_pad - cfg.N
+        # Tiled position of the last REAL cell (j = i*chunk + t): a padded
+        # reflective run reads its outflow there (inflow()).
+        self._t_last = (cfg.N - 1) % self.chunk
+        self._i_last = (cfg.N - 1) // self.chunk
+        Mh, G = cfg.M // 2, cfg.G
+        self.Mh, self.G = Mh, G
+        self.Bh = Mh * G
+
+        def put(x):
+            return torch.as_tensor(np.array(x), device=self.device)
+
+        np_dtype = _NP_DTYPE[dtype]
+        bc_neg, bc_pos = boundary_planes(cfg, tables, np_dtype)
+        self.bc_neg = put(bc_neg)
+        self.bc_pos_fixed = None if bc_pos is None else put(bc_pos)
+        self.refl_flip = (put(_refl_flip_indices(Mh, G))
+                          if bc_pos is None else None)
+        self.kcs = {
+            kind: KindCoeffs(*(put(x) if isinstance(x, np.ndarray) else x
+                               for x in kc))
+            for kind, kc in kind_coeffs(cfg, tables, np_dtype).items()}
+
+    # -- layout conversion -------------------------------------------------
+
+    def tile(self, flat: torch.Tensor) -> torch.Tensor:
+        """(2, Bh, N or N_pad) sweep-order plane -> tiled (chunk, 2, Bh,
+        nc). Length-N inputs are zero-padded at the sweep-downstream end
+        (pad cells never influence real cells)."""
+        if self.pad and flat.shape[-1] == self.cfg.N:
+            flat = torch.cat([flat, flat.new_zeros(flat.shape[:-1]
+                                                   + (self.pad,))], dim=-1)
+        x = flat.reshape(2, self.Bh, self.nc, self.chunk)
+        return x.permute(3, 0, 1, 2).contiguous()
+
+    def untile(self, tiled: torch.Tensor) -> torch.Tensor:
+        """tiled (chunk, 2, Bh, nc) -> (2, Bh, N_pad) sweep-order plane
+        (== N when unpadded; ends_pair drops the pad cells)."""
+        return tiled.permute(1, 2, 3, 0).reshape(2, self.Bh, self.N_pad)
+
+    def from_ends(self, ends, prev, half) -> FlatState:
+        """Global (M, G, N, 2) arrays (any device, float dtype) -> tiled
+        FlatState on the engine's device at its dtype."""
+        def planes(x):
+            x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+            return [self.tile(p) for p in from_ends(x)]
+
+        (e0, e1), (p0, p1), (h0, h1) = planes(ends), planes(prev), planes(half)
+        return FlatState(e0, e1, p0, p1, h0, h1)
+
+    def ends_pair(self, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+        """Tiled edge planes -> global (M, G, N, 2). Pad cells (sweep-
+        downstream: physically left of cell 0 for mu<0, right of N-1 for
+        mu>0) are dropped."""
+        N = self.cfg.N
+        return ends_pair(self.untile(x0)[..., :N], self.untile(x1)[..., :N],
+                         self.Mh, self.G)
+
+    def ends(self, st: FlatState) -> torch.Tensor:
+        return self.ends_pair(st.e0, st.e1)
+
+    def prev_half_ends(self, st: FlatState):
+        """The global (prev_ends, half_ends), as every engine of the port
+        gives them (utils/checkpoint.py, ensemble.py)."""
+        return (self.ends_pair(st.p0, st.p1), self.ends_pair(st.h0, st.h1))
+
+    def init_state(self) -> FlatState:
+        """psi = ends = B_g everywhere (src/solver.cpp:165-181)."""
+        Bg = np.broadcast_to(
+            np.asarray(self.tables.B, dtype=np.float64)[None, :],
+            (self.Mh, self.G)).reshape(self.Bh)
+        Bg = torch.tensor(Bg, dtype=self.dtype, device=self.device)
+        plane = Bg[None, None, :, None].expand(
+            self.chunk, 2, self.Bh, self.nc).contiguous()
+        return FlatState(plane, plane, plane, plane, plane, plane)
+
+    # -- one fused sub-step, in stages --------------------------------------
+
+    def rhs(self, kind: int, st: FlatState, shift1=None, kc=None):
+        """Carry-independent RHS planes (r0, r1, b). `shift1` overrides the
+        one-cell-downwind shift, `kc` the coefficient planes."""
+        if kc is None:
+            kc = self.kcs[kind]
+        if shift1 is None:
+            shift1 = _shift1_tiled
+        # Source term (the correction is linear in psi, pre-scaled).
+        psi = 0.5 * (st.e0 + st.e1)
+        S = kc.Sbase + kc.c1 * psi + kc.c0
+
+        # Boundary fills folded out; module doc.
+        if kind == BE:
+            r0 = S + kc.k_ee * st.e0
+            r1 = S + kc.k_ee * st.e1
+        elif kind == CN:
+            r0 = S + kc.k_ee * st.e0 - kc.q * st.e1 + kc.w * shift1(st.p1)
+            r1 = S + kc.q * st.e0 + kc.k_ee * st.e1
+        else:  # BDF
+            r0 = (S + kc.k_ee * st.h0 - 2.0 * kc.w * st.h1
+                  - kc.k_p * st.p0 - kc.q * st.p1
+                  + kc.w * (4.0 * shift1(st.h1) + shift1(st.p1)))
+            r1 = (S + 2.0 * kc.w * st.h0 + kc.k_ee * st.h1
+                  + kc.q * st.p0 - kc.k_p * st.p1)
+
+        b = (kc.q * r0 + kc.T0 * r1) * kc.inv_det          # (chunk,2,Bh,nc)
+        return r0, r1, b
+
+    def local_scan(self, kind: int, b: torch.Tensor, kc=None):
+        """Two-level scan over the cells (zero inflow). Returns (pb, pow_t,
+        EXa, EXb, a_powN, tot_b): in-chunk prefixes, a-powers a^(t+1),
+        exclusive cross-chunk composites, and the total composite map
+        (out = a_powN * in + tot_b) of the whole axis."""
+        if kc is None:
+            kc = self.kcs[kind]
+        chunk = b.shape[0]
+        # a^(t+1): a small cumulative product, (chunk, 2, Bh, 1).
+        pow_t = torch.cumprod(
+            kc.a.expand((chunk,) + tuple(kc.a.shape[1:])), dim=0)
+        # Level 1: the in-chunk prefix from zero, log-step: pass d adds
+        # a^d times the prefix d positions upstream.
+        pb, d = b, 1
+        while d < chunk:
+            pb = torch.cat([pb[:d], pb[d:] + pow_t[d - 1] * pb[:-d]], dim=0)
+            d *= 2
+        last = pb[-1]                                      # (2, Bh, nc)
+        a_chunk = pow_t[-1]                                # (2, Bh, 1)
+
+        # Level 2: log-step cross-chunk composition (exclusive).
+        inc_a, inc_b = _log_prefix(a_chunk.expand(last.shape), last)
+        tot_b = inc_b[..., -1:]                            # (2, Bh, 1)
+        a_powN = inc_a[..., -1:]                           # (2, Bh, 1)
+        EXa = torch.cat([torch.ones_like(inc_a[..., :1]), inc_a[..., :-1]],
+                        dim=-1)
+        EXb = torch.cat([torch.zeros_like(inc_b[..., :1]), inc_b[..., :-1]],
+                        dim=-1)
+        return pb, pow_t, EXa, EXb, a_powN, tot_b
+
+    def inflow(self, kind: int, a_powN, tot_b, kc=None, bc=None, scan=None):
+        """Effective inflow per half, (2, Bh, 1), given the total
+        composite. The mu>0 reflective inflow is the mu<0 half's outflow,
+        its composite applied to its own inflow (solver.cpp:679-683).
+        `bc` overrides the (bc_neg, bc_pos_fixed) value planes (the
+        differentiable path passes traced ones); reflective or fixed stays
+        the engine's. With padding (N_pad > N) the reflective outflow is
+        read at cell N-1 from the scan prefix: `scan` is then local_scan's
+        (pb, pow_t, EXa, EXb)."""
+        if kc is None:
+            kc = self.kcs[kind]
+        bc_neg, bc_pos_fixed = ((self.bc_neg, self.bc_pos_fixed)
+                                if bc is None else bc)
+        init_neg = kc.s * bc_neg                           # (Bh,)
+        if self.bc_pos_fixed is None:
+            if self.pad:
+                if scan is None:
+                    raise ValueError("a padded reflective inflow needs "
+                                     "scan=")
+                pb, pow_t, EXa, EXb = scan
+                t, i = self._t_last, self._i_last
+                ex_neg = EXa[0, :, i] * init_neg + EXb[0, :, i]
+                out_neg = pow_t[t, 0, :, 0] * ex_neg + pb[t, 0, :, i]
+            else:
+                out_neg = a_powN[0, :, 0] * init_neg + tot_b[0, :, 0]
+            bc_pos = out_neg[self.refl_flip]
+        else:
+            bc_pos = bc_pos_fixed
+        return torch.stack([init_neg, kc.s * bc_pos], dim=0)[..., None]
+
+    def finish(self, kind: int, r0, r1, pb, pow_t, EXa, EXb, incoming,
+               kc=None):
+        """Both cell edges from the incoming carry (the value entering the
+        first cell, (2, Bh, 1))."""
+        if kc is None:
+            kc = self.kcs[kind]
+        EX = EXa * incoming + EXb                          # (2, Bh, nc)
+        # Incoming carry for (t, i): a^t * EX_i + pb[t-1, i].
+        pow_t_ex = torch.cat([torch.ones_like(pow_t[:1]), pow_t[:-1]], dim=0)
+        pb_ex = torch.cat([torch.zeros_like(pb[:1]), pb[:-1]], dim=0)
+        carry_in = pow_t_ex * EX[None] + pb_ex             # (chunk,2,Bh,nc)
+        # Per-cell 2x2 solve given the incoming carry.
+        u = r0 + kc.w * carry_in
+        ne0 = (kc.T0 * u - kc.q * r1) * kc.inv_det
+        ne1 = (kc.q * u + kc.T0 * r1) * kc.inv_det
+        return ne0, ne1
+
+    def substep(self, kind: int, st: FlatState, kc=None,
+                bc=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        r0, r1, b = self.rhs(kind, st, kc=kc)
+        pb, pow_t, EXa, EXb, a_powN, tot_b = self.local_scan(kind, b, kc=kc)
+        incoming = self.inflow(kind, a_powN, tot_b, kc=kc, bc=bc,
+                               scan=(pb, pow_t, EXa, EXb))
+        return self.finish(kind, r0, r1, pb, pow_t, EXa, EXb, incoming,
+                           kc=kc)
+
+    # -- full steps -----------------------------------------------------------
+
+    def step(self, st: FlatState, kcs=None, bc=None) -> FlatState:
+        """One full timestep. `kcs`/`bc` override the coefficient dict and
+        boundary planes (None: the engine's own); the differentiable path
+        (adjoint.make_diff_solve_fast) passes traced ones, so parameter
+        gradients flow through the same algebra."""
+        cfg = self.cfg
+
+        def sub(kind, s):
+            return self.substep(kind, s,
+                                kc=None if kcs is None else kcs[kind], bc=bc)
+
+        if cfg.ts_method == 1:
+            ne0, ne1 = sub(BE, st)
+            return FlatState(ne0, ne1, st.e0, st.e1, st.h0, st.h1)
+        if cfg.ts_method == 2:
+            st1 = FlatState(st.e0, st.e1, st.e0, st.e1, st.h0, st.h1)
+            ne0, ne1 = sub(CN, st1)
+            return FlatState(ne0, ne1, st.e0, st.e1, st.h0, st.h1)
+        # BDF2 4-phase cycle (solver.cpp:594-598, 620-625, 700-811).
+        p0, p1 = st.e0, st.e1                      # commit prev
+        s1 = FlatState(st.e0, st.e1, p0, p1, st.h0, st.h1)
+        b0, b1 = sub(BE, s1)                       # phase-0 predictor
+        s2 = FlatState(b0, b1, p0, p1, st.h0, st.h1)
+        e0, e1 = sub(CN, s2)
+        # Snapshot half: plane axis 1 is [mu<0, mu>0]; the mu>0 half keeps
+        # the phase-0 BE output (reference quirk: the half_ends copy sits
+        # only in the mu<0 branch, solver.cpp:733 vs 784-787) unless the
+        # corrected symmetric scheme is asked for.
+        if cfg.bdf2_symmetric_half:
+            h0, h1 = e0, e1
+        else:
+            h0 = torch.cat([e0[:, :1], b0[:, 1:]], dim=1)
+            h1 = torch.cat([e1[:, :1], b1[:, 1:]], dim=1)
+        s3 = FlatState(e0, e1, p0, p1, h0, h1)
+        e0, e1 = sub(BE, s3)
+        s4 = FlatState(e0, e1, p0, p1, h0, h1)
+        e0, e1 = sub(BDF, s4)
+        return FlatState(e0, e1, p0, p1, h0, h1)
+
+    def solve(self, state: Optional[FlatState] = None,
+              num_steps: Optional[int] = None) -> FlatState:
+        n = self.cfg.max_timesteps if num_steps is None else num_steps
+        if state is None:
+            state = self.init_state()
+        for _ in range(n):
+            state = self.step(state)
+        return state
+
+
+def solve_fast(cfg: Config, tables, state: Optional[FlatState] = None,
+               num_steps: Optional[int] = None, dtype=torch.float32,
+               chunk: int = 256, device="cuda"
+               ) -> Tuple[FastEngine, FlatState]:
+    eng = FastEngine(cfg, tables, dtype=dtype, chunk=chunk, device=device)
+    return eng, eng.solve(state, num_steps)

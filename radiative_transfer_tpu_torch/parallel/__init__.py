@@ -7,8 +7,9 @@ parallel/df_halo_cuda.py), the per-sub-step mesh engine
 (parallel/fused_exchange_cuda.py), the general engine on a mesh
 (parallel/sharded.py, solve_sharded: the JAX general ShardedEngine), the
 mesh (parallel/mesh.py) and the process-group helpers
-(parallel/distributed.py). Not ported: ShardedFastEngine (with ROADMAP
-A7).
+(parallel/distributed.py). Without a mesh ``engine="fast"`` is the XLA
+fast engine's port, ops/fast_sweep.FastEngine (plain PyTorch). Not ported:
+its mesh engine ShardedFastEngine (the second half of ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -47,6 +48,9 @@ def make_multichip_engine(cfg, tables, mesh=None, engine: str = "auto",
       float64: the packed-rows DFHaloCudaEngine (double-float kernels
       B14-B15) at tiny batches (Bh < 8) where its creep bound admits the
       workload, else the plain DFCudaEngine (B6-B7).
+    * ``fast``: FastEngine (ops/fast_sweep.py, plain PyTorch at its
+      ``dtype``), as the JAX package's solve_ensemble_stacked builds it
+      without a mesh.
 
     With a mesh (the pinned mesh engines also at one rank, as JAX builds
     them at 1x1):
@@ -60,7 +64,8 @@ def make_multichip_engine(cfg, tables, mesh=None, engine: str = "auto",
     * ``auto`` at more than one rank: the halo engine where its creep
       bound admits the workload, else the fused engine at BDF2, else the
       sharded engine;
-    * ``fast``: not ported (ROADMAP A7).
+    * ``fast``: NotImplementedError: ShardedFastEngine is the second half
+      of ROADMAP A7, not ported yet.
 
     Rules of the JAX selection that do not carry over: off a TPU it picks
     its XLA FastEngine (single device) or ShardedFastEngine (mesh), a rule
@@ -78,16 +83,22 @@ def make_multichip_engine(cfg, tables, mesh=None, engine: str = "auto",
     from .fused_exchange_cuda import FusedExchangeCudaEngine
     from .sharded_cuda import ShardedCudaEngine
 
-    if mesh is None and engine not in ("auto", "single", "halo", "df"):
+    if mesh is None and engine not in ("auto", "single", "halo", "df",
+                                       "fast"):
         raise ValueError(f"unknown engine {engine!r} without a mesh (auto, "
-                         "single, halo, df; pass a mesh for pallas, fused "
-                         "and df_halo)")
+                         "single, halo, df, fast; pass a mesh for pallas, "
+                         "fused and df_halo)")
     if engine not in _ENGINES:
         raise ValueError(f"unknown multi-chip engine {engine!r}")
     if engine == "fast":
-        raise NotImplementedError(
-            "the XLA fast engines (FastEngine, ShardedFastEngine) are not "
-            "ported yet (ROADMAP A7)")
+        from ..ops.fast_sweep import FastEngine
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "engine='fast' on a mesh is ShardedFastEngine, not ported "
+                "yet (ROADMAP A7, its second half)")
+        return FastEngine(cfg, tables, **_filter_kwargs(FastEngine.__init__,
+                                                        kw))
     n_dev = 1 if mesh is None else mesh.size
     tiny = (cfg.M // 2) * cfg.G < 8
     DFHalo, Halo = df_halo_cuda.DFHaloCudaEngine, halo_cuda.HaloCudaEngine

@@ -597,13 +597,12 @@ def test_fit_params_history_matches_jax(monkeypatch):
 def test_refusals():
     _, _, pcfg, pt = _both(GRAY, M=4, N=64, X=0.64, max_timesteps=2)
     args = (pcfg, pt, None, lambda s, p: s.ends.sum(), {"kappa": np.ones(1)})
-    # solver="general" runs (tests/test_torch_general_adjoint.py holds it
-    # against JAX); "fast" waits for A7.
-    _, hist = port_adj.fit_params(*args, solver="general", device="cpu",
-                                  iterations=1)
-    assert len(hist) == 1 and np.isfinite(hist[0])
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_adj.fit_params(*args, solver="fast", device="cpu")
+    # solver="general" and "fast" run (tests/test_torch_general_adjoint.py
+    # and tests/test_torch_fast.py hold them against JAX).
+    for solver in ("general", "fast"):
+        _, hist = port_adj.fit_params(*args, solver=solver, device="cpu",
+                                      iterations=1)
+        assert len(hist) == 1 and np.isfinite(hist[0])
     with pytest.raises(ValueError, match="unknown solver"):
         port_adj.fit_params(*args, solver="xla", device="cpu")
     # The K-fused route builds at an explicit K (K > 64 is refused:

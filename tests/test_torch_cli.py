@@ -18,6 +18,7 @@ import io
 import os
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +32,8 @@ from radiative_transfer_tpu.utils import io as jax_io
 from radiative_transfer_tpu_torch import cli as port_cli
 from radiative_transfer_tpu_torch.ops import cuda_sweep as port_cs
 from radiative_transfer_tpu_torch.utils import io as port_io
+
+from test_torch_general import _jit_opt_off
 
 torch.set_num_threads(1)
 
@@ -102,7 +105,7 @@ def test_writers_byte_identical(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--steady"],
-    ["--engine", "fast"],
+    ["--engine", "fast", "--mesh", "1x2"],
     ["--engine", "df", "--mesh", "1x2"],
     ["--engine", "pallas", "--mesh", "1x2"],
     ["--ensemble-kappa", "kappas.txt"],
@@ -111,9 +114,10 @@ def test_writers_byte_identical(tmp_path):
     ["--steady-method", "cycle"],
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
-    """Exit 2 and no CSV: what is not ported yet (A7, A10), a mesh of more
-    ranks than run, an unknown device, and the JAX CLI's flag hygiene
-    (argparse errors)."""
+    """Exit 2 and no CSV: what is not ported yet (A7's second half), a
+    mesh of more ranks than run, an ensemble table that cannot be read,
+    an unknown device, and the JAX CLI's flag hygiene (argparse
+    errors)."""
     argv = [_deck("single_group.prm"), "--outdir", str(tmp_path), *extra]
     if "--device" not in extra:
         argv += ["--device", "cpu"]
@@ -126,10 +130,13 @@ def test_cli_refuses_what_is_not_ported(tmp_path, extra):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--steady"], "--steady is not ported yet (ROADMAP A7"),
-    (["--engine", "fast"], "--engine fast is not ported yet (ROADMAP A7"),
-    (["--ensemble-kappa", "kappas.txt"],
-     "--ensemble-kappa is not ported yet (ROADMAP A10")])
+    (["--steady"], "--steady is not ported yet (ROADMAP A7, its second "
+     "half: steady.py's solve_steady)"),
+    (["--engine", "fast", "--mesh", "1x2"], "--engine fast --mesh is not "
+     "ported yet (ROADMAP A7, its second half: ShardedFastEngine)"),
+    (["--steady", "--steady-method", "cycle"], "--steady-method is not "
+     "ported yet (ROADMAP A7, its second half: steady.py's "
+     "solve_steady_cycle)")])
 def test_cli_refusals_name_their_roadmap_item(tmp_path, capsys, extra,
                                               message):
     rc = port_cli.main([_deck("single_group.prm"), "--outdir", str(tmp_path),
@@ -165,6 +172,7 @@ BALANCE_MODES = [
     (["--engine", "auto"], True),
     (["--engine", "halo", "--dtype", "float32"], True),
     (["--engine", "fused", "--dtype", "float32"], False),
+    (["--engine", "fast"], False),
 ]
 
 
@@ -204,3 +212,135 @@ def test_cli_cuda_without_card_exits_2(tmp_path, capsys):
     assert rc == 2
     assert "no CUDA device" in capsys.readouterr().err
     assert not list(tmp_path.glob("*.csv"))
+
+
+# -- --engine fast and --ensemble-kappa -------------------------------------------
+
+def _run_jax(argv):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "jit", _jit_opt_off)
+        return _run(jax_cli.main, argv)
+
+
+def _csv_err(got_dir, ref_dir):
+    """The largest error over the 8 CSVs, each against its own largest
+    magnitude (F against max|phi|, which bounds it)."""
+    phi = np.max(np.abs(np.loadtxt(os.path.join(ref_dir, "phi.csv"))))
+    worst = 0.0
+    for name in CSVS:
+        got = np.loadtxt(os.path.join(got_dir, f"{name}.csv"), ndmin=2)
+        ref = np.loadtxt(os.path.join(ref_dir, f"{name}.csv"), ndmin=2)
+        assert got.shape == ref.shape and np.all(np.isfinite(got)), name
+        scale = phi if name == "F" else np.max(np.abs(ref))
+        worst = max(worst, float(np.max(np.abs(got - ref)) / scale))
+    return worst
+
+
+@pytest.mark.parametrize("deck,steps", [("llnl_slab_test.prm", 2),
+                                        (None, 20)])
+def test_cli_fast_csvs_match_jax(tmp_path, deck, steps):
+    """--engine fast at float64 against the JAX CLI's: 1e-12 (deck None:
+    the moving single_group.prm at N = 64)."""
+    path = _moving_deck(tmp_path, False) if deck is None else _deck(deck)
+    args = [path, "--engine", "fast", "--steps", str(steps)]
+    rc, out = _run(port_cli.main, args + ["--outdir", str(tmp_path / "pt"),
+                                          "--device", "cpu"])
+    assert rc == 0, out[-2000:]
+    rc, jout = _run_jax(args + ["--outdir", str(tmp_path / "jx")])
+    assert rc == 0, jout[-2000:]
+    assert _csv_err(tmp_path / "pt", tmp_path / "jx") < 1e-12
+
+
+def test_cli_fast_kill_and_resume_byte_equal(tmp_path):
+    """--engine fast with --checkpoint-dir: killed at 4 (a checkpoint every
+    2) and resumed to 6, byte-equal to 6 straight."""
+    common = [_moving_deck(tmp_path, False), "--engine", "fast",
+              "--device", "cpu"]
+    ck = ["--checkpoint-dir", str(tmp_path / "ck"), "--checkpoint-every",
+          "2"]
+    assert _run(port_cli.main, common + ["--steps", "6", "--outdir",
+                                         str(tmp_path / "a")])[0] == 0
+    assert _run(port_cli.main, common + ck + [
+        "--steps", "4", "--outdir", str(tmp_path / "killed")])[0] == 0
+    rc, out = _run(port_cli.main, common + ck + [
+        "--steps", "6", "--outdir", str(tmp_path / "b")])
+    assert rc == 0 and "resumed from step 4" in out
+    for name in CSVS:
+        assert (tmp_path / "a" / f"{name}.csv").read_bytes() == (
+            tmp_path / "b" / f"{name}.csv").read_bytes(), name
+
+
+KAPPAS = "# three opacity members of G = 1\n0.5\n1.0\n1.7\n"
+
+
+def _ensemble_files(tmp_path):
+    (tmp_path / "kappas.txt").write_text(KAPPAS)
+    return _moving_deck(tmp_path, False), str(tmp_path / "kappas.txt")
+
+
+@pytest.mark.parametrize("engine", ["general", "fast"])
+def test_cli_ensemble_matches_jax(tmp_path, engine):
+    """--ensemble-kappa through the vmapped general solver and the stacked
+    fast engine at float64: each member's 8 CSVs within 1e-12 of the JAX
+    CLI's."""
+    deck, kappas = _ensemble_files(tmp_path)
+    args = [deck, "--engine", engine, "--steps", "5", "--ensemble-kappa",
+            kappas]
+    rc, out = _run(port_cli.main, args + ["--outdir", str(tmp_path / "pt"),
+                                          "--device", "cpu", "--profile"])
+    assert rc == 0, out[-2000:]
+    assert "M updates/s aggregate) on cpu" in out
+    assert "wrote 3 member output sets under" in out
+    rc, jout = _run_jax(args + ["--outdir", str(tmp_path / "jx")])
+    assert rc == 0, jout[-2000:]
+    for k in range(3):
+        sub = f"member_{k:03d}"
+        assert f"member {k:3d}: balance max" in out
+        assert _csv_err(tmp_path / "pt" / sub, tmp_path / "jx" / sub) < 1e-12
+
+
+@pytest.mark.parametrize("engine,tol", [("pallas", 5e-5), ("auto", 5e-5),
+                                        ("df", 1e-10)])
+def test_cli_ensemble_kernel_engines(tmp_path, engine, tol):
+    """--ensemble-kappa on the stacked kernels' plain versions (auto runs
+    the float32 kernels at the default float64, as in JAX): every member's
+    8 CSVs, within the engine's bar of the general ensemble's."""
+    deck, kappas = _ensemble_files(tmp_path)
+    common = [deck, "--steps", "5", "--ensemble-kappa", kappas, "--device",
+              "cpu"]
+    assert _run(port_cli.main, common + ["--outdir",
+                                         str(tmp_path / "gen")])[0] == 0
+    rc, out = _run(port_cli.main, common + ["--engine", engine, "--outdir",
+                                            str(tmp_path / engine)])
+    assert rc == 0, out[-2000:]
+    for k in range(3):
+        sub = f"member_{k:03d}"
+        assert len(list((tmp_path / engine / sub).glob("*.csv"))) == 8
+        assert _csv_err(tmp_path / engine / sub, tmp_path / "gen" / sub) < tol
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--checkpoint-dir", "ck"], "does not support --checkpoint-dir"),
+    (["--balance-every", "2"], "does not support --balance-every"),
+    (["--mesh", "1x2"], "does not support --mesh"),
+    (["--check"], "does not support --check"),
+    (["--engine", "halo"], "supports --engine general/fast/pallas/auto"),
+    (["--engine", "fused"], "--ensemble-kappa supports engines"),
+    (["--ensemble-kappa", "missing.txt"], "cannot read --ensemble-kappa"),
+    (["--ensemble-kappa", "two_columns.txt"], "needs G=1 columns per row"),
+])
+def test_cli_ensemble_refusals(tmp_path, capsys, extra, message):
+    """The JAX CLI's refusals with its words: exit 2, no CSV."""
+    deck, kappas = _ensemble_files(tmp_path)
+    (tmp_path / "two_columns.txt").write_text("1.0 2.0\n1.5 2.5\n")
+    argv = [deck, "--outdir", str(tmp_path / "out"), "--device", "cpu",
+            "--ensemble-kappa", kappas]
+    for a in extra:
+        argv.append(str(tmp_path / a) if a.endswith(".txt") else a)
+    try:
+        rc = port_cli.main(argv)
+    except SystemExit as exc:  # argparse errors
+        rc = exc.code
+    assert rc == 2
+    assert message in capsys.readouterr().err
+    assert not list(tmp_path.rglob("*.csv"))

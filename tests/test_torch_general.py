@@ -416,11 +416,13 @@ def test_df_engine_matches_general(name, over):
 
 def test_entry_points_need_a_card_and_refuse_engines():
     """Every entry point defaults to the card and raises without one;
-    the engines JAX's run_problem has and the port lacks are refused."""
+    run_problem has JAX's engines (fast: tests/test_torch_fast.py) and
+    refuses others."""
     cfg = port.load_config(GRAY, N=8, max_timesteps=1)
     tables, _, _ = port_transport.build_tables(cfg)
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_transport.run_problem(cfg, engine="fast", device="cpu")
+    fast = port_transport.run_problem(cfg, engine="fast", device="cpu")
+    gen = port_transport.run_problem(cfg, device="cpu")
+    assert _relerr(fast.psi.numpy(), gen.psi.numpy()) < TOL
     with pytest.raises(ValueError, match="unknown engine"):
         port_transport.run_problem(cfg, engine="halo", device="cpu")
     if torch.cuda.is_available():
