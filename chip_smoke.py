@@ -226,10 +226,10 @@ Phases, one line each; any failure exits nonzero before the result line:
    multigroup deck at 4096 cells on 2x1) within 1e-12 of one rank.
 15. A8's utilities (utils/checkpoint.py, utils/debug.py,
    utils/profiling.py and the CLI flags on them): the bench workload
-   (gray S_32, BDF2) cut to A8_BENCH_N = 2^19 cells on CudaSweepEngine
+   (gray S_32, BDF2) cut to A8_BENCH_N = 2^18 cells on CudaSweepEngine
    (B1, K = 4) from a seeded state, 5 steps straight against a run killed
    at step 3 with a checkpoint every 3 and resumed (chunks of 3 and 2 that
-   do not divide K; two saves, each ~80 s of host zlib), bit-equal, with each save's and load's seconds, the
+   do not divide K; two saves, each ~45 s of host zlib), bit-equal, with each save's and load's seconds, the
    checkpoint's bytes and the peak memory; through the CLI, 8 steps
    straight against killed at 6 (every 3) and resumed, on the general
    engine, pallas at CN (B2), halo at BDF2 and CN (B4, B5), df (B6, B7)
@@ -268,6 +268,25 @@ Phases, one line each; any failure exits nonzero before the result line:
    solve_ensemble on a one-axis mesh (1e-12) and the stacked members
    through auto on a 2x1 mesh (1e-5, bit-equality printed) against one
    rank; B1, B2, B4-B7, B14 and B15 each launched in the phase.
+17. steady state (steady.py) and the sharded fast engine
+   (parallel/sharded_fast.py; plain PyTorch, no kernel of their own):
+   solve_steady at the bench (gray S_32, N = 2^20) at float64 and float32,
+   finite, timed and its peak memory read, a fixed point of the dt-free BE
+   sub-step to its own tol, and at N = 2^14 within 1e-12 (float32 5e-5) of
+   the same call on the CPU; solve_steady_cycle on gray S_32 rows of 2^16
+   cells at BE and CN (equal to solve_steady within 1e-12) and of 2^6
+   cells at BDF2 (matvecs, seconds, residual < 1e-10); the CLI's --steady and --steady-method
+   cycle on every shipped deck against the CPU (1e-12), with the sweeps or
+   matvecs and seconds; the card's --steady on single_group.prm against a
+   BE march (dt = 1) on --engine df run until it no longer moves (1e-10);
+   two ranks sharing the card (`chip_smoke.py --fast-mesh-worker`
+   children): ShardedFastEngine at the bench (float64, 8 steps) at 1x2
+   and 2x1 against FastEngine on one device (1e-12), updates/s and peak
+   memory a rank, and in the same ranks --engine fast --mesh 1x2 killed
+   and resumed (byte-equal CSVs), --balance-every 2, and --engine auto at
+   float64 on --mesh 1x2 with the LLNL deck at its shipped dt (the df halo
+   infeasible: JAX's fallback to ShardedFastEngine, within 1e-12 of the
+   single-device --engine fast CLI).
 
 After each phase a line gives its seconds and the run's so far.
 
@@ -309,11 +328,15 @@ phase 15 zeroes them again and needs B1, B2, B4-B8 and B13-B15).
 With --mesh-worker OUT P STEPS the script is instead one rank of a
 P-rank run (phase 13 starts two), with --general-worker OUT one rank of
 phase 14's two-rank run, with --a8-worker DIR one rank of phase 15's,
-with --ensemble-worker OUT one rank of phase 16's. With --ranks P it runs only the mesh
+with --ensemble-worker OUT one rank of phase 16's, with --fast-mesh-worker
+OUT P DIR one rank of a ShardedFastEngine run (phase 17's two, or --ranks
+P's). With --ranks P it runs only the mesh
 path on P ranks, one a card where the host has P cards (NCCL), else
 sharing them (gloo): every case of rank_cases at P shards against one
-rank, the gray rung's weak scaling, and the CLI under torchrun --mesh 1xP
-against the single-device CLI (see ranks_check).
+rank, the gray rung's weak scaling, the CLI under torchrun --mesh 1xP
+against the single-device CLI, and ShardedFastEngine at the bench at 1xP
+and 2x(P/2) against FastEngine on one device; --ranks P fast runs only
+the last (see ranks_check).
 Then each kernel is timed against its plain version at its full-size shape,
 beside its bound (the larger of the bytes it must move over 3.35 TB/s and
 the operations it must do over 67 TFLOP/s f32, the H100 SXM data-sheet
@@ -403,10 +426,12 @@ STEP_TOL = 1e-6
 # bench's 2^20 cells costs ~150-176 s of host zlib (np.savez_compressed
 # of three 512 MiB float64 arrays on one core; PERF.md) and a kill and
 # resume needs two saves whatever the steps, so for the smoke's time limit
-# the bench runs there at A8_BENCH_N = 2^19 cells (same K, half the bytes).
+# the bench runs there at A8_BENCH_N = 2^18 cells (same K, a quarter of the
+# bytes; at 2^19 the two saves took 88 and 93 s and, with phase 17, the
+# smoke 1114 s of its 1200).
 A8_STEPS = (8, 6, 3)
 A8_BENCH_STEPS = (5, 3, 3)
-A8_BENCH_N = 1 << 19
+A8_BENCH_N = 1 << 18
 # The single-device routes phase 15 kills and resumes through the CLI:
 # (tag, deck, CLI arguments, bar). The decks are a8_decks'; bar 0 is
 # bit-equality: the general engine and the wavefront kernels (B1, B2,
@@ -472,6 +497,33 @@ ENS_VMAP = (4, 1 << 14)
 PATH_ENS = ("bdf2_launch", "multistep_launch", "halo_bdf2_launch",
             "halo_multistep_launch", "df_bdf2_launch", "df_multistep_launch",
             "df_halo_bdf2_launch", "df_halo_multistep_launch")
+# Phase 17, steady state (steady.py) and the sharded fast engine
+# (parallel/sharded_fast.py), A7's second half: solve_steady at the bench
+# (gray S_32, N = 2^20, uncut) at float64 and float32, and the same call at
+# N = 2^14 against the CPU; solve_steady_cycle on gray S_32 rows,
+# (cells, ts_method): 2^16 cells at BE and CN, where the one-sweep warm
+# start is already the fixed point, and BDF2 at 2^6 cells (its GMRES basis
+# is restart + 1 host vectors of the state's size, ~21 GB at the bench, so
+# the cycle never runs there; at BDF2 the bench's Courant 0.4 leaves the
+# step map so close to the identity that GMRES resolves the cycle's bias
+# in hundreds of matvecs at 2^6 cells and more as N grows, so BDF2 runs
+# there and on the shipped decks); the CLI's --steady and --steady-method
+# cycle on every shipped deck against the CPU.
+STEADY_BENCH = (32, 1 << 20)
+STEADY_CPU_N = 1 << 14
+STEADY_CYCLE = ((1 << 16, 1), (1 << 16, 2), (1 << 6, 3))
+STEADY_DECKS = ("default.prm", "llnl_slab_test.prm",
+                "multi_group_equilibrium.prm", "single_group.prm",
+                "template.prm")
+# The BE march on --engine df that the card's --steady of single_group.prm
+# is held against: single_group.prm at BE with dt = 1 (L-stable, it lands on
+# the fixed point in tens of steps), run to STEADY_MARCH[1] steps and held
+# converged against STEADY_MARCH[0] steps (GENERAL_TOL).
+STEADY_MARCH = (60, 120)
+# ShardedFastEngine at the bench (f64, uncut) on the ranks of a --ranks run
+# or phase 17's two ranks sharing the card: SF_STEPS steps after one,
+# against FastEngine on one device (GENERAL_TOL).
+SF_STEPS = 8
 # Launches of each redesigned kernel (B1's, B2's, B4's, B5's, B6's, B7's,
 # B10's, B11's, B12's, B14's and B15's wavefronts, B8's, B9's and B13's
 # look-backs) per new parity shape: a race shows intermittently, so the
@@ -860,14 +912,17 @@ def compare_ranks(ranks, shards, mesh_engine, held):
     return lines
 
 
-def ranks_check(shards: int) -> int:
+def ranks_check(shards: int, fast_only: bool = False) -> int:
     """`chip_smoke.py --ranks P`: the mesh path on P ranks, one a card where
     the host has P cards (NCCL), else sharing them (gloo): every case of
     rank_cases at P shards against one rank on card 0 (compare_ranks), the
     gray rung's 64 steps timed on each rank against one rank's 2^20-cell
-    rung (weak scaling), and the CLI under torchrun (--mesh 1xP; pallas,
+    rung (weak scaling), the CLI under torchrun (--mesh 1xP; pallas,
     fused, auto) against the single-device CLI on card 0 (5e-5 over 200
-    steps). Prints one JSON line; exits non-zero on a failed check."""
+    steps), and ShardedFastEngine at the bench at 1xP and 2x(P/2)
+    (fast_mesh_worker) against FastEngine on card 0 (GENERAL_TOL). With
+    `fast_only` (`--ranks P fast`) only the last. Prints one JSON line;
+    exits non-zero on a failed check."""
     import numpy as np
     import torch
 
@@ -895,6 +950,16 @@ def ranks_check(shards: int) -> int:
                                      device=dev)
 
     held = Held()
+    sf_ranks, sf_backend, sf_wall = run_fast_mesh(shards)
+    sf = fast_mesh_vs_one(sf_ranks, shards, dev)
+    sf_line = (f"ShardedFastEngine at the bench (f64, {SF_STEPS} steps after "
+               f"1, seeded; {sf_backend}; {sf_wall:.1f} s wall with "
+               f"start-up): " + json.dumps(sf))
+    if fast_only:
+        print(f"ranks {shards}: ok; {sf_line}; card: {card}", flush=True)
+        print(json.dumps({"ok": True, "ranks": shards,
+                          "backend": sf_backend}), flush=True)
+        return 0
     ranks, backend, wall = run_ranks(shards, timed_steps=64)
     lines = compare_ranks(ranks, shards, mesh_engine, held)
     scaling = {}
@@ -956,7 +1021,7 @@ def ranks_check(shards: int) -> int:
           + "; gray rung 64 steps (weak scaling, 2^20 cells a rank): "
           + json.dumps(scaling) + "; torchrun CLI --mesh 1x"
           f"{shards} vs the single-device CLI (200 steps): "
-          + json.dumps(cli_errs) + f"; card: {card}", flush=True)
+          + json.dumps(cli_errs) + f"; {sf_line}; card: {card}", flush=True)
     if held.failures:
         print("failed: " + "; ".join(held.failures), file=sys.stderr)
         return 1
@@ -2046,6 +2111,377 @@ def ensemble_path(dev, card, peak_from, kernel_rates):
             f"{r_stk:.1e} ({'bit-equal' if r_bit else 'not bit-equal'}; "
             f"{float(ranks['stacked/seconds']):.3f} s); launches "
             f"{json.dumps(launches)}; card: {card}")
+
+
+def sf_meshes(shards: int):
+    """The (group, spatial) meshes ShardedFastEngine runs at on `shards`
+    ranks: 1 x shards and 2 x shards/2."""
+    return ((1, shards), (2, shards // 2))
+
+
+def fast_mesh_worker(out_path: str, shards: int, cli_dir: str) -> int:
+    """One rank of a ShardedFastEngine run (started with
+    parallel.distributed.launch_local): at every mesh of sf_meshes, the
+    bench (GENERAL_BENCH's shape, float64) from general_rank_state, one
+    step then SF_STEPS timed; rank 0 saves the gathered (ends, prev, half)
+    and every rank its seconds and peak memory. With a `cli_dir` (not
+    "-"; phase 17, two ranks) also the CLI on --mesh 1x2: --engine fast on
+    a8_decks' moving single_group.prm straight, killed and resumed, and
+    with --balance-every 2, and --engine auto at float64 on the LLNL deck
+    (each rank's stdout to cli_dir/<tag>_rank<r>.txt)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke fast mesh worker: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.parallel import distributed
+    from radiative_transfer_tpu_torch.parallel import mesh as mesh_mod
+    from radiative_transfer_tpu_torch.parallel.sharded_fast import (
+        ShardedFastEngine)
+
+    distributed.initialize(device_type="cuda")
+    dev = distributed.local_device("cuda")
+    torch.cuda.set_device(dev)
+    rank = distributed.process_index()
+    Mb, Nb, _ = GENERAL_BENCH
+    cfg = gray_cfg(Mb, Nb, 3)
+    tables, _, _ = transport.build_tables(cfg)
+    seeded = general_rank_state(cfg, tables)
+    out = {}
+    for ng, nx in sf_meshes(shards):
+        m = (mesh_mod.make_mesh_2d(ng, nx) if ng > 1
+             else mesh_mod.make_mesh_1d(nx))
+        tag = f"{ng}x{nx}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        eng = ShardedFastEngine(cfg, tables, m, dtype=torch.float64,
+                                device=dev)
+        st = eng.solve(eng.from_ends(*seeded), num_steps=1)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        st = eng.solve(st, num_steps=SF_STEPS)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        planes = planes_of(eng, st)
+        out[tag] = np.stack([p.cpu().numpy() for p in planes])
+        out[tag + "/chunk"] = np.array([eng.chunk, eng.nc_l, eng.Bh_l])
+        # Every rank's (seconds, peak GiB), in rank order.
+        stats = torch.tensor([[secs, peak]], dtype=torch.float64, device=dev)
+        for axis, n in (("x", nx), ("g", ng)):
+            if n > 1:
+                stats = torch.cat(tuple(m.all_gather(stats, axis)))
+        out[tag + "/ranks"] = stats.cpu().numpy()
+        del eng, st, planes
+    if cli_dir != "-":
+        decks = a8_deck_paths(cli_dir)
+        base = [decks["mv"], "--engine", "fast", "--mesh", "1x2"]
+        ck = ["--checkpoint-dir", os.path.join(cli_dir, "fast_ck"),
+              "--checkpoint-every", str(A8_STEPS[2])]
+        total, killed, _ = A8_STEPS
+        runs = {"straight": base + ["--steps", str(total)],
+                "killed": base + ck + ["--steps", str(killed)],
+                "resumed": base + ck + ["--steps", str(total)],
+                "balance": base + ["--steps", "4", "--balance-every", "2"],
+                "auto": [os.path.join(ROOT, "prm", "llnl_slab_test.prm"),
+                         "--engine", "auto", "--mesh", "1x2"]}
+        for tag, argv in runs.items():
+            lines = a8_cli(argv + ["--outdir",
+                                   os.path.join(cli_dir, f"fast_{tag}")])
+            with open(os.path.join(cli_dir, f"fast_{tag}_rank{rank}.txt"),
+                      "w") as fh:
+                fh.write("\n".join(lines))
+    if rank == 0:
+        np.savez(out_path, **out)
+    distributed.shutdown()
+    return 0
+
+
+def run_fast_mesh(shards: int, cli_dir: str = "-"):
+    """Start `shards` ranks of fast_mesh_worker; returns (rank 0's results,
+    the backend line rank 0 printed, wall seconds with start-up)."""
+    import numpy as np
+
+    from radiative_transfer_tpu_torch.parallel import distributed
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        out_path = os.path.join(tmp, "fast_mesh.npz")
+        t0 = time.perf_counter()
+        runs = distributed.launch_local(
+            [os.path.abspath(__file__), "--fast-mesh-worker", out_path,
+             str(shards), cli_dir], shards, cwd=ROOT, timeout=600)
+        wall = time.perf_counter() - t0
+        for r in runs:
+            if r.returncode != 0:
+                raise AssertionError(f"{shards}-rank fast mesh run rc "
+                                     f"{r.returncode}:\n" + r.stdout[-2000:]
+                                     + r.stderr[-4000:])
+        backend = [ln for ln in runs[0].stdout.splitlines()
+                   if ln.startswith("distributed:")]
+        return dict(np.load(out_path)), (backend or [""])[0], wall
+
+
+def fast_mesh_vs_one(ranks, shards: int, dev):
+    """Each mesh of a fast_mesh_worker run against FastEngine on one device
+    from the same seeded state (GENERAL_TOL). Returns ({mesh: reading},
+    FastEngine's seconds for SF_STEPS steps, its peak GiB); raises on a
+    failed check."""
+    import torch
+
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.ops import fast_sweep as fs
+
+    Mb, Nb, _ = GENERAL_BENCH
+    cfg = gray_cfg(Mb, Nb, 3)
+    tables, _, _ = transport.build_tables(cfg)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = fs.FastEngine(cfg, tables, dtype=torch.float64, device=dev)
+    st = eng.solve(eng.from_ends(*general_rank_state(cfg, tables)),
+                   num_steps=1)
+    secs, st = cuda_seconds(lambda: eng.solve(st, num_steps=SF_STEPS))
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    want = planes_of(eng, st)
+    del eng, st
+    ups = 4 * Mb * Nb * SF_STEPS
+    out = {}
+    for ng, nx in sf_meshes(shards):
+        tag = f"{ng}x{nx}"
+        err = max(nerr(torch.as_tensor(g, device=w.device), w)
+                  for g, w in zip(ranks[tag], want))
+        if not err <= GENERAL_TOL:
+            raise AssertionError(f"ShardedFastEngine {tag} on {shards} ranks "
+                                 f"vs FastEngine {err:.3e} > {GENERAL_TOL}")
+        rank_s = [float(x) for x in ranks[tag + "/ranks"][:, 0]]
+        out[tag] = {"vs FastEngine": float(f"{err:.2e}"),
+                    "updates_per_s": ups / max(rank_s),
+                    "seconds per rank": rank_s,
+                    "peak GiB per rank": [float(x) for x in
+                                          ranks[tag + "/ranks"][:, 1]],
+                    "chunk, nc_l, Bh_l": [int(x) for x in
+                                          ranks[tag + "/chunk"]]}
+    out["FastEngine one device"] = {"updates_per_s": ups / secs,
+                                    "seconds": secs, "peak GiB": peak}
+    return out
+
+
+def steady_fast_path(dev, card, peak_from):
+    """Phase 17, steady state (steady.py) and the sharded fast engine
+    (parallel/sharded_fast.py): A7's second half, plain PyTorch, no kernel
+    of its own. Raises on a failed check; returns the phase's line.
+
+    * solve_steady at the bench (STEADY_BENCH, uncut) at float64 and
+      float32: finite, its seconds (CUDA events, after one call) and peak
+      memory, and a fixed point of the dt-free BE sub-step: one more
+      sub-step from its ends moves them by at most the solve's tol; at
+      STEADY_CPU_N against the same call on the CPU (GENERAL_TOL; float32
+      DRIFT_TOL).
+    * solve_steady_cycle on the gray S_32 rows of STEADY_CYCLE: its
+      matvecs, seconds and fixed-point residual (< 1e-10), and its ends
+      against solve_steady's (at BE and CN the two are one fixed point:
+      GENERAL_TOL; at BDF2 the cycle's bias, docs/QUIRKS.md #16,
+      recorded).
+    * The CLI's --steady and --steady --steady-method cycle on every
+      shipped deck (STEADY_DECKS) against the CLI on the CPU
+      (GENERAL_TOL), with the sweeps or matvecs and seconds; the card's
+      --steady on single_group.prm against a BE march (dt = 1) on
+      --engine df run to its own convergence (STEADY_MARCH; DF_CLI_TOL).
+    * ShardedFastEngine at the bench on two ranks sharing the card (gloo,
+      --fast-mesh-worker children) at 1x2 and 2x1 against FastEngine on
+      one device (GENERAL_TOL): updates/s and peak memory per rank.
+    * The CLI on the fast mesh in the same ranks: --engine fast --mesh 1x2
+      killed and resumed (byte-equal CSVs) and --balance-every 2 on
+      a8_decks' moving single_group.prm, and --engine auto at float64 on
+      --mesh 1x2 with the LLNL deck at its shipped dt, which takes JAX's
+      fallback to ShardedFastEngine (within GENERAL_TOL of the
+      single-device --engine fast CLI)."""
+    import numpy as np
+    import scipy
+    import torch
+
+    from radiative_transfer_tpu_torch import load_config, steady
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.ops import fast_sweep as fs
+
+    t_phase = time.perf_counter()
+    # -- solve_steady at the bench, float64 and float32 ------------------------
+    Mb, Nb = STEADY_BENCH
+    bcfg = gray_cfg(Mb, Nb, 3)
+    btab, _, _ = transport.build_tables(bcfg)
+    bench = {}
+    for dname, dtype in (("float64", torch.float64),
+                         ("float32", torch.float32)):
+        tol = 50.0 * float(torch.finfo(dtype).eps)
+        steady.solve_steady(bcfg, btab, dtype=dtype, device=dev)
+        pk = peak_from()
+        secs, sr = cuda_seconds(lambda: steady.solve_steady(
+            bcfg, btab, dtype=dtype, device=dev))
+        peak = pk()
+        if not bool(torch.isfinite(sr.ends).all()):
+            raise AssertionError(f"phase 17 solve_steady bench {dname}: not "
+                                 "finite")
+        eng = fs.FastEngine(bcfg, btab, dtype=dtype, device=dev)
+        kc = steady._on_device(steady.build_steady_coeffs(bcfg, btab, dtype),
+                               eng)
+        st = eng.from_ends(sr.ends, sr.ends, sr.ends)
+        n0, n1 = eng.substep(fs.BE, st, kc=kc)
+        moved = float(torch.maximum((n0 - st.e0).abs().max(),
+                                    (n1 - st.e1).abs().max())
+                      / torch.maximum(n0.abs().max(), n1.abs().max()))
+        if not moved <= tol:
+            raise AssertionError(f"phase 17 solve_steady bench {dname}: one "
+                                 f"more sub-step moves it {moved:.3e} > "
+                                 f"{tol:.3e}")
+        del eng, kc, st, n0, n1
+        ccfg = gray_cfg(Mb, STEADY_CPU_N, 3)
+        ctab, _, _ = transport.build_tables(ccfg)
+        card_ends = steady.solve_steady(ccfg, ctab, dtype=dtype,
+                                        device=dev).ends
+        cpu_ends = steady.solve_steady(ccfg, ctab, dtype=dtype,
+                                       device="cpu").ends
+        c_err = nerr(card_ends.cpu(), cpu_ends)
+        # float32: two float32 evaluations of one 2^14-cell scan, the f32
+        # drift bar of the other card-vs-CPU comparisons.
+        bar = GENERAL_TOL if dtype == torch.float64 else DRIFT_TOL
+        if not c_err <= bar:
+            raise AssertionError(f"phase 17 solve_steady {dname} at N="
+                                 f"{STEADY_CPU_N}: card vs CPU {c_err:.3e} > "
+                                 f"{bar}")
+        bench[dname] = {"seconds": secs, "sweeps": sr.iterations,
+                        "residual": sr.residual, "peak_gib": peak,
+                        "one more sub-step moves": float(f"{moved:.2e}"),
+                        f"card vs CPU at N={STEADY_CPU_N}":
+                        float(f"{c_err:.2e}")}
+        del sr
+
+    # -- solve_steady_cycle on gray S_32 rows -----------------------------------
+    cycles = []
+    for yn, ts in STEADY_CYCLE:
+        ycfg = gray_cfg(Mb, yn, ts)
+        ytab, _, _ = transport.build_tables(ycfg)
+        t0 = time.perf_counter()
+        ysr = steady.solve_steady_cycle(ycfg, ytab, device=dev)
+        y_secs = time.perf_counter() - t0
+        y_err = nerr(ysr.ends, steady.solve_steady(ycfg, ytab,
+                                                   device=dev).ends)
+        if not (ysr.residual < 1e-10 and bool(torch.isfinite(ysr.ends).all())
+                and (ts == 3 or y_err <= GENERAL_TOL)):
+            raise AssertionError(f"phase 17 solve_steady_cycle ts_method {ts}"
+                                 f" at N={yn}: residual {ysr.residual:.3e}, "
+                                 f"vs solve_steady {y_err:.3e}")
+        cycles.append(f"N=2^{yn.bit_length() - 1} ts_method {ts}: "
+                      f"{ysr.iterations} matvecs, {y_secs:.2f} s, residual "
+                      f"{ysr.residual:.2e}, vs solve_steady {y_err:.1e}"
+                      + (" (the BDF2 cycle's bias)" if ts == 3 else ""))
+        del ysr
+
+    # -- the CLI's --steady on every shipped deck, card vs CPU ----------------
+    def steady_line(lines):
+        hit = [ln for ln in lines if ln.startswith("steady solve (")]
+        if len(hit) != 1:
+            raise AssertionError(f"phase 17: no steady line in {lines[-5:]}")
+        return hit[0].split(": ", 1)[1]
+
+    cli = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for deck in STEADY_DECKS:
+            path = os.path.join(ROOT, "prm", deck)
+            for method in ("direct", "cycle"):
+                reading = {}
+                for device in ("cuda", "cpu"):
+                    out = os.path.join(tmp, f"{deck}-{method}-{device}")
+                    t0 = time.perf_counter()
+                    lines = a8_cli([path, "--steady", "--steady-method",
+                                    method, "--device", device, "--outdir",
+                                    out])
+                    reading[device] = (f"{steady_line(lines)} in "
+                                       f"{time.perf_counter() - t0:.2f} s")
+                err, _ = a8_csv_err(os.path.join(tmp, f"{deck}-{method}-cuda"),
+                                    os.path.join(tmp, f"{deck}-{method}-cpu"))
+                if not err <= GENERAL_TOL:
+                    raise AssertionError(f"phase 17 --steady {method} {deck}: "
+                                         f"card vs CPU {err:.3e} > "
+                                         f"{GENERAL_TOL}")
+                cli[f"{deck} {method}"] = (f"card {reading['cuda']}, CPU "
+                                           f"{reading['cpu']}, {err:.1e}")
+        # The card's --steady on single_group.prm against a BE march (dt =
+        # 1) on --engine df, run until it no longer moves.
+        be = os.path.join(tmp, "single_group_be.prm")
+        text = open(os.path.join(ROOT, "prm", "single_group.prm")).read()
+        for old, new in (("ts_method=3", "ts_method=1"),
+                         ("dt=0.00001", "dt=1.0")):
+            if old not in text:
+                raise RuntimeError(f"single_group.prm no longer says {old}")
+            text = text.replace(old, new)
+        with open(be, "w") as fh:
+            fh.write(text)
+        for n in STEADY_MARCH:
+            a8_cli([be, "--engine", "df", "--steps", str(n), "--device",
+                    "cuda", "--outdir", os.path.join(tmp, f"df_be_{n}")])
+        conv, _ = a8_csv_err(*(os.path.join(tmp, f"df_be_{n}")
+                               for n in reversed(STEADY_MARCH)))
+        march, _ = a8_csv_err(
+            os.path.join(tmp, "single_group.prm-direct-cuda"),
+            os.path.join(tmp, f"df_be_{STEADY_MARCH[1]}"))
+        if not (conv <= GENERAL_TOL and march <= DF_CLI_TOL):
+            raise AssertionError(
+                f"phase 17: df BE march {STEADY_MARCH[0]} vs "
+                f"{STEADY_MARCH[1]} steps {conv:.3e} > {GENERAL_TOL}, or "
+                f"--steady vs the march {march:.3e} > {DF_CLI_TOL}")
+
+        # -- ShardedFastEngine and its CLI on two ranks sharing the card -------
+        a8_decks(tmp)
+        ranks, backend, two_wall = run_fast_mesh(2, tmp)
+        sf = fast_mesh_vs_one(ranks, 2, dev)
+        res, same = a8_csv_err(os.path.join(tmp, "fast_resumed"),
+                               os.path.join(tmp, "fast_straight"))
+        outs = {tag: [open(os.path.join(tmp, f"fast_{tag}_rank{r}.txt")
+                           ).read() for r in (0, 1)]
+                for tag in ("resumed", "balance", "auto")}
+        if not (same and f"resumed from step {A8_STEPS[1]}"
+                in outs["resumed"][0]):
+            raise AssertionError(f"phase 17 --engine fast --mesh 1x2: "
+                                 f"resumed vs straight {res:.3e}, not "
+                                 "byte-equal or not resumed")
+        if outs["balance"][0].count(": balance max=") != 2:
+            raise AssertionError("phase 17 --balance-every 2 on the fast "
+                                 "mesh: not two balance lines")
+        if not ("falling back to the sharded XLA f64 engine"
+                in outs["auto"][0] and "auto engine: ShardedFastEngine"
+                in outs["auto"][0]):
+            raise AssertionError("phase 17 auto f64 --mesh 1x2 on the LLNL "
+                                 "deck: no ShardedFastEngine fallback")
+        a8_cli([os.path.join(ROOT, "prm", "llnl_slab_test.prm"), "--engine",
+                "fast", "--device", "cuda", "--outdir",
+                os.path.join(tmp, "fast_llnl_one")])
+        auto_err, _ = a8_csv_err(os.path.join(tmp, "fast_auto"),
+                                 os.path.join(tmp, "fast_llnl_one"))
+        if not auto_err <= GENERAL_TOL:
+            raise AssertionError(f"phase 17 auto f64 --mesh 1x2 LLNL vs the "
+                                 f"single-device fast CLI {auto_err:.3e} > "
+                                 f"{GENERAL_TOL}")
+        fallback = [ln for ln in outs["auto"][0].splitlines()
+                    if ln.startswith("auto engine:")]
+
+    return (f"phase 17 steady state and the sharded fast engine: ok in "
+            f"{time.perf_counter() - t_phase:.1f} s; scipy {scipy.__version__}"
+            f"; solve_steady at the bench (gray S_{Mb}, N=2^"
+            f"{Nb.bit_length() - 1}, CUDA events after one call): "
+            + json.dumps(bench) + f"; solve_steady_cycle at gray S_{Mb}: "
+            + "; ".join(cycles) + "; --steady card vs "
+            "CPU: " + json.dumps(cli) + f"; --steady single_group.prm vs a df "
+            f"BE march (dt 1, {STEADY_MARCH[1]} steps; {STEADY_MARCH[0]} vs "
+            f"{STEADY_MARCH[1]}: {conv:.1e}): {march:.1e}; ShardedFastEngine "
+            f"at the bench (f64, {SF_STEPS} steps after 1, seeded) on two "
+            f"ranks sharing the card ({backend}; {two_wall:.1f} s wall with "
+            "start-up): " + json.dumps(sf) + "; --engine fast --mesh 1x2 "
+            f"killed at {A8_STEPS[1]} and resumed to {A8_STEPS[0]}: "
+            "byte-equal; --balance-every 2: two balance lines; auto f64 "
+            f"--mesh 1x2 LLNL: {' / '.join(fallback)}, vs the single-device "
+            f"fast CLI {auto_err:.1e}; card: {card}")
 
 
 def card_line() -> str:
@@ -4685,6 +5121,10 @@ def main() -> int:
           flush=True)
     phase_seconds(16)
 
+    # -- 17. steady state and the sharded fast engine (A7's second half) -------
+    print(steady_fast_path(dev, card, peak_from), flush=True)
+    phase_seconds(17)
+
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the
     # kernel only passes between its own launches is not counted; the halo
@@ -5095,6 +5535,9 @@ if __name__ == "__main__":
         sys.exit(a8_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--ensemble-worker"]:
         sys.exit(ensemble_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--fast-mesh-worker"]:
+        sys.exit(fast_mesh_worker(sys.argv[2], int(sys.argv[3]),
+                                  sys.argv[4]))
     if sys.argv[1:2] == ["--ranks"]:
-        sys.exit(ranks_check(int(sys.argv[2])))
+        sys.exit(ranks_check(int(sys.argv[2]), sys.argv[3:4] == ["fast"]))
     sys.exit(main())

@@ -1,8 +1,8 @@
 """Command-line driver: deck in, CSVs out.
 
 Port of radiative_transfer_tpu/cli.py on its general, fast and kernel
-engine paths, on one device and on a mesh, and its opacity ensembles
-(reference: src/main.cc:60-136): read a
+engine paths, on one device and on a mesh, its opacity ensembles and its
+direct steady-state solves (reference: src/main.cc:60-136): read a
 .prm deck, echo the input quantities
 (ParameterHandler::display_input_quantities, src/ParameterHandler.cpp:
 20-96) and the solver's quadrature and group tables, run it, print the
@@ -17,7 +17,7 @@ Usage:
         [--checkpoint-dir DIR [--checkpoint-every n] [--no-resume]]
         [--balance-every K] [--check [--check-positivity]]
         [--print-tables] [--trace LOGDIR] [--metrics-json FILE]
-        [--ensemble-kappa FILE]
+        [--ensemble-kappa FILE] [--steady [--steady-method direct|cycle]]
 
     torchrun --nproc_per_node P -m radiative_transfer_tpu_torch.cli DECK
         --mesh GxX ...        (P = G*X ranks, one shard each)
@@ -60,9 +60,15 @@ rank 0 writes the CSVs from the gathered ends:
 * ``pallas``: ShardedCudaEngine (B8, one exchange a sub-step);
 * ``fused``: FusedExchangeCudaEngine (B13, one exchange a BDF2 step);
 * ``halo``: HaloCudaEngine on the mesh (B4-B5), exit 2 where infeasible;
-* ``df``, and ``auto`` at float64: DFHaloCudaEngine on the mesh (B14-B15);
-  where its creep bound rejects the deck, exit 2 (JAX falls back to its
-  XLA ShardedFastEngine, ROADMAP A7);
+* ``fast``: parallel/sharded_fast.ShardedFastEngine, FastEngine's tiled
+  scan on the mesh in plain PyTorch at ``--dtype``;
+* ``df``: DFHaloCudaEngine on the mesh (B14-B15); where its creep bound
+  rejects the deck, exit 2;
+* ``auto`` at float64: DFHaloCudaEngine on the mesh where its creep bound
+  admits the deck, else, as in JAX, the sharded f64 engine it prints
+  (``auto engine: df halo infeasible (<reason>); falling back to the
+  sharded XLA f64 engine``): ShardedFastEngine at float64, or FastEngine
+  at a one-rank mesh in one process;
 * ``auto`` at float32: parallel.make_multichip_engine's mesh pick (halo
   where feasible, else fused at BDF2, else sharded), printed as ``auto
   engine: <Engine>``.
@@ -104,9 +110,16 @@ prints the aggregate rate. With ``--checkpoint-dir``, ``--balance-every``,
 ``--mesh`` or ``--check``, and with ``--engine halo``, it is an argparse
 error (exit 2), as in JAX.
 
-Refused with exit code 2, naming the second half of ROADMAP A7 that ports
-them: ``--steady``, ``--steady-method`` (steady.py) and ``--engine fast
---mesh`` (ShardedFastEngine).
+``--steady`` solves for the steady state directly instead of marching
+(steady.run_steady_problem on FastEngine at ``--dtype`` on ``--device``):
+``--steady-method direct`` (the default) is the spatial scheme's steady
+state in one sweep (a few with the v/c correction), ``cycle`` the exact
+fixed point of the deck's integrator by matrix-free GMRES. It prints
+``steady solve (<method>): N sweeps|matvecs, residual R`` and writes the
+same 8 CSVs. As in JAX it is an argparse error (exit 2) with
+``--checkpoint-dir``, ``--balance-every``, ``--mesh``,
+``--ensemble-kappa``, ``--steps``, ``--check`` and any ``--engine``, and
+``--steady-method`` without ``--steady`` is one too.
 """
 
 from __future__ import annotations
@@ -281,12 +294,20 @@ def main(argv=None) -> int:
                          "(every engine and mesh mode; incompatible with "
                          "--checkpoint-dir, whose chunking owns the loop)")
     ap.add_argument("--steady", action="store_true",
-                    help="the direct steady-state solve: not ported yet "
-                         "(ROADMAP A7, its second half)")
+                    help="solve for the steady state DIRECTLY instead of "
+                         "time-marching (steady.py): one modified sweep "
+                         "(plus a short fixed-point iteration when "
+                         "use_correction couples the source to psi); "
+                         "writes the same CSV set")
     ap.add_argument("--steady-method", choices=("direct", "cycle"),
                     default="direct",
-                    help="with --steady: not ported yet (ROADMAP A7, its "
-                         "second half)")
+                    help="direct: the spatial discretization's steady "
+                         "solution (exact BE/CN march limit); cycle: the "
+                         "exact fixed point of the configured "
+                         "integrator's full step map via matrix-free "
+                         "GMRES, where a BDF2 march actually settles "
+                         "(differs from direct by the reference's "
+                         "predictor-corrector bias, docs/QUIRKS.md #16)")
     ap.add_argument("--ensemble-kappa", default=None, metavar="FILE",
                     help="opacity ensemble: FILE has K rows x G columns "
                          "(whitespace-separated, # comments); the members "
@@ -300,6 +321,20 @@ def main(argv=None) -> int:
                  "solve loop; pick one")
     if args.steady_method != "direct" and not args.steady:
         ap.error("--steady-method requires --steady")
+    if args.steady:
+        # A steady solve has no time loop to checkpoint or chunk and no
+        # marching engine to select: loud refusals, as the JAX CLI's.
+        for val, name in ((args.checkpoint_dir, "--checkpoint-dir"),
+                          (args.balance_every, "--balance-every"),
+                          (args.mesh, "--mesh"),
+                          (args.ensemble_kappa, "--ensemble-kappa"),
+                          (args.steps, "--steps"),
+                          (args.check, "--check")):
+            if val:
+                ap.error(f"--steady does not support {name}")
+        if args.engine != "general":
+            ap.error("--steady has a single implementation (the tiled "
+                     "f64/f32 sweep); drop --engine")
     if (args.balance_every is not None and args.balance_every < 1
             or args.checkpoint_every < 1):
         ap.error("--balance-every and --checkpoint-every take a positive "
@@ -317,17 +352,6 @@ def main(argv=None) -> int:
         if args.engine == "halo":
             ap.error("--ensemble-kappa supports --engine "
                      "general/fast/pallas/auto")
-    refused = (
-        (args.steady and args.steady_method != "direct", "--steady-method",
-         "steady.py's solve_steady_cycle"),
-        (args.steady, "--steady", "steady.py's solve_steady"),
-        (args.engine == "fast" and args.mesh, "--engine fast --mesh",
-         "ShardedFastEngine"))
-    for on, flag, what in refused:
-        if on:
-            print(f"{flag} is not ported yet (ROADMAP A7, its second half: "
-                  f"{what})", file=sys.stderr)
-            return 2
     if args.engine not in ("general", "fast", "pallas", "halo", "fused",
                            "df", "auto"):
         print(f"unknown --engine {args.engine}; use --engine general, "
@@ -390,25 +414,28 @@ def main(argv=None) -> int:
         check_fn = make_ends_checker(positivity=args.check_positivity)
     t0 = time.perf_counter()
     with profiling.trace(args.trace, device):
-        if args.engine == "general":
-            eng = _general_engine(args, cfg, tables, device)
-        elif args.mesh:
-            eng = _mesh_engine(args, cfg, tables, device, say)
+        if args.steady:
+            result, steps_run = _run_steady(args, cfg, device)
         else:
-            eng = _single_engine(args, cfg, tables)
-        if isinstance(eng, int):
-            return eng
-        ends, resumed = _run(args, eng, cfg, tables, check_fn, say)
+            if args.engine == "general":
+                eng = _general_engine(args, cfg, tables, device)
+            elif args.mesh:
+                eng = _mesh_engine(args, cfg, tables, device, say)
+            else:
+                eng = _single_engine(args, cfg, tables)
+            if isinstance(eng, int):
+                return eng
+            ends, resumed = _run(args, eng, cfg, tables, check_fn, say)
         _sync(device)
     wall = time.perf_counter() - t0
     if args.trace:
         say(f"wrote trace to {profiling.trace_path(args.trace)}")
     if not is_p0:
         return 0
-    result = transport.result_from_ends(cfg, tables, ends)
-
-    # steps_run excludes any checkpoint-resumed prefix.
-    steps_run = cfg.max_timesteps - resumed
+    if not args.steady:
+        result = transport.result_from_ends(cfg, tables, ends)
+        # steps_run excludes any checkpoint-resumed prefix.
+        steps_run = cfg.max_timesteps - resumed
     ups = profiling.updates_per_step(cfg) * steps_run
     if args.profile:
         print(f"wall: {wall:.3f} s for {steps_run} steps "
@@ -492,6 +519,20 @@ class _GeneralEngine:
 
     def ends(self, state):
         return state.ends
+
+
+def _run_steady(args, cfg, device):
+    """--steady: the steady state directly (steady.run_steady_problem at
+    --dtype on --device). Returns (the SolveResult, its sweeps or
+    matvecs)."""
+    from .steady import run_steady_problem
+
+    result, sr = run_steady_problem(cfg, dtype=_dtype(args),
+                                    method=args.steady_method, device=device)
+    unit = "matvecs" if args.steady_method == "cycle" else "sweeps"
+    print(f"steady solve ({args.steady_method}): {sr.iterations} "
+          f"{unit}, residual {sr.residual:.3e}")
+    return result, sr.iterations
 
 
 def _general_engine(args, cfg, tables, device):
@@ -711,30 +752,57 @@ def _mesh_engine(args, cfg, tables, device, say):
     if isinstance(mesh, int):
         return mesh
     engine, f64 = args.engine, args.dtype == "float64"
-    kw = dict(scan_tol=args.scan_tol, device=device)
+    # Each engine takes what it accepts (dtype: the fast engine's).
+    kw = dict(scan_tol=args.scan_tol, dtype=_dtype(args), device=device)
     if engine == "df" and not f64:
         say("note: --engine df is f64-grade; building its tables at "
             "float64 despite --dtype float32")
     elif engine in ("pallas", "halo", "fused") and f64:
         say(f"note: the {engine} mesh engine is float32-only")
     pick = {"pallas": "pallas", "halo": "halo", "fused": "fused",
-            "df": "df_halo", "auto": "df_halo" if f64 else "auto"}[engine]
+            "fast": "fast", "df": "df_halo",
+            "auto": "df_halo" if f64 else "auto"}[engine]
     try:
         eng = make_multichip_engine(cfg, tables, mesh, engine=pick, **kw)
     except ValueError as e:
-        if pick == "df_halo":
+        if engine == "auto" and f64:
+            # The f64 fallback, as JAX's: its sharded XLA engine, or at a
+            # one-rank mesh in one process the plain fast engine.
+            say(f"auto engine: df halo infeasible ({e}); falling back to "
+                "the sharded XLA f64 engine")
+            eng = _fast_mesh_engine(args, cfg, tables, mesh, device)
+            if isinstance(eng, int):
+                return eng
+        elif engine in ("df", "fast"):
             print(f"--engine {engine} infeasible for this mesh workload: "
-                  f"{e}\nthe f64 fallback, the sharded XLA engine, is not "
-                  "ported yet (ROADMAP A7); use --dtype float32",
-                  file=sys.stderr)
+                  f"{e}", file=sys.stderr)
+            return 2
         else:
             print(f"--engine {engine} infeasible for this workload: {e}\n"
                   "fall back to --engine pallas (per-substep exchange)",
                   file=sys.stderr)
-        return 2
+            return 2
     if engine == "auto":
         say(f"auto engine: {type(eng).__name__}")
     return eng
+
+
+def _fast_mesh_engine(args, cfg, tables, mesh, device):
+    """auto's f64 fallback on a mesh: FastEngine at a one-rank mesh in one
+    process, else ShardedFastEngine, at --dtype; or an exit code."""
+    from .ops.fast_sweep import FastEngine
+    from .parallel import distributed
+    from .parallel.sharded_fast import ShardedFastEngine
+
+    if mesh.size == 1 and distributed.process_count() == 1:
+        return FastEngine(cfg, tables, dtype=_dtype(args), device=device)
+    try:
+        return ShardedFastEngine(cfg, tables, mesh, dtype=_dtype(args),
+                                 device=device)
+    except ValueError as e:
+        print(f"--engine auto infeasible for this mesh workload: {e}",
+              file=sys.stderr)
+        return 2
 
 
 if __name__ == "__main__":

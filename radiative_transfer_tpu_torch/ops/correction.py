@@ -159,6 +159,47 @@ def equilibrium_psi_source(
     return B[None, :] + val * (mu[:, None] * V / constants.SPEED_OF_LIGHT)
 
 
+def planck_mean_opacities(
+    T: float,
+    e_edge: np.ndarray,
+    e_ave: np.ndarray,
+    B: np.ndarray,
+    kappa_grey: float,
+) -> dict:
+    """Planck-averaged multigroup opacity generator
+    (src/correction.cpp:66-97; the reference never calls it, its call
+    site is commented out at correction.cpp:376; offered as a utility, as
+    in the JAX package).
+
+    Builds a 1/E^3-shaped opacity spectrum, Planck-averages it per group
+    (ukappa), and normalises so the total emission matches the grey code:
+    sum_g kappa_g B_g = kappa_grey * a * c * T^4 exactly. Also returns the
+    group-centred spectrum ckappa = (1 - e^{-E_g/T}) / E_g^3 and the
+    per-group emission spectrum kappa_g * B_g. Host float64 numpy.
+    """
+    e_edge = np.asarray(e_edge, dtype=np.float64)
+    e_ave = np.asarray(e_ave, dtype=np.float64)
+    B = np.asarray(B, dtype=np.float64)
+
+    tmp1 = (
+        2.0 * constants.FOUR_PI * _KCON * T
+        / (constants.PLANCK_CONSTANT**3 * constants.SPEED_OF_LIGHT**2)
+    )
+    tmp2 = np.exp(-e_edge[:-1] / T) - np.exp(-e_edge[1:] / T)
+    ukappa = tmp1 * tmp2 / B
+    ckappa = (1.0 - np.exp(-e_ave / T)) / e_ave**3
+
+    acT4 = _AC * T**4
+    kappa_nfac = acT4 / float(np.sum(ukappa * B))
+    kappa = kappa_grey * kappa_nfac * ukappa
+    return {
+        "kappa": kappa,
+        "emission_spectrum": kappa * B,
+        "unnormalized": ukappa,
+        "group_centered": ckappa,
+    }
+
+
 def validate_planck_integrals(B: np.ndarray, dBdT: np.ndarray, T: float) -> bool:
     """|sum B_g - a c T^4| and |sum dBdT_g - 4 a c T^3| < 1e-6
     (src/correction.cpp:39-63)."""

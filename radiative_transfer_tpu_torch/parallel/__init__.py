@@ -6,10 +6,10 @@ parallel/df_halo_cuda.py), the per-sub-step mesh engine
 (parallel/sharded_cuda.py), the single-exchange fused BDF2 mesh engine
 (parallel/fused_exchange_cuda.py), the general engine on a mesh
 (parallel/sharded.py, solve_sharded: the JAX general ShardedEngine), the
-mesh (parallel/mesh.py) and the process-group helpers
-(parallel/distributed.py). Without a mesh ``engine="fast"`` is the XLA
-fast engine's port, ops/fast_sweep.FastEngine (plain PyTorch). Not ported:
-its mesh engine ShardedFastEngine (the second half of ROADMAP A7).
+XLA fast engine's port and its mesh engine (ops/fast_sweep.FastEngine and
+parallel/sharded_fast.ShardedFastEngine, plain PyTorch at float32 or
+float64), the mesh (parallel/mesh.py) and the process-group helpers
+(parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -64,8 +64,8 @@ def make_multichip_engine(cfg, tables, mesh=None, engine: str = "auto",
     * ``auto`` at more than one rank: the halo engine where its creep
       bound admits the workload, else the fused engine at BDF2, else the
       sharded engine;
-    * ``fast``: NotImplementedError: ShardedFastEngine is the second half
-      of ROADMAP A7, not ported yet.
+    * ``fast``: ShardedFastEngine (parallel/sharded_fast.py, plain
+      PyTorch at its ``dtype``), also at one rank, as JAX builds it.
 
     Rules of the JAX selection that do not carry over: off a TPU it picks
     its XLA FastEngine (single device) or ShardedFastEngine (mesh), a rule
@@ -92,11 +92,11 @@ def make_multichip_engine(cfg, tables, mesh=None, engine: str = "auto",
         raise ValueError(f"unknown multi-chip engine {engine!r}")
     if engine == "fast":
         from ..ops.fast_sweep import FastEngine
+        from .sharded_fast import ShardedFastEngine
 
         if mesh is not None:
-            raise NotImplementedError(
-                "engine='fast' on a mesh is ShardedFastEngine, not ported "
-                "yet (ROADMAP A7, its second half)")
+            return ShardedFastEngine(cfg, tables, mesh, **_filter_kwargs(
+                ShardedFastEngine.__init__, kw))
         return FastEngine(cfg, tables, **_filter_kwargs(FastEngine.__init__,
                                                         kw))
     n_dev = 1 if mesh is None else mesh.size

@@ -104,7 +104,7 @@ def test_writers_byte_identical(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--steady"],
+    ["--steady", "--mesh", "1x2"],
     ["--engine", "fast", "--mesh", "1x2"],
     ["--engine", "df", "--mesh", "1x2"],
     ["--engine", "pallas", "--mesh", "1x2"],
@@ -114,10 +114,9 @@ def test_writers_byte_identical(tmp_path):
     ["--steady-method", "cycle"],
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
-    """Exit 2 and no CSV: what is not ported yet (A7's second half), a
-    mesh of more ranks than run, an ensemble table that cannot be read,
-    an unknown device, and the JAX CLI's flag hygiene (argparse
-    errors)."""
+    """Exit 2 and no CSV: a steady solve on a mesh and a mesh of more
+    ranks than run, an ensemble table that cannot be read, an unknown
+    device, and the JAX CLI's flag hygiene (argparse errors)."""
     argv = [_deck("single_group.prm"), "--outdir", str(tmp_path), *extra]
     if "--device" not in extra:
         argv += ["--device", "cpu"]
@@ -130,17 +129,19 @@ def test_cli_refuses_what_is_not_ported(tmp_path, extra):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--steady"], "--steady is not ported yet (ROADMAP A7, its second "
-     "half: steady.py's solve_steady)"),
-    (["--engine", "fast", "--mesh", "1x2"], "--engine fast --mesh is not "
-     "ported yet (ROADMAP A7, its second half: ShardedFastEngine)"),
-    (["--steady", "--steady-method", "cycle"], "--steady-method is not "
-     "ported yet (ROADMAP A7, its second half: steady.py's "
-     "solve_steady_cycle)")])
+    (["--steady-method", "cycle"], "--steady-method requires --steady"),
+    (["--steady", "--mesh", "1x2"], "--steady does not support --mesh"),
+    (["--steady", "--engine", "fast"], "--steady has a single "
+     "implementation")])
 def test_cli_refusals_name_their_roadmap_item(tmp_path, capsys, extra,
                                               message):
-    rc = port_cli.main([_deck("single_group.prm"), "--outdir", str(tmp_path),
-                        "--device", "cpu", *extra])
+    """The steady solve's refusals, in the JAX CLI's words (argparse
+    errors, exit 2)."""
+    try:
+        rc = port_cli.main([_deck("single_group.prm"), "--outdir",
+                            str(tmp_path), "--device", "cpu", *extra])
+    except SystemExit as exc:
+        rc = exc.code
     assert rc == 2
     assert message in capsys.readouterr().err
 

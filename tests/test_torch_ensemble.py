@@ -238,12 +238,13 @@ def test_ensemble_refusals():
                                      device="cpu")
     with pytest.raises(ValueError, match="unknown ensemble parameter"):
         port_ens.stack_ensemble(pcfg, pt, {"sigma": np.ones((2, 3))})
-    with pytest.raises(NotImplementedError, match="ShardedFastEngine"):
-        from radiative_transfer_tpu_torch.parallel import mesh as port_mesh
+    # engine="fast" on a mesh is ShardedFastEngine: the stacked solve runs.
+    from radiative_transfer_tpu_torch.parallel import mesh as port_mesh
 
-        port_ens.solve_ensemble_stacked(
-            pcfg, pt, {"kappa": np.ones((2, 3))}, num_steps=1,
-            mesh=port_mesh.make_mesh_2d(1, 1), engine="fast", device="cpu")
+    got = port_ens.solve_ensemble_stacked(
+        pcfg, pt, {"kappa": np.ones((2, 3))}, num_steps=1,
+        mesh=port_mesh.make_mesh_2d(1, 1), engine="fast", device="cpu")
+    assert got.ends.shape[0] == 2 and torch.all(torch.isfinite(got.ends))
 
 
 # -- solve_ensemble_stacked ----------------------------------------------------------

@@ -210,9 +210,12 @@ def test_run_problem_fast_and_selection():
     make = port_parallel.make_multichip_engine
     eng = make(cfg, tables, engine="fast", dtype=F64, device="cpu")
     assert isinstance(eng, port_fs.FastEngine) and eng.dtype == F64
-    with pytest.raises(NotImplementedError, match="ShardedFastEngine"):
-        make(cfg, tables, port_mesh.make_mesh_1d(1), engine="fast",
-             device="cpu")
+    from radiative_transfer_tpu_torch.parallel.sharded_fast import (
+        ShardedFastEngine)
+
+    seng = make(cfg, tables, port_mesh.make_mesh_1d(1), engine="fast",
+                dtype=F64, device="cpu")
+    assert isinstance(seng, ShardedFastEngine) and seng.dtype == F64
     with pytest.raises(ValueError, match="float32 or"):
         port_fs.FastEngine(cfg, tables, dtype=torch.float16, device="cpu")
     if not torch.cuda.is_available():

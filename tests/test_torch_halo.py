@@ -283,10 +283,12 @@ def test_selection_pins_and_refusals():
                       HaloCudaEngine)
     assert isinstance(make(cfg, tables, engine="single", device="cpu"),
                       port_cs.CudaSweepEngine)
-    # The mesh engines are ported; the XLA fast engines (A7) are not.
-    with pytest.raises(NotImplementedError, match="A7"):
-        make(cfg, tables, mesh=port_mesh.make_mesh_1d(1), engine="fast",
-             device="cpu")
+    # The XLA fast engine's mesh engine is ShardedFastEngine (A7).
+    from radiative_transfer_tpu_torch.parallel.sharded_fast import (
+        ShardedFastEngine)
+
+    assert isinstance(make(cfg, tables, mesh=port_mesh.make_mesh_1d(1),
+                           engine="fast", device="cpu"), ShardedFastEngine)
     with pytest.raises(ValueError, match="unknown engine"):
         make(cfg, tables, engine="fused", device="cpu")
     thin = port.load_config(GRAY)

@@ -221,9 +221,11 @@ def test_selection_refusals():
     cfg = port.load_config(GRAY, N=128)
     tables, _, _ = port_transport.build_tables(cfg)
     make = port_parallel.make_multichip_engine
-    with pytest.raises(NotImplementedError, match="A7"):
-        make(cfg, tables, port_mesh.make_mesh_1d(1), engine="fast",
-             device="cpu")
+    from radiative_transfer_tpu_torch.parallel.sharded_fast import (
+        ShardedFastEngine)
+
+    assert isinstance(make(cfg, tables, port_mesh.make_mesh_1d(1),
+                           engine="fast", device="cpu"), ShardedFastEngine)
     with pytest.raises(ValueError, match="pass a mesh"):
         make(cfg, tables, engine="pallas", device="cpu")
     with pytest.raises(ValueError, match="unknown multi-chip engine"):
@@ -290,12 +292,13 @@ def test_cli_mesh_prints_backend_and_auto_pick(cli_runs):
     (["--engine", "fused", "--mesh", "2x"], "--mesh must look like"),
     (["--engine", "fused", "--dtype", "float32", "--steps", "1",
       "--scan-tol", "1e-10"], None),
-    (["--engine", "df", "--mesh", "1x1"], "ROADMAP A7"),
+    (["--engine", "df", "--mesh", "1x1"],
+     "--engine df infeasible for this mesh workload"),
 ])
 def test_cli_mesh_exit_codes(tmp_path, capsys, extra, message):
     """A mesh of more ranks than run, a malformed mesh, fused's implied
     1x1 mesh (runs), and df on a mesh where its creep bound rejects the
-    deck (the JAX CLI's sharded XLA fallback is not ported)."""
+    deck (an explicit --engine df has no fallback, as in JAX)."""
     rc = port_cli.main([GRAY, "--outdir", str(tmp_path), "--device", "cpu",
                         *extra])
     err = capsys.readouterr().err
