@@ -8,7 +8,10 @@ Phases, one line each; any failure exits nonzero before the result line:
 1. environment: torch/CUDA versions and the card's name and power limit;
 2. build: compile csrc/*.cu with nvcc for sm_90a (radiative_transfer_tpu_torch
    /_build/) and print its seconds, each nvcc command's seconds and the
-   compiler's register report;
+   compiler's register report; then build the host I/O library
+   csrc/rtio.cc with the C++ compiler on PATH (native.py; every CLI run
+   below reads its deck and writes its CSVs through it) and print its
+   seconds;
 3. kernel parity: each CUDA kernel (B1 bdf2, B2 multistep, B3 substep) on
    seeded random states against its plain PyTorch version on the same card,
    max error over max magnitude <= 1e-5 (the kernels scan exactly, the plain
@@ -287,6 +290,17 @@ Phases, one line each; any failure exits nonzero before the result line:
    float64 on --mesh 1x2 with the LLNL deck at its shipped dt (the df halo
    infeasible: JAX's fallback to ShardedFastEngine, within 1e-12 of the
    single-device --engine fast CLI).
+18. the native I/O (native.py, csrc/rtio.cc) and the plot reader
+   (plot.py), host code with no kernel of its own: native.available()
+   (no C++ compiler is a failure); the CLI on prm/single_group.prm with
+   --engine pallas on the card, its deck read and its 8 CSVs written
+   through the library (by its call counts, zeroed just before) and
+   byte-equal to the same result written by the Python writers; a float32
+   psi of 32 x 1 x 2^18 values made on the card, written and timed through
+   both writers (host seconds, with the host CPU's model), byte-equal;
+   plot.read_solution on the CLI's CSVs within rtol 1e-12 of the result;
+   plot_solution's 5 PNGs where matplotlib is installed (else a line says
+   it did not run).
 
 After each phase a line gives its seconds and the run's so far.
 
@@ -372,6 +386,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -524,6 +539,13 @@ STEADY_MARCH = (60, 120)
 # or phase 17's two ranks sharing the card: SF_STEPS steps after one,
 # against FastEngine on one device (GENERAL_TOL).
 SF_STEPS = 8
+# Phase 18, the native I/O: the CLI on prm/single_group.prm through
+# --engine pallas for NATIVE_STEPS steps, and a float32 psi of the bench's
+# directions over a quarter of its cells, NATIVE_PSI = (M, G, N), written
+# through the library and through the Python writers (0.16 GB of text
+# each; ~3 and ~7 s of one host core next to an H100, PERF.md section 5).
+NATIVE_STEPS = 20
+NATIVE_PSI = (32, 1, 1 << 18)
 # Launches of each redesigned kernel (B1's, B2's, B4's, B5's, B6's, B7's,
 # B10's, B11's, B12's, B14's and B15's wavefronts, B8's, B9's and B13's
 # look-backs) per new parity shape: a race shows intermittently, so the
@@ -2484,6 +2506,162 @@ def steady_fast_path(dev, card, peak_from):
             f"fast CLI {auto_err:.1e}; card: {card}")
 
 
+def host_cpu() -> str:
+    """The host CPU as lscpu gives it: its model name, CPU family and
+    model number (a virtual machine may name its model "unknown")."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60).stdout
+    fields = dict(line.split(":", 1) for line in out.splitlines()
+                  if ":" in line)
+    name, family, model = (fields.get(k, "?").strip() for k in
+                           ("Model name", "CPU family", "Model"))
+    return f"{name} (lscpu: CPU family {family}, model {model})"
+
+
+@contextlib.contextmanager
+def python_writers(io_mod):
+    """utils/io.py's writers on their Python path inside the block."""
+    native_of = io_mod._native
+    io_mod._native = lambda: None
+    try:
+        yield
+    finally:
+        io_mod._native = native_of
+
+
+def native_io_path(dev, card, build_line):
+    """Phase 18, the native I/O (native.py, csrc/rtio.cc: A14) and the
+    plot reader (plot.py: A13): host code, no kernel of its own. Raises on
+    a failed check; returns the phase's line.
+
+    * native.available() on this machine: no C++ compiler is a failure.
+      `build_line` is phase 2's line on librtio.so's build (its first use).
+    * The CLI once on prm/single_group.prm with --engine pallas on the
+      card (NATIVE_STEPS steps), with every count zeroed just before it and
+      read just after: the deck read and all 8 CSVs written through the
+      library (parse_deck 1, write_matrix 3, write_psi 1, write_vector 4),
+      B1 launched. The same SolveResult written again through the Python
+      writers: byte-equal.
+    * A float32 psi of NATIVE_PSI values, made on the card from a seed,
+      written through both writers (host seconds, the copy off the card
+      included): byte-equal.
+    * plot.read_solution on the CLI's CSVs against the result (rtol
+      1e-12); plot_solution's 5 PNGs where matplotlib is installed, else a
+      line that says it is absent and plot_solution did not run."""
+    import filecmp
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from radiative_transfer_tpu_torch import cli, native, plot
+    from radiative_transfer_tpu_torch.ops import cuda_sweep as cs
+    from radiative_transfer_tpu_torch.utils import io as io_mod
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError("phase 18: native.available() is False: no C++ "
+                             "compiler (g++ or c++) on PATH")
+    names = ("phi", "phi_plus", "psi", "x", "F", "e_ave", "left_ends",
+             "right_ends")
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- the CLI through the library; its SolveResult kept ---------------
+        kept = {}
+        write_csvs = io_mod.write_solution_csvs
+
+        def keep(outdir, result, x, e_ave):
+            kept.update(result=result, x=x, e_ave=e_ave)
+            return write_csvs(outdir, result, x, e_ave)
+
+        outdir = os.path.join(tmp, "cli")
+        buf = io.StringIO()
+        io_mod.write_solution_csvs = keep
+        native.reset_call_counts()
+        cs.reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([os.path.join(ROOT, "prm", "single_group.prm"),
+                               "--outdir", outdir, "--engine", "pallas",
+                               "--steps", str(NATIVE_STEPS), "--device",
+                               "cuda"])
+        finally:
+            io_mod.write_solution_csvs = write_csvs
+        calls = native.call_counts()
+        b1 = cs.bdf2_launch.launches
+        if rc != 0:
+            raise AssertionError(f"phase 18: cli exit {rc}:\n"
+                                 + buf.getvalue()[-3000:])
+        want = {"parse_deck": 1, "read_table": 0, "write_matrix": 3,
+                "write_vector": 4, "write_psi": 1}
+        if calls != want or b1 == 0:
+            raise AssertionError(f"phase 18: the CLI's calls into librtio.so "
+                                 f"{calls} (want {want}), B1 launches {b1}")
+        pydir = os.path.join(tmp, "python")
+        with python_writers(io_mod):
+            io_mod.write_solution_csvs(pydir, kept["result"], kept["x"],
+                                       kept["e_ave"])
+        if native.call_counts() != want:
+            raise AssertionError("phase 18: the Python writers called "
+                                 "librtio.so")
+        differ = [n for n in names
+                  if not filecmp.cmp(os.path.join(outdir, n + ".csv"),
+                                     os.path.join(pydir, n + ".csv"),
+                                     shallow=False)]
+        if differ:
+            raise AssertionError(f"phase 18: native vs Python CSVs differ: "
+                                 f"{differ}")
+        # -- the CSVs read back ------------------------------------------------
+        sol = plot.read_solution(outdir)
+        res = kept["result"]
+        ref = {n: (np.asarray(kept[n]) if n in ("x", "e_ave")
+                   else getattr(res, n).double().cpu().numpy())
+               for n in names}
+        for n in names:
+            np.testing.assert_allclose(
+                sol[n], ref[n].reshape(sol[n].shape), rtol=1e-12, atol=0,
+                err_msg=f"phase 18: plot.read_solution {n}")
+        if importlib.util.find_spec("matplotlib") is None:
+            plotted = ("matplotlib is not installed here, so plot_solution "
+                       "was not run")
+        else:
+            made = plot.plot_solution(sol, os.path.join(tmp, "figs"))
+            if len(made) != 5 or not all(os.path.getsize(f) for f in made):
+                raise AssertionError(f"phase 18: plot_solution made {made}")
+            plotted = "plot_solution: 5 PNGs"
+        # -- psi at NATIVE_PSI through both writers ---------------------------
+        gen = torch.Generator(device=dev).manual_seed(18)
+        psi = torch.rand(NATIVE_PSI, generator=gen, device=dev) * 8.0
+        torch.cuda.synchronize()
+        seconds = {}
+        for tag in ("native", "python"):
+            path = os.path.join(tmp, f"psi_{tag}.csv")
+            with (python_writers(io_mod) if tag == "python"
+                  else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                io_mod.write_psi(path, psi)
+                seconds[tag] = time.perf_counter() - t0
+        psi_bytes = os.path.getsize(os.path.join(tmp, "psi_native.csv"))
+        if native.write_psi.calls != want["write_psi"] + 1:
+            raise AssertionError("phase 18: psi did not go through librtio.so")
+        if not filecmp.cmp(os.path.join(tmp, "psi_native.csv"),
+                           os.path.join(tmp, "psi_python.csv"),
+                           shallow=False):
+            raise AssertionError("phase 18: psi native vs Python differ")
+    M, G, N = NATIVE_PSI
+    return (f"phase 18 native I/O and the plot reader: ok in "
+            f"{time.perf_counter() - t_phase:.1f} s; {build_line}; the CLI "
+            f"--engine pallas on single_group.prm ({NATIVE_STEPS} steps, B1 "
+            f"{b1} launches): calls into librtio.so {json.dumps(calls)}, the "
+            "8 CSVs byte-equal to the Python writers'; plot.read_solution vs "
+            f"the result within 1e-12; {plotted}; psi float32 ({M}, {G}, "
+            f"2^{N.bit_length() - 1}) = {M * G * N} values, {psi_bytes} bytes"
+            f": native {seconds['native']:.3f} s, Python "
+            f"{seconds['python']:.3f} s ("
+            f"{seconds['python'] / seconds['native']:.2f}x), byte-equal "
+            f"(host seconds; host CPU: {host_cpu()}, {os.cpu_count()} "
+            f"logical CPUs); card: {card}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2565,7 +2743,7 @@ def main() -> int:
     import numpy as np
 
     from radiative_transfer_tpu_torch import adjoint as adj
-    from radiative_transfer_tpu_torch import cli, load_config
+    from radiative_transfer_tpu_torch import cli, load_config, native
     from radiative_transfer_tpu_torch.models import transport
     from radiative_transfer_tpu_torch.ops import _cuda_build
     from radiative_transfer_tpu_torch.ops import cuda_adjoint as ca
@@ -2604,6 +2782,16 @@ def main() -> int:
     print(f"phase 2 build: {build_s:.1f} s ("
           + ", ".join(build_times(log)) + "); ptxas: "
           + "; ".join(ptxas_report(log)), flush=True)
+    # The host I/O library, at its first use (every CLI run below reads its
+    # deck and writes its CSVs through it).
+    t0 = time.perf_counter()
+    if not native.ensure_built():
+        raise AssertionError("phase 2: librtio.so not built: no C++ "
+                             "compiler (g++ or c++) on PATH")
+    rtio_line = (f"librtio.so built at first use in phase 2 in "
+                 f"{time.perf_counter() - t0:.2f} s by "
+                 f"{shutil.which('g++') or shutil.which('c++')}")
+    print(f"phase 2 {rtio_line}", flush=True)
     phase_seconds(2)
 
     def engine(cfg, **kw):
@@ -5124,6 +5312,10 @@ def main() -> int:
     # -- 17. steady state and the sharded fast engine (A7's second half) -------
     print(steady_fast_path(dev, card, peak_from), flush=True)
     phase_seconds(17)
+
+    # -- 18. the native I/O (A14) and the plot reader (A13) ------------------------
+    print(native_io_path(dev, card, rtio_line), flush=True)
+    phase_seconds(18)
 
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the

@@ -8,8 +8,8 @@ stays beside it as the reference it is tested against.
 
 The heavier submodules load on first access, as the JAX package's do:
 ``parallel``, ``ops``, ``utils``, ``cli``, ``adjoint``, ``ensemble``,
-``data`` and ``steady``. The JAX package's ``plot`` and ``native`` are
-not ported (ROADMAP A13 and A14).
+``data``, ``steady``, ``plot`` (the CSVs read back and plotted) and
+``native`` (the C++ deck, table and CSV I/O, csrc/rtio.cc).
 """
 
 from . import constants
@@ -17,8 +17,7 @@ from .config.config import Config, load_config
 from .models import transport
 
 _LAZY = {"parallel", "ops", "utils", "cli", "adjoint", "ensemble", "data",
-         "steady"}
-_NOT_PORTED = {"plot": "A13", "native": "A14"}
+         "steady", "plot", "native"}
 
 
 def __getattr__(name):
@@ -26,15 +25,11 @@ def __getattr__(name):
 
     if name in _LAZY:
         return importlib.import_module(f".{name}", __name__)
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            f"module {__name__!r} has no attribute {name!r}: the JAX "
-            f"package's {name}.py is not ported (ROADMAP {_NOT_PORTED[name]})")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __version__ = "0.1.0"
 
 __all__ = ["Config", "load_config", "constants", "transport", "adjoint",
-           "cli", "data", "ensemble", "ops", "parallel", "steady", "utils",
-           "__version__"]
+           "cli", "data", "ensemble", "native", "ops", "parallel", "plot",
+           "steady", "utils", "__version__"]

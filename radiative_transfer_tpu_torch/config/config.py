@@ -17,9 +17,10 @@ src/ParameterHandler.cpp:100-212 for the key set and defaults):
   (M, G) matrix: entry k -> (m = k // G, g = k % G)
   (reference: src/ParameterHandler.cpp:116-133).
 
-Port of radiative_transfer_tpu/config/config.py with the Python parser
-only: the JAX package's optional native parser (native/rtio.cc) is
-byte-identical to it, so the port reads every deck to the same Config.
+Port of radiative_transfer_tpu/config/config.py. Decks and tables go
+through the port's C++ reader (native.py, csrc/rtio.cc) when it is
+available, else through the Python paths below; both give the same
+records and values, so every deck reads to the same Config.
 """
 
 from __future__ import annotations
@@ -39,9 +40,15 @@ _TRUE_VALUES = ("yes", "Yes", "true", "True")
 class PrmFile:
     """A parsed key=value .prm file with C++-faithful typed getters."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, prefer_native: bool = True):
         self.path = path
         self.params: dict[str, str] = {}
+        if prefer_native:
+            from .. import native
+
+            if native.available():
+                self.params = native.parse_deck_dict(path)
+                return
         with open(path, "r") as fh:
             for line in fh:
                 line = line.rstrip("\n").rstrip("\r")
@@ -79,8 +86,13 @@ class PrmFile:
         return self.params.get(key, default)
 
 
-def _read_table(path: str) -> np.ndarray:
+def _read_table(path: str, prefer_native: bool = True) -> np.ndarray:
     """Whitespace-separated stream of doubles (group bounds / kappa files)."""
+    if prefer_native:
+        from .. import native
+
+        if native.available():
+            return native.read_table(path)
     values = []
     with open(path, "r") as fh:
         for tok in fh.read().split():

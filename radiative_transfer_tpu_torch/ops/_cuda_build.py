@@ -6,7 +6,9 @@ links the objects into one shared library with a plain C interface, at
 first use, and loads it with ctypes. The library
 lands in radiative_transfer_tpu_torch/_build/<hash>/, keyed by a hash of
 the sources and flags, so a checkout builds once and a changed source
-rebuilds. The compiler's output (``-Xptxas -v``: registers, shared
+rebuilds (_build_cache.py, which the host I/O library's build shares:
+each process compiles into a file of its own and moves it into place
+atomically). The compiler's output (``-Xptxas -v``: registers, shared
 memory and spills of every kernel) is kept beside it as build.log, each
 command with its wall seconds.
 """
@@ -15,7 +17,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
 import subprocess
@@ -23,9 +24,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+from .. import _build_cache
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,16 +95,12 @@ def _run(cmd: list[str]):
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists."""
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in cu + cuh:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    out = BUILD_DIR / h.hexdigest()[:16] / "libsweep.so"
+    out = _build_cache.output_path(NVCC_FLAGS, cu + cuh, "libsweep.so")
     if out.exists():
         return out
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"libsweep.{os.getpid()}.tmp.so")
+    tmp = _build_cache.temporary(out)
     objs = [out.with_name(f"{p.stem}.{os.getpid()}.o") for p in cu]
     with ThreadPoolExecutor(len(cu)) as pool:
         results = list(pool.map(_run, (
@@ -123,8 +120,7 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed with exit code {proc.returncode} ({cmd[-1]}):\n"
                 + proc.stderr[-6000:])
-    os.replace(tmp, out)
-    return out
+    return _build_cache.install(out)
 
 
 @functools.cache

@@ -1,12 +1,13 @@
 """CSV writers matching the reference output conventions.
 
-Port of radiative_transfer_tpu/utils/io.py on its Python path (the JAX
-package's optional native writer is byte-identical to it). The reference
-dumps Eigen objects with `operator<<` (reference: src/main.cc:37-57):
-matrices as whitespace-separated rows, vectors one value per line, and
-the rank-3 psi tensor (column-major) as M rows whose columns interleave
-groups fastest — column index n*G + g. Values print at full float64
-precision.
+Port of radiative_transfer_tpu/utils/io.py. Each writer goes through the
+port's C++ writers (native.py, csrc/rtio.cc) when they are available and
+formats value by value in Python otherwise; the two write the same bytes.
+The reference dumps Eigen objects with `operator<<` (reference:
+src/main.cc:37-57): matrices as whitespace-separated rows, vectors one
+value per line, and the rank-3 psi tensor (column-major) as M rows whose
+columns interleave groups fastest — column index n*G + g. Values print at
+full float64 precision.
 """
 
 from __future__ import annotations
@@ -25,8 +26,20 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _native():
+    """The C++ writer backend (native.py, byte-identical output) when it
+    is available, else None."""
+    from .. import native
+
+    return native if native.available() else None
+
+
 def write_vector(path: str, v) -> None:
     """One value per line (Eigen VectorXd print)."""
+    nat = _native()
+    if nat is not None:
+        nat.write_vector(path, v)
+        return
     v = _host(v).reshape(-1)
     with open(path, "w") as fh:
         for val in v:
@@ -35,6 +48,10 @@ def write_vector(path: str, v) -> None:
 
 def write_matrix(path: str, m) -> None:
     """Whitespace-separated rows (Eigen MatrixXd print)."""
+    nat = _native()
+    if nat is not None:
+        nat.write_matrix(path, m)
+        return
     m = np.atleast_2d(_host(m))
     with open(path, "w") as fh:
         for row in m:
@@ -44,6 +61,10 @@ def write_matrix(path: str, m) -> None:
 def write_psi(path: str, psi) -> None:
     """(M, G, N) -> M rows with columns ordered n*G + g (column-major
     Eigen Tensor print, see module doc)."""
+    nat = _native()
+    if nat is not None:
+        nat.write_psi(path, psi)
+        return
     psi = _host(psi)
     M, G, N = psi.shape
     rows = psi.transpose(0, 2, 1).reshape(M, N * G)

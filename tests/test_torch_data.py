@@ -7,8 +7,8 @@
   to ``prm/llnl_slab_test_group_*.txt`` and to JAX's arrays, and
   ``write_tables`` round-tripping them.
 * The package's lazy submodules (JAX ``__init__.py``'s ``__getattr__``):
-  each resolves to the port's own module; ``plot`` and ``native``, which
-  are not ported, raise AttributeError naming their ROADMAP items.
+  each, ``plot`` and ``native`` included, resolves to the port's own
+  module.
 """
 
 import conftest  # noqa: F401  (JAX on the CPU; repo root on sys.path)
@@ -130,7 +130,7 @@ def test_data_module_imports_no_jax():
 # -- the lazy submodules ------------------------------------------------------
 
 LAZY = ("parallel", "ops", "utils", "cli", "adjoint", "ensemble", "data",
-        "steady")
+        "steady", "plot", "native")
 
 
 @pytest.mark.parametrize("name", LAZY)
@@ -140,13 +140,6 @@ def test_lazy_submodule_resolves_to_the_port(name):
         f"radiative_transfer_tpu_torch.{name}")
     assert mod.__name__ == f"radiative_transfer_tpu_torch.{name}"
     assert name in port.__all__
-
-
-@pytest.mark.parametrize("name,item", [("plot", "A13"), ("native", "A14")])
-def test_unported_modules_raise_naming_the_roadmap_item(name, item):
-    with pytest.raises(AttributeError, match=f"ROADMAP {item}"):
-        getattr(port, name)
-    assert name not in port.__all__
 
 
 def test_unknown_attribute_raises():
