@@ -232,7 +232,7 @@ Phases, one line each; any failure exits nonzero before the result line:
    (gray S_32, BDF2) cut to A8_BENCH_N = 2^18 cells on CudaSweepEngine
    (B1, K = 4) from a seeded state, 5 steps straight against a run killed
    at step 3 with a checkpoint every 3 and resumed (chunks of 3 and 2 that
-   do not divide K; two saves, each ~45 s of host zlib), bit-equal, with each save's and load's seconds, the
+   do not divide K; two saves, each ~10 s of host zlib), bit-equal, with each save's and load's seconds, the
    checkpoint's bytes and the peak memory; through the CLI, 8 steps
    straight against killed at 6 (every 3) and resumed, on the general
    engine, pallas at CN (B2), halo at BDF2 and CN (B4, B5), df (B6, B7)
@@ -301,6 +301,34 @@ Phases, one line each; any failure exits nonzero before the result line:
    plot.read_solution on the CLI's CSVs within rtol 1e-12 of the result;
    plot_solution's 5 PNGs where matplotlib is installed (else a line says
    it did not run).
+19. the worked examples (radiative_transfer_tpu_torch/examples/, ROADMAP
+   A16), each through its main() on the card at its shipped size, every
+   wrapper's launch count zeroed just before it and read just after:
+   gray_equilibrium (1000 BDF2 steps on the general engine; its return
+   code 0: max F < 1e-6), multigroup_correction (FastEngine f64, the 8
+   CSVs), llnl_production (auto selection, checkpoints every 10 steps
+   and a resume from step 20; B1 or B4 launched), reference_precision
+   (N = 2^14, 400 steps: the f32 drift <= 3e-5, the df and df-halo drift
+   <= 1e-11, B1, B6 and B14 launched; fit_params(solver="pallas") on B11
+   and B12, the recovered kappa printed beside its target),
+   inverse_opacity (cut to 40 Adam iterations of its 400, EXAMPLE_CUTS;
+   worst kappa error < 0.05, the JAX example's PASS bar, which it reaches
+   on a CPU at the same arguments) and uncertainty (|ratio - 1| < 4/sqrt(2K) + 0.15, likewise);
+   multichip on two ranks sharing the card over gloo (EXAMPLE_RANKS
+   children, run while the other examples run in this process; its
+   asserts: ShardedFastEngine within 1e-12 of FastEngine,
+   the f32 mesh route within 2e-3) with each rank's launches; each
+   example's seconds and figures. And, in two child processes of their
+   own (`chip_smoke.py --remat-worker OUT 1|0`, one an arm) run while the
+   examples run, the peak device memory of
+   torch.func.vmap(torch.func.grad(...)) over make_diff_solve for
+   REMAT_PEAK's 8 opacity members at 2^14 cells and 64 BDF2 steps (the gray
+   S_2 slab off equilibrium, a source of 2), with
+   remat on (adjoint._RematStep) and off: remat on must peak lower, and
+   the gradients agree within 1e-12. And make_diff_solve_cuda at
+   steps_per_launch 65 and 100 (each K-step group split into launches of
+   64 steps and the rest) over 130 BDF2 steps: value and gradients within
+   1e-4 of its K = 4 solve, B11 launched 64-step pieces.
 
 After each phase a line gives its seconds and the run's so far.
 
@@ -344,13 +372,15 @@ P-rank run (phase 13 starts two), with --general-worker OUT one rank of
 phase 14's two-rank run, with --a8-worker DIR one rank of phase 15's,
 with --ensemble-worker OUT one rank of phase 16's, with --fast-mesh-worker
 OUT P DIR one rank of a ShardedFastEngine run (phase 17's two, or --ranks
-P's). With --ranks P it runs only the mesh
+P's), with --remat-worker OUT 1|0 one arm of phase 19's vmap(grad)
+peaks (remat on or off). With --ranks P it runs only the mesh
 path on P ranks, one a card where the host has P cards (NCCL), else
 sharing them (gloo): every case of rank_cases at P shards against one
 rank, the gray rung's weak scaling, the CLI under torchrun --mesh 1xP
-against the single-device CLI, and ShardedFastEngine at the bench at 1xP
-and 2x(P/2) against FastEngine on one device; --ranks P fast runs only
-the last (see ranks_check).
+against the single-device CLI, ShardedFastEngine at the bench at 1xP
+and 2x(P/2) against FastEngine on one device, and the multichip example
+on P ranks; --ranks P fast runs only ShardedFastEngine (see
+ranks_check).
 Then each kernel is timed against its plain version at its full-size shape,
 beside its bound (the larger of the bytes it must move over 3.35 TB/s and
 the operations it must do over 67 TFLOP/s f32, the H100 SXM data-sheet
@@ -390,6 +420,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -438,12 +469,13 @@ STEP_TOL = 1e-6
 # run's steps, the killed run's steps, the steps between checkpoints) on
 # the CLI's routes, and on the bench workload on CudaSweepEngine, where
 # chunks of 3 and 2 steps do not divide B1's K = 4. A checkpoint of the
-# bench's 2^20 cells costs ~150-176 s of host zlib (np.savez_compressed
-# of three 512 MiB float64 arrays on one core; PERF.md) and a kill and
+# bench's 2^20 cells cost ~150-176 s of host zlib at np.savez_compressed's
+# default level (three 512 MiB float64 arrays on one core; PERF.md; the
+# port now deflates at level 1, utils/checkpoint.py) and a kill and
 # resume needs two saves whatever the steps, so for the smoke's time limit
 # the bench runs there at A8_BENCH_N = 2^18 cells (same K, a quarter of the
-# bytes; at 2^19 the two saves took 88 and 93 s and, with phase 17, the
-# smoke 1114 s of its 1200).
+# bytes; at 2^19 the two saves took 88 and 93 s at the default level and,
+# with phase 17, the smoke 1114 s of its 1200).
 A8_STEPS = (8, 6, 3)
 A8_BENCH_STEPS = (5, 3, 3)
 A8_BENCH_N = 1 << 18
@@ -546,6 +578,33 @@ SF_STEPS = 8
 # each; ~3 and ~7 s of one host core next to an H100, PERF.md section 5).
 NATIVE_STEPS = 20
 NATIVE_PSI = (32, 1, 1 << 18)
+# Phase 19: the examples, each at its shipped size (argv beyond --device
+# cuda; none is cut), and the vmap(grad) peak: (members, M, N, BDF2 steps)
+# on the gray slab, at single_group.prm's own S_2.
+EXAMPLES = (("gray_equilibrium", []), ("multigroup_correction", None),
+            ("llnl_production", []), ("reference_precision", []),
+            ("inverse_opacity", ["--iters", "40"]), ("uncertainty", []))
+# The one cut: inverse_opacity's 400 Adam iterations took 245 s on one
+# H100 (0.6 s an iteration: the general engine's many small launches at
+# N = 64); at 40 its worst kappa error is 3.3e-2, inside the JAX example's
+# PASS bar of 5e-2 (which the JAX example reaches on a CPU at --iters 40).
+EXAMPLE_CUTS = {"inverse_opacity": "--iters 40 (of 400)"}
+EXAMPLE_RANKS = 2
+REMAT_PEAK = (8, 2, 1 << 14, 64)
+# One rank of the multichip example: its main(), the rank's kernel launches
+# printed after it as JSON.
+MULTICHIP_RANK = """
+import json, sys
+sys.path.insert(0, {root!r})
+from radiative_transfer_tpu_torch.examples import _common, multichip
+from radiative_transfer_tpu_torch.parallel import distributed
+_common.reset_launch_counts()
+res = multichip.main(["--device", "cuda"])
+print("LAUNCHES " + json.dumps(_common.launch_counts()), flush=True)
+print("FIGURES " + json.dumps({{k: res[k] for k in ("ranks", "mesh",
+      "backend", "err", "engine", "f32_err")}}), flush=True)
+distributed.shutdown()
+"""
 # Launches of each redesigned kernel (B1's, B2's, B4's, B5's, B6's, B7's,
 # B10's, B11's, B12's, B14's and B15's wavefronts, B8's, B9's and B13's
 # look-backs) per new parity shape: a race shows intermittently, so the
@@ -942,9 +1001,10 @@ def ranks_check(shards: int, fast_only: bool = False) -> int:
     rung (weak scaling), the CLI under torchrun (--mesh 1xP; pallas,
     fused, auto) against the single-device CLI on card 0 (5e-5 over 200
     steps), and ShardedFastEngine at the bench at 1xP and 2x(P/2)
-    (fast_mesh_worker) against FastEngine on card 0 (GENERAL_TOL). With
-    `fast_only` (`--ranks P fast`) only the last. Prints one JSON line;
-    exits non-zero on a failed check."""
+    (fast_mesh_worker) against FastEngine on card 0 (GENERAL_TOL), and
+    the multichip example (phase 19) on P ranks. With `fast_only`
+    (`--ranks P fast`) only ShardedFastEngine. Prints one JSON line; exits
+    non-zero on a failed check."""
     import numpy as np
     import torch
 
@@ -982,6 +1042,10 @@ def ranks_check(shards: int, fast_only: bool = False) -> int:
         print(json.dumps({"ok": True, "ranks": shards,
                           "backend": sf_backend}), flush=True)
         return 0
+    mc_ranks, mc_wall = run_multichip(shards)
+    mc_line = (f"the multichip example on {shards} ranks ({mc_wall:.1f} s "
+               "wall with start-up): " + json.dumps(mc_ranks[0][1])
+               + " launches " + json.dumps([r[0] for r in mc_ranks]))
     ranks, backend, wall = run_ranks(shards, timed_steps=64)
     lines = compare_ranks(ranks, shards, mesh_engine, held)
     scaling = {}
@@ -1043,7 +1107,8 @@ def ranks_check(shards: int, fast_only: bool = False) -> int:
           + "; gray rung 64 steps (weak scaling, 2^20 cells a rank): "
           + json.dumps(scaling) + "; torchrun CLI --mesh 1x"
           f"{shards} vs the single-device CLI (200 steps): "
-          + json.dumps(cli_errs) + f"; {sf_line}; card: {card}", flush=True)
+          + json.dumps(cli_errs) + f"; {sf_line}; {mc_line}; card: {card}",
+          flush=True)
     if held.failures:
         print("failed: " + "; ".join(held.failures), file=sys.stderr)
         return 1
@@ -2660,6 +2725,274 @@ def native_io_path(dev, card, build_line):
             f"{seconds['python'] / seconds['native']:.2f}x), byte-equal "
             f"(host seconds; host CPU: {host_cpu()}, {os.cpu_count()} "
             f"logical CPUs); card: {card}")
+
+
+def run_multichip(ranks: int, env=None):
+    """The multichip example on `ranks` ranks (parallel/distributed
+    .launch_local: torchrun's environment on this host); each rank's
+    (launches, figures) and the wall seconds, start-up included."""
+    from radiative_transfer_tpu_torch.parallel.distributed import launch_local
+
+    t0 = time.perf_counter()
+    procs = launch_local(["-c", MULTICHIP_RANK.format(root=ROOT)], ranks,
+                         env=env, timeout=600, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    out = []
+    for rank, r in enumerate(procs):
+        if r.returncode != 0 or "f32 multi-chip engine matches" not in r.stdout:
+            raise AssertionError(f"multichip rank {rank} rc {r.returncode}:\n"
+                                 + r.stdout[-2000:] + r.stderr[-3000:])
+        tagged = {line.split(" ", 1)[0]: json.loads(line.split(" ", 1)[1])
+                  for line in r.stdout.splitlines()
+                  if line.startswith(("LAUNCHES ", "FIGURES "))}
+        out.append((tagged["LAUNCHES"], tagged["FIGURES"]))
+    return out, wall
+
+
+def remat_worker(out_path: str, remat: bool) -> int:
+    """One arm of phase 19's remat peaks in a process of its own (started
+    with --remat-worker OUT 1|0, remat on or off, while phase 19 runs the
+    examples): remat_peak on the card, written to OUT as JSON. A process's
+    peak device memory is its own, whatever else shares the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke remat worker: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    dev = torch.device("cuda", 0)
+
+    def peak_from():
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return lambda: (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    peak, seconds, grad = remat_peak(dev, peak_from, remat)
+    with open(out_path, "w") as f:
+        json.dump({"peak": peak, "seconds": seconds, "grad": grad.tolist()},
+                  f)
+    return 0
+
+
+def remat_peak(dev, peak_from, remat: bool):
+    """torch.func.vmap(torch.func.grad(...)) over make_diff_solve at
+    REMAT_PEAK, with `remat` on or off: (peak GiB, seconds, the members'
+    gradients)."""
+    import numpy as np
+    import torch
+
+    from radiative_transfer_tpu_torch import adjoint
+    from radiative_transfer_tpu_torch.models import transport
+
+    K, M, N, steps = REMAT_PEAK
+    # Off equilibrium (a source of 2 against B = 4.0931): at psi = B the
+    # kappa gradient cancels to roundoff.
+    cfg = gray_cfg(M, N, 3, steps).replace(
+        psi_source=tuple((2.0,) for _ in range(M)))
+    tables, _, _ = transport.build_tables(cfg)
+    wt = torch.as_tensor(np.asarray(tables.wt), device=dev)
+    gen = np.random.default_rng(19)
+    kappas = torch.as_tensor(gen.uniform(0.5, 2.0, (K, 1)), device=dev)
+    solve_fn = adjoint.make_diff_solve(cfg, tables, num_steps=steps,
+                                       remat=remat, device=dev)
+
+    def loss(kappa):
+        f = solve_fn({"kappa": kappa})
+        phi = transport.compute_phi(transport.psi_from_ends(f.ends), wt)
+        return torch.sum(phi ** 2)
+
+    torch.cuda.synchronize()
+    peak = peak_from()
+    t0 = time.perf_counter()
+    g = torch.func.vmap(torch.func.grad(loss))(kappas)
+    torch.cuda.synchronize()
+    return peak(), time.perf_counter() - t0, g.cpu().numpy()
+
+
+def k_above_64(dev):
+    """make_diff_solve_cuda at steps_per_launch 65 and 100 against its K =
+    4 solve on the card (130 BDF2 steps of the gray slab off equilibrium,
+    S_8 at 2^14 cells): {K: (value gap, gradient gap, B11 launches)}, each
+    gap relative to the K = 4 figure's own magnitude."""
+    import numpy as np
+    import torch
+
+    from radiative_transfer_tpu_torch.models import transport
+    from radiative_transfer_tpu_torch.ops import cuda_adjoint as ca
+
+    n = 130
+    cfg = gray_cfg(8, 1 << 14, 3, n).replace(
+        psi_source=tuple((2.0,) for _ in range(8)))
+    tables, _, _ = transport.build_tables(cfg)
+
+    def value_and_grad(K):
+        sf = ca.make_diff_solve_cuda(cfg, tables, num_steps=n,
+                                     steps_per_launch=K, device=dev)
+        p = {"kappa": torch.ones(1, dtype=torch.float64, requires_grad=True),
+             "psi_source": torch.full((8, 1), 2.0, dtype=torch.float64,
+                                      requires_grad=True)}
+        ca.reset_launch_counts()
+        val = torch.sum(sf(p).ends ** 2) * 1e-2
+        val.backward()
+        return (float(val.detach()), np.concatenate(
+            [p[k].grad.numpy().ravel() for k in ("kappa", "psi_source")]),
+            ca.fwd_record_k_launch.launches)
+
+    v4, g4, _ = value_and_grad(4)
+    out = {}
+    for K in (65, 100):
+        v, g, launches = value_and_grad(K)
+        out[K] = (abs(v - v4) / abs(v4),
+                  float(np.abs(g - g4).max() / np.abs(g4).max()), launches)
+    return out
+
+
+def examples_path(dev, card):
+    """Phase 19, the worked examples (ROADMAP A16) on the card, and the
+    remat peak under vmap(grad) (module doc). Raises on a failed check;
+    returns the phase's line."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from radiative_transfer_tpu_torch.examples import _common
+
+    t_phase = time.perf_counter()
+    figures, launches, seconds = {}, {}, {}
+    # multichip's ranks (child processes) run while this process runs the
+    # other examples: its wall seconds and theirs overlap.
+    multichip = {}
+
+    def run_ranks():
+        try:
+            multichip["out"] = run_multichip(EXAMPLE_RANKS)
+        except BaseException as e:   # re-raised below, in this thread
+            multichip["error"] = e
+
+    ranks_thread = threading.Thread(target=run_ranks)
+    ranks_thread.start()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # The remat peaks (host-bound: ~20 s with remat, ~45 s without)
+        # likewise, one child process an arm.
+        peaks_out = {remat: os.path.join(tmp, f"remat{int(remat)}.json")
+                     for remat in (True, False)}
+        peaks_proc = {remat: subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--remat-worker", out, str(int(remat))], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for remat, out in peaks_out.items()}
+        try:
+            for name, argv in EXAMPLES:
+                module = importlib.import_module(
+                    f"radiative_transfer_tpu_torch.examples.{name}")
+                if argv is None:                     # its positional outdir
+                    argv = [os.path.join(tmp, name)]
+                buf = io.StringIO()
+                torch.cuda.synchronize()
+                _common.reset_launch_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    res = module.main(argv + ["--device", "cuda"])
+                torch.cuda.synchronize()
+                seconds[name] = time.perf_counter() - t0
+                launches[name] = _common.launch_counts()
+                print(f"phase 19 {name}: {seconds[name]:.2f} s", flush=True)
+                if res["rc"] != 0:
+                    raise AssertionError(f"phase 19 {name}: rc {res['rc']}:\n"
+                                         + buf.getvalue()[-3000:])
+                figures[name] = {k: v for k, v in res.items()
+                                 if isinstance(v, (int, float, str, bool))
+                                 or v is None}
+            # The K-fused adjoint above 64 steps a launch, while the children
+            # finish.
+            above = k_above_64(dev)
+            remat = {}
+            for arm, proc in peaks_proc.items():
+                log = proc.communicate(timeout=900)[0]
+                if proc.returncode != 0:
+                    raise AssertionError(f"phase 19 remat worker ({arm}) rc "
+                                         f"{proc.returncode}:\n{log[-3000:]}")
+                with open(peaks_out[arm]) as f:
+                    remat[arm] = json.load(f)
+        finally:                    # no child outlives a failed check
+            for proc in peaks_proc.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    ex = figures
+    eq = ex["gray_equilibrium"]
+    if not eq["max_element"] < 1e-6:
+        raise AssertionError(f"phase 19 gray_equilibrium: {eq}")
+    if not ({"bdf2_launch", "halo_bdf2_launch"} & set(
+            launches["llnl_production"])) or ex["llnl_production"][
+            "resumed"] != 20:
+        raise AssertionError(f"phase 19 llnl_production: "
+                             f"{ex['llnl_production']}, launches "
+                             f"{launches['llnl_production']}")
+    rp = ex["reference_precision"]
+    if not (rp["drift_f32"] <= 3e-5 and rp["drift_df"] <= 1e-11
+            and rp["drift_df_halo"] is not None
+            and rp["drift_df_halo"] <= 1e-11):
+        raise AssertionError(f"phase 19 reference_precision: drifts {rp}")
+    need = {"bdf2_launch", "df_bdf2_launch", "df_halo_bdf2_launch",
+            "fwd_record_k_launch", "bwd_k_launch"}
+    missing = need - set(launches["reference_precision"])
+    if missing:
+        raise AssertionError(f"phase 19 reference_precision: kernels not "
+                             f"launched: {sorted(missing)}")
+    if not ex["inverse_opacity"]["worst"] < 0.05:
+        raise AssertionError(f"phase 19 inverse_opacity: not the JAX "
+                             f"example's PASS: {ex['inverse_opacity']}")
+    un = ex["uncertainty"]
+    if not abs(un["ratio"] - 1.0) < un["tol"]:
+        raise AssertionError(f"phase 19 uncertainty: not the JAX example's "
+                             f"PASS: {un}")
+    # -- multichip on ranks sharing the card ----------------------------------
+    ranks_thread.join()
+    if "error" in multichip:
+        raise multichip["error"]
+    ranks, wall = multichip["out"]
+    seconds["multichip"] = wall
+    figures["multichip"] = ranks[0][1]
+    launches["multichip"] = [r[0] for r in ranks]
+    # -- the K-fused adjoint above 64 steps a launch -------------------------
+    for K, (vgap, ggap, n11) in above.items():
+        if not (vgap < 1e-4 and ggap < 1e-4
+                and n11 == len(range(0, K, 64)) * (130 // K)):
+            raise AssertionError(f"phase 19 steps_per_launch={K}: value "
+                                 f"{vgap:.2e}, gradient {ggap:.2e} from K = "
+                                 f"4, B11 launches {n11}")
+    # -- the remat peak under vmap(grad) (the child's figures) ----------------
+    peaks = {arm: r["peak"] for arm, r in remat.items()}
+    remat_s = {arm: r["seconds"] for arm, r in remat.items()}
+    g_on, g_off = (np.asarray(remat[arm]["grad"]) for arm in (True, False))
+    gap = float(np.abs(g_on - g_off).max() / np.abs(g_off).max())
+    if not peaks[True] < peaks[False] or not gap < 1e-12:
+        raise AssertionError(f"phase 19 vmap(grad) peaks {peaks} GiB, "
+                             f"gradient gap {gap:.3e}")
+    K, M, N, steps = REMAT_PEAK
+    rows = []
+    for name in [n for n, _ in EXAMPLES] + ["multichip"]:
+        cut = (f" (cut: {EXAMPLE_CUTS[name]})" if name in EXAMPLE_CUTS
+               else "")
+        rows.append(f"{name}{cut} {seconds[name]:.2f} s "
+                    f"{json.dumps(figures[name])} launches "
+                    f"{json.dumps(launches[name])}")
+    return (f"phase 19 the worked examples: ok in "
+            f"{time.perf_counter() - t_phase:.1f} s (wall seconds throughout: "
+            "multichip's ranks and the peaks' child share the card and the "
+            "host with the examples); " + "; ".join(rows)
+            + f"; reference_precision recovered kappa {rp['kappa']:.4f} "
+            f"(target {rp['kappa_target']:.4f}); vmap(grad) over "
+            f"make_diff_solve, {K} opacity members, gray S_{M} at 2^"
+            f"{N.bit_length() - 1} cells, {steps} BDF2 steps: peak "
+            f"{peaks[True]:.3f} GiB with remat ({remat_s[True]:.2f} s), "
+            f"{peaks[False]:.3f} GiB without ({remat_s[False]:.2f} s), "
+            f"gradients {gap:.1e} apart; make_diff_solve_cuda over 130 "
+            "BDF2 steps (gray S_8, 2^14 cells) at steps_per_launch 65 and "
+            "100 against K = 4 (value gap, gradient gap, B11 launches): "
+            + json.dumps(above) + f"; card: {card}")
 
 
 def card_line() -> str:
@@ -5317,6 +5650,10 @@ def main() -> int:
     print(native_io_path(dev, card, rtio_line), flush=True)
     phase_seconds(18)
 
+    # -- 19. the worked examples (A16) and the remat peak under vmap(grad) ----
+    print(examples_path(dev, card), flush=True)
+    phase_seconds(19)
+
     # -- kernel vs plain at the full-size shapes (not counted above) ------------
     # Bytes: each input read once, each output written once (a record the
     # kernel only passes between its own launches is not counted; the halo
@@ -5730,6 +6067,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--fast-mesh-worker"]:
         sys.exit(fast_mesh_worker(sys.argv[2], int(sys.argv[3]),
                                   sys.argv[4]))
+    if sys.argv[1:2] == ["--remat-worker"]:
+        sys.exit(remat_worker(sys.argv[2], sys.argv[3] == "1"))
     if sys.argv[1:2] == ["--ranks"]:
         sys.exit(ranks_check(int(sys.argv[2]), sys.argv[3:4] == ["fast"]))
     sys.exit(main())

@@ -26,11 +26,17 @@ to roundoff; and ops/cuda_adjoint.make_diff_solve_cuda, whose forward and
 backward run the hand-written CUDA kernels (B9-B12), f32-grade.
 ``fit_params`` drives any of them with ``torch.optim.Adam``.
 
-Under remat each step runs under ``torch.utils.checkpoint``, except
-inside a ``torch.func`` transform (the ensembles' ``vmap``, ``vmap(grad)``):
-the grad transforms refuse checkpoint's saved-tensor hooks, so there each
-step's intermediates are kept (the values are the same, the memory is
-not).
+Under remat each step runs under ``torch.utils.checkpoint``; inside a
+``torch.func`` transform (the ensembles' ``vmap``, ``vmap(grad)``), whose
+grad transforms refuse checkpoint's saved-tensor hooks, each step runs as
+``_RematStep`` instead: an autograd.Function that saves only its inputs
+(the State and the traced tensors the step reads) and recomputes the step
+in its backward. Either way the backward keeps one State a step, as JAX's
+``jax.checkpoint`` does under ``vmap``. ``_RematStep``'s backward is
+first-order (its recompute runs under ``no_grad``) and it has no jvp, so
+under a second derivative (``grad`` of ``grad``, ``hessian``) or forward
+mode (``jvp``, ``jacfwd``) the steps run bare instead, exact, keeping
+every step's intermediates.
 """
 
 from __future__ import annotations
@@ -39,6 +45,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch._C._functorch import TransformType
+from torch._functorch.pyfunctorch import retrieve_all_functorch_interpreters
+from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from . import constants
@@ -215,16 +224,78 @@ def state_from_numpy(ends, prev_ends, half_ends,
     return State(leaf(ends), leaf(prev_ends), leaf(half_ends))
 
 
-def _step_loop(step, st, n: int, remat: bool):
-    """`n` applications of `step` (a NamedTuple of tensors in and out),
-    each under torch.utils.checkpoint if `remat`, outside a torch.func
-    transform (module doc)."""
-    remat = remat and torch._C._functorch.peek_interpreter_stack() is None
+class _RematStep(torch.autograd.Function):
+    """One rematerialised step that the torch.func transforms accept:
+    ``_RematStep.apply(run, *tensors) -> tuple`` with ``run`` a pure
+    function of ``tensors`` (the State's planes, then every traced tensor
+    the step reads). It saves only its inputs and, in ``backward``,
+    recomputes the step under ``torch.func.vjp`` to pull the cotangents
+    back; ``generate_vmap_rule`` batches both under ``vmap``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, *tensors):
+        # An input handed back as-is (BDF2's prev = ends) leaves as a view:
+        # autograd.Function refuses to save an input it also returns.
+        ins = {id(t) for t in tensors}
+        return tuple(o.view_as(o) if id(o) in ins else o
+                     for o in run(*tensors))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.run = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *cots):
+        # The grad transforms run the backward with create_graph: without
+        # no_grad every step's recompute would be recorded and kept alive
+        # by the gradients it returns (first-order gradients only).
+        with torch.no_grad():
+            _, pull = torch.func.vjp(lambda *t: tuple(ctx.run(*t)),
+                                     *ctx.saved_tensors)
+            return (None, *pull(cots))
+
+
+def _transforms() -> list:
+    """The active torch.func transforms, outermost first (empty outside
+    them)."""
+    if torch._C._functorch.peek_interpreter_stack() is None:
+        return []
+    return [i.key() for i in retrieve_all_functorch_interpreters()]
+
+
+def _step_loop(step, st, n: int, remat: bool, closed=()):
+    """`n` applications of ``step(st, closed)`` (a NamedTuple of tensors
+    in and out; ``closed`` a pytree of the traced tensors the step reads).
+    With `remat` each step runs under torch.utils.checkpoint, or inside a
+    torch.func transform as a ``_RematStep``, or bare under a second
+    derivative or forward mode (module doc)."""
     cls = type(st)
+    keys = _transforms()
+    if (not remat or keys.count(TransformType.Grad) > 1
+            or TransformType.Jvp in keys):
+        for _ in range(n):
+            st = step(st, closed)
+        return st
+    if not keys:
+        for _ in range(n):
+            st = cls(*checkpoint(lambda *s: tuple(step(cls(*s), closed)),
+                                 *st, use_reentrant=False))
+        return st
+    leaves, spec = pytree.tree_flatten(closed)
+    at = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
+    k = len(st)
+
+    def run(*tensors):
+        c = list(leaves)
+        for i, x in zip(at, tensors[k:]):
+            c[i] = x
+        return tuple(step(cls(*tensors[:k]), pytree.tree_unflatten(c, spec)))
+
     for _ in range(n):
-        st = (cls(*checkpoint(lambda *s: tuple(step(cls(*s))), *st,
-                              use_reentrant=False))
-              if remat else step(st))
+        st = cls(*_RematStep.apply(run, *st, *(leaves[i] for i in at)))
     return st
 
 
@@ -242,7 +313,9 @@ def make_diff_solve(cfg: Config, tables: Tables,
     (default cfg.max_timesteps) of cfg.ts_method, the program of
     models/transport.solve; with ``remat`` each step runs under
     ``torch.utils.checkpoint``, so the backward pass keeps one State a
-    step and recomputes each step's sweeps (JAX's jax.checkpoint).
+    step and recomputes each step's sweeps (JAX's jax.checkpoint); under
+    ``torch.func.grad`` and ``vmap(grad)`` likewise, and under a second
+    derivative or ``jvp`` without remat (module doc).
 
     Compose with the diagnostics for observables::
 
@@ -254,6 +327,9 @@ def make_diff_solve(cfg: Config, tables: Tables,
     device = transport.solve_device(device)
     n = cfg.max_timesteps if num_steps is None else num_steps
 
+    def step(s: State, leaves) -> State:
+        return transport.make_step_fn(cfg, Tables(*leaves), _F64, device)(s)
+
     def solve_fn(params: dict, state: Optional[State] = None) -> State:
         unknown = set(params) - set(_PARAM_KEYS)
         if unknown:
@@ -263,10 +339,10 @@ def make_diff_solve(cfg: Config, tables: Tables,
         t = traced_tables(cfg, tables, **params)
         if state is None:   # B on the device: the broadcast fills there
             state = traced_initial_state(cfg, t._replace(B=t.B.to(device)))
-        step = transport.make_step_fn(cfg, t, _F64, device)
+        t = transport.device_tables(t, _F64, device)
         st = State(*(torch.as_tensor(x).to(device=device, dtype=_F64)
                      for x in state))
-        return _step_loop(step, st, n, remat)
+        return _step_loop(step, st, n, remat, tuple(t))
 
     return solve_fn
 
@@ -284,7 +360,8 @@ def make_diff_solve_fast(cfg: Config, tables: Tables,
     per-group parameter dependence reaches the engine's coefficient planes
     through build_kind_coeffs_traced and its boundary planes through the
     traced psi_source, so gradients flow through the algebra the engine
-    runs. Values and gradients match make_diff_solve to roundoff."""
+    runs. Values and gradients match make_diff_solve to roundoff, and
+    ``remat`` acts as there."""
     from .ops import fast_sweep as fs
 
     device = transport.solve_device(device)
@@ -330,10 +407,10 @@ def make_diff_solve_fast(cfg: Config, tables: Tables,
         else:
             st = eng.from_ends(*state)
 
-        def step(s):
-            return eng.step(s, kcs=kcs, bc=(bc_neg, bc_pos))
+        def step(s, closed):
+            return eng.step(s, kcs=closed[0], bc=closed[1])
 
-        st = _step_loop(step, st, n, remat)
+        st = _step_loop(step, st, n, remat, (kcs, (bc_neg, bc_pos)))
         prev, half = eng.prev_half_ends(st)
         return State(ends=eng.ends(st), prev_ends=prev, half_ends=half)
 

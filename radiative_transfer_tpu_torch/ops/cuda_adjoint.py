@@ -949,7 +949,11 @@ def make_diff_solve_cuda(cfg: Config, tables, num_steps=None,
     ``DiffCudaStepK`` (B11-B12), an explicit value max(1, K); K = 1, or
     num_steps < K, runs one step a launch on ``DiffCudaStep`` (B9-B10), as
     BE and CN always do. num_steps % K tail steps run on ``DiffCudaStep``.
-    The kernels take K <= 64; a larger K raises ValueError.
+    The kernels run at most ``MAX_FUSED_STEPS`` (64) steps a launch, so a
+    larger K splits each K-step group into launches of 64 steps and one
+    of the rest, as CudaSweepEngine.solve splits its own (K = 100: 64 +
+    36); the program, and so the trajectory and its gradient, is the same
+    as one K-step launch's to float32 roundoff.
 
     Memory: the residuals are two input planes a step (a K-step launch
     keeps its input and its K-1 intermediate inputs) plus the tiny records.
@@ -957,6 +961,8 @@ def make_diff_solve_cuda(cfg: Config, tables, num_steps=None,
     sqrt(number of launches)) runs the launches in groups of g under
     ``torch.utils.checkpoint``: only the group-boundary states and one
     group's residuals are held at a time, for one extra forward a group.
+    It counts K-step groups, as JAX counts its launches: a group that K >
+    64 splits into several launches counts as one.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -971,9 +977,9 @@ def make_diff_solve_cuda(cfg: Config, tables, num_steps=None,
         K = max(1, steps_per_launch)
     if cfg.ts_method != 3 or n < K:
         K = 1
-    if K > cs.MAX_FUSED_STEPS:
-        raise ValueError(f"steps_per_launch={K}: the K-fused kernels run at "
-                         f"most {cs.MAX_FUSED_STEPS} steps a launch")
+    split = [cs.MAX_FUSED_STEPS] * (K // cs.MAX_FUSED_STEPS)
+    if K % cs.MAX_FUSED_STEPS:
+        split.append(K % cs.MAX_FUSED_STEPS)
     Mh, G, Bh = cfg.M // 2, cfg.G, eng.Bh
     if cfg.ts_method == 1:
         kinds = {BE: cfg.dt}
@@ -1024,13 +1030,15 @@ def make_diff_solve_cuda(cfg: Config, tables, num_steps=None,
             return s
 
         def launches(s: FlatState, count: int) -> FlatState:
-            """`count` launches of K steps each."""
+            """`count` groups of K steps each, each group one launch a
+            piece of `split`."""
             if K == 1:
                 return steps(s, count)
             for _ in range(count):
-                o0, o1, h0, h1, p0, p1 = DiffCudaStepK.apply(
-                    eng, K, s.e0, s.e1, cbe, ccn, cbdf, bc)
-                s = FlatState(o0, o1, p0, p1, h0, h1)
+                for k in split:
+                    o0, o1, h0, h1, p0, p1 = DiffCudaStepK.apply(
+                        eng, k, s.e0, s.e1, cbe, ccn, cbdf, bc)
+                    s = FlatState(o0, o1, p0, p1, h0, h1)
             return s
 
         n_launch, n_tail = divmod(n, K)

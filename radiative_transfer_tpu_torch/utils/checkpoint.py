@@ -8,7 +8,9 @@ The reference has no checkpointing, only end-of-run CSV dumps
 restart from t=0. Here the full step state {ends, prev_ends, half_ends}
 plus the step index is periodically written as a compressed .npz
 (`ckpt_%09d.npz`: float64 (M, G, N, 2) arrays, a bit-exact round trip),
-so any run can resume.
+so any run can resume. It is deflated at level 1, not at
+np.savez_compressed's default: one host core's deflate is a save's whole
+cost, and level 1 costs a fraction of it for a few percent more bytes.
 
 Exactness across the BDF2 sub-cycle: every engine runs all 4 BDF2 phases
 (BE/CN/BE/BDF of dt/2) inside one full-timestep transition
@@ -33,6 +35,7 @@ import glob
 import json
 import os
 import re
+import zipfile
 from typing import Optional, Tuple
 
 import numpy as np
@@ -103,6 +106,17 @@ def _assert_same_start(start: int) -> None:
             "writer)")
 
 
+def _savez_level1(fh, **arrays) -> None:
+    """np.savez_compressed's file (a zip of deflated .npy members, which
+    np.load and the JAX package read) at deflate level 1 (module doc)."""
+    with zipfile.ZipFile(fh, "w", compression=zipfile.ZIP_DEFLATED,
+                         compresslevel=1) as zf:
+        for name, x in arrays.items():
+            with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(x),
+                                          allow_pickle=False)
+
+
 def save_checkpoint(ckpt_dir: str, state: State, step: int,
                     cfg: Config) -> str:
     """Write the global state at full-step `step`. Atomic (write +
@@ -116,7 +130,7 @@ def save_checkpoint(ckpt_dir: str, state: State, step: int,
         os.makedirs(ckpt_dir, exist_ok=True)
         tmp = path + ".tmp"
         with open(tmp, "wb") as fh:
-            np.savez_compressed(
+            _savez_level1(
                 fh,
                 ends=host[0],
                 prev_ends=host[1],

@@ -81,7 +81,7 @@ def _relerr(got, ref):
 _JIT = jax.jit
 
 
-def _compile(fn, *args, level=0):
+def _compile(fn, *args, level=0, f64=False):
     """jax.jit(fn) compiled for args with XLA's backend optimisation off
     (level 0), or at level 1 without its fusion pass (the setting of
     test_torch_adjoint_k.py), whichever compiles the program faster. Pinned
@@ -89,15 +89,18 @@ def _compile(fn, *args, level=0):
     in ~3.7 s at level 1 against ~6.1 s at level 0; every other program
     here compiles 1.2-2x faster at level 0 (the B9 forwards, the tables,
     every value_and_grad). Neither option changes an operation's
-    rounding."""
+    rounding. A float64 program (`f64`) also takes XLA's older CPU
+    emitters, as test_torch_general's float64 programs do."""
     opts = {"xla_backend_optimization_level": level,
             "xla_llvm_disable_expensive_passes": True}
     if level:
         opts["xla_disable_hlo_passes"] = "fusion"
+    if f64:
+        opts["xla_cpu_use_fusion_emitters"] = False
     return _JIT(fn).lower(*args).compile(compiler_options=opts)
 
 
-def _jit_opt_off(fn=None, **kw):
+def _jit_opt_off(fn=None, f64=False, **kw):
     """jax.jit for a plain jax.jit(fn) call, with each argument signature
     compiled by _compile; any other form goes to jax.jit itself."""
     if fn is None or kw:
@@ -109,7 +112,7 @@ def _jit_opt_off(fn=None, **kw):
         leaves, tree = jax.tree_util.tree_flatten(args)
         key = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves))
         if key not in compiled:
-            compiled[key] = _compile(fn, *args)
+            compiled[key] = _compile(fn, *args, f64=f64)
         return compiled[key](*args)
 
     return call
@@ -179,13 +182,13 @@ def test_kind_coeffs_traced_values_and_vjp():
             for f in COEF_FIELDS)
 
     jk, jT = jnp.asarray(kappa), jnp.asarray(T)
-    jvals = _compile(jf, jk, jT)(jk, jT)
+    jvals = _compile(jf, jk, jT, f64=True)(jk, jT)
     cots = tuple(jnp.asarray(rng.uniform(-1, 1, np.shape(v))) for v in jvals)
 
     def jvjp(k, temp, c):
         return jax.vjp(jf, k, temp)[1](c)
 
-    jgrads = _compile(jvjp, jk, jT, cots)(jk, jT, cots)
+    jgrads = _compile(jvjp, jk, jT, cots, f64=True)(jk, jT, cots)
 
     tk = torch.tensor(kappa, requires_grad=True)
     tT = torch.tensor(T, requires_grad=True)
@@ -401,7 +404,7 @@ def _solve_pair(path, params, steps=3, **over):
     sf = jax_adj.make_diff_solve_fast(jcfg, jt, num_steps=steps, unroll=1)
     jp = {k: jnp.asarray(v, jnp.float64) for k, v in params.items()}
     jv, jg = _compile(jax.value_and_grad(
-        lambda p: jnp.sum(sf(p, None).ends ** 2) * 1e-2), jp)(jp)
+        lambda p: jnp.sum(sf(p, None).ends ** 2) * 1e-2), jp, f64=True)(jp)
     sp = port_ca.make_diff_solve_cuda(pcfg, pt, num_steps=steps,
                                       device="cpu")
     tp = {k: torch.tensor(np.asarray(v, np.float64), requires_grad=True)
@@ -462,7 +465,8 @@ def test_initial_state_grad():
     arrays = [base * rng.uniform(0.5, 1.5, (4, 1, 64, 2)) for _ in range(3)]
     sf = jax_adj.make_diff_solve_fast(jcfg, jt, num_steps=2, unroll=1)
     js = jax_transport.State(*map(jnp.asarray, arrays))
-    jg = _compile(jax.grad(lambda s: jnp.sum(sf({}, s).ends ** 2)), js)(js)
+    jg = _compile(jax.grad(lambda s: jnp.sum(sf({}, s).ends ** 2)), js,
+                  f64=True)(js)
     sp = port_ca.make_diff_solve_cuda(pcfg, pt, num_steps=2, device="cpu")
     ps = port_adj.state_from_numpy(*arrays, requires_grad=True)
     torch.sum(sp({}, ps).ends ** 2).backward()
@@ -556,7 +560,7 @@ def test_fit_params_history_matches_jax(monkeypatch):
             truth({"kappa": k}, state0).ends), wt)
 
     kt = jnp.asarray(k_true)
-    phi_target = np.asarray(_compile(phi_of, kt)(kt))
+    phi_target = np.asarray(_compile(phi_of, kt, f64=True)(kt))
 
     def jloss(final, params):
         phi = jax_transport.compute_phi(
@@ -566,7 +570,8 @@ def test_fit_params_history_matches_jax(monkeypatch):
     # JAX's fit jits its whole update step; compile it with XLA's backend
     # optimisation off, as every JAX program here (the same program).
     import optax  # noqa: F401  (its import-time jax.jit calls stay as they are)
-    monkeypatch.setattr(jax, "jit", _jit_opt_off)
+    monkeypatch.setattr(jax, "jit",
+                        functools.partial(_jit_opt_off, f64=True))
     _, jhist = jax_adj.fit_params(
         jcfg, jt, state0, jloss, {"kappa": jnp.asarray(jt.kappa)},
         num_steps=steps, learning_rate=lr, iterations=iters, solver="fast")

@@ -25,12 +25,19 @@ the CPU.
   its launches, tail steps and remat groups follow JAX's split
   (pallas_adjoint.py:1215-1231, 1283-1306), over a grid of step counts,
   integrators, ``steps_per_launch`` and ``remat_group``.
-* Refusals: K above the kernels' 64, a non-BDF2 step, records of another
-  K, and the card path without a card (a CUDA-side wrapper raises and
-  never falls back to its plain version).
+* K above the kernels' 64 a launch (``steps_per_launch`` 65 and 100):
+  each K-step group split into launches of 64 and the rest, the
+  gradients within 1e-4 of the K = 4 solve's, values and gradients
+  against JAX's float64 adjoint (``make_diff_solve_fast``, the float64
+  ``make_diff_solve`` to roundoff) at the f32 adjoint's bars
+  (value 1e-5, kappa 2e-3, psi_source 1e-4; tests/test_torch_adjoint.py).
+* Refusals: a launch wrapper's K outside 1..64, a non-BDF2 step, records
+  of another K, and the card path without a card (a CUDA-side wrapper
+  raises and never falls back to its plain version).
 
 Every JAX program here runs once at a tiny size, compiled at XLA's
-backend optimisation level 1 without HLO fusion (see _compile).
+backend optimisation level 1 without HLO fusion (see _compile); the
+float64 reference of K above 64 as test_torch_general's float64 programs.
 """
 
 import conftest  # noqa: F401  (JAX on the CPU; repo root on sys.path)
@@ -44,6 +51,7 @@ import numpy as np
 import pytest
 import torch
 
+from radiative_transfer_tpu import adjoint as jax_adj
 from radiative_transfer_tpu import load_config as jax_load_config
 from radiative_transfer_tpu.models import transport as jax_transport
 from radiative_transfer_tpu.ops import pallas_adjoint as jax_pa
@@ -54,6 +62,8 @@ from radiative_transfer_tpu_torch.config.config import Config as PortConfig
 from radiative_transfer_tpu_torch.models import transport as port_transport
 from radiative_transfer_tpu_torch.ops import cuda_adjoint as port_ca
 from radiative_transfer_tpu_torch.ops import cuda_sweep as port_cs
+
+from test_torch_general import _jit_opt_off_f64
 
 torch.set_num_threads(1)
 
@@ -290,10 +300,18 @@ def _jax_split(n, Kd, remat_group):
     return n_launch, n_tail, 0, None
 
 
+def _split(K):
+    """The launches make_diff_solve_cuda runs a K-step group in: 64 steps
+    each and the rest (the kernels' MAX_FUSED_STEPS)."""
+    return [64] * (K // 64) + ([K % 64] if K % 64 else [])
+
+
 @pytest.mark.parametrize("n,ts_method,spl,remat", [
     (1, 3, None, None), (3, 3, None, None), (9, 3, None, None),
     (300, 3, None, None), (9, 3, 1, None), (9, 3, 2, None),
-    (5, 3, 8, None), (17, 3, 4, 2), (9, 1, None, None), (9, 2, 4, None)])
+    (5, 3, 8, None), (17, 3, 4, 2), (9, 1, None, None), (9, 2, 4, None),
+    (130, 3, 65, None), (100, 3, 100, None), (300, 3, 65, 2),
+    (64, 3, 65, None)])
 def test_k_selection_and_split(monkeypatch, n, ts_method, spl, remat):
     jcfg, jt, pcfg, pt = _both(GRAY, M=4, N=64, X=0.64, ts_method=ts_method,
                                max_timesteps=n)
@@ -333,7 +351,7 @@ def test_k_selection_and_split(monkeypatch, n, ts_method, spl, remat):
                                  remat_group=remat, device="cpu")({})
     n_launch, n_tail, groups, _ = _jax_split(n, jax_K, remat)
     if jax_K >= 2:
-        assert calls["K"] == [jax_K] * n_launch
+        assert calls["K"] == _split(jax_K) * n_launch
         assert calls["step"] == n_tail
     else:
         assert calls["K"] == [] and calls["step"] == n
@@ -342,13 +360,75 @@ def test_k_selection_and_split(monkeypatch, n, ts_method, spl, remat):
         assert (jax_K, groups) == (4, 75 // int(math.sqrt(75)))
 
 
+# -- K above 64 a launch -----------------------------------------------------
+
+@pytest.fixture(scope="module")
+def long_run():
+    """130 BDF2 steps of the gray off-equilibrium slab (two groups of 65
+    steps; one of 100 and a 30-step tail): the value_and_grad of JAX's
+    float64 adjoint (one program, compiled as test_torch_general's float64
+    programs; make_diff_solve_fast, which equals make_diff_solve to
+    roundoff and compiles in a fraction of its time, its scan unrolled
+    once) and the port's K = 4 solve."""
+    n = 130
+    params = dict(kappa=np.ones(1), psi_source=np.asarray(SRC, np.float64))
+    jcfg, jt, pcfg, pt = _both(GRAY, M=4, N=64, X=0.64, max_timesteps=n,
+                               psi_source=SRC, bc_left_indicator=1)
+    sf = jax_adj.make_diff_solve_fast(jcfg, jt, num_steps=n, unroll=1)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jv, jg = _jit_opt_off_f64(jax.value_and_grad(
+        lambda p: jnp.sum(sf(p, None).ends ** 2) * 1e-2))(jp)
+    return dict(n=n, params=params, pcfg=pcfg, pt=pt, jax=(float(jv), jg),
+                k4=_port_value_and_grad(pcfg, pt, n, params, 4))
+
+
+def _relerr(got, ref):
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    return np.max(np.abs(got - ref)) / (np.max(np.abs(ref)) + 1e-300)
+
+
+def _port_value_and_grad(pcfg, pt, n, params, K):
+    sf = port_ca.make_diff_solve_cuda(pcfg, pt, num_steps=n,
+                                      steps_per_launch=K, device="cpu")
+    tp = {k: torch.tensor(np.asarray(v, np.float64), requires_grad=True)
+          for k, v in params.items()}
+    val = torch.sum(sf(tp).ends ** 2) * 1e-2
+    val.backward()
+    return float(val.detach()), {k: v.grad.numpy() for k, v in tp.items()}
+
+
+@pytest.mark.parametrize("K", [65, 100])
+def test_k_above_64_splits_and_matches(monkeypatch, long_run, K):
+    """steps_per_launch above the kernels' 64 returns (it used to raise):
+    each K-step group runs as launches of 64 steps and the rest, the same
+    program as one K-step launch to float32 roundoff."""
+    real = port_ca.DiffCudaStepK.apply
+    launched = []
+
+    def apply(eng, k, *rest):
+        launched.append(k)
+        return real(eng, k, *rest)
+
+    monkeypatch.setattr(port_ca.DiffCudaStepK, "apply", apply)
+    n = long_run["n"]
+    pv, pg = _port_value_and_grad(long_run["pcfg"], long_run["pt"], n,
+                                  long_run["params"], K)
+    assert launched == _split(K) * (n // K)
+    kv, kg = long_run["k4"]
+    assert abs(pv - kv) / abs(kv) < 1e-4
+    for key in pg:
+        assert _relerr(pg[key], kg[key]) < 1e-4, key
+    jv, jg = long_run["jax"]
+    assert abs(pv - jv) / abs(jv) < 1e-5
+    assert _relerr(pg["kappa"], jg["kappa"]) < 2e-3
+    assert _relerr(pg["psi_source"], jg["psi_source"]) < 1e-4
+
+
 # -- refusals -----------------------------------------------------------------
 
 def test_refusals():
     _, _, pcfg, pt = _both(GRAY, M=4, N=64, X=0.64, max_timesteps=70)
-    with pytest.raises(ValueError, match="at most 64"):
-        port_ca.make_diff_solve_cuda(pcfg, pt, steps_per_launch=65,
-                                     device="cpu")
     # n < K falls back to K = 1, as JAX does, and K = 64 builds.
     port_ca.make_diff_solve_cuda(pcfg, pt, num_steps=64, steps_per_launch=65,
                                  device="cpu")

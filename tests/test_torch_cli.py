@@ -7,7 +7,9 @@ file's largest magnitude: f32 sweeps that differ only in rounding (see
 tests/test_torch_sweep.py) over up to 20 steps, then float64
 diagnostics. The LLNL deck runs its own 2 steps: at 20 steps the JAX
 interpreter spends about a minute compiling its K=8 program for Bh=124.
-The CSV writers themselves are byte-identical for identical arrays.
+The JAX CLI's programs there compile with XLA's backend optimisation off
+(test_torch_general._jit_opt_off). The CSV writers themselves are
+byte-identical for identical arrays.
 """
 
 import conftest  # noqa: F401  (JAX on the CPU; repo root on sys.path)
@@ -55,7 +57,8 @@ def _run(main, argv):
 
 @pytest.mark.parametrize("deck,steps", [("llnl_slab_test.prm", 2),
                                         ("single_group.prm", 20)])
-def test_cli_csvs_match_jax(tmp_path, deck, steps):
+def test_cli_csvs_match_jax(tmp_path, monkeypatch, deck, steps):
+    monkeypatch.setattr(jax, "jit", _jit_opt_off)
     port_cs.reset_launch_counts()
     args = [_deck(deck), "--engine", "pallas", "--steps", str(steps)]
     rc, out = _run(port_cli.main, args + ["--outdir", str(tmp_path / "pt"),

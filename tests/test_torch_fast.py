@@ -21,7 +21,9 @@ port:
   ``fit_params(solver="fast")``'s 5-iteration loss history within 1e-10
   of JAX's.
 
-Every JAX program here is compiled with XLA's backend optimisation off.
+Every JAX program here is compiled with XLA's backend optimisation off,
+the float64 ones also with its older CPU emitters
+(test_torch_general._jit_opt_off_f64).
 """
 
 import conftest  # noqa: F401  (JAX on the CPU; repo root on sys.path)
@@ -48,7 +50,7 @@ from radiative_transfer_tpu_torch.models import transport as port_transport
 from radiative_transfer_tpu_torch.ops import fast_sweep as port_fs
 from radiative_transfer_tpu_torch.parallel import mesh as port_mesh
 
-from test_torch_general import _jit_opt_off
+from test_torch_general import _jit_opt_off, _jit_opt_off_f64
 
 torch.set_num_threads(1)
 
@@ -109,7 +111,8 @@ for _l, _r in ((0, 0), (1, 1), (2, 0), (2, 1)):
 
 def _jax_fast(jcfg, jt, steps, chunk, dtype):
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax, "jit", _jit_opt_off)
+        mp.setattr(jax, "jit", _jit_opt_off_f64 if dtype == jnp.float64
+                   else _jit_opt_off)
         eng, st = jax_fs.solve_fast(jcfg, jt, num_steps=steps, dtype=dtype,
                                     chunk=chunk)
         return eng, (np.asarray(eng.ends(st)),
@@ -256,7 +259,8 @@ def test_diff_solve_fast_matches_jax_and_general(ts, given):
     jp = {k: jnp.asarray(v, jnp.float64) for k, v in params.items()}
     js = None if arrays is None else tuple(map(jnp.asarray, arrays))
     argnums = (0,) if js is None else (0, 1)
-    jv, jg = _jit_opt_off(jax.value_and_grad(jloss, argnums=argnums))(jp, js)
+    jv, jg = _jit_opt_off_f64(jax.value_and_grad(jloss, argnums=argnums))(
+        jp, js)
     want = dict(jg[0])
     if js is not None:
         want["ends"] = jg[1][0]
@@ -318,7 +322,7 @@ def test_fit_params_fast_history_matches_jax(monkeypatch):
         return jnp.mean((phi / phi_target - 1.0) ** 2)
 
     import optax  # noqa: F401  (its import-time jax.jit calls stay as they are)
-    monkeypatch.setattr(jax, "jit", _jit_opt_off)
+    monkeypatch.setattr(jax, "jit", _jit_opt_off_f64)
     _, jhist = jax_adj.fit_params(
         jcfg, jt, jax_transport.initial_state(jcfg, jt), jloss,
         {"kappa": jnp.asarray(jt.kappa)}, num_steps=steps,

@@ -27,7 +27,8 @@ port:
   ``transport.solve``, and the CLI's ``--engine general --mesh 1x2``
   against one device, 1e-12.
 
-Every JAX program here is compiled with XLA's backend optimisation off.
+Every JAX program here is compiled with XLA's backend optimisation off,
+the float64 ones also with its older CPU emitters (_OPT_OFF_F64).
 """
 
 import conftest  # noqa: F401  (JAX on the CPU; repo root on sys.path)
@@ -77,26 +78,42 @@ F64 = torch.float64
 _JIT = jax.jit
 
 
-def _jit_opt_off(fn=None, **kw):
-    """jax.jit whose programs compile with XLA's backend optimisation off
-    (the same operations, compiled faster); any other form goes to
-    jax.jit itself."""
-    if fn is None or kw:
-        return _JIT(fn, **kw) if fn is not None else functools.partial(
-            _JIT, **kw)
-    opts = {"xla_backend_optimization_level": 0,
+_OPT_OFF = {"xla_backend_optimization_level": 0,
             "xla_llvm_disable_expensive_passes": True}
-    compiled = {}
+# For programs whose floating work is all float64: XLA's older CPU emitters
+# compile them ~2x faster (the JAX general engine's BDF2 adjoint: 6.3 s
+# against 12.6 s). They round float32 work differently from the fusion
+# emitters (tests/test_torch_steady.py's float32 steady cycle moved by a
+# tenth of its bar), so float32 programs keep _OPT_OFF.
+_OPT_OFF_F64 = dict(_OPT_OFF, xla_cpu_use_fusion_emitters=False)
 
-    def call(*args):
-        leaves, tree = jax.tree_util.tree_flatten(args)
-        key = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves))
-        if key not in compiled:
-            compiled[key] = _JIT(fn).lower(*args).compile(
-                compiler_options=opts)
-        return compiled[key](*args)
 
-    return call
+def _opt_off(opts):
+    def jit(fn=None, **kw):
+        """jax.jit whose programs compile with XLA's backend optimisation
+        off (the same operations, compiled faster); any other form goes to
+        jax.jit itself."""
+        if fn is None or kw:
+            return _JIT(fn, **kw) if fn is not None else functools.partial(
+                _JIT, **kw)
+        compiled = {}
+
+        def call(*args):
+            leaves, tree = jax.tree_util.tree_flatten(args)
+            key = (tree, tuple((np.shape(x), np.result_type(x))
+                               for x in leaves))
+            if key not in compiled:
+                compiled[key] = _JIT(fn).lower(*args).compile(
+                    compiler_options=opts)
+            return compiled[key](*args)
+
+        return call
+
+    return jit
+
+
+_jit_opt_off = _opt_off(_OPT_OFF)
+_jit_opt_off_f64 = _opt_off(_OPT_OFF_F64)
 
 
 def _relerr(got, ref, scale=None):
@@ -124,9 +141,10 @@ def test_affine_scan_matches_jax(n, thick):
     hi = 0.01 if thick else 1.0
     a = rng.uniform(0.0, hi, (3, 2, n))
     b = rng.normal(size=(3, 2, n))
-    ja, jb = _jit_opt_off(jax_scan.affine_scan)(jnp.asarray(a),
+    ja, jb = _jit_opt_off_f64(jax_scan.affine_scan)(jnp.asarray(a),
                                                  jnp.asarray(b))
-    sa, sb = _jit_opt_off(jax_scan.affine_scan_sequential)(jnp.asarray(a),
+    sa, sb = _jit_opt_off_f64(jax_scan.affine_scan_sequential)(
+        jnp.asarray(a),
                                                            jnp.asarray(b))
     pa, pb = port_scan.affine_scan(_t(a), _t(b))
     qa, qb = port_scan.affine_scan_sequential(_t(a), _t(b))
@@ -341,7 +359,8 @@ def jax_cli_runs(tmp_path_factory):
                 return seen[-1]
 
             with pytest.MonkeyPatch.context() as mp:
-                mp.setattr(jax, "jit", _jit_opt_off)
+                mp.setattr(jax, "jit", _jit_opt_off_f64 if dtype == "float64"
+                           else _jit_opt_off)
                 mp.setattr(jax_transport, "run_problem", capture)
                 rc, _ = _run_cli(jax_cli.main, [
                     deck, "--engine", "general", "--steps", str(steps),
@@ -510,7 +529,7 @@ def test_solve_sharded_matches_one_device(mesh_runs, name):
     jcfg = jax_rt.load_config(path, **over)
     jt, _, _ = jax_transport.build_tables(jcfg)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax, "jit", _jit_opt_off)
+        mp.setattr(jax, "jit", _jit_opt_off_f64)
         jwant = jax_transport.solve(jcfg, jt,
                                     jax_transport.initial_state(jcfg, jt),
                                     MESH_STEPS)

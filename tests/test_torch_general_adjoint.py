@@ -47,8 +47,11 @@ SRC = ((2.0,),) * 4      # off-equilibrium: an O(1) kappa sensitivity
 TOL = 1e-10
 
 _JIT = jax.jit
+# Every JAX program here is float64: XLA's older CPU emitters compile them
+# ~2x faster than its fusion emitters (test_torch_general._OPT_OFF_F64).
 _OPTS = {"xla_backend_optimization_level": 0,
-         "xla_llvm_disable_expensive_passes": True}
+         "xla_llvm_disable_expensive_passes": True,
+         "xla_cpu_use_fusion_emitters": False}
 
 
 def _jit_opt_off(fn=None, **kw):

@@ -189,6 +189,9 @@ def test_import_without_jax():
         "from radiative_transfer_tpu_torch.parallel import halo_cuda, "
         "df_halo_cuda, sharded_cuda, fused_exchange_cuda, step_response, "
         "mesh, distributed\n"
+        "from radiative_transfer_tpu_torch.examples import _common, "
+        "gray_equilibrium, multigroup_correction, llnl_production, "
+        "reference_precision, inverse_opacity, uncertainty, multichip\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and m.split('.')[0] in ('jax', 'radiative_transfer_tpu')]\n"
         "assert not bad, bad\n"

@@ -55,7 +55,7 @@ from radiative_transfer_tpu_torch.parallel.distributed import launch_local
 from radiative_transfer_tpu_torch.parallel.sharded_fast import (
     ShardedFastEngine)
 
-from test_torch_general import _jit_opt_off
+from test_torch_general import _jit_opt_off_f64
 
 torch.set_num_threads(1)
 
@@ -224,7 +224,7 @@ def _jax_planes(shape, name):
     """JAX's ShardedFastEngine's global (ends, prev, half) for a case."""
     steps = CASES[shape][name][2]
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax, "jit", _jit_opt_off)
+        mp.setattr(jax, "jit", _jit_opt_off_f64)
         eng = _jax_engine(shape, name)
         st = eng.solve(num_steps=steps)
         return np.stack([np.asarray(eng.ends_pair(st.e0, st.e1)),

@@ -19,7 +19,8 @@ last real cell) beside an unpadded one. The CLI's ``--steady`` and
 CLI's, and each of JAX's refusals exits 2 with JAX's message.
 
 JAX's programs compile with XLA's backend optimisation off
-(test_torch_general._jit_opt_off); each JAX solve runs once per module
+(test_torch_general._jit_opt_off; the float64 ones also with its older
+CPU emitters, _jit_opt_off_f64); each JAX solve runs once per module
 (the JAX CLI's own steady solve of a shipped deck is that call's).
 """
 
@@ -46,7 +47,7 @@ from radiative_transfer_tpu_torch import steady as port_steady
 from radiative_transfer_tpu_torch.models import transport as port_transport
 from radiative_transfer_tpu_torch.ops import fast_sweep as port_fs
 
-from test_torch_general import _jit_opt_off
+from test_torch_general import _jit_opt_off, _jit_opt_off_f64
 
 torch.set_num_threads(1)
 
@@ -74,7 +75,8 @@ def _jax(method, deck, over, dtype="float64"):
     """JAX's solve_steady / solve_steady_cycle: (ends, iterations,
     residual), once per module."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax, "jit", _jit_opt_off)
+        mp.setattr(jax, "jit", _jit_opt_off_f64 if dtype == "float64"
+                   else _jit_opt_off)
         cfg = jax_load_config(deck, **dict(over))
         tables, _, _ = jax_transport.build_tables(cfg)
         fn = {"direct": jax_steady.solve_steady,
@@ -171,7 +173,8 @@ def test_exact_equilibrium_source_gives_planckian(dtype):
     assert np.max(np.abs(res.F.numpy())) < (1e-10 if dtype == F64 else 1e-4)
     jcfg = jax_load_config(GRAY, psi_source=src)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax, "jit", _jit_opt_off)
+        mp.setattr(jax, "jit", _jit_opt_off_f64 if dtype == F64
+                   else _jit_opt_off)
         jres, jsr = jax_steady.run_steady_problem(
             jcfg, dtype=jax.numpy.float64 if dtype == F64
             else jax.numpy.float32)
@@ -189,7 +192,7 @@ def test_run_steady_problem_diagnostics():
     # The near-equilibrium gray deck's steady state stays near B.
     assert float(np.max(np.abs(res.F.numpy()))) < 1e-4
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax, "jit", _jit_opt_off)
+        mp.setattr(jax, "jit", _jit_opt_off_f64)
         jres, jsr = jax_steady.run_steady_problem(jax_load_config(GRAY))
     assert sr.iterations == jsr.iterations
     for name in ("psi", "phi", "phi_plus", "left_ends", "right_ends",
